@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA card and skips without one. The file imports no
+JAX, so that it runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_port_cuda.py -q --noconftest
+
+Both kernels must agree exactly: the NMS kernel index for index (it does the
+plain version's IEEE float32 operations, one rounding each), the normalize
+kernel bit for bit.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from yolov7_d2_tpu_torch.config import YoloxConfig
+from yolov7_d2_tpu_torch.kernels import build
+from yolov7_d2_tpu_torch.kernels.nms import nms_batched, nms_batched_plain
+from yolov7_d2_tpu_torch.kernels.preprocess import (
+    normalize_images,
+    normalize_images_plain,
+)
+from yolov7_d2_tpu_torch.ops.nms import batched_nms_batched
+from yolov7_d2_tpu_torch.predictor import Predictor
+
+PIXEL_MEAN = (103.53, 116.28, 123.675)
+PIXEL_STD = (57.375, 57.12, 58.395)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    return torch.device("cuda", 0)
+
+
+def _nms_inputs(dev, b, n, seed=0, classes=80):
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, 640, (b, n // 8 + 1, 2)).repeat(8, 1)[:, :n]
+    centers = centers + rng.normal(0, 6, (b, n, 2))
+    wh = rng.uniform(8, 120, (b, n, 2))
+    boxes = np.concatenate([centers - wh / 2, centers + wh / 2], -1)
+    scores = rng.uniform(0.0, 1.0, (b, n))
+    scores[:, 1::4] = scores[:, 0:n - 1:4][:, :scores[:, 1::4].shape[1]]
+    scores[:, : n // 10] = 0.0
+    cls = rng.integers(0, classes, (b, n))
+    return (torch.tensor(boxes, dtype=torch.float32, device=dev),
+            torch.tensor(scores, dtype=torch.float32, device=dev),
+            torch.tensor(cls, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,max_out,thr", [
+    (8, 1024, 100, 0.65), (8, 1024, 100, 0.3), (3, 300, 100, 0.65),
+    (2, 17, 32, 0.5),
+])
+def test_nms_kernel_matches_plain(dev, b, n, max_out, thr):
+    boxes, scores, cls = _nms_inputs(dev, b, n)
+    before = build.LAUNCHES["nms"]
+    got = batched_nms_batched(boxes, scores, cls, thr, max_out)
+    want = batched_nms_batched(boxes, scores, cls, thr, max_out,
+                               nms=nms_batched_plain)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["nms"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_nms_kernel_all_dead(dev):
+    boxes, scores, _ = _nms_inputs(dev, 2, 64)
+    idx, valid = nms_batched(boxes, torch.zeros_like(scores), 0.5, 16)
+    assert (idx == -1).all() and not valid.any()
+
+
+@pytest.mark.cuda
+def test_nms_kernel_refuses_what_it_cannot_take(dev):
+    boxes, scores, _ = _nms_inputs(dev, 1, 1032)
+    with pytest.raises(ValueError, match="candidates"):
+        nms_batched(boxes, scores, 0.5, 10)
+    with pytest.raises(TypeError):
+        nms_batched(boxes[:, :64].double(), scores[:, :64].double(), 0.5, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("stats", ["identity", "pixel"])
+def test_normalize_kernel_matches_plain(dev, out_dtype, stats):
+    mean, std = ((0.0,) * 3, (1.0,) * 3) if stats == "identity" \
+        else (PIXEL_MEAN, PIXEL_STD)
+    imgs = torch.randint(0, 256, (3, 64, 48, 3), dtype=torch.uint8,
+                         device=dev)
+    got = normalize_images(imgs, mean, std, out_dtype)
+    want = normalize_images_plain(imgs, mean, std, out_dtype)
+    assert got.stride() == want.stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_normalize_kernel_refuses_odd_plane(dev):
+    imgs = torch.zeros((1, 5, 5, 3), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="multiple"):
+        normalize_images(imgs, (0.0,) * 3, (1.0,) * 3)
+
+
+@pytest.mark.cuda
+def test_predict_batch_on_card_launches_both_kernels(dev):
+    cfg = dataclasses.replace(YoloxConfig(), num_classes=8, width_mul=0.25,
+                              input_size=(128, 128))
+    predictor = Predictor(cfg, device=dev, seed=0)
+    images = torch.randint(0, 256, (4, 128, 128, 3), dtype=torch.uint8)
+    build.reset_launches()
+    dets = predictor.predict_batch(images)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["normalize"] == 1 and build.LAUNCHES["nms"] == 1
+    assert dets.boxes.shape == (4, 100, 4) and bool(dets.valid.any())
+    head = predictor.forward(images)
+    plain = predictor.postprocess(head, nms=nms_batched_plain)
+    kernel = predictor.postprocess(head)
+    for field in ("valid", "classes", "boxes", "scores"):
+        assert torch.equal(getattr(kernel, field), getattr(plain, field))

@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+All sources under ``yolov7_d2_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The library is built at first use into ``build/kernels/`` at the repository
+root, named by a hash of the sources and flags, so that it is rebuilt when
+either changes. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+SOURCE_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # no contraction into FMA anywhere: the kernels round every step as
+    # their plain PyTorch versions do (the NMS also says so explicitly)
+    "-fmad=false",
+)
+
+# Launches of each kernel, counted by its wrapper where it launches it.
+LAUNCHES: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_lib = None
+BUILD_SECONDS = None  # wall time of the nvcc call, when this process built
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    return sorted(SOURCE_DIR.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.yolo_nms_launch.argtypes = [p, p, p, p, i, i, f, i, p]
+    lib.yolo_nms_launch.restype = i
+    lib.yolo_normalize_launch.argtypes = [p, p, i64, i, f, f, f, f, f, f, p]
+    lib.yolo_normalize_launch.restype = i
+
+
+def load_library() -> ctypes.CDLL:
+    """Return the kernel library, building it first if needed."""
+    global _lib, BUILD_SECONDS
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = _sources()
+        out = BUILD_DIR / f"libyolo_kernels_{_digest(sources)}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *[str(s) for s in sources]]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stderr}"
+                )
+            BUILD_SECONDS = time.perf_counter() - t0
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _declare(lib)
+        _lib = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

@@ -1,0 +1,38 @@
+"""Model registry and builder (JAX ``models/build.py``)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from yolov7_d2_tpu.core.registry import Registry
+
+META_ARCH_REGISTRY = Registry("META_ARCH")
+
+
+def build_model(cfg, device="cpu", seed: int = 0) -> nn.Module:
+    """Build ``cfg.meta_architecture`` (a ``YoloxConfig``) on ``device``."""
+    from yolov7_d2_tpu_torch.models.meta_arch import yolox  # noqa: F401
+
+    if cfg.meta_architecture not in META_ARCH_REGISTRY:
+        raise NotImplementedError(
+            f"meta architecture {cfg.meta_architecture!r} is not ported yet; "
+            f"the port has {sorted(META_ARCH_REGISTRY.keys())} (ROADMAP.md "
+            "Queue A)")
+    return META_ARCH_REGISTRY.get(cfg.meta_architecture)(cfg, device, seed)
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every convolution kernel from N(0, 1/fan_in) (flax's
+    lecun-normal scale) with ``generator``; biases and BatchNorm keep their
+    identity initialisation (zero bias, unit scale, zero mean, unit var)."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
+                             generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
