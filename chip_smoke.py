@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's YOLOX-s serving path on one CUDA card.
+"""Smoke run of the PyTorch port's YOLOX-s serving path and training step
+on one CUDA card.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``yolov7_d2_tpu_torch/csrc``, holds
-each against its plain PyTorch version at the main path's shapes, drives
-``Predictor.predict_batch`` (full-width YOLOX-s, 80 classes, 640 px, bf16,
-random weights from a seed) for requests of 1, 8 and 128 images, checks the
-outputs, and times the path at each of those batch sizes and the kernels
-with CUDA events.
+Builds the port's CUDA kernels from ``yolov7_d2_tpu_torch/csrc`` and holds
+each against its plain PyTorch version at its path's shapes. Then the two
+paths, full-width YOLOX-s (80 classes, 640 px, bf16 over f32 weights,
+random weights from a seed), each with the kernel launch counts set to 0
+just before it and read just after:
+
+* serving: ``Predictor.predict_batch`` for requests of 1, 8 and 128
+  images (normalize and NMS kernels), outputs checked, kernel path against
+  plain path, the card against the CPU, times by CUDA events;
+* training: ``build_yolox_system`` + ``make_packed_photo_step`` with
+  GridMask on, 13 steps of 16 seeded uint8 images (mixup, GridMask
+  kernel, flip, forward, SimOTA and losses, backward, SGD, EMA), checked
+  for finite losses, foreground anchors and moving weights, EMA and BN
+  statistics; one float32 step on the card against the CPU; ms a step,
+  img/s and peak memory.
 
 Output: progress lines, then the card's name and power limit, a JSON line
-of the kernels, and last ``{"ok": true, "device": {...}}``. Any failed
-phase raises, and the script exits non-zero without that last line; so
-does a run without a CUDA card or outside the repository.
+of the kernels (times, launches on the path, bound, plain and library
+times), and last ``{"ok": true, "device": {...}}``. Any failed phase
+raises, and the script exits non-zero without that last line; so does a
+run without a CUDA card or outside the repository.
 """
 
 from __future__ import annotations
@@ -35,6 +46,10 @@ REQUEST_BATCHES = (1, 8, BATCH)
 PIXEL_MEAN = (103.53, 116.28, 123.675)  # config/defaults.py, R-50 families
 PIXEL_STD = (57.375, 57.12, 58.395)
 WARMUP, ITERS = 3, 10
+TRAIN_BATCH = 16  # one card's share of IMS_PER_BATCH 112 over 8 cards
+# the H100 SXM's published peaks (NVIDIA data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -62,6 +77,15 @@ def cuda_ms(fn, warmup=WARMUP, iters=ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def letterboxed_batch(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -94,13 +118,54 @@ def random_nms_inputs(dev, gen, b=BATCH, k=1024, classes=80):
     return boxes.to(dev), scores.to(dev), cls.to(dev)
 
 
+def train_batch(n: int, gen: torch.Generator, size: int = SIZE) -> dict:
+    """A packed training batch: uint8 [n, size, size, 3] and 1-100 boxes of
+    8 px to half the image an image, in ``max_boxes`` 100 valid-first
+    slots."""
+    g = 100
+    xy = torch.rand((n, g, 2), generator=gen) * (size - 8)
+    wh = 8 + torch.rand((n, g, 2), generator=gen) * (size // 2 - 8)
+    boxes = torch.cat([xy, (xy + wh).clamp(max=size)], -1)
+    count = torch.randint(1, g + 1, (n, 1), generator=gen)
+    valid = torch.arange(g)[None] < count
+    return {
+        "image": torch.randint(0, 256, (n, size, size, 3), generator=gen,
+                               dtype=torch.uint8),
+        "gt_boxes": torch.where(valid[..., None], boxes, 0.0),
+        "gt_classes": torch.randint(0, 80, (n, g), generator=gen,
+                                    dtype=torch.int32) * valid,
+        "gt_valid": valid,
+    }
+
+
+def snapshot(state) -> dict:
+    model = state.model
+    return {
+        "params": [p.detach().clone() for p in model.parameters()],
+        "ema": [e.clone() for e in state.ema_params.values()],
+        "bn": [b.clone() for n, b in model.named_buffers()
+               if n.endswith(("running_mean", "running_var"))],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this check runs only "
                            "on a card")
     sys.path.insert(0, REPO)
     from yolov7_d2_tpu_torch.config import YoloxConfig
+    from yolov7_d2_tpu_torch.data.device_aug import (
+        DevicePhotometric,
+        PhotoDraws,
+        make_packed_photo_step,
+        sample_grid_mask_params,
+    )
+    from yolov7_d2_tpu_torch.engine import build_yolox_system
     from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.kernels.grid_mask import (
+        grid_mask,
+        grid_mask_plain,
+    )
     from yolov7_d2_tpu_torch.kernels.nms import nms_batched, nms_batched_plain
     from yolov7_d2_tpu_torch.kernels.preprocess import (
         normalize_images,
@@ -157,6 +222,11 @@ def main() -> int:
         "max_abs_err": norm_err,
         "plain_ms": cuda_ms(lambda: normalize_images_plain(*main_args)),
         "ms": cuda_ms(lambda: normalize_images(*main_args)),
+        # the identity case as one PyTorch call: cast into channels_last
+        "library_ms": cuda_ms(lambda: images.permute(0, 3, 1, 2).to(
+            torch.bfloat16, memory_format=torch.channels_last)),
+        # u8 read once, bf16 written once; a subtract and a divide each
+        **bound(images.numel() * 3, images.numel() * 2),
     }
     del images
 
@@ -171,6 +241,13 @@ def main() -> int:
         raise AssertionError(f"NMS kernel differs from its plain version "
                              f"in {bad} slots")
     nms_err = float((got[0] - want[0]).abs().max())
+    # the work this run's data needs: one argmax and one IoU (about 15
+    # float32 operations) a candidate a pick, for the picks made and the
+    # one that finds nothing left; boxes and scores read once, the kept
+    # indices and flags written once
+    picks = (got[1].sum(1) + (got[1].sum(1) < 100)).sum()
+    nms_ops = float(picks) * scores.shape[1] * 15
+    nms_bytes = (boxes.numel() + scores.numel()) * 4 + got[1].numel() * 5
     log(f"nms: index-exact against its plain version on "
         f"{tuple(scores.shape)}, thr 0.65, max_out 100, 80 classes; kept "
         f"{int(got[1].sum())} of {got[1].numel()} slots")
@@ -182,10 +259,51 @@ def main() -> int:
         "plain_ms": cuda_ms(lambda: nms_batched_plain(shifted, scores,
                                                       0.65, 100)),
         "ms": cuda_ms(lambda: nms_batched(shifted, scores, 0.65, 100)),
+        "library_ms": None,  # no torchvision: no PyTorch call does NMS
+        **bound(nms_bytes, nms_ops),
     }
     del boxes, scores, cls, shifted, got, want
 
-    # ---- 5. the slice: YOLOX-s 640, bf16, requests of 1, 8, 128 images
+    # ---- 5. GridMask kernel vs its plain version, [16, 640, 640, 3], the
+    # float32 images of the training path and the uint8 ones it gets with
+    # mixup off; drawn parameters in both modes and identity rows
+    gparams = sample_grid_mask_params(gen, TRAIN_BATCH, SIZE, SIZE, 0.75)
+    gparams[::2, 4] = torch.where(gparams[::2, 0] > 1, 0, gparams[::2, 4])
+    gparams = gparams.to(dev)
+    grid_times = {}
+    for dtype in (torch.uint8, torch.float32):
+        shape = (TRAIN_BATCH, SIZE, SIZE, 3)
+        imgs = (torch.randint(0, 256, shape, generator=gen, dtype=dtype)
+                if dtype == torch.uint8
+                else torch.rand(shape, generator=gen) * 255).to(dev)
+        got = grid_mask(imgs, gparams)
+        want = grid_mask_plain(imgs, gparams)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"GridMask kernel differs from its plain "
+                                 f"version on {dtype}")
+        grid_times[dtype] = (cuda_ms(lambda: grid_mask(imgs, gparams)),
+                             cuda_ms(lambda: grid_mask_plain(imgs, gparams)))
+    zeroed = [round(float(z), 3)
+              for z in (got == 0).all(-1).flatten(1).float().mean(1)]
+    log(f"grid_mask: bit-exact against its plain version on {shape} uint8 "
+        f"and float32; share zeroed an image {zeroed}")
+    kernels["grid_mask"] = {
+        "name": "grid_mask", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/grid_mask.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:83",
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": grid_times[torch.float32][0],
+        "plain_ms": grid_times[torch.float32][1],
+        "library_ms": None,  # no single PyTorch call computes GridMask
+        # read once, written once; one select an element
+        **bound(imgs.numel() * 4 * 2, imgs.numel()),
+    }
+    u8_ms, u8_plain_ms = grid_times[torch.uint8]
+    u8_bound = bound(imgs.numel() * 2, imgs.numel())["bound_ms"]
+    del imgs, got, want
+
+    # ---- 6. serving: YOLOX-s 640, bf16, requests of 1, 8, 128 images
     cfg = YoloxConfig()
     predictor = Predictor(cfg, device=dev, seed=SEED)
     requests = [letterboxed_batch(n, gen) for n in REQUEST_BATCHES]
@@ -251,7 +369,7 @@ def main() -> int:
             not torch.equal(on_card["strides"].cpu(), ref["strides"]):
         raise AssertionError("grids or strides differ from the CPU")
 
-    # ---- 6. times: each request size, the batch already on the card
+    # ---- 7. serving times: each request size, the batch already on the card
     for req in requests:
         n = req.shape[0]
         x = req.to(dev)
@@ -262,12 +380,109 @@ def main() -> int:
         log(f"YOLOX-s 640 bs {n} bf16 on [{card}]: e2e {e2e_ms:.3f} ms = "
             f"{n * 1000 / e2e_ms:.1f} img/s; forward-only {fwd_ms:.3f} ms = "
             f"{n * 1000 / fwd_ms:.1f} img/s; tail {tail_ms:.3f} ms")
+    del predictor, requests, results, big, head, with_kernel, with_plain, x
+    del ref, on_card, bf16
+    torch.cuda.empty_cache()
+
+    # ---- 8. training: YOLOX-s 640, bf16, 16 images a step, GridMask on
+    tcfg = dataclasses.replace(cfg, grid_mask=True)
+    _, state, train_step = build_yolox_system(tcfg, device=dev, seed=SEED)
+    step = make_packed_photo_step(tcfg, train_step, seed=SEED)
+    batches = [{k: v.to(dev) for k, v in train_batch(TRAIN_BATCH,
+                                                     gen).items()}
+               for _ in range(4)]
+    before = snapshot(state)
+    metrics = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    for i in range(WARMUP):
+        state, m = step(state, batches[i % 4])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(WARMUP, WARMUP + ITERS):
+        state, m = step(state, batches[i % 4])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"training path launches: {launches}")
+    if launches.get("grid_mask", 0) < 1:
+        raise AssertionError("the training path never launched grid_mask")
+    kernels["grid_mask"]["launches"] = launches["grid_mask"]
+    masked = sum(m["grid_masked"] for m in metrics)
+    if masked < 1:
+        raise AssertionError("GridMask masked no image in the training run")
+    for i, m in enumerate(metrics):
+        for key in ("loss_iou", "loss_obj", "loss_cls", "loss_l1",
+                    "total_loss", "grad_norm"):
+            if not bool(torch.isfinite(m[key])):
+                raise AssertionError(f"step {i}: {key} = {float(m[key])}")
+        if not float(m["num_fg"]) > 1.0:
+            raise AssertionError(f"step {i}: no foreground anchor")
+    after = snapshot(state)
+    for key in before:
+        if all(torch.equal(a, b) for a, b in zip(before[key], after[key])):
+            raise AssertionError(f"training moved no {key} tensor")
+    fmt = ("total_loss", "loss_iou", "loss_obj", "loss_cls", "num_fg",
+           "grad_norm")
+    for i in (0, len(metrics) - 1):
+        log(f"train step {i}: " + ", ".join(
+            f"{k} {float(metrics[i][k]):.4f}" for k in fmt))
+    log(f"training: {masked} of {TRAIN_BATCH * len(metrics)} images "
+        f"GridMask-ed; parameters, EMA and BN statistics moved")
+    del state, train_step, step, batches, before, after, metrics
+    torch.cuda.empty_cache()
+
+    # ---- 9. one float32 train step, the card against the CPU: TF32 off,
+    # width 0.25, 128 px, 2 images, the same weights, batch and draws
+    # (GridMask parameters fixed). The forward differs from the CPU in the
+    # convolutions' sum order only (1.2e-5 of its max in eval mode, section
+    # 6), which train-mode BatchNorm and the losses carry to about 1e-5
+    # relative; 1e-3 leaves room, and the fg count is exact unless an
+    # assignment sits at a tie.
+    scfg = dataclasses.replace(cfg, width_mul=0.25, input_size=(128, 128),
+                               amp=False, grid_mask=True, warmup_iters=0)
+    sbatch = train_batch(2, gen, 128)
+    draws = PhotoDraws(
+        perm=torch.tensor([1, 0]), do_mix=torch.tensor([True, False]),
+        grid_params=torch.tensor([[16, 8, 3, 5, 1], [12, 6, 2, 7, 0]],
+                                 dtype=torch.int32),
+        do_flip=torch.tensor([False, True]))
+    small_metrics = {}
+    for where in ("cpu", dev):
+        _, st, ts = build_yolox_system(scfg, device=where, seed=SEED)
+        b = DevicePhotometric(scfg).apply(
+            {k: v.to(where) for k, v in sbatch.items()}, draws)
+        _, m = ts(st, b)
+        small_metrics[str(where)] = {k: float(v) for k, v in m.items()}
+    ref_m, card_m = small_metrics["cpu"], small_metrics[str(dev)]
+    log("float32 train step, card vs CPU: " + ", ".join(
+        f"{k} {card_m[k]:.6g} / {ref_m[k]:.6g}" for k in fmt))
+    if card_m["num_fg"] != ref_m["num_fg"]:
+        raise AssertionError("fg count differs between the card and the CPU")
+    for k in ("total_loss", "loss_iou", "loss_obj", "loss_cls", "grad_norm"):
+        if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
+            raise AssertionError(f"{k} differs between the card and the CPU")
+
+    # ---- 10. times
+    log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
+        f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
+        f"(host clock over {ITERS} steps after {WARMUP}, batches on the "
+        f"card); peak memory {peak_gb:.3f} GB")
     for k in kernels.values():
         log(f"{k['name']} on [{card}]: kernel {k['ms']:.4f} ms, plain "
-            f"PyTorch {k['plain_ms']:.4f} ms")
+            f"PyTorch {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}), library "
+            + ("none" if k["library_ms"] is None
+               else f"{k['library_ms']:.4f} ms"))
+    log(f"grid_mask uint8 on [{card}]: kernel {u8_ms:.4f} ms, plain "
+        f"PyTorch {u8_plain_ms:.4f} ms, bound {u8_bound:.4f} ms (bytes)")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card, flush=True)
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels.values()]}), flush=True)

@@ -5,9 +5,9 @@ JAX, so that it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_port_cuda.py -q --noconftest
 
-Both kernels must agree exactly: the NMS kernel index for index (it does the
+The kernels must agree exactly: the NMS kernel index for index (it does the
 plain version's IEEE float32 operations, one rounding each), the normalize
-kernel bit for bit.
+and GridMask kernels bit for bit.
 """
 
 import dataclasses
@@ -17,7 +17,13 @@ import pytest
 import torch
 
 from yolov7_d2_tpu_torch.config import YoloxConfig
+from yolov7_d2_tpu_torch.data.device_aug import (
+    make_packed_photo_step,
+    sample_grid_mask_params,
+)
+from yolov7_d2_tpu_torch.engine import build_yolox_system, dummy_batch
 from yolov7_d2_tpu_torch.kernels import build
+from yolov7_d2_tpu_torch.kernels.grid_mask import grid_mask, grid_mask_plain
 from yolov7_d2_tpu_torch.kernels.nms import nms_batched, nms_batched_plain
 from yolov7_d2_tpu_torch.kernels.preprocess import (
     normalize_images,
@@ -121,3 +127,97 @@ def test_predict_batch_on_card_launches_both_kernels(dev):
     kernel = predictor.postprocess(head)
     for field in ("valid", "classes", "boxes", "scores"):
         assert torch.equal(getattr(kernel, field), getattr(plain, field))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("shape", [(6, 48, 64, 3), (3, 40, 24, 4)])
+def test_grid_mask_kernel_matches_plain(dev, dtype, shape):
+    gen = torch.Generator().manual_seed(0)
+    params = sample_grid_mask_params(gen, shape[0], *shape[1:3], prob=0.8)
+    params[::2, 4] = torch.where(params[::2, 0] > 1, 0, params[::2, 4])
+    imgs = (torch.randint(0, 256, shape, generator=gen, dtype=dtype)
+            if dtype == torch.uint8 else torch.randn(shape, generator=gen))
+    imgs, params = imgs.to(dev), params.to(dev)
+    before = build.LAUNCHES["grid_mask"]
+    got = grid_mask(imgs, params)
+    want = grid_mask_plain(imgs, params)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["grid_mask"] == before + 1
+    assert torch.equal(got, want) and bool((got == 0).any())
+
+
+@pytest.mark.cuda
+def test_grid_mask_kernel_refuses_what_it_cannot_take(dev):
+    params = torch.ones((1, 5), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple"):
+        grid_mask(torch.zeros((1, 5, 5, 3), dtype=torch.uint8, device=dev),
+                  params)
+    with pytest.raises(TypeError):
+        grid_mask(torch.zeros((1, 8, 8, 3), dtype=torch.float64,
+                              device=dev), params)
+    with pytest.raises(TypeError):
+        grid_mask(torch.zeros((1, 8, 8, 3), device=dev), params.long())
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_launches_grid_mask(dev):
+    cfg = dataclasses.replace(YoloxConfig(), num_classes=8, width_mul=0.25,
+                              input_size=(128, 128), grid_mask=True,
+                              grid_mask_prob=1.0)
+    _, state, train_step = build_yolox_system(cfg, device=dev, seed=0)
+    step = make_packed_photo_step(cfg, train_step)
+    batch = dummy_batch(cfg, 2, device=dev)
+    build.reset_launches()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["grid_mask"] == 1 and metrics["grid_masked"] == 2
+    assert bool(torch.isfinite(metrics["total_loss"]))
+    assert float(metrics["num_fg"]) > 1 and state.step == 1
+
+
+@pytest.mark.cuda
+def test_simota_takes_first_index_on_ties_on_card(dev):
+    """argmin / argmax keep the first index on ties on the card as on the
+    CPU: two identical gts claim the same anchors, groups of anchors share
+    one prediction, and the assignment must equal the CPU's exactly."""
+    from yolov7_d2_tpu_torch.models.heads.yolox_head import (
+        decode_outputs,
+        simota_assign,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    size, classes = 128, 8
+    grids, strides = [], []
+    for s in (8, 16, 32):
+        n = size // s
+        ys, xs = torch.meshgrid(torch.arange(n), torch.arange(n),
+                                indexing="ij")
+        grids.append(torch.stack([xs, ys], -1).reshape(-1, 2).float())
+        strides.append(torch.full((n * n,), float(s)))
+    grids, strides = torch.cat(grids), torch.cat(strides)
+    out = torch.randn((2, len(strides), 5 + classes), generator=gen)
+    # stride-8 anchors of cells 2..8 all decode to the box of the first
+    # two gts (centre 40, 48 px) with one score: tied IoUs and costs
+    near = ((grids[:, 0] >= 2) & (grids[:, 0] <= 8) & (grids[:, 1] >= 2)
+            & (grids[:, 1] <= 8) & (strides == 8)).nonzero()[:, 0]
+    out[:, near, 0:2] = 5.0 - grids[near]
+    out[:, near, 2:4] = float(np.log(6.0))
+    out[:, near, 4:] = out[:, near[:1], 4:]
+    gt = torch.tensor([[16.0, 16.0, 64.0, 64.0]] * 2
+                      + [[70.0, 60.0, 120.0, 110.0]])[None].repeat(2, 1, 1)
+    cls = torch.tensor([[3, 3, 5]] * 2, dtype=torch.int32)
+    valid = torch.ones((2, 3), dtype=torch.bool)
+
+    def assign(device):
+        args = [t.to(device) for t in (out, grids, strides, gt, cls, valid)]
+        boxes, obj, logits = decode_outputs(*args[:3])
+        return simota_assign(boxes, obj, logits, *args[1:])
+
+    cpu, card = assign("cpu"), assign(dev)
+    for key in ("fg_mask", "matched_gt"):
+        assert torch.equal(card[key].cpu(), cpu[key]), key
+    assert int(cpu["fg_mask"].sum()) > 4
+    assert not bool((cpu["matched_gt"][cpu["fg_mask"]] == 1).any())
+    x = torch.tensor([[2.0, 1.0, 1.0], [1.0, 1.0, 3.0]], device=dev)
+    assert x.argmin(-1).tolist() == [1, 0] and x.argmax(-1).tolist() == [0, 2]

@@ -59,13 +59,12 @@ def _imported_modules(path: Path):
     str(p.relative_to(REPO)) for p in PKG.rglob("*.py"))
     + ["chip_smoke.py", "tools/profile_torch_port.py"])
 def test_port_module_imports_no_jax(path):
-    allowed_reference = {"yolov7_d2_tpu.core.registry",
-                         "yolov7_d2_tpu.utils.weight_port"}
+    # no allow-list: the port keeps its own copies of what it needs from
+    # the JAX package, even of modules there that import no JAX
     for mod in _imported_modules(REPO / path):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
-        if root == "yolov7_d2_tpu":
-            assert mod in allowed_reference, mod
+        assert root not in ("jax", "jaxlib", "flax", "optax", "orbax",
+                            "yolov7_d2_tpu"), mod
 
 
 def test_default_config_is_yolox_s():

@@ -236,6 +236,21 @@ def test_jax_to_torch_state_dict_rejects_mismatches():
             variables, {k: v for k, v in template.items() if k != key})
 
 
+def test_name_map_copy_matches_jax_on_yolox_s():
+    """The port's copy of ``map_yolox_torch_name`` against the JAX
+    package's, on every module name of the YOLOX-s ``state_dict``."""
+    from yolov7_d2_tpu.utils.weight_port import (
+        map_yolox_torch_name as jax_map,
+    )
+    from yolov7_d2_tpu_torch.utils.weight_port import map_yolox_torch_name
+
+    keys = build_model(YoloxConfig(), "cpu").state_dict().keys()
+    modules = sorted({k.rpartition(".")[0] for k in keys})
+    assert len(keys) > 300 and len(modules) > 80
+    for name in modules:
+        assert map_yolox_torch_name(name) == jax_map(name), name
+
+
 def test_build_model_registry():
     cfg = YoloxConfig(num_classes=8, width_mul=0.25, amp=False)
     model = build_model(cfg, "cpu", seed=3)

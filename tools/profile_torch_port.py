@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's YOLOX-s serving path goes, on one
-CUDA card.
+"""Where the time of the PyTorch port's YOLOX-s serving path, or of its
+training step, goes on one CUDA card.
 
-    python3 tools/profile_torch_port.py
+    python3 tools/profile_torch_port.py            # serving
+    python3 tools/profile_torch_port.py --train    # training step
 
 Full-width YOLOX-s at 640, bf16, random weights from seed 0, uint8 batches
-already on the card. For each batch size it prints e2e (``predict_batch``),
-forward-only and tail (``postprocess``) milliseconds by CUDA events. Then it
-traces three e2e calls of the largest batch with torch.profiler and prints
-the device's busy share of that window, the device time by operator group
-(convolution, batch norm, SiLU, concat, ...) and the top kernels by name.
-Every line carries the card's name and power limit. Imports no JAX.
+already on the card. Serving: for each batch size it prints e2e
+(``predict_batch``), forward-only and tail (``postprocess``) milliseconds
+by CUDA events, then traces three e2e calls of the largest batch.
+Training: the step of ``build_yolox_system`` + ``make_packed_photo_step``
+at 16 images with GridMask on, three steps traced after three of warm-up.
+For the traced window it prints the device's busy share, the device time
+by operator group (convolution, batch norm, SiLU, concat, ...) and the top
+kernels by name. Every line carries the card's name and power limit.
+Imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import os
 import re
 import subprocess
@@ -28,14 +34,23 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
 from yolov7_d2_tpu_torch.config import YoloxConfig  # noqa: E402
+from yolov7_d2_tpu_torch.data.device_aug import (  # noqa: E402
+    make_packed_photo_step,
+)
+from yolov7_d2_tpu_torch.engine import build_yolox_system  # noqa: E402
 from yolov7_d2_tpu_torch.predictor import Predictor  # noqa: E402
 
 BATCHES = (1, 8, 32, 128)
+TRAIN_BATCH = 16
 TRACED_CALLS = 3
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
 # kernel name -> group; the first pattern that matches wins
 GROUPS = (
     ("normalize kernel (K2)", r"normalize_kernel"),
     ("NMS kernel (K1)", r"nms_kernel"),
+    ("GridMask kernel (K3)", r"grid_mask_kernel"),
+    ("optimizer and EMA (foreach)", r"multi_tensor_apply|foreach"),
     ("batch norm", r"batch_norm|bn_fw"),
     ("SiLU", r"silu"),
     ("concat", r"CatArray|cat_"),
@@ -79,14 +94,94 @@ def group_of(kernel: str) -> str:
     return "other elementwise and reductions"
 
 
+def trace(fn, card: str, label: str) -> None:
+    """Time ``fn`` untraced, then trace TRACED_CALLS calls and print the
+    report. The profiler slows the host, so the busy share is given of
+    both the traced window and the untraced call. The kernels the device
+    trace holds are counted against the host's launch calls: on the H100
+    machine used so far the trace of a training step held about 1240 of
+    its 1955 launches (no SiLU or cast kernel), so its busy time is then a
+    lower bound."""
+    untraced = cuda_ms(fn)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(TRACED_CALLS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    window = start.elapsed_time(end) / TRACED_CALLS
+    events = prof.key_averages()
+    # device events, less the optimizer's record_function annotations
+    # ("Optimizer.step#SGD.step"), which span kernels counted already
+    kernels = [k for k in events
+               if k.device_type == torch.autograd.DeviceType.CUDA
+               and "#" not in k.key]
+    launched = sum(k.count for k in events if k.key in LAUNCH_CALLS)
+    # ms a call and launches a call, by kernel and by group
+    rows = [(k.self_device_time_total / 1000.0 / TRACED_CALLS,
+             k.count // TRACED_CALLS, k.key) for k in kernels]
+    busy = sum(r[0] for r in rows)
+    print(f"{label}: untraced {untraced:.3f} ms a call; traced "
+          f"{window:.3f} ms a call, {launched // TRACED_CALLS} launches a "
+          f"call by the host, {sum(r[1] for r in rows)} kernels a call in "
+          f"the device trace, device busy {busy:.3f} ms = "
+          f"{100 * busy / window:.1f}% of the traced call, "
+          f"{100 * busy / untraced:.1f}% of the untraced one [{card}]")
+    groups = defaultdict(lambda: [0.0, 0])
+    for ms, n, key in rows:
+        groups[group_of(key)][0] += ms
+        groups[group_of(key)][1] += n
+    print("device time by group (ms a call, share of busy, launches):")
+    for name, (ms, n) in sorted(groups.items(), key=lambda g: -g[1][0]):
+        print(f"  {ms:9.3f}  {100 * ms / busy:5.1f}%  {n:5d}  {name}")
+    print("top kernels (ms a call, launches, name):")
+    for ms, n, key in sorted(rows, key=lambda r: -r[0])[:25]:
+        print(f"  {ms:9.3f}  {n:5d}  {key[:110]}")
+
+
+def profile_train(card: str, dev, gen) -> None:
+    cfg = dataclasses.replace(YoloxConfig(), grid_mask=True)
+    _, state, train_step = build_yolox_system(cfg, device=dev, seed=0)
+    step = make_packed_photo_step(cfg, train_step, seed=0)
+    n, g = TRAIN_BATCH, cfg.max_boxes
+    xy = torch.rand((n, g, 2), generator=gen) * 632
+    boxes = torch.cat([xy, (xy + 8 + torch.rand((n, g, 2), generator=gen)
+                            * 312).clamp(max=640)], -1)
+    valid = torch.arange(g)[None] < torch.randint(1, g + 1, (n, 1),
+                                                  generator=gen)
+    batch = {k: v.to(dev) for k, v in {
+        "image": torch.randint(0, 256, (n, 640, 640, 3), generator=gen,
+                               dtype=torch.uint8),
+        "gt_boxes": boxes * valid[..., None],
+        "gt_classes": torch.randint(0, 80, (n, g), generator=gen,
+                                    dtype=torch.int32) * valid,
+        "gt_valid": valid}.items()}
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    trace(one_step, card, f"train step bs {n}")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--train", action="store_true",
+                        help="profile the training step instead of serving")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_port: no CUDA device")
     card = card_line()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
-    predictor = Predictor(YoloxConfig(), device=dev, seed=0)
     gen = torch.Generator().manual_seed(0)
+    if args.train:
+        profile_train(card, dev, gen)
+        return 0
+    predictor = Predictor(YoloxConfig(), device=dev, seed=0)
 
     for bs in BATCHES:
         x = torch.randint(0, 256, (bs, 640, 640, 3), generator=gen,
@@ -102,37 +197,7 @@ def main() -> int:
     bs = max(BATCHES)
     x = torch.randint(0, 256, (bs, 640, 640, 3), generator=gen,
                       dtype=torch.uint8).to(dev)
-    for _ in range(3):
-        predictor.predict_batch(x)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(TRACED_CALLS):
-            predictor.predict_batch(x)
-        end.record()
-        torch.cuda.synchronize()
-    window = start.elapsed_time(end) / TRACED_CALLS
-    kernels = [k for k in prof.key_averages()
-               if k.device_type == torch.autograd.DeviceType.CUDA]
-    # ms a batch and launches a batch, by kernel and by group
-    rows = [(k.self_device_time_total / 1000.0 / TRACED_CALLS,
-             k.count // TRACED_CALLS, k.key) for k in kernels]
-    busy = sum(r[0] for r in rows)
-    print(f"bs {bs} traced: {window:.3f} ms a batch, device busy "
-          f"{busy:.3f} ms = {100 * busy / window:.1f}% [{card}]")
-    groups = defaultdict(lambda: [0.0, 0])
-    for ms, n, key in rows:
-        groups[group_of(key)][0] += ms
-        groups[group_of(key)][1] += n
-    print("device time by group (ms a batch, share of busy, launches):")
-    for name, (ms, n) in sorted(groups.items(), key=lambda g: -g[1][0]):
-        print(f"  {ms:9.3f}  {100 * ms / busy:5.1f}%  {n:5d}  {name}")
-    print("top kernels (ms a batch, launches, name):")
-    for ms, n, key in sorted(rows, key=lambda r: -r[0])[:25]:
-        print(f"  {ms:9.3f}  {n:5d}  {key[:110]}")
+    trace(lambda: predictor.predict_batch(x), card, f"bs {bs}")
     return 0
 
 

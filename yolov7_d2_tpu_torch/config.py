@@ -1,10 +1,11 @@
-"""The YOLOX serving configuration of the port.
+"""The YOLOX configuration of the port: serving and the training step.
 
-Counterpart of ``yolov7_d2_tpu/config/defaults.py:175-188`` merged with
-``configs/coco/yolox_s.yaml``. The JAX package reads its settings from a
-``CfgNode``, whose module imports PyYAML at the top; the port's main path
-keeps to a frozen dataclass instead, so that it needs neither PyYAML nor
-OpenCV. ``YoloxConfig.from_cfg`` reads a merged ``CfgNode`` where one exists.
+Counterpart of ``yolov7_d2_tpu/config/defaults.py`` (``MODEL.YOLO``,
+``INPUT``, ``SOLVER``) merged with ``configs/coco/yolox_s.yaml``. The JAX
+package reads its settings from a ``CfgNode``, whose module imports PyYAML
+at the top; the port's main path keeps to a frozen dataclass instead, so
+that it needs neither PyYAML nor OpenCV. ``YoloxConfig.from_cfg`` reads a
+merged ``CfgNode`` where one exists.
 """
 
 from __future__ import annotations
@@ -33,10 +34,57 @@ class YoloxConfig:
     pre_nms_topk: int = 1024
     amp: bool = True  # SOLVER.AMP.ENABLED: bf16 compute, f32 parameters
 
+    # training: targets and assignment (MODEL.YOLO)
+    max_boxes: int = 100
+    simota_prefilter_topk: int = 0  # 0 auto, < 0 off (engine.py)
+    # training: the device photometric stage (INPUT)
+    mixup: bool = True
+    aug_disable_at_iter: int = 120000  # also where the L1 term turns on
+    flip_prob: float = 0.5  # 0 when RANDOM_FLIP_HORIZONTAL is off
+    distortion: bool = False
+    grid_mask: bool = False
+    grid_mask_mode: int = 1
+    grid_mask_prob: float = 0.3
+    grid_mask_use_height: bool = True
+    grid_mask_use_width: bool = True
+    # training: optimizer and schedule (SOLVER)
+    optimizer: str = "sgd"
+    base_lr: float = 0.02
+    momentum: float = 0.9
+    nesterov: bool = True
+    weight_decay: float = 5e-4
+    # d2's rule: a decay of None in the CfgNode is weight_decay
+    weight_decay_norm: float = 0.0
+    weight_decay_bias: float = 5e-4
+    bias_lr_factor: float = 1.0
+    lr_multiplier_overwrite: Tuple[Tuple[str, float], ...] = ()
+    backbone_multiplier: float = 1.0
+    lr_scheduler: str = "WarmupCosineLR"
+    max_iter: int = 150000
+    lr_steps: Tuple[int, ...] = (60000, 80000)
+    lr_gamma: float = 0.1
+    warmup_iters: int = 1000
+    warmup_factor: float = 0.001
+    warmup_method: str = "linear"
+    clip_gradients: bool = False
+    clip_type: str = "full_model"  # or "value"
+    clip_value: float = 1.0
+    ema: bool = True
+    ema_decay: float = 0.9998
+
     @classmethod
     def from_cfg(cls, cfg) -> "YoloxConfig":
         """Read the fields from a merged ``CfgNode`` of the JAX package."""
         yolo = cfg.MODEL.YOLO
+        inp = cfg.INPUT
+        solver = cfg.SOLVER
+        grid = inp.GRID_MASK
+        flip = inp.RANDOM_FLIP_HORIZONTAL
+        wd = float(solver.WEIGHT_DECAY or 0.0)
+
+        def decay(v):
+            return wd if v is None else float(v)
+
         return cls(
             meta_architecture=cfg.MODEL.META_ARCHITECTURE,
             backbone=cfg.MODEL.BACKBONE.NAME,
@@ -52,5 +100,40 @@ class YoloxConfig:
             nms_threshold=float(yolo.NMS_THRESHOLD),
             max_detections=int(yolo.MAX_DETECTIONS),
             pre_nms_topk=int(yolo.NMS_PRE_TOPK),
-            amp=bool(cfg.SOLVER.AMP.ENABLED),
+            amp=bool(solver.AMP.ENABLED),
+            max_boxes=int(yolo.MAX_BOXES_NUM),
+            simota_prefilter_topk=int(yolo.SIMOTA_PREFILTER_TOPK),
+            mixup=bool(inp.MOSAIC_AND_MIXUP.ENABLE_MIXUP),
+            aug_disable_at_iter=int(inp.MOSAIC_AND_MIXUP.DISABLE_AT_ITER),
+            flip_prob=float(flip.PROB) if flip.ENABLED else 0.0,
+            distortion=bool(inp.DISTORTION.ENABLED),
+            grid_mask=bool(grid.ENABLED),
+            grid_mask_mode=int(grid.MODE),
+            grid_mask_prob=float(grid.PROB),
+            grid_mask_use_height=bool(grid.USE_HEIGHT),
+            grid_mask_use_width=bool(grid.USE_WIDTH),
+            optimizer=str(solver.OPTIMIZER).lower(),
+            base_lr=float(solver.BASE_LR),
+            momentum=float(solver.MOMENTUM),
+            nesterov=bool(solver.NESTEROV),
+            weight_decay=wd,
+            weight_decay_norm=decay(solver.WEIGHT_DECAY_NORM),
+            weight_decay_bias=decay(solver.WEIGHT_DECAY_BIAS),
+            bias_lr_factor=float(solver.BIAS_LR_FACTOR),
+            lr_multiplier_overwrite=tuple(
+                (str(k), float(v)) for entry in solver.LR_MULTIPLIER_OVERWRITE
+                for k, v in dict(entry).items()),
+            backbone_multiplier=float(solver.BACKBONE_MULTIPLIER),
+            lr_scheduler=str(solver.LR_SCHEDULER_NAME),
+            max_iter=int(solver.MAX_ITER),
+            lr_steps=tuple(int(s) for s in solver.STEPS),
+            lr_gamma=float(solver.GAMMA),
+            warmup_iters=int(solver.WARMUP_ITERS),
+            warmup_factor=float(solver.WARMUP_FACTOR),
+            warmup_method=str(solver.WARMUP_METHOD),
+            clip_gradients=bool(solver.CLIP_GRADIENTS.ENABLED),
+            clip_type=str(solver.CLIP_GRADIENTS.CLIP_TYPE),
+            clip_value=float(solver.CLIP_GRADIENTS.CLIP_VALUE),
+            ema=bool(solver.EMA.ENABLED),
+            ema_decay=float(solver.EMA.DECAY),
         )

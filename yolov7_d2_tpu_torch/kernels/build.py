@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-All sources under ``yolov7_d2_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The library is built at first use into ``build/kernels/`` at the repository
-root, named by a hash of the sources and flags, so that it is rebuilt when
-either changes. Nothing here runs at import time.
+All sources under ``yolov7_d2_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``,
+one process a source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The library is
+built at first use into ``build/kernels/`` at the repository root, named by
+a hash of the sources and flags, so that it is rebuilt when either changes.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -24,7 +26,7 @@ SOURCE_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # no contraction into FMA anywhere: the kernels round every step as
     # their plain PyTorch versions do (the NMS also says so explicitly)
     "-fmad=false",
@@ -35,7 +37,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _lib = None
-BUILD_SECONDS = None  # wall time of the nvcc call, when this process built
+BUILD_SECONDS = None  # wall time of the nvcc calls, when this process built
 
 
 def reset_launches() -> None:
@@ -73,6 +75,33 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.yolo_nms_launch.restype = i
     lib.yolo_normalize_launch.argtypes = [p, p, i64, i, f, f, f, f, f, f, p]
     lib.yolo_normalize_launch.restype = i
+    lib.yolo_grid_mask_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.yolo_grid_mask_launch.restype = i
+
+
+def _run_all(cmds) -> None:
+    """Run the commands at once and wait for every one; raise on the first
+    that failed, once all have ended."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errors = [proc.communicate()[1] for proc in procs]
+    for cmd, proc, err in zip(cmds, procs, errors):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+
+
+def _build(sources, out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                  for src, obj in zip(sources, objs)])
+        lib = str(Path(tmp) / out.name)
+        _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
 
 
 def load_library() -> ctypes.CDLL:
@@ -84,19 +113,9 @@ def load_library() -> ctypes.CDLL:
         sources = _sources()
         out = BUILD_DIR / f"libyolo_kernels_{_digest(sources)}.so"
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in sources]]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stderr}"
-                )
+            _build(sources, out)
             BUILD_SECONDS = time.perf_counter() - t0
-            os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         _declare(lib)
         _lib = lib

@@ -7,12 +7,12 @@ import math
 import torch
 from torch import nn
 
-from yolov7_d2_tpu.core.registry import Registry
+from yolov7_d2_tpu_torch.core.registry import Registry
 
 META_ARCH_REGISTRY = Registry("META_ARCH")
 
 
-def build_model(cfg, device="cpu", seed: int = 0) -> nn.Module:
+def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     """Build ``cfg.meta_architecture`` (a ``YoloxConfig``) on ``device``."""
     from yolov7_d2_tpu_torch.models.meta_arch import yolox  # noqa: F401
 

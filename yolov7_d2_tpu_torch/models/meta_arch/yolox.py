@@ -1,15 +1,17 @@
-"""YOLOX meta-architecture and its serving tail (JAX
+"""YOLOX meta-architecture, its loss and its serving tail (JAX
 ``models/meta_arch/yolox.py:36-199``).
 
-``YOLOX.forward`` takes the letterboxed uint8 NHWC batch, runs the fused
-normalize kernel (``kernels/preprocess.py``) into the model's layout, then
-backbone, neck and head; ``yolox_postprocess`` ends in the NMS kernel
-(``kernels/nms.py``).
+``YOLOX.forward`` takes the letterboxed NHWC batch: a uint8 batch goes
+through the fused normalize kernel (``kernels/preprocess.py``) into the
+model's layout, a float batch (after the training step's mixup) is cast
+into it; then backbone, neck and head, in train or eval mode as the module
+is. ``yolox_loss_fn`` is the training loss; ``yolox_postprocess`` ends in
+the NMS kernel (``kernels/nms.py``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -25,6 +27,7 @@ from yolov7_d2_tpu_torch.models.build import (
 from yolov7_d2_tpu_torch.models.heads.yolox_head import (
     WH_LOGIT_MAX,
     YOLOXHead,
+    yolox_losses,
 )
 from yolov7_d2_tpu_torch.models.necks.yolo_pafpn import YOLOPAFPN
 from yolov7_d2_tpu_torch.ops.nms import batched_nms_batched
@@ -58,15 +61,35 @@ class YOLOX(nn.Module):
                               act=act)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """images: uint8 [B, H, W, 3] letterboxed batch."""
+        """images: uint8 or float [B, H, W, 3] letterboxed batch."""
         # channels_last: cuDNN's bf16 convolutions on Hopper are NHWC
-        x = normalize_images(images, (0.0, 0.0, 0.0), self.input_std,
-                             self.dtype)
+        if images.dtype == torch.uint8:
+            x = normalize_images(images, (0.0, 0.0, 0.0), self.input_std,
+                                 self.dtype)
+        else:
+            # NHWC memory seen as [B, 3, H, W] is channels_last already;
+            # the JAX model casts to the compute dtype, then divides
+            x = images.permute(0, 3, 1, 2).to(self.dtype)
+            if self.input_std[0] != 1.0:
+                x = x / self.input_std[0]
         with torch.autocast(x.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
             feats = self.backbone(x)
             fpn_outs = self.neck([feats[f] for f in self.in_features])
             return self.head(fpn_outs)
+
+
+def yolox_loss_fn(
+    head_out: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    num_classes: int,
+    use_l1: bool = False,
+    prefilter_topk: Optional[int] = 2048,
+) -> Dict[str, torch.Tensor]:
+    """The losses of a batch ``{"gt_boxes", "gt_classes", "gt_valid"}``."""
+    return yolox_losses(
+        head_out, batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"],
+        num_classes, use_l1=use_l1, prefilter_topk=prefilter_topk)
 
 
 def yolox_postprocess(
@@ -116,8 +139,9 @@ def yolox_postprocess(
 
 
 @META_ARCH_REGISTRY.register(name="YOLOX")
-def build_yolox(cfg: YoloxConfig, device="cpu", seed: int = 0) -> YOLOX:
-    """YOLOX in eval mode on ``device``, weights drawn from ``seed``."""
+def build_yolox(cfg: YoloxConfig, device="cuda", seed: int = 0) -> YOLOX:
+    """YOLOX in eval mode on ``device``, weights drawn from ``seed`` (on
+    the CPU, so that every device starts from the same numbers)."""
     if cfg.backbone != "build_cspdarknetx_backbone":
         raise NotImplementedError(
             f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md "

@@ -2,21 +2,87 @@
 
 The inverse of ``yolov7_d2_tpu/utils/weight_port.py:port_torch_state_dict``
 for YOLOX: for every key of the port's ``state_dict()`` the flax path comes
-from ``map_yolox_torch_name``, conv kernels go ``[kH, kW, I, O] ->
-[O, I, kH, kW]``, and BatchNorm ``scale/bias`` (params) and ``mean/var``
-(batch_stats) become ``weight/bias/running_mean/running_var``. The flax tree
-is nested dicts of numpy arrays, so no JAX is needed here.
+from ``map_yolox_torch_name`` (a copy of the JAX package's map of the
+same name, ``yolov7_d2_tpu/utils/weight_port.py:44``), conv kernels go
+``[kH, kW, I, O] -> [O, I, kH, kW]``, and BatchNorm ``scale/bias``
+(params) and ``mean/var`` (batch_stats) become
+``weight/bias/running_mean/running_var``. The flax tree is nested dicts of
+numpy arrays, so no JAX is needed here.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 
-from yolov7_d2_tpu.utils.weight_port import map_yolox_torch_name
-
 _STATS_LEAF = {"running_mean": "mean", "running_var": "var"}
+
+
+def _csp_inner(rest: str) -> str:
+    """CSPLayer inner names: 'm.0.conv1.conv' -> 'm_0/conv1/conv'."""
+    rest = re.sub(r"^m\.(\d+)\.", r"m_\1/", rest)
+    return rest.replace(".", "/")
+
+
+def map_yolox_torch_name(name: str) -> Tuple[str, ...]:
+    """Translate a YOLOX state-dict key of the original reference (and of
+    the port, which keeps its names), without the trailing parameter name,
+    into the JAX package's flax module path parts.
+
+    Examples:
+      backbone.stem.conv.conv        -> backbone/stem/conv/conv
+      backbone.dark2.0.conv          -> backbone/dark2_conv/conv
+      backbone.dark2.1.conv1.conv    -> backbone/dark2_csp/conv1/conv
+      backbone.dark5.1.conv1.conv    -> backbone/dark5_spp/conv1/conv
+      neck.C3_p4.m.0.conv1.conv      -> neck/C3_p4/m_0/conv1/conv
+      head.cls_convs.0.1.conv        -> head/cls_conv_0_1/conv
+      head.cls_preds.0               -> head/cls_pred_0
+      head.stems.0.conv              -> head/stem_0/conv
+    """
+    # backbone.stem.conv.X -> backbone/stem/conv/X
+    m = re.match(r"^backbone\.stem\.(.*)$", name)
+    if m:
+        return tuple(f"backbone/stem/{m.group(1)}".replace(".", "/").split("/"))
+
+    # backbone.darkN.<idx>...
+    m = re.match(r"^backbone\.dark(\d)\.(\d+)\.(.*)$", name)
+    if m:
+        lvl, idx, rest = int(m.group(1)), int(m.group(2)), m.group(3)
+        if lvl == 5:
+            part = {0: "dark5_conv", 1: "dark5_spp", 2: "dark5_csp"}[idx]
+        else:
+            part = {0: f"dark{lvl}_conv", 1: f"dark{lvl}_csp"}[idx]
+        return tuple(f"backbone/{part}/{_csp_inner(rest)}".split("/"))
+
+    # neck.<name>.rest — module names match the flax ones 1:1
+    m = re.match(
+        r"^neck\.(lateral_conv0|reduce_conv1|bu_conv1|bu_conv2|"
+        r"C3_p4|C3_p3|C3_n3|C3_n4)\.(.*)$",
+        name,
+    )
+    if m:
+        return tuple(f"neck/{m.group(1)}/{_csp_inner(m.group(2))}".split("/"))
+
+    # head towers: lists indexed by level
+    m = re.match(r"^head\.stems\.(\d+)\.(.*)$", name)
+    if m:
+        return tuple(
+            f"head/stem_{m.group(1)}/{m.group(2)}".replace(".", "/").split("/")
+        )
+    m = re.match(r"^head\.(cls|reg)_convs\.(\d+)\.(\d+)\.(.*)$", name)
+    if m:
+        kind, lvl, j, rest = m.groups()
+        return tuple(
+            f"head/{kind}_conv_{lvl}_{j}/{rest}".replace(".", "/").split("/")
+        )
+    m = re.match(r"^head\.(cls|reg|obj)_preds\.(\d+)$", name)
+    if m:
+        return ("head", f"{m.group(1)}_pred_{m.group(2)}")
+
+    # fallthrough: dots to slashes
+    return tuple(name.replace(".", "/").split("/"))
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], Any]:
