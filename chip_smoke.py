@@ -5,20 +5,23 @@ on one CUDA card.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``yolov7_d2_tpu_torch/csrc`` and holds
-each against its plain PyTorch version at its path's shapes. Then the two
-paths, full-width YOLOX-s (80 classes, 640 px, bf16 over f32 weights,
-random weights from a seed), each with the kernel launch counts set to 0
-just before it and read just after:
+each against its plain PyTorch version at its path's shapes (NMS also on a
+one-class case that suppresses heavily, GridMask on float32 and uint8).
+Then the paths, full-width YOLOX-s (80 classes, 640 px, bf16 over f32
+weights, random weights from a seed), each with the kernel launch counts
+set to 0 just before it and read just after:
 
 * serving: ``Predictor.predict_batch`` for requests of 1, 8 and 128
   images (normalize and NMS kernels), outputs checked, kernel path against
   plain path, the card against the CPU, times by CUDA events;
 * training: ``build_yolox_system`` + ``make_packed_photo_step`` with
   GridMask on, 13 steps of 16 seeded uint8 images (mixup, GridMask
-  kernel, flip, forward, SimOTA and losses, backward, SGD, EMA), checked
-  for finite losses, foreground anchors and moving weights, EMA and BN
-  statistics; one float32 step on the card against the CPU; ms a step,
-  img/s and peak memory.
+  kernel on float32, flip, forward, SimOTA and losses, backward, SGD,
+  EMA), checked for finite losses, foreground anchors and moving weights,
+  EMA and BN statistics; ms a step, img/s and peak memory;
+* training with mixup off: 3 steps, the images uint8 through the GridMask
+  kernel and the normalize kernel, checked for finite losses and moving
+  weights; then one float32 step on the card against the CPU.
 
 Output: progress lines, then the card's name and power limit, a JSON line
 of the kernels (times, launches on the path, bound, plain and library
@@ -79,6 +82,39 @@ def cuda_ms(fn, warmup=WARMUP, iters=ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, warmup=WARMUP, iters=ITERS, host_ok=None) -> float:
+    """Mean device milliseconds a call of ``fn``: the timed calls queue up
+    behind a sleep kernel, so that the host's cost a call (a wrapper's
+    checks, allocations and launch) is not in the time of a kernel that
+    takes less. The reading counts only if the event after the sleep is
+    still pending once the last call is queued; else the sleep grows, 1, 4
+    and 16 ms. Where even that is short, the calls run at the host's pace:
+    ``host_ok`` names a reading allowed to (a plain version's host loop),
+    which is then logged as such; for any other that raises."""
+    for _ in range(warmup):
+        fn()
+    for cycles in (2_000_000, 8_000_000, 32_000_000):  # at the H100's 1.98 GHz
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / iters
+        if queued:
+            return ms
+    if host_ok is None:
+        raise AssertionError("kernel_ms: the host could not queue the timed "
+                             "calls ahead of the card")
+    log(f"{host_ok}: {ms:.4f} ms at the host's pace (its calls could not be "
+        "queued ahead of the card)")
+    return ms
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: bytes over the memory rate or
     operations over the float32 rate, whichever is larger."""
@@ -86,6 +122,25 @@ def bound(nbytes: float, ops: float) -> dict:
     by_ops = ops / F32_OPS_PER_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nms_walk_pairs(scores, idx, valid, max_out) -> int:
+    """IoU tests the greedy walk makes on this data: it visits the live
+    candidates by (score descending, index ascending) up to the max_out-th
+    kept one, or all L live ones where fewer are kept, and tests each
+    visited candidate against the boxes kept before it."""
+    b, k = scores.shape
+    live = scores > 0
+    order = torch.sort(scores.masked_fill(~live, -1.0), dim=1,
+                       descending=True, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(k, device=scores.device).expand(b, k))
+    pos = rank.gather(1, idx.clamp(min=0).long())  # kept ones' positions
+    visited = torch.where(valid.sum(1) == max_out,
+                          torch.where(valid, pos, -1).max(1).values + 1,
+                          live.sum(1))
+    # the kept box at position p is tested by the visited ones after it
+    return int(torch.where(valid, visited[:, None] - 1 - pos, 0).sum())
 
 
 def letterboxed_batch(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -116,6 +171,29 @@ def random_nms_inputs(dev, gen, b=BATCH, k=1024, classes=80):
     scores[:, :64] = 0.0
     cls = torch.randint(0, classes, (b, k), generator=gen)
     return boxes.to(dev), scores.to(dev), cls.to(dev)
+
+
+def crowd_nms_inputs(dev, gen, b=BATCH, k=1024):
+    """One class, boxes crowded around one point: at thr 0.3 fewer than 100
+    of 1024 survive, so the kernel scans all 32 tiles of 32 candidates."""
+    centers = 200 + torch.rand((b, k, 2), generator=gen) * 240
+    wh = 40 + torch.rand((b, k, 2), generator=gen) * 120
+    boxes = torch.cat([centers - wh / 2, centers + wh / 2], -1)
+    scores = 0.01 + torch.rand((b, k), generator=gen)
+    return boxes.to(dev), scores.to(dev)
+
+
+def grid_mask_inputs(dev, gen):
+    """Parameters for TRAIN_BATCH images drawn as the training path draws
+    them, every other one made an identity (keep 0 in mode 0 where d > 1),
+    and the uint8 and float32 images of [TRAIN_BATCH, 640, 640, 3]."""
+    from yolov7_d2_tpu_torch.data.device_aug import sample_grid_mask_params
+    params = sample_grid_mask_params(gen, TRAIN_BATCH, SIZE, SIZE, 0.75)
+    params[::2, 4] = torch.where(params[::2, 0] > 1, 0, params[::2, 4])
+    shape = (TRAIN_BATCH, SIZE, SIZE, 3)
+    u8 = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    f32 = torch.rand(shape, generator=gen) * 255
+    return params.to(dev), u8.to(dev), f32.to(dev)
 
 
 def train_batch(n: int, gen: torch.Generator, size: int = SIZE) -> dict:
@@ -158,7 +236,6 @@ def main() -> int:
         DevicePhotometric,
         PhotoDraws,
         make_packed_photo_step,
-        sample_grid_mask_params,
     )
     from yolov7_d2_tpu_torch.engine import build_yolox_system
     from yolov7_d2_tpu_torch.kernels import build
@@ -220,11 +297,13 @@ def main() -> int:
         "source": "yolov7_d2_tpu_torch/csrc/preprocess.cu",
         "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:34",
         "max_abs_err": norm_err,
-        "plain_ms": cuda_ms(lambda: normalize_images_plain(*main_args)),
-        "ms": cuda_ms(lambda: normalize_images(*main_args)),
+        "plain_ms": kernel_ms(lambda: normalize_images_plain(*main_args),
+                              host_ok="normalize plain"),
+        "ms": kernel_ms(lambda: normalize_images(*main_args)),
         # the identity case as one PyTorch call: cast into channels_last
-        "library_ms": cuda_ms(lambda: images.permute(0, 3, 1, 2).to(
-            torch.bfloat16, memory_format=torch.channels_last)),
+        "library_ms": kernel_ms(lambda: images.permute(0, 3, 1, 2).to(
+            torch.bfloat16, memory_format=torch.channels_last),
+            host_ok="normalize library"),
         # u8 read once, bf16 written once; a subtract and a divide each
         **bound(images.numel() * 3, images.numel() * 2),
     }
@@ -241,12 +320,10 @@ def main() -> int:
         raise AssertionError(f"NMS kernel differs from its plain version "
                              f"in {bad} slots")
     nms_err = float((got[0] - want[0]).abs().max())
-    # the work this run's data needs: one argmax and one IoU (about 15
-    # float32 operations) a candidate a pick, for the picks made and the
-    # one that finds nothing left; boxes and scores read once, the kept
-    # indices and flags written once
-    picks = (got[1].sum(1) + (got[1].sum(1) < 100)).sum()
-    nms_ops = float(picks) * scores.shape[1] * 15
+    # the work this run's data needs: the IoU tests of the greedy walk
+    # (about 15 float32 operations each); boxes and scores read once, the
+    # kept indices and flags written once
+    nms_ops = float(nms_walk_pairs(scores, *got, 100)) * 15
     nms_bytes = (boxes.numel() + scores.numel()) * 4 + got[1].numel() * 5
     log(f"nms: index-exact against its plain version on "
         f"{tuple(scores.shape)}, thr 0.65, max_out 100, 80 classes; kept "
@@ -256,52 +333,67 @@ def main() -> int:
         "source": "yolov7_d2_tpu_torch/csrc/nms.cu",
         "replaces": "yolov7_d2_tpu/ops/pallas_nms.py:34",
         "max_abs_err": nms_err,
-        "plain_ms": cuda_ms(lambda: nms_batched_plain(shifted, scores,
-                                                      0.65, 100)),
-        "ms": cuda_ms(lambda: nms_batched(shifted, scores, 0.65, 100)),
+        "plain_ms": kernel_ms(lambda: nms_batched_plain(shifted, scores,
+                                                      0.65, 100),
+                              host_ok="nms plain"),
+        "ms": kernel_ms(lambda: nms_batched(shifted, scores, 0.65, 100)),
         "library_ms": None,  # no torchvision: no PyTorch call does NMS
         **bound(nms_bytes, nms_ops),
     }
-    del boxes, scores, cls, shifted, got, want
+    one_box, one_score = shifted[:1].contiguous(), scores[:1].contiguous()
+    one_ms = kernel_ms(lambda: nms_batched(one_box, one_score, 0.65, 100))
+    one_plain_ms = kernel_ms(
+        lambda: nms_batched_plain(one_box, one_score, 0.65, 100),
+        host_ok="nms plain bs 1")
+    log(f"nms bs 1 {tuple(one_score.shape)} on [{card}]: kernel "
+        f"{one_ms:.4f} ms, plain PyTorch {one_plain_ms:.4f} ms")
+    crowd, crowd_scores = crowd_nms_inputs(dev, gen)
+    got = nms_batched(crowd, crowd_scores, 0.3, 100)
+    want = nms_batched_plain(crowd, crowd_scores, 0.3, 100)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        bad = int((got[0] != want[0]).sum())
+        raise AssertionError(f"NMS kernel differs from its plain version "
+                             f"in {bad} slots, one class")
+    kept = got[1].sum(1)
+    if not 0 < int(kept.max()) < 100:
+        raise AssertionError("the one-class case did not scan every tile")
+    crowd_ms = kernel_ms(lambda: nms_batched(crowd, crowd_scores, 0.3, 100))
+    log(f"nms one class, thr 0.3: index-exact on {tuple(crowd_scores.shape)};"
+        f" kept {int(kept.min())}-{int(kept.max())} an image; kernel "
+        f"{crowd_ms:.4f} ms on [{card}]")
+    del boxes, scores, cls, shifted, got, want, one_box, one_score
+    del crowd, crowd_scores
 
     # ---- 5. GridMask kernel vs its plain version, [16, 640, 640, 3], the
     # float32 images of the training path and the uint8 ones it gets with
     # mixup off; drawn parameters in both modes and identity rows
-    gparams = sample_grid_mask_params(gen, TRAIN_BATCH, SIZE, SIZE, 0.75)
-    gparams[::2, 4] = torch.where(gparams[::2, 0] > 1, 0, gparams[::2, 4])
-    gparams = gparams.to(dev)
-    grid_times = {}
-    for dtype in (torch.uint8, torch.float32):
-        shape = (TRAIN_BATCH, SIZE, SIZE, 3)
-        imgs = (torch.randint(0, 256, shape, generator=gen, dtype=dtype)
-                if dtype == torch.uint8
-                else torch.rand(shape, generator=gen) * 255).to(dev)
+    gparams, u8, f32 = grid_mask_inputs(dev, gen)
+    for name, imgs in (("grid_mask_u8", u8), ("grid_mask", f32)):
         got = grid_mask(imgs, gparams)
         want = grid_mask_plain(imgs, gparams)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"GridMask kernel differs from its plain "
-                                 f"version on {dtype}")
-        grid_times[dtype] = (cuda_ms(lambda: grid_mask(imgs, gparams)),
-                             cuda_ms(lambda: grid_mask_plain(imgs, gparams)))
+                                 f"version on {imgs.dtype}")
+        kernels[name] = {
+            "name": name, "route": "cuda",
+            "source": "yolov7_d2_tpu_torch/csrc/grid_mask.cu",
+            "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:83",
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": kernel_ms(lambda: grid_mask(imgs, gparams)),
+            "plain_ms": kernel_ms(lambda: grid_mask_plain(imgs, gparams),
+                                  host_ok=f"{name} plain"),
+            "library_ms": None,  # no single PyTorch call computes GridMask
+            # read once, written once; one select an element
+            **bound(imgs.numel() * imgs.element_size() * 2, imgs.numel()),
+        }
     zeroed = [round(float(z), 3)
               for z in (got == 0).all(-1).flatten(1).float().mean(1)]
-    log(f"grid_mask: bit-exact against its plain version on {shape} uint8 "
-        f"and float32; share zeroed an image {zeroed}")
-    kernels["grid_mask"] = {
-        "name": "grid_mask", "route": "cuda",
-        "source": "yolov7_d2_tpu_torch/csrc/grid_mask.cu",
-        "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:83",
-        "max_abs_err": float((got - want).abs().max()),
-        "ms": grid_times[torch.float32][0],
-        "plain_ms": grid_times[torch.float32][1],
-        "library_ms": None,  # no single PyTorch call computes GridMask
-        # read once, written once; one select an element
-        **bound(imgs.numel() * 4 * 2, imgs.numel()),
-    }
-    u8_ms, u8_plain_ms = grid_times[torch.uint8]
-    u8_bound = bound(imgs.numel() * 2, imgs.numel())["bound_ms"]
-    del imgs, got, want
+    log(f"grid_mask: bit-exact against its plain version on "
+        f"{tuple(u8.shape)} uint8 and float32; share zeroed an image "
+        f"{zeroed}")
+    del imgs, u8, f32, got, want
 
     # ---- 6. serving: YOLOX-s 640, bf16, requests of 1, 8, 128 images
     cfg = YoloxConfig()
@@ -433,6 +525,46 @@ def main() -> int:
             f"{k} {float(metrics[i][k]):.4f}" for k in fmt))
     log(f"training: {masked} of {TRAIN_BATCH * len(metrics)} images "
         f"GridMask-ed; parameters, EMA and BN statistics moved")
+    del state, train_step, step, before, after, metrics
+    torch.cuda.empty_cache()
+
+    # ---- 8b. training with mixup off: the images stay uint8 through the
+    # GridMask kernel and into the normalize kernel at the model's head
+    ucfg = dataclasses.replace(tcfg, mixup=False)
+    _, state, train_step = build_yolox_system(ucfg, device=dev, seed=SEED)
+    step = make_packed_photo_step(ucfg, train_step, seed=SEED + 1)
+    before = snapshot(state)
+    metrics = []
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for i in range(3):
+        state, m = step(state, batches[i])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    log(f"training path, mixup off, launches: {launches}")
+    for name in ("grid_mask", "normalize"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"the mixup-off training path never "
+                                 f"launched {name}")
+    kernels["grid_mask_u8"]["launches"] = launches["grid_mask"]
+    masked = sum(m["grid_masked"] for m in metrics)
+    if masked < 1:
+        raise AssertionError("GridMask masked no image with mixup off")
+    for i, m in enumerate(metrics):
+        for key in ("total_loss", "grad_norm"):
+            if not bool(torch.isfinite(m[key])):
+                raise AssertionError(f"mixup off, step {i}: {key} = "
+                                     f"{float(m[key])}")
+    after = snapshot(state)
+    for key in before:
+        if all(torch.equal(a, b) for a, b in zip(before[key], after[key])):
+            raise AssertionError(f"training with mixup off moved no {key} "
+                                 "tensor")
+    log(f"training, mixup off: {masked} of {TRAIN_BATCH * 3} uint8 images "
+        f"GridMask-ed; total loss {float(metrics[0]['total_loss']):.4f} -> "
+        f"{float(metrics[-1]['total_loss']):.4f}; parameters, EMA and BN "
+        f"statistics moved")
     del state, train_step, step, batches, before, after, metrics
     torch.cuda.empty_cache()
 
@@ -478,8 +610,6 @@ def main() -> int:
             f"({k['bound_by']}), library "
             + ("none" if k["library_ms"] is None
                else f"{k['library_ms']:.4f} ms"))
-    log(f"grid_mask uint8 on [{card}]: kernel {u8_ms:.4f} ms, plain "
-        f"PyTorch {u8_plain_ms:.4f} ms, bound {u8_bound:.4f} ms (bytes)")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -74,6 +74,67 @@ def test_nms_kernel_matches_plain(dev, b, n, max_out, thr):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _assert_nms_matches_plain(boxes, scores, thr, max_out):
+    before = build.LAUNCHES["nms"]
+    got = nms_batched(boxes, scores, thr, max_out)
+    want = nms_batched_plain(boxes, scores, thr, max_out)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["nms"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,max_out", [
+    (1, 1024, 100), (3, 1, 5), (2, 33, 20), (2, 200, 300), (4, 1024, 1),
+])
+def test_nms_kernel_shapes(dev, b, n, max_out):
+    boxes, scores, cls = _nms_inputs(dev, b, n, seed=n)
+    shifted = boxes + cls[..., None].float() * (boxes.max() + 1.0)
+    _assert_nms_matches_plain(shifted, scores, 0.5, max_out)
+
+
+@pytest.mark.cuda
+def test_nms_kernel_single_class_heavy_suppression(dev):
+    """1024 boxes crowded around one point, one class: fewer than max_out
+    survive, so the kernel scans every tile of 32."""
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(200, 440, (8, 1024, 2))
+    wh = rng.uniform(40, 160, (8, 1024, 2))
+    boxes = torch.tensor(np.concatenate([centers - wh / 2, centers + wh / 2],
+                                        -1), dtype=torch.float32, device=dev)
+    scores = torch.tensor(rng.uniform(0.01, 1.0, (8, 1024)),
+                          dtype=torch.float32, device=dev)
+    _, valid = _assert_nms_matches_plain(boxes, scores, 0.3, 100)
+    assert 0 < int(valid.sum(1).max()) < 100
+
+
+@pytest.mark.cuda
+def test_nms_kernel_ties_across_tile_boundary(dev):
+    """One score for all 64 boxes, so the order is the index order; the
+    pairs (31, 32) and (20, 40) share a box: the lower index wins."""
+    pos = torch.arange(64, dtype=torch.float32)
+    x0, y0 = (pos % 8) * 20, (pos // 8) * 20
+    boxes = torch.stack([x0, y0, x0 + 10, y0 + 10], -1)
+    boxes[32], boxes[40] = boxes[31], boxes[20]
+    boxes = boxes[None].to(dev).contiguous()
+    scores = torch.full((1, 64), 0.5, device=dev)
+    idx, valid = _assert_nms_matches_plain(boxes, scores, 0.5, 64)
+    kept = idx[valid].tolist()
+    assert 31 in kept and 20 in kept and 32 not in kept and 40 not in kept
+    assert len(kept) == 62
+
+
+@pytest.mark.cuda
+def test_nms_kernel_iou_at_threshold(dev):
+    """IoU exactly 0.5 (inter 1, union 2) does not suppress at 0.5."""
+    boxes = torch.tensor([[[0.0, 0.0, 2.0, 1.0], [0.0, 0.0, 1.0, 1.0]]],
+                         device=dev)
+    scores = torch.tensor([[0.9, 0.8]], device=dev)
+    idx, valid = _assert_nms_matches_plain(boxes, scores, 0.5, 4)
+    assert idx[0].tolist() == [0, 1, -1, -1] and int(valid.sum()) == 2
+
+
 @pytest.mark.cuda
 def test_nms_kernel_all_dead(dev):
     boxes, scores, _ = _nms_inputs(dev, 2, 64)
@@ -145,6 +206,30 @@ def test_grid_mask_kernel_matches_plain(dev, dtype, shape):
     torch.cuda.synchronize()
     assert build.LAUNCHES["grid_mask"] == before + 1
     assert torch.equal(got, want) and bool((got == 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("params", [
+    [(8, 4, -3, -11, 1), (5, 2, -7, 4, 0)],  # negative offsets
+    [(1, 1, 0, 0, 0), (1, 0, 3, -2, 0)],     # d = 1: nothing or all zeroed
+    [(7, 3, 2, 5, 1), (3, 1, -1, -1, 0)],
+])
+def test_grid_mask_kernel_rows_across_chunks(dev, dtype, params):
+    """[2, 40, 40, 3]: a uint8 row is 120 bytes, not a multiple of the 16
+    bytes a thread takes, so chunks cross rows."""
+    gen = torch.Generator().manual_seed(1)
+    shape = (2, 40, 40, 3)
+    imgs = (torch.randint(1, 256, shape, generator=gen, dtype=dtype)
+            if dtype == torch.uint8 else torch.rand(shape, generator=gen) + 1)
+    imgs = imgs.to(dev)
+    p = torch.tensor(params, dtype=torch.int32, device=dev)
+    got = grid_mask(imgs, p)
+    want = grid_mask_plain(imgs, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if params[0][0] == 1:
+        assert torch.equal(got[0], imgs[0]) and not bool(got[1].any())
 
 
 @pytest.mark.cuda

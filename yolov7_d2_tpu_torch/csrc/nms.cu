@@ -10,137 +10,239 @@
 //     else: write idx best, valid 1; kill best and every box with
 //           IoU(best, box) > thr, IoU = inter / (area_a + area_b - inter + 1e-9)
 //
-// Bound on the H100: latency. The loop is max_out dependent block-wide
-// argmax reductions over K <= 1024 candidates; the data (16 KB a image) is
-// read once. Design: one CTA per image, one thread per candidate. Each
-// thread keeps its box, area and live score in registers; the coordinates
-// also sit in shared memory so that every thread can read the winner's box.
-// The argmax is a warp-shuffle reduction and then one across warps, two
-// __syncthreads an iteration. Its comparison orders (score, -index)
-// lexicographically, so the result does not depend on the order of the
-// reduction and ties go to the lower index, as XLA's argmax and the Pallas
-// kernel do. Every product, sum and quotient of the IoU is a single IEEE
-// round-to-nearest operation (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn):
-// nvcc would otherwise contract area + area - inter into an FMA, whose
-// different rounding flips IoU-at-threshold decisions against the plain
-// PyTorch version.
+// That loop keeps the same boxes as a walk over the live candidates in the
+// order (score descending, index ascending) that keeps a candidate unless a
+// box kept before it has IoU > thr with it, and stops at max_out kept: the
+// argmax's lowest index on ties is the second key.
+//
+// Bound on the H100: latency. An image's data (20 KB) is read once and the
+// arithmetic is about 15 float32 operations a (kept box, candidate) pair;
+// what costs is the chain of dependent steps. The TPU kernel's form, max_out
+// block-wide argmax reductions, is 200 barriers over 32 warps in a chain.
+// Design: one CTA of 1024 threads an image, one thread a candidate (the
+// threads past K hold padding), three steps; at the serving path's [128,
+// 1024] the sort and the scan take about equal time (tools/kernel_times.py
+// measures each step):
+//  1. Key. A 64-bit key a candidate: the high word is the inverted bits of
+//     its positive score (larger first), the low word its index (lower
+//     first); a dead candidate (score <= 0) gets the high word all ones.
+//     __syncthreads_count gives the live count L.
+//  2. Sort. A bitonic sort of the 1024 keys inside the block, unrolled: the
+//     40 stages of distance below 32 exchange through warp shuffles, the 15
+//     of distance 32 and more through shared memory with one barrier each. With 32 warps the sort is bound by
+//     issue, so a compare-exchange is one 64-bit compare and a select. The
+//     sorted boxes and their areas are then gathered into shared memory.
+//  3. Scan in tiles of 32 sorted candidates, until max_out are kept or the
+//     tiles pass L (4 tiles at the serving path's shapes). Warp w tests the
+//     tile against its share of the kept boxes, four independent ones a
+//     round (a ballot a round, OR-ed into a "suppressed" word), and builds
+//     the tile's column w (the earlier candidates i with IoU(i, w) > thr).
+//     One barrier; then warp 0 resolves the tile: lane j keeps its candidate
+//     iff it is alive and no kept one of its column suppresses it, a ballot
+//     iterated from "all alive kept" until it stops changing, which takes
+//     as many rounds as the longest chain of suppressions in the tile
+//     (candidate j depends only on earlier ones, so the answer is the
+//     greedy one). It appends the kept ones and writes their indices. One
+//     barrier.
+// Every product, sum and quotient of the IoU is a single IEEE
+// round-to-nearest operation (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn)
+// and the library is built with -fmad=false: nvcc would otherwise contract
+// area + area - inter into an FMA, whose different rounding flips
+// IoU-at-threshold decisions against the plain PyTorch version. min, max and
+// the one sum of the areas commute, so the IoU is symmetric bit for bit and
+// the kept box may be either operand.
 
 #include <cuda_runtime.h>
 
+// Built with -DYOLO_NMS_CLOCKS (tools/kernel_times.py), thread 0 of each
+// block stores clock64() as it enters each step, for yolo_nms_clocks to
+// copy out; otherwise NMS_STEP is nothing.
+#ifdef YOLO_NMS_CLOCKS
+constexpr int kClockBlocks = 4096;
+constexpr int kClockSlots = 8;
+__device__ long long g_nms_clocks[kClockBlocks * kClockSlots];
+#define NMS_STEP(i)                                   \
+  if (threadIdx.x == 0 && blockIdx.x < kClockBlocks) \
+  g_nms_clocks[blockIdx.x * kClockSlots + (i)] = clock64()
+#else
+#define NMS_STEP(i)
+#endif
+
 namespace {
 
-constexpr float kNegInf = -1e10f;
-constexpr float kDeadBelow = -5e9f;  // NEG_INF * 0.5 in ops/nms.py
 constexpr float kEps = 1e-9f;
 constexpr int kMaxBoxes = 1024;
+constexpr int kTile = 32;  // one warp's width: a tile's columns are 32-bit words
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kMaxBoxes / 32 == kTile, "a warp a column of the tile");
 
-__device__ __forceinline__ bool better(float v, int i, float ov, int oi) {
-  return v > ov || (v == ov && i < oi);
+__device__ __forceinline__ float box_area(float4 b) {
+  return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.f),
+                   fmaxf(__fsub_rn(b.w, b.y), 0.f));
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_down_sync(0xffffffffu, v, off);
-    int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
+// IoU(a, b) > thr. Where the boxes do not intersect the IoU is 0 / (a
+// positive sum) = +0 exactly, so the division is skipped there: with class
+// offsets most pairs are of two classes.
+__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b,
+                                          float area_b, float thr) {
+  const float iw = fmaxf(__fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x)), 0.f);
+  const float ih = fmaxf(__fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y)), 0.f);
+  const float inter = __fmul_rn(iw, ih);
+  if (!(inter > 0.f)) return 0.f > thr;
+  const float denom =
+      __fadd_rn(__fsub_rn(__fadd_rn(area_a, area_b), inter), kEps);
+  return __fdiv_rn(inter, denom) > thr;
 }
 
-__device__ __forceinline__ float box_area(float x0, float y0, float x1,
-                                          float y1) {
-  return __fmul_rn(fmaxf(__fsub_rn(x1, x0), 0.f),
-                   fmaxf(__fsub_rn(y1, y0), 0.f));
-}
+// One block of kMaxBoxes threads an image, whatever k: a constant size lets
+// the sort unroll into straight code.
+__global__ void __launch_bounds__(kMaxBoxes)
+    nms_kernel(const float4* __restrict__ boxes,  // [B, K]
+               const float* __restrict__ scores,  // [B, K]
+               int k, float thr, int max_out,
+               int* __restrict__ out_idx,           // [B, max_out]
+               unsigned char* __restrict__ out_valid) {
+  constexpr int n = kMaxBoxes;
+  constexpr int nwarps = n / 32;
+  __shared__ unsigned long long s_keys[2][n];  // sort, ping-pong
+  __shared__ float4 s_box[n];                  // by sorted position
+  __shared__ float s_area[n];
+  __shared__ int s_idx[n];
+  __shared__ short s_kept[n];  // sorted positions of the kept boxes
+  __shared__ unsigned s_cols[kTile];  // column j: the earlier i, IoU > thr
+  __shared__ unsigned s_supp;
+  __shared__ int s_nkept;
 
-__global__ void nms_kernel(const float* __restrict__ boxes,   // [B, K, 4]
-                           const float* __restrict__ scores,  // [B, K]
-                           int k, float thr, int max_out,
-                           int* __restrict__ out_idx,          // [B, max_out]
-                           unsigned char* __restrict__ out_valid) {
-  extern __shared__ float smem[];  // x0[k], y0[k], x1[k], y1[k]
-  float* sx0 = smem;
-  float* sy0 = smem + k;
-  float* sx1 = smem + 2 * k;
-  float* sy1 = smem + 3 * k;
-  __shared__ float warp_val[32];
-  __shared__ int warp_idx[32];
-  __shared__ float best_val;
-  __shared__ int best_idx;
-
-  const int b = blockIdx.x;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float* bb = boxes + static_cast<size_t>(b) * k * 4;
-  int* oidx = out_idx + static_cast<size_t>(b) * max_out;
-  unsigned char* ovalid = out_valid + static_cast<size_t>(b) * max_out;
+  const float4* bb = boxes + static_cast<size_t>(blockIdx.x) * k;
+  int* oidx = out_idx + static_cast<size_t>(blockIdx.x) * max_out;
+  unsigned char* ovalid = out_valid + static_cast<size_t>(blockIdx.x) * max_out;
 
-  float x0 = 0.f, y0 = 0.f, x1 = 0.f, y1 = 0.f, live = kNegInf;
+  NMS_STEP(0);
+  // 1. key
+  unsigned long long key = ~0ull;  // the padding past k sorts last
+  bool live = false;
   if (t < k) {
-    const float4 box = reinterpret_cast<const float4*>(bb)[t];
-    x0 = box.x;
-    y0 = box.y;
-    x1 = box.z;
-    y1 = box.w;
-    sx0[t] = x0;
-    sy0[t] = y0;
-    sx1[t] = x1;
-    sy1[t] = y1;
-    const float s = scores[static_cast<size_t>(b) * k + t];
-    live = s > 0.f ? s : kNegInf;
+    const float s = scores[static_cast<size_t>(blockIdx.x) * k + t];
+    live = s > 0.f;
+    const unsigned hi = live ? ~__float_as_uint(s) : kFull;
+    key = (static_cast<unsigned long long>(hi) << 32) | static_cast<unsigned>(t);
   }
-  const float area = box_area(x0, y0, x1, y1);
+  if (t == 0) {
+    s_nkept = 0;
+    s_supp = 0;
+  }
+  const int n_live = __syncthreads_count(live);
+
+  NMS_STEP(1);
+  // 2. bitonic sort, ascending; thread t ends with the key of position t
+  int buf = 0;
+#pragma unroll
+  for (int size = 2; size <= n; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      unsigned long long other;
+      if (stride >= 32) {
+        s_keys[buf][t] = key;
+        __syncthreads();
+        other = s_keys[buf][t ^ stride];
+        buf ^= 1;  // the next write goes to the other buffer: no 2nd barrier
+      } else {
+        other = __shfl_xor_sync(kFull, key, stride);
+      }
+      // keep the smaller key where the bits of t at stride and size
+      // agree, else the larger; keys differ but past k, where either will do
+      const bool take_min = ((t & stride) == 0) == ((t & size) == 0);
+      if ((other < key) == take_min) key = other;
+    }
+  }
+  NMS_STEP(2);
+  // gather the boxes by sorted position
+  float4 box = make_float4(0.f, 0.f, 0.f, 0.f);
+  int idx = -1;
+  if (t < n_live) {
+    idx = static_cast<int>(key & kFull);
+    box = bb[idx];
+  }
+  s_box[t] = box;
+  s_area[t] = box_area(box);
+  s_idx[t] = idx;
   __syncthreads();
 
-  for (int it = 0; it < max_out; ++it) {
-    float v = live;
-    int i = t;
-    warp_argmax(v, i);
-    if (lane == 0) {
-      warp_val[warp] = v;
-      warp_idx[warp] = i;
+  NMS_STEP(3);
+  // 3. scan in tiles of 32 sorted candidates
+  for (int base = 0; base < n_live; base += kTile) {
+    const int nkept = s_nkept;
+    if (nkept >= max_out) break;
+    const float4 cb = s_box[base + lane];  // lane's candidate of the tile
+    const float ca = s_area[base + lane];
+    // the tile's own column j = warp: does an earlier candidate i = lane
+    // suppress j? (worked out first, to overlap the kept boxes' tests)
+    const bool own =
+        lane < warp && iou_above(s_box[base + warp], s_area[base + warp], cb,
+                                 ca, thr);
+    // the kept boxes, four independent ones a round
+    unsigned supp = 0;
+    for (int m0 = warp; m0 < nkept; m0 += 4 * nwarps) {
+      bool hit = false;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int m = m0 + u * nwarps;
+        if (m < nkept) {
+          const int p = s_kept[m];
+          hit |= iou_above(s_box[p], s_area[p], cb, ca, thr);
+        }
+      }
+      supp |= __ballot_sync(kFull, hit);
     }
+    if (lane == 0 && supp) atomicOr(&s_supp, supp);
+    const unsigned own_col = __ballot_sync(kFull, own);
+    if (lane == 0) s_cols[warp] = own_col;
     __syncthreads();
     if (warp == 0) {
-      v = lane < nwarps ? warp_val[lane] : kNegInf;
-      i = lane < nwarps ? warp_idx[lane] : 0x7fffffff;
-      warp_argmax(v, i);
+      // Lane j keeps its candidate iff it is alive and no kept candidate
+      // of its column suppresses it. Iterated from "every alive one kept",
+      // the ballot settles on the greedy answer as soon as it stops
+      // changing (candidate j depends only on earlier ones), after as many
+      // rounds as the longest chain of suppressions in the tile.
+      const unsigned col = s_cols[lane];
+      const int count = min(kTile, n_live - base);
+      const unsigned alive =
+          ~s_supp & (count == kTile ? kFull : (1u << count) - 1u);
+      unsigned kept = alive;
+      for (;;) {
+        const unsigned next =
+            __ballot_sync(kFull, ((alive >> lane) & 1u) && !(col & kept));
+        if (next == kept) break;
+        kept = next;
+      }
+      // past max_out: drop the last kept ones (later ones never see them)
+      while (__popc(kept) > max_out - nkept) {
+        kept &= ~(1u << (31 - __clz(kept)));
+      }
+      if ((kept >> lane) & 1u) {
+        const int slot = nkept + __popc(kept & ((1u << lane) - 1u));
+        s_kept[slot] = static_cast<short>(base + lane);
+        oidx[slot] = s_idx[base + lane];
+        ovalid[slot] = 1;
+      }
+      __syncwarp();
       if (lane == 0) {
-        best_val = v;
-        best_idx = i;
+        s_nkept = nkept + __popc(kept);
+        s_supp = 0;
       }
     }
     __syncthreads();
-    const int best = best_idx;
-    if (!(best_val > kDeadBelow)) {
-      // nothing left alive: this and every later slot is padding
-      for (int j = it + t; j < max_out; j += blockDim.x) {
-        oidx[j] = -1;
-        ovalid[j] = 0;
-      }
-      return;
-    }
-    if (t == 0) {
-      oidx[it] = best;
-      ovalid[it] = 1;
-    }
-    const float bx0 = sx0[best], by0 = sy0[best];
-    const float bx1 = sx1[best], by1 = sy1[best];
-    const float barea = box_area(bx0, by0, bx1, by1);
-    const float iw =
-        fmaxf(__fsub_rn(fminf(bx1, x1), fmaxf(bx0, x0)), 0.f);
-    const float ih =
-        fmaxf(__fsub_rn(fminf(by1, y1), fmaxf(by0, y0)), 0.f);
-    const float inter = __fmul_rn(iw, ih);
-    const float denom =
-        __fadd_rn(__fsub_rn(__fadd_rn(barea, area), inter), kEps);
-    const float iou = __fdiv_rn(inter, denom);
-    if (iou > thr || t == best) live = kNegInf;
+  }
+
+  NMS_STEP(4);
+  // 4. padding
+  for (int j = s_nkept + t; j < max_out; j += n) {
+    oidx[j] = -1;
+    ovalid[j] = 0;
   }
 }
 
@@ -155,11 +257,18 @@ extern "C" int yolo_nms_launch(const void* boxes, const void* scores,
   if (batch <= 0 || k <= 0 || k > kMaxBoxes || max_out <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = ((k + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(4) * k * sizeof(float);
-  nms_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(boxes), static_cast<const float*>(scores), k,
+  nms_kernel<<<batch, kMaxBoxes, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(boxes), static_cast<const float*>(scores), k,
       thr, max_out, static_cast<int*>(out_idx),
       static_cast<unsigned char*>(out_valid));
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef YOLO_NMS_CLOCKS
+// Copies the clocks of the last launch out: int64 [kClockBlocks,
+// kClockSlots], slot i the step NMS_STEP(i) entered.
+extern "C" int yolo_nms_clocks(void* dst) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(dst, g_nms_clocks, sizeof(g_nms_clocks)));
+}
+#endif

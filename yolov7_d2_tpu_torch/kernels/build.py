@@ -11,6 +11,7 @@ Nothing here runs at import time.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -61,8 +62,8 @@ def _sources():
     return sorted(SOURCE_DIR.glob("*.cu"))
 
 
-def _digest(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(sources, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -92,34 +93,56 @@ def _run_all(cmds) -> None:
                                f"{' '.join(cmd)}\n{err}")
 
 
-def _build(sources, out: Path) -> None:
+def _build(sources, flags, out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+        _run_all([[nvcc, *flags, "-c", str(src), "-o", obj]
                   for src, obj in zip(sources, objs)])
         lib = str(Path(tmp) / out.name)
         _run_all([[nvcc, "-shared", "-o", lib, *objs]])
         os.replace(lib, out)
 
 
+def build_library(sources, extra_flags=()) -> tuple[ctypes.CDLL, bool]:
+    """Load the library of ``sources`` (paths of ``.cu`` files with the
+    port's C entry points) built with ``extra_flags`` after the usual ones,
+    building it first if needed; the flag says whether it was built."""
+    flags = (*NVCC_FLAGS, *extra_flags)
+    out = BUILD_DIR / f"libyolo_kernels_{_digest(sources, flags)}.so"
+    built = not out.exists()
+    if built:
+        _build(sources, flags, out)
+    lib = ctypes.CDLL(str(out))
+    _declare(lib)
+    return lib, built
+
+
 def load_library() -> ctypes.CDLL:
     """Return the kernel library, building it first if needed."""
     global _lib, BUILD_SECONDS
     with _lock:
-        if _lib is not None:
-            return _lib
-        sources = _sources()
-        out = BUILD_DIR / f"libyolo_kernels_{_digest(sources)}.so"
-        if not out.exists():
+        if _lib is None:
             t0 = time.perf_counter()
-            _build(sources, out)
-            BUILD_SECONDS = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(out))
-        _declare(lib)
-        _lib = lib
-        return lib
+            _lib, built = build_library(_sources())
+            if built:
+                BUILD_SECONDS = time.perf_counter() - t0
+        return _lib
+
+
+@contextlib.contextmanager
+def use_library(lib: ctypes.CDLL):
+    """Inside the block the wrappers launch the kernels of ``lib`` (another
+    build, e.g. of an earlier commit's sources, timed beside this one)."""
+    global _lib
+    with _lock:
+        before, _lib = _lib, lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            _lib = before
 
 
 def check(err: int, name: str) -> None:

@@ -62,10 +62,10 @@ def grid_mask(images: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     b, h, w, c = images.shape
     image_bytes = h * w * c * images.element_size()
     if not 0 < b <= 65535 or image_bytes == 0 \
-            or image_bytes % _CHUNK_BYTES:
+            or image_bytes % _CHUNK_BYTES or image_bytes >= 2 ** 31:
         raise ValueError(f"grid_mask: B = {b} must be 1..65535 and an "
                          f"image's {image_bytes} bytes a positive multiple "
-                         f"of {_CHUNK_BYTES}")
+                         f"of {_CHUNK_BYTES} below 2^31")
     lib = build.load_library()
     out = torch.empty_like(images)
     stream = torch.cuda.current_stream(images.device).cuda_stream
