@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's YOLOX-s serving path and training step
-on one CUDA card.
+"""Smoke run of the PyTorch port's YOLOX-s serving path, training step and
+training CLI on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,16 @@ set to 0 just before it and read just after:
   EMA and BN statistics; ms a step, img/s and peak memory;
 * training with mixup off: 3 steps, the images uint8 through the GridMask
   kernel and the normalize kernel, checked for finite losses and moving
-  weights; then one float32 step on the card against the CPU.
+  weights; then one float32 step on the card against the CPU;
+* the CLI: ``train_det.main`` on ``configs/coco/yolox_s.yaml`` and a
+  synthetic mini-COCO of 64 JPEGs (640x480, 1-8 boxes each): the host
+  mosaic feed for 12 steps (checkpoints at 6 and 12, the COCO eval at 12
+  through the normalize and NMS kernels) and ``--resume`` to 16; the
+  packed feed (shards written by the port's writers) with GridMask until
+  step 8 and the plain shards after it; the loaders alone, the eval and a
+  checkpoint save timed. The kernels' launches in the JSON line are the
+  CLI's (normalize and NMS in run A's eval, GridMask in run B); the
+  uint8 GridMask's are the mixup-off path's.
 
 Output: progress lines, then the card's name and power limit, a JSON line
 of the kernels (times, launches on the path, bound, plain and library
@@ -34,7 +43,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -50,6 +62,9 @@ PIXEL_MEAN = (103.53, 116.28, 123.675)  # config/defaults.py, R-50 families
 PIXEL_STD = (57.375, 57.12, 58.395)
 WARMUP, ITERS = 3, 10
 TRAIN_BATCH = 16  # one card's share of IMS_PER_BATCH 112 over 8 cards
+CLI_IMAGES = 64  # the CLI phase's synthetic mini-COCO
+CLI_DATASET = "chip_smoke_mini_coco"
+COCO_KEYS = ("AP", "AP50", "AP75", "AR100")
 # the H100 SXM's published peaks (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -214,6 +229,262 @@ def train_batch(n: int, gen: torch.Generator, size: int = SIZE) -> dict:
                                     dtype=torch.int32) * valid,
         "gt_valid": valid,
     }
+
+
+def write_mini_coco(root: str, n: int = CLI_IMAGES, seed: int = SEED):
+    """``n`` JPEGs of 640x480 (OpenCV), each with 1-8 flat boxes of the 80
+    COCO categories on a noisy background, and their COCO JSON; returns
+    (json path, image dir)."""
+    import cv2
+    import numpy as np
+
+    from yolov7_d2_tpu_torch.data.coco import COCO_CATEGORY_IDS
+
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    images, anns = [], []
+    for i in range(n):
+        img = rng.integers(0, 60, (480, 640, 3), dtype=np.uint8)
+        for _ in range(int(rng.integers(1, 9))):
+            bw, bh = (int(v) for v in rng.integers(24, 320, 2))
+            x = int(rng.integers(0, 640 - bw))
+            y = int(rng.integers(0, 480 - bh // 2))
+            bh = min(bh, 480 - y)
+            img[y:y + bh, x:x + bw] = rng.integers(60, 256, 3)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(rng.choice(COCO_CATEGORY_IDS)),
+                         "bbox": [x, y, bw, bh], "area": bw * bh,
+                         "iscrowd": 0})
+        name = f"{i:012d}.jpg"
+        cv2.imwrite(os.path.join(img_dir, name), img)
+        images.append({"id": i + 1, "file_name": name, "height": 480,
+                       "width": 640})
+    js = os.path.join(root, "instances.json")
+    with open(js, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [
+            {"id": c, "name": str(c)} for c in COCO_CATEGORY_IDS]}, f)
+    return js, img_dir
+
+
+def cli_args(out: str, *flags, **opts):
+    """``train_det``'s arguments for ``configs/coco/yolox_s.yaml`` on the
+    mini-COCO: 16 images a step, 12 steps, a checkpoint every 6, the COCO
+    eval at 12; ``opts`` (keys with ``__`` for ``.``) override."""
+    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
+
+    base = {"DATASETS.TRAIN": (CLI_DATASET,), "DATASETS.TEST": (CLI_DATASET,),
+            "OUTPUT_DIR": out, "SEED": SEED,
+            "SOLVER.IMS_PER_BATCH": TRAIN_BATCH, "SOLVER.MAX_ITER": 12,
+            "SOLVER.CHECKPOINT_PERIOD": 6, "TEST.EVAL_PERIOD": 12}
+    base.update({k.replace("__", "."): v for k, v in opts.items()})
+    argv = ["--config-file",
+            os.path.join(REPO, "configs", "coco", "yolox_s.yaml"), *flags]
+    for k, v in base.items():
+        argv += [k, v if isinstance(v, str) else repr(v)]
+    return default_argument_parser().parse_args(argv)
+
+
+def loader_rate(loader, batches: int = 10, to=None) -> float:
+    """Images a second of ``loader`` over ``batches`` batches after its
+    first (host clock; with ``to``, through a ``CudaPrefetcher`` onto that
+    device, synchronized at the end)."""
+    from yolov7_d2_tpu_torch.data.loader import CudaPrefetcher
+
+    it = iter(loader if to is None else CudaPrefetcher(loader, to))
+    first = next(it)
+    t0 = time.perf_counter()
+    n = sum(len(next(it)["image"]) for _ in range(batches))
+    if to is not None:
+        torch.cuda.synchronize()
+    rate = n / (time.perf_counter() - t0)
+    it.close()
+    del first
+    return rate
+
+
+def cli_checks(trainer, out: str, name: str) -> dict:
+    """Finite losses, weights and EMA moved since the first checkpoint;
+    returns the storage's last scalars."""
+    from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
+
+    latest = trainer.storage.latest()
+    for key in ("total_loss", "loss_iou", "loss_obj", "loss_cls", "loss_l1",
+                "grad_norm"):
+        if key not in latest or not math.isfinite(latest[key]):
+            raise AssertionError(f"{name}: {key} = {latest.get(key)}")
+    ckpt = Checkpointer(os.path.join(out, "ckpt"))
+    first = ckpt.load(ckpt.steps()[0], map_location="cpu")
+    state = trainer.state
+    for kind, now, then in (
+            ("parameters", dict(state.model.named_parameters()),
+             first["model"]),
+            ("EMA", state.ema_params, first["ema_params"])):
+        if all(torch.equal(v.detach().cpu(), then[k]) for k, v in now.items()):
+            raise AssertionError(f"{name}: no {kind} moved after step "
+                                 f"{ckpt.steps()[0]}")
+    return latest
+
+
+def cli_phase(dev, card: str, kernels: dict, **opts):
+    """``train_det.main`` as a user runs it: ``configs/coco/yolox_s.yaml``
+    at 640 px and 80 classes on a synthetic mini-COCO of 64 JPEGs (``opts``
+    override config keys). Run A is the host mosaic feed, with the COCO
+    eval at step 12 and then ``--resume`` to 16; run B the packed feed with
+    GridMask on and the plain shards from step 8. Checks the runs, sets the
+    kernels' ``launches`` to the CLI's and returns the median seconds a
+    step of each feed."""
+    import numpy as np
+
+    from yolov7_d2_tpu_torch import native, train_det
+    from yolov7_d2_tpu_torch.data import mappers
+    from yolov7_d2_tpu_torch.data.catalog import (
+        DatasetCatalog,
+        register_coco_instances,
+    )
+    from yolov7_d2_tpu_torch.data.coco import load_coco_json
+    from yolov7_d2_tpu_torch.data.loader import build_detection_train_loader
+    from yolov7_d2_tpu_torch.data.packed_cache import (
+        PackedShardLoader,
+        write_geometry_shards,
+        write_plain_shards,
+    )
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
+    from yolov7_d2_tpu_torch.utils.args import setup_cfg
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    work = os.path.join(REPO, "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    js, img_dir = write_mini_coco(work)
+    register_coco_instances(CLI_DATASET, {}, js, img_dir)
+    records = load_coco_json(js, img_dir)
+    ccfg = setup_cfg(cli_args(work, **opts))
+    geo, plain = os.path.join(work, "geo"), os.path.join(work, "plain")
+    write_geometry_shards(records, ccfg, geo)
+    write_plain_shards(records, ccfg, plain)
+    log(f"cli: mini-COCO of {len(records)} images 640x480 and its packed "
+        f"shards (geometry, plain) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the loaders alone, 10 batches of 16 after the first
+    host_rate = loader_rate(build_detection_train_loader(
+        ccfg, records, mappers.YOLOXDatasetMapper(ccfg, seed=0)))
+    host_card_rate = loader_rate(build_detection_train_loader(
+        ccfg, records, mappers.YOLOXDatasetMapper(ccfg, seed=0)), to=dev)
+    packed_rate = loader_rate(PackedShardLoader(
+        geo, TRAIN_BATCH, image_dtype=np.uint8, seed=SEED))
+    packed_card_rate = loader_rate(PackedShardLoader(
+        geo, TRAIN_BATCH, image_dtype=np.uint8, seed=SEED), to=dev)
+    log(f"cli loaders on [{card}], {TRAIN_BATCH} images a batch: host "
+        f"mosaic (YOLOXDatasetMapper, {ccfg.DATALOADER.NUM_WORKERS} "
+        f"threads) {host_rate:.1f} img/s alone, {host_card_rate:.1f} img/s "
+        f"through CudaPrefetcher onto the card; packed shards "
+        f"{packed_rate:.1f} img/s alone, {packed_card_rate:.1f} img/s onto "
+        f"the card")
+
+    # run A: the host mosaic feed
+    out_a = os.path.join(work, "host")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run_a = train_det.main(cli_args(out_a, **opts))
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches_a = dict(build.LAUNCHES)
+    log(f"cli run A (host mosaic) launches: {launches_a}")
+    latest_a = cli_checks(run_a, out_a, "cli run A")
+    eval_batches = -(-len(records) // TRAIN_BATCH)
+    for name in ("normalize", "nms"):
+        if launches_a.get(name, 0) != eval_batches:
+            raise AssertionError(f"cli run A: {name} launched "
+                                 f"{launches_a.get(name, 0)} times for "
+                                 f"{eval_batches} eval batches")
+    if launches_a.get("grid_mask", 0):
+        raise AssertionError("cli run A: GridMask ran on the host feed")
+    missing = [k for k in COCO_KEYS if f"eval/{k}" not in latest_a]
+    if missing:
+        raise AssertionError(f"cli run A: no COCO {missing} in {latest_a}")
+    kernels["normalize"]["launches"] = launches_a["normalize"]
+    kernels["nms"]["launches"] = launches_a["nms"]
+    median_a = run_a.storage.median("time_per_iter")
+    letterbox = ("native (build/native)" if mappers._NATIVE else
+                 f"cv2: the native build failed: {native.BUILD_ERROR}")
+    log(f"cli letterbox: {letterbox} for the eval and plain samples; the "
+        f"mosaic samples take cv2's, as the JAX mapper does")
+    log("cli run A COCO eval at step 12: " + ", ".join(
+        f"{k} {latest_a['eval/' + k]:.4f}" for k in COCO_KEYS))
+
+    eval_fn = train_det.build_eval_fn(ccfg, records)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eval_fn(run_a)
+    eval_s = time.perf_counter() - t0
+    if dict(build.LAUNCHES) != {"normalize": eval_batches,
+                                "nms": eval_batches}:
+        raise AssertionError(f"eval launches {dict(build.LAUNCHES)}")
+    ckpt = Checkpointer(os.path.join(work, "ckpt_timed"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(12, run_a.state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    save_mb = os.path.getsize(ckpt.path(12)) / 1e6
+    del run_a
+
+    run_r = train_det.main(cli_args(out_a, "--resume", SOLVER__MAX_ITER=16,
+                                    **opts))
+    if run_r.start_iter != 12 or run_r.storage.iter != 16:
+        raise AssertionError(f"cli --resume ran {run_r.start_iter} -> "
+                             f"{run_r.storage.iter}, not 12 -> 16")
+    cli_checks(run_r, out_a, "cli --resume")
+    log(f"cli --resume: started at {run_r.start_iter}, ran to "
+        f"{run_r.storage.iter}; checkpoints "
+        f"{Checkpointer(os.path.join(out_a, 'ckpt')).steps()}")
+    del run_r
+
+    # run B: the packed feed, GridMask on, plain shards from step 8
+    out_b = os.path.join(work, "packed")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run_b = train_det.main(cli_args(
+        out_b, DATALOADER__PACKED_CACHE_DIR=geo,
+        DATALOADER__PACKED_CACHE_PLAIN_DIR=plain,
+        INPUT__GRID_MASK__ENABLED=True,
+        INPUT__MOSAIC_AND_MIXUP__DISABLE_AT_ITER=8, TEST__EVAL_PERIOD=0,
+        **opts))
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches_b = dict(build.LAUNCHES)
+    log(f"cli run B (packed) launches: {launches_b}")
+    cli_checks(run_b, out_b, "cli run B")
+    # GridMask once a step before DISABLE_AT_ITER and never after; after
+    # it the plain uint8 images go through the normalize kernel
+    if launches_b.get("grid_mask", 0) != 8 or \
+            launches_b.get("normalize", 0) != 4 or launches_b.get("nms", 0):
+        raise AssertionError(f"cli run B launches {launches_b}: GridMask "
+                             "must run at steps 0-7 only, normalize at 8-11")
+    kernels["grid_mask"]["launches"] = launches_b["grid_mask"]
+    median_b = run_b.storage.median("time_per_iter")
+    del run_b
+    DatasetCatalog.remove(CLI_DATASET)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    log(f"cli run A, host mosaic feed, on [{card}]: time_per_iter median "
+        f"{median_a * 1e3:.3f} ms = {TRAIN_BATCH / median_a:.1f} img/s; "
+        f"12 steps, eval and 2 checkpoints in {wall_a:.2f} s (build "
+        f"included)")
+    log(f"cli run B, packed feed, on [{card}]: time_per_iter median "
+        f"{median_b * 1e3:.3f} ms = {TRAIN_BATCH / median_b:.1f} img/s; "
+        f"12 steps and 2 checkpoints in {wall_b:.2f} s (build included)")
+    log(f"cli eval on [{card}]: {len(records)} images in {eval_s:.3f} s = "
+        f"{len(records) / eval_s:.1f} img/s (mapper, normalize, forward, "
+        f"NMS, COCO matching)")
+    log(f"cli checkpoint on [{card}]: save {save_ms:.1f} ms, "
+        f"{save_mb:.1f} MB (model, optimizer, EMA)")
+    return median_a, median_b
 
 
 def snapshot(state) -> dict:
@@ -599,11 +870,15 @@ def main() -> int:
         if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
             raise AssertionError(f"{k} differs between the card and the CPU")
 
-    # ---- 10. times
+    median_a, median_b = cli_phase(dev, card, kernels)
+
+    # ---- 11. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "
-        f"card); peak memory {peak_gb:.3f} GB")
+        f"card); peak memory {peak_gb:.3f} GB; a CLI step takes "
+        f"{median_a * 1e3 / step_ms:.3f}x that on the host mosaic feed, "
+        f"{median_b * 1e3 / step_ms:.3f}x on the packed feed")
     for k in kernels.values():
         log(f"{k['name']} on [{card}]: kernel {k['ms']:.4f} ms, plain "
             f"PyTorch {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "

@@ -306,3 +306,96 @@ def test_simota_takes_first_index_on_ties_on_card(dev):
     assert not bool((cpu["matched_gt"][cpu["fg_mask"]] == 1).any())
     x = torch.tensor([[2.0, 1.0, 1.0], [1.0, 1.0, 3.0]], device=dev)
     assert x.argmin(-1).tolist() == [1, 0] and x.argmax(-1).tolist() == [0, 2]
+
+
+@pytest.mark.cuda
+def test_cuda_prefetcher_hands_out_the_loader_batches(dev):
+    """Each batch reaches the step whole: the step's stream waits for the
+    side stream's copy, and a batch's memory is not reused while a step
+    still reads it. Checksums queued on the current stream right after each
+    batch is handed out, and big allocations made between batches, must
+    give the host arrays' sums."""
+    from yolov7_d2_tpu_torch.data.loader import CudaPrefetcher
+
+    rng = np.random.default_rng(0)
+    batches = [{"image": rng.integers(0, 256, (16, 256, 256, 3),
+                                      dtype=np.uint8),
+                "gt_boxes": rng.random((16, 100, 4)).astype(np.float32),
+                "image_id": np.arange(16)} for _ in range(6)]
+    sums = []
+    for batch in CudaPrefetcher(batches, dev, ("image", "gt_boxes")):
+        assert sorted(batch) == ["gt_boxes", "image"]
+        assert all(t.device == dev for t in batch.values())
+        sums.append([batch["image"].double().sum(),
+                     batch["gt_boxes"].double().sum()])
+        torch.empty((64, 1024, 1024), device=dev).fill_(7.0)
+    torch.cuda.synchronize()
+    for got, want in zip(sums, batches):
+        assert float(got[0]) == float(want["image"].astype(np.float64).sum())
+        assert float(got[1]) == pytest.approx(
+            float(want["gt_boxes"].astype(np.float64).sum()), rel=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feed", ["host_mosaic", "packed"])
+def test_train_det_on_card_launches_the_cli_kernels(dev, tmp_path, feed):
+    """``train_det.main`` on the card at tiny size (YOLOX-s cut to 64 px,
+    width 0.125, 8 images): 6 steps and the COCO eval; GridMask runs in the
+    packed step before DISABLE_AT_ITER, normalize and NMS once an eval
+    batch."""
+    from _torch_port_helpers import (
+        TINY_OPTS,
+        YOLOX_S_YAML,
+        opts_list,
+        tiny_cfg,
+        write_mini_coco,
+    )
+    from yolov7_d2_tpu_torch import train_det
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+    from yolov7_d2_tpu_torch.data.catalog import (
+        DatasetCatalog,
+        register_coco_instances,
+    )
+    from yolov7_d2_tpu_torch.data.coco import load_coco_json
+    from yolov7_d2_tpu_torch.data.packed_cache import (
+        write_geometry_shards,
+        write_plain_shards,
+    )
+    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
+
+    js, root = write_mini_coco(tmp_path)
+    name = f"card_mini_{feed}"
+    register_coco_instances(name, {}, js, root)
+    opts = dict(TINY_OPTS, **{
+        "MODEL.DEVICE": "cuda", "DATASETS.TRAIN": (name,),
+        "DATASETS.TEST": (name,), "OUTPUT_DIR": str(tmp_path / "out"),
+        "SOLVER.MAX_ITER": 6, "SOLVER.CHECKPOINT_PERIOD": 3,
+        "TEST.EVAL_PERIOD": 6})
+    if feed == "packed":
+        cfg = tiny_cfg(get_cfg)
+        cfg.freeze()
+        records = load_coco_json(js, root)
+        write_geometry_shards(records, cfg, str(tmp_path / "geo"))
+        write_plain_shards(records, cfg, str(tmp_path / "plain"))
+        opts.update({"DATALOADER.PACKED_CACHE_DIR": str(tmp_path / "geo"),
+                     "DATALOADER.PACKED_CACHE_PLAIN_DIR":
+                         str(tmp_path / "plain"),
+                     "INPUT.GRID_MASK.ENABLED": True,
+                     "INPUT.MOSAIC_AND_MIXUP.DISABLE_AT_ITER": 3})
+    args = default_argument_parser().parse_args(
+        ["--config-file", YOLOX_S_YAML, *opts_list(opts)])
+    build.reset_launches()
+    try:
+        trainer = train_det.main(args)
+    finally:
+        DatasetCatalog.remove(name)
+    torch.cuda.synchronize()
+    latest = trainer.storage.latest()
+    assert np.isfinite(latest["total_loss"]) and "eval/AP" in latest
+    assert next(trainer.state.model.parameters()).device == dev
+    # 8 images, 4 a batch: 2 eval batches; the packed feed's plain uint8
+    # images go through the normalize kernel at steps 3-5
+    want = {"normalize": 2, "nms": 2}
+    if feed == "packed":
+        want = {"grid_mask": 3, "normalize": 2 + 3, "nms": 2}
+    assert dict(build.LAUNCHES) == want

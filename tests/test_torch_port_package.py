@@ -58,7 +58,7 @@ def _imported_modules(path: Path):
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in PKG.rglob("*.py"))
     + ["chip_smoke.py", "tools/kernel_times.py",
-       "tools/profile_torch_port.py"])
+       "tools/profile_torch_port.py", "tools/profile_torch_feed.py"])
 def test_port_module_imports_no_jax(path):
     # no allow-list: the port keeps its own copies of what it needs from
     # the JAX package, even of modules there that import no JAX

@@ -286,13 +286,14 @@ def test_decode_outputs_matches_jax():
 
 def test_letterbox_and_call_match_jax_pipeline():
     from yolov7_d2_tpu.data.transforms.augment import letterbox as jax_lb
-    from yolov7_d2_tpu_torch.predictor import letterbox
+    from yolov7_d2_tpu_torch.data.transforms.augment import letterbox
 
     rng = np.random.default_rng(4)
     bgr = rng.integers(0, 256, (37, 50, 3), dtype=np.uint8)
     want, _, want_scale = jax_lb(bgr, np.zeros((0, 4), np.float32), (64, 64),
                                  114)
-    got, scale = letterbox(bgr, (64, 64), 114)
+    got, _, scale = letterbox(bgr, np.zeros((0, 4), np.float32), (64, 64),
+                              114)
     np.testing.assert_array_equal(got, want)
     assert scale == want_scale
     _, _, tmodel, _ = _pair("tiny")

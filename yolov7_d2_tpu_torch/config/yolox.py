@@ -1,11 +1,12 @@
 """The YOLOX configuration of the port: serving and the training step.
 
 Counterpart of ``yolov7_d2_tpu/config/defaults.py`` (``MODEL.YOLO``,
-``INPUT``, ``SOLVER``) merged with ``configs/coco/yolox_s.yaml``. The JAX
-package reads its settings from a ``CfgNode``, whose module imports PyYAML
-at the top; the port's main path keeps to a frozen dataclass instead, so
-that it needs neither PyYAML nor OpenCV. ``YoloxConfig.from_cfg`` reads a
-merged ``CfgNode`` where one exists.
+``INPUT``, ``SOLVER``) merged with ``configs/coco/yolox_s.yaml``. The
+config tree (``config/defaults.get_cfg``, a ``CfgNode``) imports PyYAML;
+the model, the training step and serving read this frozen dataclass
+instead, so that they need neither PyYAML nor OpenCV.
+``YoloxConfig.from_cfg`` reads a merged ``CfgNode``, as the entry points
+(``train_det``, ``demo``) do.
 """
 
 from __future__ import annotations

@@ -93,3 +93,15 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0):
         clip_cfg=cfg if cfg.clip_gradients else None,
     )
     return model, state, train_step
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device a config names (``MODEL.DEVICE``). A CUDA device where no
+    card is visible raises: the entry points never fall back to the CPU
+    unless the config asks for it."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"MODEL.DEVICE is {name!r} but no CUDA card is visible; set "
+            "MODEL.DEVICE cpu to run on the CPU")
+    return device

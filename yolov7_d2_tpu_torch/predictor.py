@@ -3,12 +3,13 @@
 ``Predictor.predict_batch`` takes a letterboxed uint8 ``[B, H, W, 3]``
 batch and returns ``Detections``: the normalize kernel, the model under its
 compute dtype, and the tail with the NMS kernel. ``Predictor.__call__``
-letterboxes one BGR image first (OpenCV, imported there only).
+letterboxes one BGR image first with ``data/transforms/augment.letterbox``
+(OpenCV, imported there only).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -17,23 +18,6 @@ from yolov7_d2_tpu_torch.config import YoloxConfig
 from yolov7_d2_tpu_torch.models.build import build_model
 from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_postprocess
 from yolov7_d2_tpu_torch.structures.instances import Detections
-
-
-def letterbox(img: np.ndarray, size: Tuple[int, int],
-              pad_value: int) -> Tuple[np.ndarray, float]:
-    """Resize keeping the aspect ratio, then pad to ``size`` (h, w),
-    anchored top-left (JAX ``data/transforms/augment.py:30``)."""
-    import cv2
-
-    h0, w0 = img.shape[:2]
-    th, tw = size
-    r = min(th / h0, tw / w0)
-    nh, nw = round(h0 * r), round(w0 * r)
-    if (nh, nw) != (h0, w0):
-        img = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)
-    out = np.full((th, tw, img.shape[2]), pad_value, img.dtype)
-    out[:nh, :nw] = img
-    return out, r
 
 
 class Predictor:
@@ -66,8 +50,10 @@ class Predictor:
         return self.postprocess(self.forward(images))
 
     def __call__(self, bgr_image: np.ndarray) -> Dict[str, np.ndarray]:
-        img, scale = letterbox(bgr_image, self.cfg.input_size,
-                               self.cfg.padded_value)
+        from yolov7_d2_tpu_torch.data.transforms.augment import letterbox
+
+        img, _, scale = letterbox(bgr_image, np.zeros((0, 4), np.float32),
+                                  self.cfg.input_size, self.cfg.padded_value)
         dets = self.predict_batch(torch.from_numpy(img)[None])
         valid = dets.valid[0].cpu().numpy()
         return {

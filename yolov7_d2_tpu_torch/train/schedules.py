@@ -1,5 +1,6 @@
 """Learning-rate schedules: WarmupMultiStepLR and WarmupCosineLR (JAX
-``train/schedules.py:16-83``).
+``train/schedules.py:16-83``), and ``auto_scale_config``, which rescales a
+``CfgNode``'s solver to the world size.
 
 A schedule is a plain ``step -> lr`` function. The learning rate of the
 optimizer's update s is ``schedule(s)``, counting updates from 0, as optax's
@@ -63,3 +64,26 @@ def build_lr_schedule(cfg) -> Callable[[int], float]:
         return warmup_cosine_lr(cfg.base_lr, cfg.max_iter, cfg.warmup_iters,
                                 cfg.warmup_factor, cfg.warmup_method)
     raise ValueError(f"Unknown LR scheduler: {cfg.lr_scheduler}")
+
+
+def auto_scale_config(cfg, world_size: int):
+    """d2's REFERENCE_WORLD_SIZE auto-scaling (JAX ``train/schedules.py:86``,
+    reference utils/get_default_cfg.py:14-23) of a ``CfgNode``: linearly
+    scale LR and shrink iteration counts when the actual world size differs
+    from the reference one."""
+    ref = cfg.SOLVER.REFERENCE_WORLD_SIZE
+    if ref in (0, world_size):
+        return cfg
+    scale = world_size / ref
+    frozen = cfg.is_frozen()
+    if frozen:
+        cfg.defrost()
+    cfg.SOLVER.BASE_LR = cfg.SOLVER.BASE_LR * scale
+    cfg.SOLVER.MAX_ITER = int(round(cfg.SOLVER.MAX_ITER / scale))
+    cfg.SOLVER.STEPS = [int(round(s / scale)) for s in cfg.SOLVER.STEPS]
+    cfg.SOLVER.WARMUP_ITERS = int(round(cfg.SOLVER.WARMUP_ITERS / scale))
+    cfg.SOLVER.IMS_PER_BATCH = int(round(cfg.SOLVER.IMS_PER_BATCH * scale))
+    cfg.SOLVER.REFERENCE_WORLD_SIZE = world_size
+    if frozen:
+        cfg.freeze()
+    return cfg

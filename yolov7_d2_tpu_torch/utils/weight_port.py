@@ -16,6 +16,7 @@ import re
 from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
+import torch
 
 _STATS_LEAF = {"running_mean": "mean", "running_var": "var"}
 
@@ -144,3 +145,18 @@ def jax_to_torch_state_dict(
     if left:
         raise KeyError(f"flax leaves with no port key: {left[:20]}")
     return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a reference-format ``.pth``/``.pt``/``.pkl``
+    checkpoint on the CPU (JAX ``utils/weight_port.py:422``): unwraps
+    ``"model"`` and ``"state_dict"``. Its keys are the reference's module
+    names, which are the port's, so it loads straight into the port's
+    model."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "model" in obj:
+        obj = obj["model"]
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+            for k, v in obj.items()}
