@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's YOLOX-s serving path, training step and
-training CLI on one CUDA card.
+"""Smoke run of the PyTorch port's YOLOX-s serving path, training step,
+training CLI and multi-GPU training on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -28,9 +28,24 @@ set to 0 just before it and read just after:
   through the normalize and NMS kernels) and ``--resume`` to 16; the
   packed feed (shards written by the port's writers) with GridMask until
   step 8 and the plain shards after it; the loaders alone, the eval and a
-  checkpoint save timed. The kernels' launches in the JSON line are the
-  CLI's (normalize and NMS in run A's eval, GridMask in run B); the
-  uint8 GridMask's are the mixup-off path's.
+  checkpoint save timed;
+* multi-GPU training (``parallel/``): (a) two ranks on one card over gloo
+  (``launch(..., backend="gloo")``), the bare float32 step, 2 images a
+  rank for 3 steps, against one process on the same 4 images (fg counts,
+  losses and gradient norm, ranks bitwise equal, kernel launches a step);
+  (b) the CLI's packed feed, 6 steps with GridMask until step 4 and the
+  COCO eval at 6 on rank 0, inside an NCCL group of 1 (DDP) against no
+  group: losses, the two ms-a-step medians, and the on-card step in turns
+  with and without the group; (c) where two or more cards are visible, N
+  of them (up to 4) over NCCL: the bare step against one process as in
+  (a), then ``--num-gpus N`` through the CLI (logged as skipped on one
+  card). The
+  kernels' launches in the JSON line are those of (b) (GridMask on its
+  steps before DISABLE_AT_ITER, normalize on the plain steps and in the
+  eval, NMS in the eval); the uint8 GridMask's are the mixup-off path's.
+
+``python3 chip_smoke.py --nccl`` runs (c) alone, on a machine of 2 or more
+cards.
 
 Output: progress lines, then the card's name and power limit, a JSON line
 of the kernels (times, launches on the path, bound, plain and library
@@ -41,6 +56,7 @@ run without a CUDA card or outside the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -267,12 +283,10 @@ def write_mini_coco(root: str, n: int = CLI_IMAGES, seed: int = SEED):
     return js, img_dir
 
 
-def cli_args(out: str, *flags, **opts):
-    """``train_det``'s arguments for ``configs/coco/yolox_s.yaml`` on the
+def cli_argv(out: str, *flags, **opts) -> list:
+    """``train_det``'s command line for ``configs/coco/yolox_s.yaml`` on the
     mini-COCO: 16 images a step, 12 steps, a checkpoint every 6, the COCO
     eval at 12; ``opts`` (keys with ``__`` for ``.``) override."""
-    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
-
     base = {"DATASETS.TRAIN": (CLI_DATASET,), "DATASETS.TEST": (CLI_DATASET,),
             "OUTPUT_DIR": out, "SEED": SEED,
             "SOLVER.IMS_PER_BATCH": TRAIN_BATCH, "SOLVER.MAX_ITER": 12,
@@ -282,7 +296,14 @@ def cli_args(out: str, *flags, **opts):
             os.path.join(REPO, "configs", "coco", "yolox_s.yaml"), *flags]
     for k, v in base.items():
         argv += [k, v if isinstance(v, str) else repr(v)]
-    return default_argument_parser().parse_args(argv)
+    return argv
+
+
+def cli_args(out: str, *flags, **opts):
+    """:func:`cli_argv` parsed by the entry points' parser."""
+    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
+
+    return default_argument_parser().parse_args(cli_argv(out, *flags, **opts))
 
 
 def loader_rate(loader, batches: int = 10, to=None) -> float:
@@ -326,31 +347,28 @@ def cli_checks(trainer, out: str, name: str) -> dict:
     return latest
 
 
-def cli_phase(dev, card: str, kernels: dict, **opts):
-    """``train_det.main`` as a user runs it: ``configs/coco/yolox_s.yaml``
-    at 640 px and 80 classes on a synthetic mini-COCO of 64 JPEGs (``opts``
-    override config keys). Run A is the host mosaic feed, with the COCO
-    eval at step 12 and then ``--resume`` to 16; run B the packed feed with
-    GridMask on and the plain shards from step 8. Checks the runs, sets the
-    kernels' ``launches`` to the CLI's and returns the median seconds a
-    step of each feed."""
-    import numpy as np
+@dataclasses.dataclass
+class CliData:
+    """The CLI phases' synthetic mini-COCO (registered as CLI_DATASET) and
+    its packed shards, under ``work``."""
 
-    from yolov7_d2_tpu_torch import native, train_det
-    from yolov7_d2_tpu_torch.data import mappers
-    from yolov7_d2_tpu_torch.data.catalog import (
-        DatasetCatalog,
-        register_coco_instances,
-    )
+    work: str
+    js: str
+    img_dir: str
+    records: list
+    geo: str
+    plain: str
+
+
+def write_cli_data(**opts) -> CliData:
+    """Write the mini-COCO of 64 JPEGs and its geometry and plain shards
+    (``opts`` override config keys), and register it."""
+    from yolov7_d2_tpu_torch.data.catalog import register_coco_instances
     from yolov7_d2_tpu_torch.data.coco import load_coco_json
-    from yolov7_d2_tpu_torch.data.loader import build_detection_train_loader
     from yolov7_d2_tpu_torch.data.packed_cache import (
-        PackedShardLoader,
         write_geometry_shards,
         write_plain_shards,
     )
-    from yolov7_d2_tpu_torch.kernels import build
-    from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
     from yolov7_d2_tpu_torch.utils.args import setup_cfg
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
@@ -367,6 +385,29 @@ def cli_phase(dev, card: str, kernels: dict, **opts):
     log(f"cli: mini-COCO of {len(records)} images 640x480 and its packed "
         f"shards (geometry, plain) written in "
         f"{time.perf_counter() - t0:.2f} s")
+    return CliData(work, js, img_dir, records, geo, plain)
+
+
+def cli_phase(dev, card: str, kernels: dict, data: CliData, **opts):
+    """``train_det.main`` as a user runs it: ``configs/coco/yolox_s.yaml``
+    at 640 px and 80 classes on the synthetic mini-COCO of 64 JPEGs
+    (``opts`` override config keys). Run A is the host mosaic feed, with
+    the COCO eval at step 12 and then ``--resume`` to 16; run B the packed
+    feed with GridMask on and the plain shards from step 8. Checks the
+    runs, sets the kernels' ``launches`` to the CLI's and returns the
+    median seconds a step of each feed."""
+    import numpy as np
+
+    from yolov7_d2_tpu_torch import native, train_det
+    from yolov7_d2_tpu_torch.data import mappers
+    from yolov7_d2_tpu_torch.data.loader import build_detection_train_loader
+    from yolov7_d2_tpu_torch.data.packed_cache import PackedShardLoader
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
+    from yolov7_d2_tpu_torch.utils.args import setup_cfg
+
+    work, records, geo, plain = data.work, data.records, data.geo, data.plain
+    ccfg = setup_cfg(cli_args(work, **opts))
 
     # the loaders alone, 10 batches of 16 after the first
     host_rate = loader_rate(build_detection_train_loader(
@@ -468,8 +509,6 @@ def cli_phase(dev, card: str, kernels: dict, **opts):
     kernels["grid_mask"]["launches"] = launches_b["grid_mask"]
     median_b = run_b.storage.median("time_per_iter")
     del run_b
-    DatasetCatalog.remove(CLI_DATASET)
-    shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
     log(f"cli run A, host mosaic feed, on [{card}]: time_per_iter median "
@@ -485,6 +524,503 @@ def cli_phase(dev, card: str, kernels: dict, **opts):
     log(f"cli checkpoint on [{card}]: save {save_ms:.1f} ms, "
         f"{save_mb:.1f} MB (model, optimizer, EMA)")
     return median_a, median_b
+
+
+def relative_gap(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-12)
+
+
+def loss_assignment(outs, key_obj, batch, grids, strides, k) -> dict:
+    """What ``yolox_losses`` keeps and matches of head outputs ``outs``
+    [B, A, 5 + C] of one batch: its top-``k`` prefilter (None: off), ranked
+    by the objectness logits ``key_obj`` [B, A], then SimOTA on the kept
+    anchors. Returns ``kept``, ``fg`` (bool) and ``matched_gt`` over all
+    A."""
+    from yolov7_d2_tpu_torch.models.heads.yolox_head import (
+        _geometry_prior,
+        _prefilter_key,
+        decode_outputs,
+        simota_assign,
+    )
+
+    gts = [batch[k].to(outs.device)
+           for k in ("gt_boxes", "gt_classes", "gt_valid")]
+    b, a_total, width = outs.shape
+    if k is None or k >= a_total:
+        top = torch.arange(a_total, device=outs.device).expand(b, -1)
+    else:
+        in_box, in_center = _geometry_prior(grids, strides, gts[0])
+        cand_any = ((in_box | in_center) & gts[2][..., None]).any(-2)
+        top = torch.topk(_prefilter_key(cand_any, key_obj), k,
+                         dim=-1).indices.sort(dim=-1).values
+    out_k = outs.gather(1, top[..., None].expand(-1, -1, width))
+    grids_k, strides_k = grids[top], strides[top]
+    got = simota_assign(*decode_outputs(out_k, grids_k, strides_k), grids_k,
+                        strides_k, *gts)
+
+    def over_a(v, dtype):
+        return torch.zeros((b, a_total), dtype=dtype,
+                           device=outs.device).scatter(1, top, v.to(dtype))
+
+    return {"kept": over_a(torch.ones_like(top), torch.bool),
+            "fg": over_a(got["fg_mask"], torch.bool),
+            "matched_gt": over_a(got["matched_gt"], torch.long)}
+
+
+def assignment_gaps(outs, other, batch, grids, strides, k) -> tuple:
+    """Between the one process's head outputs ``outs`` and the ranks'
+    ``other`` [B, A, 5 + C] of one batch: the anchors the loss's top-``k``
+    prefilter of each keeps apart (each ranked by its own objectness), and
+    the anchors whose SimOTA assignment (foreground, matched box) differs
+    among those the ranks keep (both ranked by the ranks' objectness, as
+    in :func:`sync_phase`'s one-process step)."""
+    ranks = loss_assignment(other, other[..., 4], batch, grids, strides, k)
+    own = loss_assignment(outs, outs[..., 4], batch, grids, strides, k)
+    one = loss_assignment(outs, other[..., 4], batch, grids, strides, k)
+    kept_apart = int((own["kept"] != ranks["kept"]).sum())
+    flips = int(((one["fg"] != ranks["fg"])
+                 | (one["fg"] & (one["matched_gt"] != ranks["matched_gt"])))
+                .sum())
+    return kept_apart, flips
+
+
+@contextlib.contextmanager
+def prefilter_ranked_by(obj_logits: torch.Tensor):
+    """Within the block, ``yolox_losses``'s top-K prefilter ranks the
+    anchors by ``obj_logits`` [B, A] (another run's objectness of the same
+    batch) in place of the step's own: both runs' losses then keep the
+    same anchors."""
+    from yolov7_d2_tpu_torch.models.heads import yolox_head
+
+    own = yolox_head._prefilter_key
+    yolox_head._prefilter_key = lambda cand_any, _: own(cand_any, obj_logits)
+    try:
+        yield
+    finally:
+        yolox_head._prefilter_key = own
+
+
+def sync_phase(dev, card: str, cfg, world: int = 2,
+               backend: str = "gloo", follow_ranks: bool = True):
+    """(a) ``world`` ranks on one card over gloo (``launch(...,
+    backend="gloo")``), or (c) one card each over NCCL: the bare YOLOX-s
+    640 train step in float32, TF32 off, 2 images a rank, 3 steps
+    (``parallel.dryrun.train_steps``: ``SyncBatchNorm2d``, the global
+    foreground count, DDP), against the one-process step on the same
+    images, each step taken from the ranks' weights before it
+    (``follow_ranks``; else one process follows its own updates): the fg
+    count equal, the summed loss shares and the gradient norm within 1e-3
+    relative (the card-vs-CPU bound of section 9), and parameters, EMA and
+    BN buffers bitwise equal across the ranks. From the ranks' weights,
+    because two runs that update apart drift on the card by more than one
+    step differs: one process against itself moves its head outputs by
+    3.1e-4 of their max by step 2 (``tools/sync_step_gap.py``). The one
+    process's loss keeps the anchors the ranks' top-K prefilter kept
+    (:func:`prefilter_ranked_by`): these images hold 4000-8000 SimOTA
+    candidates of 8400 anchors, the prefilter keeps 2100 by objectness,
+    and head outputs 3e-5 apart reorder anchors at that boundary, which
+    moves a loss by a jump and not by rounding. Logs how far the head
+    outputs differ, in how many anchors the prefilter of each run's own
+    outputs keeps apart, and in how many anchors the SimOTA assignment of
+    each run's outputs differs among those kept (:func:`assignment_gaps`);
+    with ``follow_ranks`` also the gaps of the one-process step under its
+    own prefilter (taken first from the same weights, not held).
+    Both count the CUDA kernels the host launches in step 1. Returns the
+    batches, the one process's head outputs and the ranks' outputs, step
+    by step."""
+    from yolov7_d2_tpu_torch.engine import (
+        build_yolox_system,
+        resolve_simota_prefilter,
+    )
+    from yolov7_d2_tpu_torch.parallel.dryrun import train_steps
+    from yolov7_d2_tpu_torch.parallel.launch import launch
+    from yolov7_d2_tpu_torch.utils.profiling import count_cuda_launches
+
+    label = "(a)" if backend == "gloo" else "(c)"
+    fcfg = dataclasses.replace(cfg, amp=False)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    batches = [train_batch(2 * world, gen) for _ in range(3)]
+    out = os.path.join(REPO, "build", "chip_smoke_ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    # the ranks start with torch's defaults: TF32 off for them as here
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    t0 = time.perf_counter()
+    try:
+        # gloo: every rank on ``dev``; NCCL: rank i on card i
+        launch(train_steps, world, args=(
+            out, fcfg, batches, str(dev) if backend == "gloo" else dev.type,
+            SEED, None, 1 if dev.type == "cuda" else None, True,
+            follow_ranks), backend=backend)
+    finally:
+        del os.environ["NVIDIA_TF32_OVERRIDE"]
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
+             for r in range(world)]
+    shutil.rmtree(out, ignore_errors=True)
+
+    k = resolve_simota_prefilter(fcfg)
+    _, state, step = build_yolox_system(fcfg, device=dev, seed=SEED)
+    heads = []
+    state.model.register_forward_hook(
+        lambda module, args, head: heads.append(
+            {k: v.detach().float() for k, v in head.items()}))
+    one, own = [], []
+    for i, batch in enumerate(batches):
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        if follow_ranks:
+            # first the step under its own prefilter, for the log only
+            state.model.load_state_dict(ranks[0]["weights"][i])
+            state.step = i
+            state, m = step(state, batch)
+            own.append({k: float(v) for k, v in m.items()})
+            heads.pop()
+            state.model.load_state_dict(ranks[0]["weights"][i])
+            state.step = i
+        ranked = torch.cat([rec["outputs"][i][..., 4] for rec in ranks])
+        with prefilter_ranked_by(ranked.to(dev)):
+            if i == 1:
+                (state, m), launches_one = count_cuda_launches(
+                    lambda: step(state, batch))
+            else:
+                state, m = step(state, batch)
+        one.append({k: float(v) for k, v in m.items()})
+    for i, want in enumerate(one):
+        ms = [rec["metrics"][i] for rec in ranks]
+        loss = sum(m["total_loss"] for m in ms)
+        outs = heads[i]["outputs"]
+        other = torch.cat([rec["outputs"][i] for rec in ranks]).to(dev)
+        out_gap = float((other - outs).abs().max() / outs.abs().max())
+        kept_apart, flips = assignment_gaps(
+            outs, other, batches[i], heads[i]["grids"], heads[i]["strides"],
+            k)
+        gaps = {k: relative_gap(got, want[k]) for k, got in (
+            ("total_loss", loss), ("grad_norm", ms[0]["grad_norm"]))}
+        log(f"{label} step {i}: {world} ranks / one process: total_loss "
+            f"{loss:.6g} / {want['total_loss']:.6g} ({gaps['total_loss']:.2e}"
+            f"), grad_norm {ms[0]['grad_norm']:.6g} / "
+            f"{want['grad_norm']:.6g} ({gaps['grad_norm']:.2e}), num_fg "
+            f"{ms[0]['num_fg']:.0f} / {want['num_fg']:.0f}; head outputs "
+            f"differ by {out_gap:.2e} of their max; the top-{k} prefilter "
+            f"of each keeps {kept_apart} anchors apart (the one process "
+            f"takes the ranks'), SimOTA assignments differ in {flips}"
+            + ("" if not own else "; under its own prefilter the one "
+               f"process is {relative_gap(loss, own[i]['total_loss']):.2e}"
+               " in total_loss and "
+               f"{relative_gap(ms[0]['grad_norm'], own[i]['grad_norm']):.2e}"
+               " in grad_norm apart (not held)"))
+        if any(m["num_fg"] != want["num_fg"] for m in ms):
+            raise AssertionError(f"{label} step {i}: fg counts differ")
+        if len({m["grad_norm"] for m in ms}) != 1:
+            raise AssertionError(f"{label} step {i}: the ranks' gradient "
+                                 "norms differ")
+        for key, gap in gaps.items():
+            if gap > 1e-3:
+                raise AssertionError(f"{label} step {i}: {key} off by "
+                                     f"{gap:.2e} relative to one process, "
+                                     "above 1e-3")
+    for rec in ranks[1:]:
+        for key in ("model", "ema"):
+            for name, v in ranks[0][key].items():
+                if not torch.equal(v, rec[key][name]):
+                    raise AssertionError(f"{label} ranks differ in {key} "
+                                         f"{name}")
+    if any(rec["step"] != 3 for rec in ranks):
+        raise AssertionError(f"{label} the ranks took other than 3 steps")
+    launches_rank = ranks[0]["metrics"][1].get("launches")
+    where = ("on one card, host-paced over gloo and not a multi-GPU rate"
+             if backend == "gloo" else "over NCCL, one card each")
+    log(f"{label} {world} {backend} ranks [{card}]: parameters, BN buffers "
+        f"and EMA bitwise equal across the ranks after 3 steps; CUDA kernel "
+        f"launches in step 1: one process {launches_one} ({2 * world} "
+        f"images), a rank {launches_rank} (2 images, SyncBatchNorm2d + DDP); "
+        f"{wall:.2f} s for the spawn, 3 steps and the ranks' start-up, "
+        f"{where}")
+    return batches, heads, [rec["outputs"] for rec in ranks]
+
+
+def sync_bn_phase(dev, card: str, world: int = 2,
+                  backend: str = "gloo") -> None:
+    """``SyncBatchNorm2d`` alone on CUDA tensors (its fused path), ``world``
+    ranks on one card over gloo or one card each over NCCL
+    (``parallel.dryrun.norm_sync_ranks``), at a YOLOX-s 640 layer's shape
+    (2 images a rank, 128 channels at 80 x 80, channels_last), in float32
+    and in bfloat16 (the recipe's activations, float32 weights), against
+    ``nn.BatchNorm2d`` (cuDNN) on the whole batch on this card: output,
+    input gradient, the summed weight and bias gradients, the running
+    statistics, and ``all_reduce_norm`` and ``precise_bn`` against their
+    one-process values; every rank's statistics bitwise equal. Bounds, of
+    the reference's largest magnitude: float32 1e-4 (the same moments in
+    another sum order); bfloat16 1e-2 for the outputs and gradients (both
+    round to bfloat16, whose step is 2^-8 of a value) and 1e-4 for the
+    statistics (float32 moments of the same bfloat16 inputs)."""
+    from yolov7_d2_tpu_torch.parallel.dryrun import norm_sync_ranks
+    from yolov7_d2_tpu_torch.parallel.launch import launch
+    from yolov7_d2_tpu_torch.parallel.norm_sync import (
+        SyncBatchNorm2d,
+        precise_bn,
+    )
+
+    label = "(a)" if backend == "gloo" else "(c)"
+    n, c, hw = 2 * world, 128, 80
+    gen = torch.Generator().manual_seed(SEED + 4)
+    params = {"weight": torch.rand(c, generator=gen) + 0.5,
+              "bias": torch.randn(c, generator=gen), "eps": 1e-3,
+              "momentum": 0.03}
+    running = torch.stack([torch.stack([torch.randn(c, generator=gen),
+                                        torch.rand(c, generator=gen) + 0.5])
+                           for _ in range(world)])
+    out = os.path.join(REPO, "build", "chip_smoke_bn")
+
+    def nhwc(t, dtype):
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    for dtype, close, stat_close in ((torch.float32, 1e-4, 1e-4),
+                                     (torch.bfloat16, 1e-2, 1e-4)):
+        x = nhwc(torch.randn((n, c, hw, hw), generator=gen) * 3.0 + 1.0,
+                 dtype)
+        grad_out = nhwc(torch.randn((n, c, hw, hw), generator=gen), dtype)
+        batches = torch.stack([
+            nhwc(torch.randn((n, c, hw, hw), generator=gen) * 2.0 - 1.0,
+                 dtype) for _ in range(2)])
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+        launch(norm_sync_ranks, world, args=(
+            out, params, x, grad_out, running, batches,
+            str(dev) if backend == "gloo" else dev.type), backend=backend)
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                            weights_only=True) for r in range(world)]
+        shutil.rmtree(out, ignore_errors=True)
+        for key in ("running_mean", "running_var", "reduced_mean",
+                    "reduced_var", "precise_mean", "precise_var"):
+            if any(not torch.equal(r[key], ranks[0][key]) for r in ranks):
+                raise AssertionError(f"{label} SyncBatchNorm2d {dtype}: the "
+                                     f"ranks' {key} differ")
+        ref = torch.nn.BatchNorm2d(c, eps=1e-3, momentum=0.03).to(dev)
+        with torch.no_grad():
+            ref.weight.copy_(params["weight"])
+            ref.bias.copy_(params["bias"])
+        xr = x.to(dev).requires_grad_(True)
+        y = ref(xr)
+        y.backward(grad_out.to(dev))
+        one = SyncBatchNorm2d(c, eps=1e-3, momentum=0.03).to(dev)
+        precise_bn(one, [b.to(dev) for b in batches])
+        want = {
+            "y": (torch.cat([r["y"] for r in ranks]), y, close),
+            "x_grad": (torch.cat([r["x_grad"] for r in ranks]), xr.grad,
+                       close),
+            "weight_grad": (sum(r["weight_grad"] for r in ranks),
+                            ref.weight.grad, close),
+            "bias_grad": (sum(r["bias_grad"] for r in ranks), ref.bias.grad,
+                          close),
+            "running_mean": (ranks[0]["running_mean"], ref.running_mean,
+                             stat_close),
+            "running_var": (ranks[0]["running_var"], ref.running_var,
+                            stat_close),
+            "reduced_mean": (ranks[0]["reduced_mean"], running[:, 0].mean(0),
+                             1e-6),
+            "reduced_var": (ranks[0]["reduced_var"], running[:, 1].mean(0),
+                            1e-6),
+            "precise_mean": (ranks[0]["precise_mean"], one.running_mean,
+                             stat_close),
+            "precise_var": (ranks[0]["precise_var"], one.running_var,
+                            stat_close),
+        }
+        errs = {}
+        for key, (got, ref_t, tol) in want.items():
+            ref_t = ref_t.detach().float().cpu()
+            errs[key] = float((got.float().cpu() - ref_t).abs().max()
+                              / ref_t.abs().max())
+            if not errs[key] <= tol:
+                raise AssertionError(f"{label} SyncBatchNorm2d {dtype}: {key} "
+                                     f"off by {errs[key]:.2e} of its max, "
+                                     f"above {tol}")
+        log(f"{label} SyncBatchNorm2d {str(dtype).split('.')[-1]} on "
+            f"{world} {backend} ranks [{card}] vs nn.BatchNorm2d on "
+            f"[{n},{c},{hw},{hw}]: " + ", ".join(
+                f"{k} {e:.2e}" for k, e in errs.items())
+            + " (of the max); the ranks' statistics bitwise equal")
+
+
+def packed_step_ms(dev, cfg, batches, in_group: bool) -> float:
+    """Milliseconds a step of section 8's on-card packed step (16 images,
+    GridMask on), 10 steps after 3, built inside an NCCL group of 1 (DDP)
+    or without a group."""
+    import torch.distributed as dist
+
+    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
+    from yolov7_d2_tpu_torch.engine import build_yolox_system
+    from yolov7_d2_tpu_torch.parallel.dist import init_distributed
+    from yolov7_d2_tpu_torch.parallel.launch import local_dist_url
+
+    if in_group:
+        init_distributed("nccl", local_dist_url(), 1, 0)
+    try:
+        _, state, train_step = build_yolox_system(cfg, device=dev, seed=SEED)
+        if (state.ddp is not None) != in_group:
+            raise AssertionError("DDP built where it should not, or not "
+                                 "where it should")
+        step = make_packed_photo_step(cfg, train_step, seed=SEED)
+        for i in range(WARMUP):
+            state, _ = step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(ITERS):
+            state, _ = step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / ITERS
+    finally:
+        if in_group:
+            dist.destroy_process_group()
+
+
+def ddp_world1_phase(dev, card: str, kernels: dict, data: CliData,
+                     cfg=None, **opts) -> None:
+    """(b) The CLI's packed feed (``train_det.main``, 6 steps of 16 images,
+    GridMask until ``DISABLE_AT_ITER`` 4, plain shards after, the COCO eval
+    at 6 on rank 0) inside an NCCL group of 1: ``SyncBatchNorm2d`` (plain at
+    a world of 1) and DDP. Its losses at step 6 against the run of the same
+    steps without a group within 1e-3 relative; the medians of both runs'
+    ``time_per_iter`` logged. Six CLI steps hold a first step, a shard
+    load and a checkpoint, so DDP's cost on one card is timed apart, where
+    ``cfg`` is given: section 8's on-card step, in turns without a group,
+    in the group, in the group, without. Sets the kernels' ``launches`` to
+    the CLI run's."""
+    import torch.distributed as dist
+
+    from yolov7_d2_tpu_torch import train_det
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.parallel.dist import init_distributed
+    from yolov7_d2_tpu_torch.parallel.launch import local_dist_url
+
+    steps, disable_at = 6, 4
+    packed = dict(DATALOADER__PACKED_CACHE_DIR=data.geo,
+                  DATALOADER__PACKED_CACHE_PLAIN_DIR=data.plain,
+                  INPUT__GRID_MASK__ENABLED=True,
+                  INPUT__MOSAIC_AND_MIXUP__DISABLE_AT_ITER=disable_at,
+                  SOLVER__MAX_ITER=steps, SOLVER__CHECKPOINT_PERIOD=3,
+                  **opts)
+    init_distributed("nccl", local_dist_url(), 1, 0)
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        run_d = train_det.main(cli_args(
+            os.path.join(data.work, "ddp1"), TEST__EVAL_PERIOD=steps,
+            **packed))
+        torch.cuda.synchronize()
+        wall_d = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    log(f"(b) NCCL world 1 launches: {launches}")
+    if run_d.state.ddp is None:
+        raise AssertionError("(b) the run inside a group built no DDP")
+    eval_batches = -(-len(data.records) // TRAIN_BATCH)
+    want = {"grid_mask": disable_at, "nms": eval_batches,
+            "normalize": steps - disable_at + eval_batches}
+    if launches != want:
+        raise AssertionError(f"(b) launches {launches}, not {want}: GridMask "
+                             "at every step before DISABLE_AT_ITER, normalize"
+                             " on the plain steps and in the eval, NMS in "
+                             "the eval")
+    for name, n in want.items():
+        kernels[name]["launches"] = n
+    latest_d = cli_checks(run_d, os.path.join(data.work, "ddp1"), "(b)")
+    missing = [k for k in COCO_KEYS if f"eval/{k}" not in latest_d]
+    if missing:
+        raise AssertionError(f"(b) rank 0's eval gave no COCO {missing}")
+    median_d = run_d.storage.median("time_per_iter")
+    del run_d
+
+    t0 = time.perf_counter()
+    run_p = train_det.main(cli_args(os.path.join(data.work, "plain1"),
+                                    TEST__EVAL_PERIOD=0, **packed))
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    if run_p.state.ddp is not None:
+        raise AssertionError("(b) one process without a group built DDP")
+    latest_p = cli_checks(run_p, os.path.join(data.work, "plain1"),
+                          "(b) no group")
+    median_p = run_p.storage.median("time_per_iter")
+    del run_p
+    torch.cuda.empty_cache()
+    keys = ("total_loss", "loss_iou", "loss_obj", "loss_cls", "loss_l1",
+            "num_fg", "grad_norm")
+    log(f"(b) step {steps}, NCCL world 1 / no group: " + ", ".join(
+        f"{k} {latest_d[k]:.6g} / {latest_p[k]:.6g}" for k in keys))
+    for k in ("total_loss", "loss_iou", "loss_obj", "loss_cls", "loss_l1"):
+        if relative_gap(latest_d[k], latest_p[k]) > 1e-3:
+            raise AssertionError(f"(b) {k} differs from the run without a "
+                                 "group")
+    log(f"(b) packed CLI feed on [{card}], {TRAIN_BATCH} images a step: "
+        f"time_per_iter median {median_d * 1e3:.3f} ms in an NCCL group of 1 "
+        f"(DDP) against {median_p * 1e3:.3f} ms without a group: ratio "
+        f"{median_d / median_p:.4f}; {steps} steps in {wall_d:.2f} s (eval "
+        f"included) and {wall_p:.2f} s")
+    if cfg is None:
+        return
+    tcfg = dataclasses.replace(cfg, grid_mask=True)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    batches = [{k: v.to(dev) for k, v in train_batch(TRAIN_BATCH,
+                                                     gen).items()}
+               for _ in range(4)]
+    turns = [(g, packed_step_ms(dev, tcfg, batches, g))
+             for g in (False, True, True, False)]
+    plain = [ms for g, ms in turns if not g]
+    ddp = [ms for g, ms in turns if g]
+    log(f"(b) on-card packed step, {TRAIN_BATCH} images, on [{card}], in "
+        f"turns (no group, NCCL group of 1, group, no group): "
+        + ", ".join(f"{ms:.3f}" for _, ms in turns) + " ms a step; DDP at "
+        f"world 1 / no group: {sum(ddp) / sum(plain):.4f}")
+
+
+def nccl_ranks_phase(dev, card: str, cfg, data: CliData, **opts) -> None:
+    """(c) Where two or more cards are visible, N of them (up to 4) over
+    NCCL, one a rank: ``dryrun_multigpu(N)`` (the tiny system, one step,
+    ranks equal), :func:`sync_phase`'s bare step against one process,
+    :func:`sync_bn_phase`, then ``train_custom_datasets --num-gpus N`` on
+    the packed feed, 16 images a rank, 6 steps, the COCO eval at 6 on rank
+    0; rank 0's metrics.json and checkpoint checked. Logged as skipped on
+    one card."""
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        log(f"(c) NCCL ranks: skipped, {n} CUDA card visible (needs 2)")
+        return
+    from yolov7_d2_tpu_torch import train_custom_datasets
+    from yolov7_d2_tpu_torch.parallel.dryrun import dryrun_multigpu
+    from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
+
+    t0 = time.perf_counter()
+    ranks = dryrun_multigpu(n)
+    log(f"(c) dryrun_multigpu({n}) over NCCL [{card}] x{n}: total_loss "
+        f"{sum(r['metrics'][0]['total_loss'] for r in ranks):.6g}, ranks "
+        f"equal, {time.perf_counter() - t0:.2f} s with start-up")
+    sync_phase(dev, card, cfg, world=n, backend="nccl")
+    sync_bn_phase(dev, card, world=n, backend="nccl")
+    out = os.path.join(data.work, "nccl")
+    t0 = time.perf_counter()
+    train_custom_datasets.main([
+        "--register", CLI_DATASET, data.js, data.img_dir, "--num-gpus",
+        str(n), *cli_argv(out, DATALOADER__PACKED_CACHE_DIR=data.geo,
+                          INPUT__GRID_MASK__ENABLED=True,
+                          SOLVER__IMS_PER_BATCH=n * TRAIN_BATCH,
+                          SOLVER__MAX_ITER=6, SOLVER__CHECKPOINT_PERIOD=6,
+                          TEST__EVAL_PERIOD=6, **opts)])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "metrics.json")) as f:
+        lines = [json.loads(line) for line in f]
+    last = lines[-1]
+    if [r["iteration"] for r in lines] != [6] or not math.isfinite(
+            last["total_loss"]) or "eval/AP" not in last:
+        raise AssertionError(f"(c) rank 0's metrics.json: {lines}")
+    if Checkpointer(os.path.join(out, "ckpt")).steps() != [6]:
+        raise AssertionError("(c) no checkpoint at step 6")
+    log(f"(c) {n} NCCL ranks on [{card}] x{n}: the CLI's packed feed, 6 "
+        f"steps of {TRAIN_BATCH} images a rank, eval included, in "
+        f"{wall:.2f} s (start-up included); step 6: total_loss "
+        f"{last['total_loss']:.6g}, num_fg {last['num_fg']:.0f}, "
+        f"time_per_iter {last['time_per_iter'] * 1e3:.3f} ms on rank 0")
 
 
 def snapshot(state) -> dict:
@@ -503,6 +1039,7 @@ def main() -> int:
                            "on a card")
     sys.path.insert(0, REPO)
     from yolov7_d2_tpu_torch.config import YoloxConfig
+    from yolov7_d2_tpu_torch.data.catalog import DatasetCatalog
     from yolov7_d2_tpu_torch.data.device_aug import (
         DevicePhotometric,
         PhotoDraws,
@@ -870,7 +1407,17 @@ def main() -> int:
         if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
             raise AssertionError(f"{k} differs between the card and the CPU")
 
-    median_a, median_b = cli_phase(dev, card, kernels)
+    data = write_cli_data()
+    median_a, median_b = cli_phase(dev, card, kernels, data)
+
+    # ---- 10. multi-GPU training: (a) two gloo ranks on one card against
+    # one process, (b) the CLI in an NCCL group of 1, (c) NCCL ranks
+    sync_phase(dev, card, cfg)
+    sync_bn_phase(dev, card)
+    ddp_world1_phase(dev, card, kernels, data, cfg)
+    nccl_ranks_phase(dev, card, cfg, data)
+    DatasetCatalog.remove(CLI_DATASET)
+    shutil.rmtree(data.work, ignore_errors=True)
 
     # ---- 11. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
@@ -897,5 +1444,33 @@ def main() -> int:
     return 0
 
 
+def nccl_main() -> int:
+    """``python3 chip_smoke.py --nccl``: section 10 (c) alone, on every
+    visible card up to 4 (the path that exists only across cards, for a
+    machine of several); the kernels are built first, so that the ranks
+    only load them."""
+    if torch.cuda.device_count() < 2:
+        raise RuntimeError("chip_smoke --nccl: needs 2 or more CUDA cards")
+    sys.path.insert(0, REPO)
+    from yolov7_d2_tpu_torch.config import YoloxConfig
+    from yolov7_d2_tpu_torch.data.catalog import DatasetCatalog
+    from yolov7_d2_tpu_torch.kernels import build
+
+    card = card_line()
+    log(f"card: {card} x{torch.cuda.device_count()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    data = write_cli_data()
+    nccl_ranks_phase(torch.device("cuda", 0), card, YoloxConfig(), data)
+    DatasetCatalog.remove(CLI_DATASET)
+    shutil.rmtree(data.work, ignore_errors=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(nccl_main() if sys.argv[1:] == ["--nccl"] else main())

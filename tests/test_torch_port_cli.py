@@ -8,8 +8,10 @@ custom-dataset and demo CLIs; and the paths that must raise.
 
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -40,6 +42,9 @@ from yolov7_d2_tpu_torch.data.packed_cache import (
     write_plain_shards,
 )
 from yolov7_d2_tpu_torch.engine import build_yolox_system
+from yolov7_d2_tpu_torch.parallel import dist as pdist
+from yolov7_d2_tpu_torch.parallel.launch import local_dist_url
+from yolov7_d2_tpu_torch.parallel.norm_sync import SyncBatchNorm2d
 from yolov7_d2_tpu_torch.train import schedules, trainer as trainer_mod
 from yolov7_d2_tpu_torch.train.checkpoint import (
     Checkpointer,
@@ -247,11 +252,123 @@ def test_auto_scale_config_matches_jax(world):
     assert ours.SOLVER.dump() == theirs.SOLVER.dump()
 
 
-@pytest.mark.parametrize("flags", [("--num-gpus", "2"),
-                                   ("--num-machines", "2")])
-def test_multi_gpu_args_raise(mini, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="A.6"):
-        train_det.main(_args(tmp_path, mini[0], *flags))
+def _run_ranks(tmp_path, commands, timeout=300.0):
+    """Each ``commands`` entry as ``python -m
+    yolov7_d2_tpu_torch.train_custom_datasets ARGS`` in a session of its
+    own, all at once; past ``timeout`` seconds every session (its spawned
+    ranks too) is killed and the test fails. Returns their outputs."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs = []
+    for i, argv in enumerate(commands):
+        log = open(tmp_path / f"cmd{i}.log", "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "yolov7_d2_tpu_torch.train_custom_datasets",
+             *argv], cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True), log))
+    deadline = time.monotonic() + timeout
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    outputs = []
+    for proc, log in procs:
+        log.seek(0)
+        outputs.append(log.read())
+        log.close()
+        assert proc.returncode == 0, outputs[-1][-3000:]
+    return outputs
+
+
+def _cli_argv(out, name, js, root, *flags, **extra):
+    return ["--register", name, js, root, "--config-file", YOLOX_S_YAML,
+            *flags, *_opts(out, name, **extra)]
+
+
+def test_train_custom_datasets_on_2_ranks_registers_in_each_and_resumes_in_one(
+        mini, tmp_path, monkeypatch):
+    """``--num-gpus 2`` on the CPU (gloo): the dataset exists only through
+    ``--register``, so each spawned rank must register it for itself; rank
+    0 alone writes ``metrics.json`` and the checkpoints and runs the eval;
+    the checkpoint of 2 ranks then resumes in one process with its state
+    exactly."""
+    _, js, root = mini
+    name = "port_cli_ranks"
+    out = tmp_path / "out"
+    _run_ranks(tmp_path, [_cli_argv(
+        out, name, js, root, "--num-gpus", "2", SOLVER__MAX_ITER=4,
+        SOLVER__CHECKPOINT_PERIOD=2, TEST__EVAL_PERIOD=4)])
+    lines = _metrics(out)
+    assert [r["iteration"] for r in lines] == [4]
+    for k in LOSSES + EVAL_KEYS:
+        assert np.isfinite(lines[-1][k]), k
+    assert lines[-1]["num_fg"] > 0
+    ckpt = Checkpointer(str(out / "ckpt"))
+    assert ckpt.steps() == [2, 4] and (out / "config.yaml").exists()
+
+    blob = ckpt.load(4)
+    seen = {}
+    train = trainer_mod.Trainer.train
+
+    def spy_train(self):
+        seen["state"] = _snapshot(self.state)
+        return train(self)
+
+    monkeypatch.setattr(trainer_mod.Trainer, "train", spy_train)
+    register_coco_instances(name, {}, js, root)
+    try:
+        tr = train_det.main(_args(out, name, "--resume", SOLVER__MAX_ITER=6,
+                                  SOLVER__CHECKPOINT_PERIOD=2,
+                                  TEST__EVAL_PERIOD=0))
+    finally:
+        DatasetCatalog.remove(name)
+    assert (tr.start_iter, tr.storage.iter) == (4, 6)
+    # one process: no group, no wrapper, plain BatchNorm
+    assert tr.state.ddp is None and not pdist.is_initialized()
+    assert not any(isinstance(m, SyncBatchNorm2d)
+                   for m in tr.state.model.modules())
+    resumed = seen["state"]
+    assert resumed["step"] == blob["step"] == 4
+    for key, want in (("model", blob["model"]), ("ema", blob["ema_params"])):
+        assert sorted(resumed[key]) == sorted(want)
+        for k, v in want.items():
+            assert torch.equal(resumed[key][k], v), (key, k)
+    momentum = [s["momentum_buffer"] for s in
+                blob["optimizer"]["state"].values()]
+    assert len(momentum) == len(resumed["momentum"]) > 0
+    for a, b in zip(resumed["momentum"], momentum):
+        assert torch.equal(a, b)
+    assert ckpt.steps() == [2, 4, 6]
+
+
+def test_num_machines_2_resume_a_one_process_checkpoint(mini, tmp_path):
+    """``--num-machines 2 --machine-rank {0,1} --dist-url tcp://...`` as two
+    commands of one rank each, resuming the checkpoint of a one-process
+    run: they start at its step (a checkpoint at every step from there)."""
+    name, js, root = mini
+    out = tmp_path / "out"
+    train_det.main(_args(out, name, SOLVER__MAX_ITER=2,
+                         SOLVER__CHECKPOINT_PERIOD=2, TEST__EVAL_PERIOD=0))
+    url = local_dist_url()
+    _run_ranks(tmp_path, [_cli_argv(
+        out, name, js, root, "--resume", "--num-machines", "2",
+        "--machine-rank", str(rank), "--dist-url", url, SOLVER__MAX_ITER=4,
+        SOLVER__CHECKPOINT_PERIOD=1, TEST__EVAL_PERIOD=0)
+        for rank in (0, 1)])
+    assert [r["iteration"] for r in _metrics(out)] == [2, 4]
+    assert Checkpointer(str(out / "ckpt")).steps() == [2, 3, 4]
+    assert np.isfinite(_metrics(out)[-1]["total_loss"])
+
+
+def test_num_gpus_2_on_cuda_without_two_cards_raises(mini, tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="--num-gpus 2 but 1 CUDA"):
+        train_det.main(_args(tmp_path, mini[0], "--num-gpus", "2",
+                             MODEL__DEVICE="cuda"))
 
 
 def test_device_tile_aug_raises(mini, tmp_path):

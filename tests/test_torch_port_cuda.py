@@ -399,3 +399,44 @@ def test_train_det_on_card_launches_the_cli_kernels(dev, tmp_path, feed):
     if feed == "packed":
         want = {"grid_mask": 3, "normalize": 2 + 3, "nms": 2}
     assert dict(build.LAUNCHES) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_sync_batchnorm_fused_path_on_two_ranks(dev, tmp_path, dtype, tol):
+    """``SyncBatchNorm2d``'s fused CUDA path on 2 gloo ranks sharing the
+    card against ``nn.BatchNorm2d`` on the whole batch: output, input
+    gradient and running statistics, of the reference's largest magnitude
+    (bfloat16 outputs round to 2^-8 of a value)."""
+    from yolov7_d2_tpu_torch.parallel.dryrun import norm_sync_ranks
+    from yolov7_d2_tpu_torch.parallel.launch import launch
+
+    gen = torch.Generator().manual_seed(0)
+    c = 16
+    x, g = (torch.randn((4, c, 12, 10), generator=gen).to(dtype).contiguous(
+        memory_format=torch.channels_last) for _ in range(2))
+    params = {"weight": torch.rand(c, generator=gen) + 0.5,
+              "bias": torch.randn(c, generator=gen), "eps": 1e-3,
+              "momentum": 0.1}
+    running = torch.ones((2, 2, c))
+    launch(norm_sync_ranks, 2, args=(str(tmp_path), params, x, g, running,
+                                     x[None], "cuda"),
+           backend="gloo", timeout=240.0)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True)
+             for r in range(2)]
+    ref = torch.nn.BatchNorm2d(c, eps=1e-3, momentum=0.1).to(dev)
+    with torch.no_grad():
+        ref.weight.copy_(params["weight"])
+        ref.bias.copy_(params["bias"])
+    xr = x.to(dev).requires_grad_(True)
+    y = ref(xr)
+    y.backward(g.to(dev))
+    for got, want, bound in (
+            (torch.cat([r["y"] for r in ranks]), y, tol),
+            (torch.cat([r["x_grad"] for r in ranks]), xr.grad, tol),
+            (ranks[0]["running_mean"], ref.running_mean, 1e-4),
+            (ranks[0]["running_var"], ref.running_var, 1e-4)):
+        want = want.detach().float().cpu()
+        assert (got.float() - want).abs().max() <= bound * want.abs().max()
+    assert torch.equal(ranks[0]["running_var"], ranks[1]["running_var"])

@@ -39,12 +39,11 @@ from yolov7_d2_tpu_torch.data.device_aug import (  # noqa: E402
 )
 from yolov7_d2_tpu_torch.engine import build_yolox_system  # noqa: E402
 from yolov7_d2_tpu_torch.predictor import Predictor  # noqa: E402
+from yolov7_d2_tpu_torch.utils.profiling import LAUNCH_CALLS  # noqa: E402
 
 BATCHES = (1, 8, 32, 128)
 TRAIN_BATCH = 16
 TRACED_CALLS = 3
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                "cuLaunchKernelEx")
 # kernel name -> group; the first pattern that matches wins
 GROUPS = (
     ("normalize kernel (K2)", r"normalize_kernel"),

@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from yolov7_d2_tpu_torch.kernels.grid_mask import grid_mask
@@ -154,14 +155,27 @@ class DevicePhotometric:
         }
 
 
-def make_packed_photo_step(cfg, train_step: Callable,
-                           seed: int = 0) -> Callable:
+def draw_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The seed of the draws of ``step`` on ``rank``: ``seed * 2**32 +
+    step`` on rank 0 (so that one-process runs and resumes repeat as they
+    always did), a mix of the three on the other ranks."""
+    if rank == 0:
+        return seed * 2 ** 32 + step
+    return int(np.random.SeedSequence([seed, step, rank]).generate_state(
+        1, np.uint64)[0])
+
+
+def make_packed_photo_step(cfg, train_step: Callable, seed: int = 0,
+                           rank: int = 0) -> Callable:
     """Wrap ``train_step`` so that it takes a uint8 batch (on the host or
     the card): the batch moves to the model's device and goes through
     :class:`DevicePhotometric` until ``cfg.aug_disable_at_iter`` steps,
     then through its passthrough. The draws of step s come from a generator
-    seeded with (seed, s), so that a run repeats. The metrics gain
-    ``grid_masked``, the number of images GridMask masked in the step."""
+    seeded with (seed, s, rank) (:func:`draw_seed`), so that a run repeats.
+    Each rank draws for its own batch, so MixUp pairs images within a
+    rank's share (the reference's per-GPU mapper; the JAX mesh permutes the
+    global batch). The metrics gain ``grid_masked``, the number of images
+    GridMask masked in the rank's step."""
     aug = DevicePhotometric(cfg)
     disable_at = int(cfg.aug_disable_at_iter)
 
@@ -171,7 +185,8 @@ def make_packed_photo_step(cfg, train_step: Callable,
         masked = 0
         if state.step < disable_at:
             b, h, w, _ = batch["image"].shape
-            gen = torch.Generator().manual_seed(seed * 2 ** 32 + state.step)
+            gen = torch.Generator().manual_seed(
+                draw_seed(seed, state.step, rank))
             draws = aug.draw(gen, b, h, w)
             if aug.grid_mask:
                 masked = int((draws.grid_params[:, 0] > 1).sum())

@@ -129,11 +129,15 @@ class DataLoader:
             stop.set()
 
 
-def build_detection_train_loader(cfg, records: List[dict], mapper, seed: int = 0):
+def build_detection_train_loader(cfg, records: List[dict], mapper,
+                                 seed: int = 0,
+                                 batch_size: Optional[int] = None):
+    """The infinite shuffled loader of ``batch_size`` images (one process's
+    share; ``SOLVER.IMS_PER_BATCH`` where None)."""
     return DataLoader(
         records,
         mapper,
-        batch_size=cfg.SOLVER.IMS_PER_BATCH,
+        batch_size=batch_size or cfg.SOLVER.IMS_PER_BATCH,
         shuffle=cfg.DATALOADER.SHUFFLE,
         infinite=True,
         num_workers=cfg.DATALOADER.NUM_WORKERS,

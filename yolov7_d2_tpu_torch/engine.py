@@ -10,6 +10,8 @@ import torch
 
 from yolov7_d2_tpu_torch.models.build import build_model
 from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_loss_fn
+from yolov7_d2_tpu_torch.parallel.dist import is_initialized
+from yolov7_d2_tpu_torch.parallel.norm_sync import convert_sync_batchnorm
 from yolov7_d2_tpu_torch.train.optimizer import build_optimizer
 from yolov7_d2_tpu_torch.train.schedules import build_lr_schedule
 from yolov7_d2_tpu_torch.train.train_state import TrainState, make_train_step
@@ -77,13 +79,31 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0):
     classes, the schedule, the EMA and the L1 switch at
     ``aug_disable_at_iter`` (the reference turns L1 on when the strong
     augmentation turns off). The JAX builder's sample batch only traces
-    the flax init, so no batch size is needed here."""
+    the flax init, so no batch size is needed here.
+
+    Inside a process group (``parallel.launch``) the BatchNorms become
+    ``SyncBatchNorm2d`` and the forward runs through
+    ``DistributedDataParallel``, whose construction broadcasts rank 0's
+    weights (every rank draws the same from ``seed`` anyway, but an init
+    that depends on the device cannot split the ranks); the EMA starts from
+    the broadcast weights. Without a group: plain BatchNorm, no wrapper."""
     model = build_model(cfg, device, seed).train()
+    ddp = None
+    if is_initialized():
+        # imported here: the import takes seconds, and one process needs none
+        from torch.nn.parallel import DistributedDataParallel
+
+        model = convert_sync_batchnorm(model)
+        device = torch.device(device)
+        ddp = DistributedDataParallel(
+            model, device_ids=None if device.type == "cpu" else [device],
+            broadcast_buffers=False, gradient_as_bucket_view=True)
     state = TrainState(
         step=0, model=model, optimizer=build_optimizer(cfg, model),
         ema_params=({n: p.detach().clone()
                      for n, p in model.named_parameters()}
-                    if cfg.ema else None))
+                    if cfg.ema else None),
+        ddp=ddp)
     train_step = make_train_step(
         make_yolox_loss_adapter(cfg.num_classes,
                                 resolve_simota_prefilter(cfg)),

@@ -23,6 +23,7 @@ from torch import nn
 from yolov7_d2_tpu_torch.models.layers.blocks import BaseConv, conv_class
 from yolov7_d2_tpu_torch.ops.iou import iou_loss, pairwise_box_iou
 from yolov7_d2_tpu_torch.ops.losses import sigmoid_binary_cross_entropy
+from yolov7_d2_tpu_torch.parallel.dist import all_reduce_sum
 from yolov7_d2_tpu_torch.structures.boxes import cxcywh_to_xyxy
 
 WH_LOGIT_MAX = 11.09  # exp clamp of the JAX decode (yolox_head.py:119)
@@ -239,8 +240,9 @@ def yolox_losses(
     prefilter_topk: Optional[int] = 2048,
 ) -> Dict[str, torch.Tensor]:
     """Batch loss of the JAX ``yolox_losses``: IoU (weight 5), objectness
-    and class BCE, optional L1, normalised by the batch's foreground count.
-    The assignment runs without gradient.
+    and class BCE, optional L1, normalised by the batch's foreground count
+    (inside a process group, the global batch's). The assignment runs
+    without gradient.
 
     With ``prefilter_topk`` K below the anchor count A, one row gather of
     the head outputs keeps each image's top K anchors by
@@ -283,7 +285,10 @@ def yolox_losses(
 
     fg_f = assign["fg_mask"].float()                             # [B, K|A]
     matched_gt = assign["matched_gt"]
-    num_fg = assign["num_fg"].sum().clamp(min=1.0)
+    # inside a process group the count of the global batch (JAX divides by
+    # the count of the batch its mesh holds): every term below is then
+    # this rank's share of the global loss
+    num_fg = all_reduce_sum(assign["num_fg"].sum()).clamp(min=1.0)
 
     # a gather is exact, as the JAX one-hot product at precision highest is
     tgt_boxes = gt_boxes_xyxy.gather(

@@ -1,0 +1,5 @@
+"""Data-parallel training on several processes, one device each (the
+counterpart of ``yolov7_d2_tpu/parallel/``, where one jitted step spans a
+mesh of every device): process groups and their helpers (``dist``), the
+launcher (``launch``), synchronized BatchNorm (``norm_sync``) and the
+multi-process dryrun (``dryrun``)."""

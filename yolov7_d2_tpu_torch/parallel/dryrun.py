@@ -1,0 +1,197 @@
+"""Data-parallel runs of the bare YOLOX train step on several processes:
+the port's counterpart of ``__graft_entry__._dryrun_multichip_impl``
+(:func:`dryrun_multigpu`), and the rank function behind it
+(:func:`train_steps`), which the tests and ``chip_smoke.py`` also use to
+hold N processes against one. Both live in the package because ``spawn``
+imports a rank's function by its module's name.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from yolov7_d2_tpu_torch.parallel.dist import get_rank, get_world_size
+from yolov7_d2_tpu_torch.parallel.launch import launch
+from yolov7_d2_tpu_torch.utils.profiling import count_cuda_launches
+
+
+def rank_slice(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's share of a global batch: rows ``rank * b / world`` up to
+    the next rank's (``local_process_batch_slice``)."""
+    world, rank = get_world_size(), get_rank()
+    per = next(iter(batch.values())).shape[0] // world
+    return {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+
+
+def rank_device(device: str = "cuda") -> torch.device:
+    """``device`` with the rank's card made explicit: ``"cuda"`` is the
+    current card (NCCL ranks have theirs set by ``launch``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def train_steps(out_dir: str, cfg,
+                batches: Sequence[Dict[str, torch.Tensor]],
+                device: str = "cuda", seed: int = 0,
+                state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                count_launches_at: Optional[int] = None,
+                keep_outputs: bool = False,
+                keep_weights: bool = False) -> None:
+    """One rank: ``build_yolox_system(cfg)`` on ``device`` (inside the
+    group: synchronized BatchNorm and DDP) with the weights of ``seed``,
+    or ``state_dict`` where given (the EMA then starts from it), then one
+    step on this rank's share of each global batch (host tensors). Writes
+    ``out_dir/rank<r>.pt``: each step's metrics as floats, and the final
+    state dict, EMA and step count on the CPU. With ``count_launches_at``
+    (a CUDA device), the metrics of that step gain ``launches``, the CUDA
+    kernels it launched. With ``keep_outputs``, ``outputs`` holds each
+    step's raw head outputs [b, A, 5 + C] (float32, on the CPU), from which
+    the caller can recompute the step's SimOTA assignment; with
+    ``keep_weights``, rank 0's ``weights`` holds the state dict before
+    each step (on the CPU), so that one process can take each step from
+    the ranks' weights."""
+    from yolov7_d2_tpu_torch.engine import build_yolox_system
+
+    device = rank_device(device)
+    _, state, step = build_yolox_system(cfg, device=device, seed=seed)
+    if state_dict is not None:
+        state.model.load_state_dict(state_dict)
+        if state.ema_params is not None:
+            state.ema_params = {n: p.detach().clone()
+                                for n, p in state.model.named_parameters()}
+    outputs: List[torch.Tensor] = []
+    if keep_outputs:
+        state.model.register_forward_hook(
+            lambda module, args, out: outputs.append(
+                out["outputs"].detach().float().cpu()))
+    history: List[Dict[str, float]] = []
+    weights: List[Dict[str, torch.Tensor]] = []
+    for i, batch in enumerate(batches):
+        if keep_weights and get_rank() == 0:
+            weights.append({k: v.cpu().clone()
+                            for k, v in state.model.state_dict().items()})
+        local = {k: v.to(device) for k, v in rank_slice(batch).items()}
+        if i == count_launches_at:
+            (state, metrics), launches = count_cuda_launches(
+                lambda: step(state, local))
+        else:
+            state, metrics = step(state, local)
+        history.append({k: float(v) for k, v in metrics.items()})
+        if i == count_launches_at:
+            history[-1]["launches"] = launches
+    torch.save({
+        "metrics": history,
+        "step": state.step,
+        "model": {k: v.cpu() for k, v in state.model.state_dict().items()},
+        "ema": ({k: v.cpu() for k, v in state.ema_params.items()}
+                if state.ema_params is not None else None),
+        "outputs": outputs,
+        "weights": weights,
+    }, os.path.join(out_dir, f"rank{get_rank()}.pt"))
+
+
+def tiny_config():
+    """The dryrun's YOLOX (``__graft_entry__._tiny_cfg``): 64 px, 8
+    classes, 8 boxes, depth 0.33, width 0.25, float32, EMA on."""
+    from yolov7_d2_tpu_torch.config import YoloxConfig
+
+    return YoloxConfig(input_size=(64, 64), num_classes=8, max_boxes=8,
+                       depth_mul=0.33, width_mul=0.25, amp=False, ema=True)
+
+
+def dryrun_multigpu(n: int, device: str = "cuda",
+                    timeout: float = 300.0) -> List[Dict]:
+    """n processes, each one step of the tiny YOLOX system on its share of
+    ``dummy_batch(cfg, 2 n)``: over NCCL, one card each (``device``
+    "cuda"; fewer visible cards than n raise), or over gloo on the CPU
+    ("cpu"). Asserts that the loss is finite and positive and that every
+    rank ends with the same parameters, BatchNorm buffers and EMA; returns
+    each rank's record of :func:`train_steps`."""
+    import math
+
+    from yolov7_d2_tpu_torch.engine import dummy_batch
+
+    cfg = tiny_config()
+    batch = dummy_batch(cfg, 2 * n, device="cpu")
+    with tempfile.TemporaryDirectory() as out:
+        launch(train_steps, n, args=(out, cfg, [batch], device),
+               backend="gloo" if device == "cpu" else "nccl",
+               timeout=timeout)
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                            weights_only=True) for r in range(n)]
+    for r, rec in enumerate(ranks):
+        loss = rec["metrics"][0]["total_loss"]
+        if not (math.isfinite(loss) and loss > 0):
+            raise AssertionError(f"rank {r}: total loss {loss}")
+        for key in ("model", "ema"):
+            for name, v in rec[key].items():
+                if not torch.equal(v, ranks[0][key][name]):
+                    raise AssertionError(f"rank {r}: {key} {name} differs "
+                                         "from rank 0's")
+    return ranks
+
+
+def norm_sync_ranks(out_dir: str, bn_params: Dict[str, torch.Tensor],
+                    x: torch.Tensor, grad_out: torch.Tensor,
+                    running: torch.Tensor, batches: torch.Tensor,
+                    device: str = "cuda") -> None:
+    """One rank of the checks of ``parallel/norm_sync.py``, on this rank's
+    share (:func:`rank_slice`) of each global input (host tensors, moved to
+    ``device`` in their dtype and memory format, the module in float32);
+    writes ``out_dir/rank<r>.pt`` (on the CPU):
+
+    * ``SyncBatchNorm2d`` (``bn_params``: weight, bias, eps, momentum) in
+      train mode on ``x`` [N, C, H, W], backward of ``sum(y * grad_out)``:
+      output, input gradient, this rank's weight and bias gradients, the
+      running statistics after;
+    * ``all_reduce_norm`` of running statistics that differ by rank
+      (``running[rank]``: mean, var);
+    * ``precise_bn`` over ``batches`` [K, N, C, H, W] from the module's
+      initial statistics."""
+    from yolov7_d2_tpu_torch.parallel.norm_sync import (
+        SyncBatchNorm2d,
+        all_reduce_norm,
+        precise_bn,
+    )
+
+    device = rank_device(device)
+
+    def module():
+        bn = SyncBatchNorm2d(x.shape[1], eps=float(bn_params["eps"]),
+                             momentum=float(bn_params["momentum"]))
+        with torch.no_grad():
+            bn.weight.copy_(bn_params["weight"])
+            bn.bias.copy_(bn_params["bias"])
+        return bn.to(device)
+
+    def here(t):
+        return t.to(device, memory_format=torch.preserve_format)
+
+    bn = module().train()
+    xs = rank_slice({"x": x, "g": grad_out})
+    xr = here(xs["x"]).clone().requires_grad_(True)
+    y = bn(xr)
+    y.backward(here(xs["g"]))
+    out = {"y": y.detach(), "x_grad": xr.grad, "weight_grad": bn.weight.grad,
+           "bias_grad": bn.bias.grad, "running_mean": bn.running_mean,
+           "running_var": bn.running_var}
+
+    avg = module()
+    avg.running_mean.copy_(running[get_rank()][0])
+    avg.running_var.copy_(running[get_rank()][1])
+    all_reduce_norm(avg)
+    out["reduced_mean"], out["reduced_var"] = avg.running_mean, avg.running_var
+
+    pbn = module()
+    precise_bn(pbn, [here(rank_slice({"image": b})["image"])
+                     for b in batches])
+    out["precise_mean"], out["precise_var"] = (pbn.running_mean,
+                                               pbn.running_var)
+    torch.save({k: v.detach().cpu() for k, v in out.items()},
+               os.path.join(out_dir, f"rank{get_rank()}.pt"))

@@ -7,6 +7,9 @@ the model's ``state_dict`` (parameters and BatchNorm buffers), the
 optimizer's (momentum buffers, and each group's ``lr_mult``, decay class
 and weight decay) and the EMA of the parameters. It is written to a
 temporary file and renamed, so that a crash leaves the last one whole.
+In a process group rank 0 writes and every rank then waits for it; every
+rank restores, onto its own device. The state dict has the same keys at
+every world size, so a checkpoint of one process resumes on N and back.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from yolov7_d2_tpu_torch.parallel.dist import is_main_process, synchronize
 from yolov7_d2_tpu_torch.train.train_state import TrainState
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -40,6 +44,11 @@ class Checkpointer:
                       if m)
 
     def save(self, step: int, state: TrainState) -> None:
+        if is_main_process():
+            self._write(step, state)
+        synchronize()
+
+    def _write(self, step: int, state: TrainState) -> None:
         blob = {
             "step": int(state.step),
             "model": state.model.state_dict(),

@@ -6,6 +6,14 @@ rule), the loss, the backward, optional gradient clipping and one SGD
 update at the scheduled learning rate, then the EMA of the parameters. It
 updates ``state`` in place, where the JAX step returns a new one, and
 returns it too.
+
+Inside a process group (``parallel/``) the forward runs through the
+state's ``DistributedDataParallel`` wrapper. Each rank's loss is its share
+of the global loss (the YOLOX losses divide by the global foreground
+count); DDP averages the gradients over the ranks, so the share is scaled
+by the world size before the backward, and the reduced gradient is that of
+the global loss, as under the JAX mesh. The gradient norm and the clipping
+read the reduced gradients, so every rank takes the same update.
 """
 
 from __future__ import annotations
@@ -16,7 +24,14 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from yolov7_d2_tpu_torch.parallel.dist import get_world_size
 from yolov7_d2_tpu_torch.train.optimizer import clip_gradients_, global_norm
+
+
+# the step's metrics that are global already, equal on every rank of a
+# group (the foreground count is reduced in the loss, the gradient norm read
+# from reduced gradients); every other metric is the rank's share
+GLOBAL_METRICS = ("num_fg", "grad_norm")
 
 
 @dataclasses.dataclass
@@ -25,6 +40,10 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     ema_params: Optional[Dict[str, torch.Tensor]] = None  # name -> tensor
+    # the DistributedDataParallel wrapper of ``model`` inside a process
+    # group, else None; ``model`` stays the bare module, so that names, the
+    # EMA, the optimizer's groups and checkpoints have no ``module.`` prefix
+    ddp: Optional[nn.Module] = None
 
 
 def make_train_step(
@@ -44,9 +63,13 @@ def make_train_step(
         model, opt = state.model, state.optimizer
         use_l1 = use_l1_after is not None and state.step >= use_l1_after
         model.train()
-        losses = loss_fn(model(batch["image"]), batch, use_l1)
+        forward = model if state.ddp is None else state.ddp
+        losses = loss_fn(forward(batch["image"]), batch, use_l1)
         opt.zero_grad(set_to_none=True)
-        losses["total_loss"].backward()
+        if state.ddp is None:
+            losses["total_loss"].backward()
+        else:
+            (losses["total_loss"] * get_world_size()).backward()
 
         grads = [p.grad for group in opt.param_groups
                  for p in group["params"] if p.grad is not None]

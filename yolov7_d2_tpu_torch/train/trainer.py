@@ -1,5 +1,4 @@
-"""The trainer: hooks around the training loop (JAX ``train/trainer.py``,
-without the mesh: one card).
+"""The trainer: hooks around the training loop (JAX ``train/trainer.py``).
 
 The loop takes a batch (tensors on the model's device, from
 ``data.loader.CudaPrefetcher``), runs the train step, and calls the hooks.
@@ -7,6 +6,11 @@ The step's metrics stay on the device except every ``metrics_period``
 steps and at the last step, where they are fetched into the
 ``EventStorage``: a fetch waits for the card, and the step is bound by the
 host's launches, so no hook reads a device value on the other steps.
+
+In a process group (``parallel/``) every rank runs the loop on its share of
+the batch. At a fetch the ranks' shares of the loss are summed (the global
+loss); checkpoints are written and the eval run by rank 0, while the other
+ranks wait at a barrier; the entry point gives the writers to rank 0 only.
 """
 
 from __future__ import annotations
@@ -17,8 +21,13 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from yolov7_d2_tpu_torch.parallel.dist import (
+    all_reduce_scalars,
+    is_main_process,
+    synchronize,
+)
 from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
-from yolov7_d2_tpu_torch.train.train_state import TrainState
+from yolov7_d2_tpu_torch.train.train_state import GLOBAL_METRICS, TrainState
 from yolov7_d2_tpu_torch.utils.events import (
     CommonMetricPrinter,
     EventStorage,
@@ -81,7 +90,9 @@ class PeriodicWriter(HookBase):
 class EvalHook(HookBase):
     """``eval_fn(trainer) -> {metric: value}`` every ``period`` steps and
     after the last step, unless that step was just evaluated; the results
-    go into the storage as ``eval/<metric>``."""
+    go into the storage as ``eval/<metric>``. In a process group rank 0
+    evaluates (the EMA weights are equal on every rank) and the others wait
+    for it."""
 
     def __init__(self, period: int, eval_fn: Callable[["Trainer"], Dict]):
         self.period = period
@@ -89,9 +100,11 @@ class EvalHook(HookBase):
         self._done_at: Optional[int] = None
 
     def _evaluate(self, trainer):
-        results = self.eval_fn(trainer)
-        for k, v in (results or {}).items():
-            trainer.storage.put_scalar(f"eval/{k}", v)
+        if is_main_process():
+            results = self.eval_fn(trainer)
+            for k, v in (results or {}).items():
+                trainer.storage.put_scalar(f"eval/{k}", v)
+        synchronize()
         self._done_at = trainer.storage.iter
 
     def after_step(self, trainer):
@@ -166,8 +179,13 @@ class Trainer:
                 self.storage.iter % self.metrics_period == 0
                 or self.storage.iter >= self.max_iter
             ):
-                for k, v in metrics.items():
-                    self.storage.put_scalar(k, float(v))
+                values = all_reduce_scalars(
+                    {k: v for k, v in metrics.items()
+                     if k not in GLOBAL_METRICS})
+                values.update({k: float(v) for k, v in metrics.items()
+                               if k in GLOBAL_METRICS})
+                for k in metrics:
+                    self.storage.put_scalar(k, values[k])
             for h in self.hooks:
                 h.after_step(self)
         for h in self.hooks:

@@ -1,14 +1,21 @@
 """Detection training CLI of the port (the JAX package's ``train_det.py``).
 
     python -m yolov7_d2_tpu_torch.train_det --config-file configs/coco/yolox_s.yaml \
-        [--resume] [--eval-only] [KEY VALUE ...]
+        [--resume] [--eval-only] [--num-gpus N] [--num-machines M \
+        --machine-rank R --dist-url tcp://HOST:PORT] [KEY VALUE ...]
 
 Config -> COCO records (``DATASETS.TRAIN`` / ``TEST`` from the catalog) ->
 a feed -> ``build_yolox_system`` -> the trainer with its hooks (timer,
 aug-disable, periodic checkpoint, periodic COCO eval, writers) ->
 ``OUTPUT_DIR/metrics.json`` and ``OUTPUT_DIR/ckpt``. It runs on
 ``MODEL.DEVICE`` (``cuda`` by default; ``MODEL.DEVICE cpu`` runs on the
-CPU) on one device: ``--num-gpus`` or ``--num-machines`` above 1 raise.
+CPU). ``--num-gpus N`` runs N processes a machine (``parallel.launch``),
+one card each over NCCL (N processes on the CPU over gloo with
+``MODEL.DEVICE cpu``); each takes ``IMS_PER_BATCH / world`` images a step,
+and the step is that of the global batch (synchronized BatchNorm, the
+global foreground count, the summed gradient). Rank 0 writes the metrics
+and checkpoints and runs the eval. One process (the default) makes no
+process group.
 
 Feeds:
 
@@ -113,11 +120,30 @@ def build_eval_fn(cfg, eval_records):
     return eval_fn
 
 
+def launch_main(main_fn, args):
+    """``main_fn(args)`` on ``args.num_gpus`` processes of this machine
+    (``parallel.launch``): over NCCL, or gloo where the config's
+    ``MODEL.DEVICE`` is the CPU. Returns its result in a world of 1."""
+    from yolov7_d2_tpu_torch.parallel.launch import launch
+    from yolov7_d2_tpu_torch.utils.args import setup_cfg
+
+    cpu = torch.device(setup_cfg(args).MODEL.DEVICE).type == "cpu"
+    return launch(main_fn, args.num_gpus, args.num_machines,
+                  args.machine_rank, args.dist_url, args=(args,),
+                  backend="gloo" if cpu else "nccl")
+
+
 def main(args):
-    """Train as the config says and return the ``Trainer`` (its
-    ``storage`` holds the last scalars, the eval results as
-    ``eval/<metric>``); with ``--eval-only``, evaluate and return the eval
-    dict."""
+    """Train as the config says on ``args.num_gpus * args.num_machines``
+    processes. In one process, return the ``Trainer`` (its ``storage``
+    holds the last scalars, the eval results as ``eval/<metric>``), or
+    with ``--eval-only`` the eval dict; None with more processes."""
+    return launch_main(run, args)
+
+
+def run(args):
+    """The training of one process; returns its ``Trainer`` (with
+    ``--eval-only``, the eval dict on rank 0 and None on the others)."""
     from yolov7_d2_tpu_torch.config import YoloxConfig
     from yolov7_d2_tpu_torch.data.catalog import DatasetCatalog
     from yolov7_d2_tpu_torch.data.loader import (
@@ -125,6 +151,14 @@ def main(args):
         build_detection_train_loader,
     )
     from yolov7_d2_tpu_torch.engine import build_yolox_system, resolve_device
+    from yolov7_d2_tpu_torch.parallel.dist import (
+        get_local_rank,
+        get_rank,
+        get_world_size,
+        is_main_process,
+        local_batch_size,
+        synchronize,
+    )
     from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
     from yolov7_d2_tpu_torch.train.schedules import auto_scale_config
     from yolov7_d2_tpu_torch.train.trainer import (
@@ -137,24 +171,29 @@ def main(args):
     )
     from yolov7_d2_tpu_torch.utils.args import setup_cfg
 
-    if args.num_gpus > 1 or args.num_machines > 1:
-        raise NotImplementedError(
-            "training on more than one GPU is not ported yet (ROADMAP.md "
-            "Queue A.6); run with --num-gpus 1 --num-machines 1")
+    if get_world_size() > 1:
+        # a spawned rank starts with no logging set up; rank 0 logs progress
+        logging.basicConfig(level=logging.INFO if is_main_process()
+                            else logging.WARNING)
     cfg = setup_cfg(args)
     cfg.defrost()
-    auto_scale_config(cfg, 1)
+    auto_scale_config(cfg, get_world_size())
     cfg.freeze()
     device = resolve_device(cfg.MODEL.DEVICE)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", get_local_rank())
+    rank = get_rank()
+    batch_size = local_batch_size(cfg.SOLVER.IMS_PER_BATCH)
     packed_dir = str(cfg.DATALOADER.PACKED_CACHE_DIR)
     if cfg.INPUT.MOSAIC_AND_MIXUP.DEVICE and not packed_dir:
         raise NotImplementedError(
             "INPUT.MOSAIC_AND_MIXUP.DEVICE (the fused device geometry path, "
             "DeviceAug) is not ported (ROADMAP.md, 'Do not port'): use the "
             "host mosaic feed or DATALOADER.PACKED_CACHE_DIR")
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if is_main_process():
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
 
     records = []
     for name in cfg.DATASETS.TRAIN:
@@ -169,9 +208,12 @@ def main(args):
     checkpointer = Checkpointer(os.path.join(cfg.OUTPUT_DIR, "ckpt"))
     state, start_iter = checkpointer.resume_or_load(state, resume=args.resume)
     if args.eval_only:
-        results = build_eval_fn(cfg, eval_records)(
-            types.SimpleNamespace(state=state))
-        print(results)
+        results = None
+        if is_main_process():
+            results = build_eval_fn(cfg, eval_records)(
+                types.SimpleNamespace(state=state))
+            print(results)
+        synchronize()
         return results
 
     disable_at = int(cfg.INPUT.MOSAIC_AND_MIXUP.DISABLE_AT_ITER)
@@ -184,17 +226,19 @@ def main(args):
             SwitchingPackedLoader,
         )
 
-        train_step = make_packed_photo_step(ycfg, train_step, seed=seed)
+        # each rank shuffles every record with its own seed, as the JAX
+        # package's hosts do (seed + process_index)
+        train_step = make_packed_photo_step(ycfg, train_step, seed=seed,
+                                            rank=rank)
         loader = PackedShardLoader(
-            packed_dir, cfg.SOLVER.IMS_PER_BATCH, image_dtype=np.uint8,
-            seed=seed)
+            packed_dir, batch_size, image_dtype=np.uint8, seed=seed + rank)
         plain_dir = str(cfg.DATALOADER.PACKED_CACHE_PLAIN_DIR)
         if plain_dir:
             # reference DISABLE_AT_ITER: plain resized images for the
             # final phase (dataset_mapper.py:400,490) — switch shard sets
             plain_loader = PackedShardLoader(
-                plain_dir, cfg.SOLVER.IMS_PER_BATCH, image_dtype=np.uint8,
-                seed=seed + 7919)
+                plain_dir, batch_size, image_dtype=np.uint8,
+                seed=seed + rank + 7919)
             loader = SwitchingPackedLoader(
                 loader, plain_loader,
                 switch_after=max(disable_at - start_iter, 0))
@@ -211,8 +255,10 @@ def main(args):
     else:
         from yolov7_d2_tpu_torch.data.mappers import YOLOXDatasetMapper
 
-        mapper = YOLOXDatasetMapper(cfg, is_train=True, seed=0)
-        loader = build_detection_train_loader(cfg, records, mapper)
+        mapper = YOLOXDatasetMapper(cfg, is_train=True, seed=rank)
+        loader = build_detection_train_loader(cfg, records, mapper,
+                                              seed=rank,
+                                              batch_size=batch_size)
         hooks = [IterationTimer(), AugDisableHook(mapper, disable_at)]
 
     hooks.append(PeriodicCheckpointer(checkpointer,
@@ -221,9 +267,10 @@ def main(args):
         hooks.append(EvalHook(cfg.TEST.EVAL_PERIOD,
                               build_eval_fn(cfg, eval_records)))
     # the writers last, so that the eval results of a step are written
-    # with it (detectron2's hook order)
-    hooks.append(PeriodicWriter(
-        Trainer.default_writers(cfg.OUTPUT_DIR, cfg.SOLVER.MAX_ITER)))
+    # with it (detectron2's hook order); rank 0's only
+    if is_main_process():
+        hooks.append(PeriodicWriter(
+            Trainer.default_writers(cfg.OUTPUT_DIR, cfg.SOLVER.MAX_ITER)))
 
     trainer = Trainer(
         train_step, state, CudaPrefetcher(loader, device, TRAIN_FIELDS),
