@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's YOLOX-s serving path, training step,
-training CLI and multi-GPU training on one CUDA card.
+training CLI and multi-GPU training, and of the anchor-YOLO family's
+serving and training, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -42,7 +43,22 @@ set to 0 just before it and read just after:
   card). The
   kernels' launches in the JSON line are those of (b) (GridMask on its
   steps before DISABLE_AT_ITER, normalize on the plain steps and in the
-  eval, NMS in the eval); the uint8 GridMask's are the mixup-off path's.
+  eval, NMS in the eval); the uint8 GridMask's are the mixup-off path's;
+* the anchor-YOLO family (``anchor_yolo_phase``): YOLOV7 at 640 from
+  ``configs/coco/yolov7.yaml``, full depth and width (CSP-Darknet53,
+  YOLOPAFPN, the anchor head), bf16 over f32 weights from the seed.
+  Serving: ``build_model`` + ``anchor_yolo_postprocess`` for requests of
+  1, 8 and 128 images (normalize and NMS kernels, their launches counted
+  from 0), the kernel path against the plain one index for index at bs
+  128, the f32 head outputs on the card against the CPU at bs 1 within
+  1e-4 of the max, times by CUDA events. Training: ``build_system``'s step
+  in ``make_packed_photo_step``, GridMask (mode 1, prob 0.3) and mixup on,
+  EMA on, 13 steps of 16 images (finite losses, foreground anchors,
+  weights, EMA and BN statistics moved, ms a step, peak memory, GridMask
+  launches), then one f32 step (128 px, 2 images) on the card against the
+  CPU within 1e-3 with the same fg count. Then one request and one train
+  step each for ``YOLO`` (``configs/coco/darknet53.yaml``) and
+  ``YOLOV7P`` (CSP-Darknet53), full depth.
 
 ``python3 chip_smoke.py --nccl`` runs (c) alone, on a machine of 2 or more
 cards.
@@ -1023,6 +1039,269 @@ def nccl_ranks_phase(dev, card: str, cfg, data: CliData, **opts) -> None:
         f"time_per_iter {last['time_per_iter'] * 1e3:.3f} ms on rank 0")
 
 
+def anchor_yolo_cfg(yaml: str, **replace):
+    """An ``AnchorYoloConfig`` from ``configs/coco/<yaml>`` (merged into the
+    port's ``get_cfg``, as a user's config is), with dataclass fields
+    replaced."""
+    from yolov7_d2_tpu_torch.config import AnchorYoloConfig
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "coco", yaml))
+    return dataclasses.replace(AnchorYoloConfig.from_cfg(cfg), **replace)
+
+
+def anchor_tail(head, cfg, nms=None):
+    """``anchor_yolo_postprocess`` of ``cfg``'s architecture on head
+    outputs, with the NMS kernel unless ``nms`` is given."""
+    from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import (
+        anchor_yolo_postprocess,
+    )
+
+    variant = cfg.variant if cfg.meta_architecture == "YOLO" else "yolov7"
+    with torch.inference_mode():
+        return anchor_yolo_postprocess(
+            head, variant, cfg.conf_threshold, cfg.nms_threshold,
+            cfg.max_detections, cfg.pre_nms_topk,
+            **({} if nms is None else {"nms": nms}))
+
+
+def anchor_serve(model, cfg, images):
+    """uint8 batch -> the normalize kernel and the model -> head outputs
+    -> :func:`anchor_tail` -> ``Detections``."""
+    with torch.inference_mode():
+        head = model(images)
+    return head, anchor_tail(head, cfg)
+
+
+def check_detections(dets, n: int, cfg, what: str) -> str:
+    if dets.boxes.shape != (n, cfg.max_detections, 4) or \
+            dets.valid.shape != (n, cfg.max_detections):
+        raise AssertionError(f"{what}: Detections shapes "
+                             f"{tuple(dets.boxes.shape)}")
+    counts = dets.num_valid()
+    if int(counts.min()) < 1:
+        raise AssertionError(f"{what}: an image with no detection")
+    if not torch.isfinite(dets.boxes[dets.valid]).all() or \
+            not torch.isfinite(dets.scores).all():
+        raise AssertionError(f"{what}: non-finite detections")
+    return f"detections per image {int(counts.min())}-{int(counts.max())}"
+
+
+def check_train_metrics(metrics, what: str) -> None:
+    for i, m in enumerate(metrics):
+        for key in ("loss_box", "loss_obj", "loss_cls", "total_loss",
+                    "grad_norm"):
+            if not bool(torch.isfinite(m[key])):
+                raise AssertionError(f"{what} step {i}: {key} = "
+                                     f"{float(m[key])}")
+        if not float(m["num_fg"]) > 1.0:
+            raise AssertionError(f"{what} step {i}: no foreground anchor")
+
+
+def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
+                      requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+                      size: int = SIZE, small: int = 128) -> None:
+    """Section 11: the anchor-YOLO family (``YOLOV7`` at 640 from
+    ``configs/coco/yolov7.yaml``, full depth and width, bf16 compute over
+    f32 weights from ``SEED``). (a) serving through ``build_model`` +
+    ``anchor_yolo_postprocess`` (normalize and NMS kernels) at each request
+    size, the kernel path against the plain one, the f32 card against the
+    CPU at bs 1; (b) ``build_system``'s step in ``make_packed_photo_step``
+    with GridMask (mode 1, prob 0.3) and mixup on, ``train_n`` images a step
+    for 13 steps, then one f32 step on the card against the CPU; (c) one
+    request and one train step each for ``YOLO`` (darknet53.yaml) and
+    ``YOLOV7P`` (CSP-Darknet53). Each path's kernel launches are counted
+    from 0."""
+    from yolov7_d2_tpu_torch.data.device_aug import (
+        DevicePhotometric,
+        PhotoDraws,
+        make_packed_photo_step,
+    )
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
+    from yolov7_d2_tpu_torch.models.build import build_model
+
+    cfg = anchor_yolo_cfg("yolov7.yaml")
+    model = build_model(cfg, dev, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"(11a) YOLOV7 {size} from configs/coco/yolov7.yaml: "
+        f"{n_params / 1e6:.3f} M parameters, {model.dtype}")
+    batches = [letterboxed_batch(n, gen)[:, :size, :size].contiguous()
+               for n in requests]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for req in batches:
+        _, dets = anchor_serve(model, cfg, req.to(dev))
+        log(f"(11a) request bs {req.shape[0]}: "
+            + check_detections(dets, req.shape[0], cfg, "YOLOV7 serving"))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    log(f"(11a) YOLOV7 serving path launches: {launches}")
+    for name in ("normalize", "nms"):
+        if launches.get(name, 0) < len(requests):
+            raise AssertionError(f"the YOLOV7 serving path launched {name} "
+                                 f"{launches.get(name, 0)} times")
+
+    big = batches[-1].to(dev)
+    head, with_kernel = anchor_serve(model, cfg, big)
+    with_plain = anchor_tail(head, cfg, nms=nms_batched_plain)
+    for field in ("valid", "classes", "boxes", "scores"):
+        if not torch.equal(getattr(with_kernel, field),
+                           getattr(with_plain, field)):
+            raise AssertionError(f"YOLOV7 bs {big.shape[0]}: Detections."
+                                 f"{field} of the kernel path differ from "
+                                 "the plain path")
+    log(f"(11a) bs {big.shape[0]}: kernel-path Detections equal the "
+        f"plain-path ones ({int(with_kernel.valid.sum())} kept)")
+
+    # f32 on the card against the CPU at bs 1 (same modules, layout and
+    # normalize kernel as bf16; only the convolutions' sum order differs)
+    f32 = dataclasses.replace(cfg, amp=False)
+    one = batches[0]
+    with torch.inference_mode():
+        ref = build_model(f32, "cpu", SEED)(one)["outputs"]
+        on_card = build_model(f32, dev, SEED)(one.to(dev))["outputs"].cpu()
+        bf16 = model(one.to(dev))["outputs"].float().cpu()
+    scale = float(ref.abs().max())
+    err32 = float((on_card - ref).abs().max())
+    err16 = float((bf16 - ref).abs().max())
+    log(f"(11a) bs 1 head outputs vs float32 on the CPU (max |ref| "
+        f"{scale:.4g}): float32 card max err {err32:.4g} "
+        f"({err32 / scale:.3g} of the max), bf16 {err16:.4g} on [{card}]")
+    if err32 > 1e-4 * scale or err16 > 5e-2 * scale:
+        raise AssertionError("YOLOV7 head outputs disagree with the CPU")
+
+    for req in batches:
+        n = req.shape[0]
+        x = req.to(dev)
+        e2e = cuda_ms(lambda: anchor_serve(model, cfg, x))
+        with torch.inference_mode():
+            fwd = cuda_ms(lambda: model(x))
+            head = model(x)
+        tail = cuda_ms(lambda: anchor_tail(head, cfg))
+        log(f"YOLOV7 {size} bs {n} bf16 on [{card}]: e2e {e2e:.3f} ms = "
+            f"{n * 1000 / e2e:.1f} img/s; forward-only {fwd:.3f} ms; tail "
+            f"{tail:.3f} ms")
+    del model, batches, big, head, with_kernel, with_plain, x
+    torch.cuda.empty_cache()
+
+    # ---- (b) training
+    tcfg = dataclasses.replace(cfg, grid_mask=True, grid_mask_mode=1,
+                               grid_mask_prob=0.3, mixup=True, ema=True)
+    _, state, train_step, _ = build_system(tcfg, device=dev, seed=SEED)
+    step = make_packed_photo_step(tcfg, train_step, seed=SEED)
+    tbatches = [{k: v.to(dev) for k, v in train_batch(
+        train_n, gen, size).items()} for _ in range(4)]
+    before = snapshot(state)
+    metrics = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    for i in range(WARMUP):
+        state, m = step(state, tbatches[i % 4])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(WARMUP, WARMUP + ITERS):
+        state, m = step(state, tbatches[i % 4])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"(11b) YOLOV7 training path launches: {launches}")
+    if launches.get("grid_mask", 0) < 1:
+        raise AssertionError("the YOLOV7 training path never launched "
+                             "grid_mask")
+    masked = sum(m["grid_masked"] for m in metrics)
+    if masked < 1:
+        raise AssertionError("GridMask masked no image in YOLOV7 training")
+    check_train_metrics(metrics, "YOLOV7 train")
+    after = snapshot(state)
+    for key in before:
+        if all(torch.equal(a, b) for a, b in zip(before[key], after[key])):
+            raise AssertionError(f"YOLOV7 training moved no {key} tensor")
+    fmt = ("total_loss", "loss_box", "loss_obj", "loss_cls", "num_fg",
+           "grad_norm")
+    for i in (0, len(metrics) - 1):
+        log(f"(11b) YOLOV7 train step {i}: " + ", ".join(
+            f"{k} {float(metrics[i][k]):.4f}" for k in fmt))
+    log(f"(11b) YOLOV7 {size} train step bs {train_n} bf16 on [{card}]: "
+        f"{step_ms:.3f} ms a step = {train_n * 1000 / step_ms:.1f} img/s "
+        f"(host clock over {ITERS} steps after {WARMUP}); peak memory "
+        f"{peak_gb:.3f} GB; {masked} of {train_n * len(metrics)} images "
+        f"GridMask-ed; parameters, EMA and BN statistics moved")
+    del state, train_step, step, before, after, metrics, tbatches
+    torch.cuda.empty_cache()
+
+    # one f32 step, card against CPU: full depth and width, small px, 2
+    # images, the same weights, batch and draws; TF32 off
+    scfg = dataclasses.replace(tcfg, input_size=(small, small), amp=False,
+                               warmup_iters=0)
+    sbatch = train_batch(2, gen, small)
+    draws = PhotoDraws(
+        perm=torch.tensor([1, 0]), do_mix=torch.tensor([True, False]),
+        grid_params=torch.tensor([[16, 8, 3, 5, 1], [12, 6, 2, 7, 0]],
+                                 dtype=torch.int32),
+        do_flip=torch.tensor([False, True]))
+    got = {}
+    for where in ("cpu", dev):
+        _, st, ts, _ = build_system(scfg, device=where, seed=SEED)
+        b = DevicePhotometric(scfg).apply(
+            {k: v.to(where) for k, v in sbatch.items()}, draws)
+        _, m = ts(st, b)
+        got[str(where)] = {k: float(v) for k, v in m.items()}
+    ref_m, card_m = got["cpu"], got[str(dev)]
+    log(f"(11b) YOLOV7 float32 train step at {small} px, card vs CPU: "
+        + ", ".join(f"{k} {card_m[k]:.6g} / {ref_m[k]:.6g}" for k in fmt))
+    if card_m["num_fg"] != ref_m["num_fg"]:
+        raise AssertionError("YOLOV7 fg count differs between card and CPU")
+    for k in ("total_loss", "loss_box", "loss_obj", "loss_cls",
+              "grad_norm"):
+        if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
+            raise AssertionError(f"YOLOV7 {k} differs between the card and "
+                                 "the CPU")
+
+    # ---- (c) the other two architectures: one request, one train step
+    for arch, ccfg in (
+            ("YOLO", anchor_yolo_cfg("darknet53.yaml")),
+            ("YOLOV7P", anchor_yolo_cfg(
+                "yolov7.yaml", meta_architecture="YOLOV7P"))):
+        model = build_model(ccfg, dev, SEED)
+        req = letterboxed_batch(requests[1], gen)[:, :size, :size]
+        build.reset_launches()
+        _, dets = anchor_serve(model, ccfg, req.contiguous().to(dev))
+        torch.cuda.synchronize()
+        serve_launches = dict(build.LAUNCHES)
+        summary = check_detections(dets, req.shape[0], ccfg, arch)
+        del model
+        ccfg = dataclasses.replace(ccfg, grid_mask=True, ema=True)
+        _, state, train_step, _ = build_system(ccfg, device=dev, seed=SEED)
+        step = make_packed_photo_step(ccfg, train_step, seed=SEED)
+        build.reset_launches()
+        state, m = step(state, {k: v.to(dev) for k, v in train_batch(
+            train_n, gen, size).items()})
+        torch.cuda.synchronize()
+        train_launches = dict(build.LAUNCHES)
+        check_train_metrics([m], arch)
+        for path, got_l, names in (("serving", serve_launches,
+                                    ("normalize", "nms")),
+                                   ("training", train_launches,
+                                    ("grid_mask",))):
+            for name in names:
+                if got_l.get(name, 0) < 1:
+                    raise AssertionError(f"{arch} {path} never launched "
+                                         f"{name}")
+        log(f"(11c) {arch}: bs {req.shape[0]} {summary}, launches "
+            f"{serve_launches}; one train step of {train_n}: total loss "
+            f"{float(m['total_loss']):.4f}, num_fg {float(m['num_fg']):.0f},"
+            f" launches {train_launches}")
+        del state, train_step, step
+        torch.cuda.empty_cache()
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -1419,7 +1698,11 @@ def main() -> int:
     DatasetCatalog.remove(CLI_DATASET)
     shutil.rmtree(data.work, ignore_errors=True)
 
-    # ---- 11. times
+    # ---- 11. the anchor-YOLO family: YOLOV7 serving and training, then
+    # YOLO and YOLOV7P (anchor_yolo_phase)
+    anchor_yolo_phase(dev, card, gen)
+
+    # ---- 12. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "

@@ -159,6 +159,81 @@ def write_mini_coco(root, n: int = 8, seed: int = 7):
     return str(js), str(img_dir)
 
 
+def assert_trajectory_close(name, final, init, want):
+    """Each leaf's change over a trajectory, the port's against the JAX
+    package's (flax trees of the final, initial and JAX final values): 3e-2
+    relative, plus 5e-3 of the leaf's largest change and a noise floor
+    (per-step gradient noise couples across parameters over steps)."""
+    import jax
+
+    flat_f = jax.tree_util.tree_leaves_with_path(final)
+    flat_i = dict(jax.tree_util.tree_leaves_with_path(init))
+    flat_w = dict(jax.tree_util.tree_leaves_with_path(want))
+    global_delta = max(
+        float(np.abs(np.asarray(f, np.float64)
+                     - np.asarray(flat_i[p], np.float64)).max())
+        for p, f in flat_f)
+    assert global_delta > 0
+    for path, f in flat_f:
+        i = np.asarray(flat_i[path], np.float64)
+        d_port = np.asarray(f, np.float64) - i
+        d_jax = np.asarray(flat_w[path], np.float64) - i
+        scale = max(float(np.abs(d_jax).max()), 1e-10)
+        noise = 4e-6 * max(float(np.abs(i).max()), 1e-3) + 3e-4 * global_delta
+        np.testing.assert_allclose(
+            d_port, d_jax, rtol=3e-2, atol=scale * 5e-3 + noise,
+            err_msg=f"{name}{jax.tree_util.keystr(path)}")
+
+
+def colliding_gts(classes: int = 5):
+    """Scenes built to collide: gts of one shape around one centre (every
+    builder puts them on the same anchors), near-copies in neighbour cells
+    (the ratio builder's neighbour cells overlap), and invalid slots."""
+    boxes = np.zeros((2, 10, 4), np.float32)
+    base = np.array([20.0, 18.0, 52.0, 42.0], np.float32)   # wh (32, 24)
+    for j in range(6):          # centres stay in cell (4, 3) at stride 8
+        boxes[0, j] = base + np.float32(0.25 * j)
+    boxes[0, 6] = [0.0, 0.0, 30.0, 60.0]
+    boxes[0, 7] = [1.0, 2.0, 31.0, 62.0]
+    boxes[1, :4] = [[40, 40, 56, 70], [41, 40, 57, 70], [36, 44, 52, 74],
+                    [8, 8, 14, 20]]
+    boxes[1, 4] = [9.0, 7.0, 15.0, 19.0]
+    valid = np.zeros((2, 10), bool)
+    valid[0, :8] = True
+    valid[0, 3] = False                           # a hole among the copies
+    valid[1, :5] = True
+    classes = (np.arange(20).reshape(2, 10) % classes).astype(np.int32)
+    return boxes, classes, valid
+
+
+def decoded_candidates(rng, b, a, classes, size, cut=None):
+    """Decoded candidates of an anchor head: xyxy boxes [b, a, 4] in a
+    ``size`` frame, objectness [b, a] and class probabilities [b, a,
+    classes]. With ``cut`` (a pre-NMS top-k), ties: runs of equal scores,
+    classes tied inside a row, overlapping boxes among the tied ones, and
+    20 more anchors at the score of rank ``cut - 10``, which the cut
+    splits."""
+    c = rng.uniform(0, size, (b, a, 2))
+    wh = rng.uniform(4, 40, (b, a, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    obj = rng.uniform(0, 1, (b, a)).astype(np.float32)
+    cls = rng.uniform(0, 1, (b, a, classes)).astype(np.float32)
+    if cut is not None:
+        n = obj[:, 1::3].shape[1]
+        obj[:, 1::3] = obj[:, 0:-1:3][:, :n]
+        cls[:, 1::3] = cls[:, 0:-1:3][:, :n]
+        cls[:, ::5, 1] = cls[:, ::5, 0]
+        boxes[:, 1::3] = boxes[:, 0:-1:3][:, :n] + 1.0
+        kth = np.sort(obj * cls.max(-1), -1)[:, ::-1][:, cut - 11]
+        for i in range(b):
+            run = rng.choice(np.flatnonzero(obj[i] * cls[i].max(-1) < kth[i]),
+                             20, replace=False)
+            obj[i, run] = 1.0
+            cls[i, run] = np.minimum(cls[i, run], kth[i])
+            cls[i, run, 2] = kth[i]
+    return boxes, obj, cls
+
+
 def assert_batches_equal(a, b):
     """Two dicts of arrays: the same keys, dtypes and values, exactly."""
     assert sorted(a) == sorted(b)
@@ -166,3 +241,96 @@ def assert_batches_equal(a, b):
         x, y = np.asarray(a[k]), np.asarray(b[k])
         assert x.dtype == y.dtype, (k, x.dtype, y.dtype)
         np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the anchor-YOLO family at reduced depth, the same model on both sides
+# ---------------------------------------------------------------------------
+
+# AnchorYOLO keyword arguments of each architecture as its builder sets
+# them, with a pre-built Darknet53 of one block a stage (the full depth is
+# only for the card) and PAFPN at width 0.25 (CSP-Darknet53's fixed
+# 256/512/1024 channels into a narrower neck; YOLOV7P's builder keeps 1.0,
+# which the builder tests hold at full size): YOLOV7, YOLO with the SPP of
+# YOLOFPN, YOLOV7P with the direct head and a unit-scale pixel mean and std
+ANCHOR_ARCHS = {
+    "YOLOV7": (dict(with_csp=True),
+               dict(neck_type="pafpn", width_mul=0.25, depth_mul=0.33,
+                    act="silu"), "cspdarknet53"),
+    "YOLO": (dict(with_csp=False),
+             dict(neck_type="yolov3", with_spp=True), "darknet53"),
+    "YOLOV7P": (dict(with_csp=True),
+                dict(neck_type="pafpn", width_mul=0.25, depth_mul=0.33,
+                     act="silu", head_style="direct",
+                     pixel_mean=(0.406, 0.456, 0.485),
+                     pixel_std=(0.225, 0.224, 0.229)), "cspdarknet53"),
+}
+ANCHOR_CLASSES = 6
+REDUCED_STAGES = (1, 1, 1, 1, 1)
+
+
+def anchor_yolo_name_mapper(arch: str):
+    import functools
+
+    from yolov7_d2_tpu_torch.utils.weight_port import (
+        map_anchor_yolo_torch_name,
+    )
+
+    return functools.partial(map_anchor_yolo_torch_name,
+                             backbone_type=ANCHOR_ARCHS[arch][2])
+
+
+def anchor_yolo_modules(arch: str, dtype=torch.float32):
+    """(flax AnchorYOLO, port AnchorYOLO) of ``arch`` at reduced depth, the
+    port's with its own random weights."""
+    from yolov7_d2_tpu.models.backbones.darknet import Darknet53 as JaxDark
+    from yolov7_d2_tpu.models.meta_arch.yolov7 import AnchorYOLO as JaxYOLO
+    from yolov7_d2_tpu_torch.models.backbones.darknet import Darknet53
+    from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import AnchorYOLO
+
+    bb, kw, _ = ANCHOR_ARCHS[arch]
+    jmodel = JaxYOLO(num_classes=ANCHOR_CLASSES,
+                     backbone=JaxDark(stage_blocks=REDUCED_STAGES, **bb),
+                     **kw)
+    tmodel = AnchorYOLO(num_classes=ANCHOR_CLASSES,
+                        backbone=Darknet53(stage_blocks=REDUCED_STAGES, **bb),
+                        dtype=dtype, **kw)
+    return jmodel, tmodel
+
+
+def flax_variables_like(jmodel, images, rng: np.random.Generator):
+    """Variables of the flax ``jmodel`` drawn with numpy, without running
+    the flax init (its XLA compile costs seconds a model): conv kernels
+    from N(0, 1/fan_in) (flax's lecun-normal scale), then every BatchNorm
+    and bias random (:func:`randomize_bn`)."""
+    import jax
+    import jax.numpy as jnp
+
+    shapes = jax.eval_shape(
+        lambda x: jmodel.init(jax.random.PRNGKey(0), x),
+        jnp.zeros(images.shape, jnp.float32))
+
+    def draw(path, leaf):
+        if path[-1] == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            return rng.normal(0.0, fan_in ** -0.5, leaf.shape).astype(
+                np.float32)
+        return np.zeros(leaf.shape, np.float32)
+
+    return randomize_bn({
+        coll: jax.tree_util.tree_map_with_path(
+            lambda path, leaf: draw(tuple(str(getattr(k, "key", k))
+                                          for k in path), leaf),
+            shapes[coll]) for coll in ("params", "batch_stats")}, rng)
+
+
+def anchor_yolo_pair(arch: str, size: int = 64, seed: int = 0):
+    """(flax model, random variables (:func:`flax_variables_like`), port
+    model holding the same weights in eval mode, uint8 NHWC images
+    [2, size, size, 3])."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8)
+    jmodel, tmodel = anchor_yolo_modules(arch)
+    variables = flax_variables_like(jmodel, images, rng)
+    load_into(tmodel, variables, anchor_yolo_name_mapper(arch))
+    return jmodel, variables, tmodel, images

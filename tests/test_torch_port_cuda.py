@@ -440,3 +440,66 @@ def test_sync_batchnorm_fused_path_on_two_ranks(dev, tmp_path, dtype, tol):
         want = want.detach().float().cpu()
         assert (got.float() - want).abs().max() <= bound * want.abs().max()
     assert torch.equal(ranks[0]["running_var"], ranks[1]["running_var"])
+
+
+def _random_gts(rng, b, g, size):
+    """A real batch's crowd: 1-g boxes an image, 8 px to half the frame."""
+    xy = rng.uniform(0, size - 8, (b, g, 2))
+    wh = rng.uniform(8, size / 2, (b, g, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + wh, size)], -1)
+    valid = np.arange(g)[None] < rng.integers(1, g + 1, (b, 1))
+    classes = rng.integers(0, 80, (b, g)) * valid
+    return (boxes.astype(np.float32), classes.astype(np.int32), valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", ["build_targets_max_iou",
+                                   "build_targets_ratio"])
+def test_anchor_targets_resolve_collisions_on_card_as_on_cpu(dev, build):
+    """Where several gts claim one anchor, the card's ``scatter_reduce``
+    keeps the same (last in the JAX order) candidate as the CPU's: the
+    built collision scenes at 64 px, and 100 boxes an image at 640 px."""
+    from _torch_port_helpers import colliding_gts
+    from yolov7_d2_tpu_torch.config import AnchorYoloConfig
+    from yolov7_d2_tpu_torch.models.heads import anchor_yolo_head as head
+
+    anchors = AnchorYoloConfig.anchors
+    for gts, size in ((colliding_gts(), 64),
+                      (_random_gts(np.random.default_rng(3), 8, 100, 640),
+                       640)):
+        level_hw = [(size // s, size // s) for s in (8, 16, 32)]
+        cpu = getattr(head, build)(*map(torch.from_numpy, gts), anchors,
+                                   level_hw, (8, 16, 32))
+        card = getattr(head, build)(*(torch.from_numpy(a).to(dev)
+                                      for a in gts), anchors, level_hw,
+                                    (8, 16, 32))
+        for key in ("fg_mask", "matched_gt"):
+            assert torch.equal(card[key].cpu(), cpu[key]), key
+        assert int(cpu["fg_mask"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_anchor_nms_tail_on_card_matches_plain_and_cpu_on_ties(dev):
+    """``yolo_nms_postprocess`` at 640 px (25200 candidates, top 1024) on
+    tied scores: the NMS kernel's tail equals the plain tail on the card
+    and the CPU's, index for index (the stable sort keeps the lower index
+    first among equal scores on both)."""
+    from _torch_port_helpers import decoded_candidates
+    from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import (
+        yolo_nms_postprocess,
+    )
+
+    inputs = decoded_candidates(np.random.default_rng(4), 8, 25200, 80, 640,
+                                cut=1024)
+    cpu = yolo_nms_postprocess(*map(torch.from_numpy, inputs))
+    on_card = [torch.from_numpy(a).to(dev) for a in inputs]
+    before = build.LAUNCHES["nms"]
+    kernel = yolo_nms_postprocess(*on_card)
+    plain = yolo_nms_postprocess(*on_card, nms=nms_batched_plain)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["nms"] == before + 1
+    for field in ("valid", "classes", "boxes", "scores"):
+        got = getattr(kernel, field)
+        assert torch.equal(got, getattr(plain, field)), field
+        assert torch.equal(got.cpu(), getattr(cpu, field)), field
+    assert int(kernel.valid.sum()) > 100

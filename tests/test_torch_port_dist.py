@@ -32,10 +32,10 @@ import torch
 from flax import linen as fnn
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from _torch_port_helpers import assert_trajectory_close
 from test_torch_port_train import (
     GRAD_RTOL,
     MODEL_LOSS_RTOL,
-    _assert_trajectory_close,
     _gts,
     _jax_cfg,
 )
@@ -203,8 +203,8 @@ def test_two_ranks_match_one_process_and_the_jax_mesh(tmp_path):
                 ("params", flax(final), want_f, "params"),
                 ("batch_stats", flax(final), want_f, "batch_stats"),
                 ("ema", flax(ema), want_e, "params")):
-            _assert_trajectory_close(f"{want_name} {name}", ours[coll],
-                                     init[coll], theirs[coll])
+            assert_trajectory_close(f"{want_name} {name}", ours[coll],
+                                    init[coll], theirs[coll])
 
 
 class _JaxBN(fnn.Module):

@@ -43,7 +43,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_helpers import load_into, randomize_bn
+from _torch_port_helpers import (
+    assert_trajectory_close,
+    load_into,
+    randomize_bn,
+)
 from yolov7_d2_tpu.config import get_cfg
 from yolov7_d2_tpu.data.device_aug import (
     DevicePhotometric as JaxDevicePhotometric,
@@ -539,27 +543,7 @@ def test_yolox_sgd_ema_trajectory_3steps():
             ("params", port_f, jstate.params, "params"),
             ("batch_stats", port_f, jstate.batch_stats, "batch_stats"),
             ("ema", port_e, jstate.ema_params, "params")):
-        _assert_trajectory_close(name, ours[coll], port_i[coll], theirs)
-
-
-def _assert_trajectory_close(name, final, init, want):
-    flat_f = jax.tree_util.tree_leaves_with_path(final)
-    flat_i = dict(jax.tree_util.tree_leaves_with_path(init))
-    flat_w = dict(jax.tree_util.tree_leaves_with_path(want))
-    global_delta = max(
-        float(np.abs(np.asarray(f, np.float64)
-                     - np.asarray(flat_i[p], np.float64)).max())
-        for p, f in flat_f)
-    assert global_delta > 0
-    for path, f in flat_f:
-        i = np.asarray(flat_i[path], np.float64)
-        d_port = np.asarray(f, np.float64) - i
-        d_jax = np.asarray(flat_w[path], np.float64) - i
-        scale = max(float(np.abs(d_jax).max()), 1e-10)
-        noise = 4e-6 * max(float(np.abs(i).max()), 1e-3) + 3e-4 * global_delta
-        np.testing.assert_allclose(
-            d_port, d_jax, rtol=3e-2, atol=scale * 5e-3 + noise,
-            err_msg=f"{name}{jax.tree_util.keystr(path)}")
+        assert_trajectory_close(name, ours[coll], port_i[coll], theirs)
 
 
 def test_build_model_defaults_to_the_card():

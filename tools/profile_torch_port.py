@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's YOLOX-s serving path, or of its
-training step, goes on one CUDA card.
+training step, goes on one CUDA card; with ``--yolov7``, YOLOV7's.
 
     python3 tools/profile_torch_port.py            # serving
     python3 tools/profile_torch_port.py --train    # training step
+    python3 tools/profile_torch_port.py --yolov7 [--train]
 
-Full-width YOLOX-s at 640, bf16, random weights from seed 0, uint8 batches
-already on the card. Serving: for each batch size it prints e2e
-(``predict_batch``), forward-only and tail (``postprocess``) milliseconds
-by CUDA events, then traces three e2e calls of the largest batch.
-Training: the step of ``build_yolox_system`` + ``make_packed_photo_step``
-at 16 images with GridMask on, three steps traced after three of warm-up.
+Full-width YOLOX-s (or YOLOV7 from ``configs/coco/yolov7.yaml``'s
+defaults) at 640, bf16, random weights from seed 0, uint8 batches already
+on the card. Serving: for each batch size it prints e2e, forward-only and
+tail milliseconds by CUDA events (YOLOX: ``Predictor``; YOLOV7:
+``build_model`` and ``anchor_yolo_postprocess``), then traces three e2e
+calls of the largest batch. Training: the step of ``build_yolox_system``
+(YOLOV7: ``build_system``, EMA on) + ``make_packed_photo_step`` at 16
+images with GridMask on, three steps traced after three of warm-up.
 For the traced window it prints the device's busy share, the device time
 by operator group (convolution, batch norm, SiLU, concat, ...) and the top
 kernels by name. Every line carries the card's name and power limit.
@@ -33,11 +36,21 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
-from yolov7_d2_tpu_torch.config import YoloxConfig  # noqa: E402
+from yolov7_d2_tpu_torch.config import (  # noqa: E402
+    AnchorYoloConfig,
+    YoloxConfig,
+)
 from yolov7_d2_tpu_torch.data.device_aug import (  # noqa: E402
     make_packed_photo_step,
 )
-from yolov7_d2_tpu_torch.engine import build_yolox_system  # noqa: E402
+from yolov7_d2_tpu_torch.engine import (  # noqa: E402
+    build_system,
+    build_yolox_system,
+)
+from yolov7_d2_tpu_torch.models.build import build_model  # noqa: E402
+from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import (  # noqa: E402
+    anchor_yolo_postprocess,
+)
 from yolov7_d2_tpu_torch.predictor import Predictor  # noqa: E402
 from yolov7_d2_tpu_torch.utils.profiling import LAUNCH_CALLS  # noqa: E402
 
@@ -52,6 +65,7 @@ GROUPS = (
     ("optimizer and EMA (foreach)", r"multi_tensor_apply|foreach"),
     ("batch norm", r"batch_norm|bn_fw"),
     ("SiLU", r"silu"),
+    ("mish", r"mish"),
     ("concat", r"CatArray|cat_"),
     ("max-pool", r"max_pool"),
     ("upsample", r"upsample"),
@@ -141,9 +155,35 @@ def trace(fn, card: str, label: str) -> None:
         print(f"  {ms:9.3f}  {n:5d}  {key[:110]}")
 
 
-def profile_train(card: str, dev, gen) -> None:
-    cfg = dataclasses.replace(YoloxConfig(), grid_mask=True)
-    _, state, train_step = build_yolox_system(cfg, device=dev, seed=0)
+def serving(dev, yolov7: bool):
+    """(forward, postprocess) of YOLOX-s's ``Predictor`` or of YOLOV7."""
+    if not yolov7:
+        predictor = Predictor(YoloxConfig(), device=dev, seed=0)
+        return predictor.forward, predictor.postprocess
+    cfg = AnchorYoloConfig()
+    model = build_model(cfg, dev, 0)
+
+    @torch.inference_mode()
+    def forward(x):
+        return model(x)
+
+    @torch.inference_mode()
+    def postprocess(head):
+        return anchor_yolo_postprocess(
+            head, "yolov7", cfg.conf_threshold, cfg.nms_threshold,
+            cfg.max_detections, cfg.pre_nms_topk)
+
+    return forward, postprocess
+
+
+def profile_train(card: str, dev, gen, yolov7: bool) -> None:
+    if yolov7:
+        cfg = dataclasses.replace(AnchorYoloConfig(), grid_mask=True,
+                                  ema=True)
+        _, state, train_step, _ = build_system(cfg, device=dev, seed=0)
+    else:
+        cfg = dataclasses.replace(YoloxConfig(), grid_mask=True)
+        _, state, train_step = build_yolox_system(cfg, device=dev, seed=0)
     step = make_packed_photo_step(cfg, train_step, seed=0)
     n, g = TRAIN_BATCH, cfg.max_boxes
     xy = torch.rand((n, g, 2), generator=gen) * 632
@@ -170,6 +210,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--train", action="store_true",
                         help="profile the training step instead of serving")
+    parser.add_argument("--yolov7", action="store_true",
+                        help="YOLOV7 (configs/coco/yolov7.yaml) for YOLOX-s")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_port: no CUDA device")
@@ -177,18 +219,20 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
+    name = "YOLOV7" if args.yolov7 else "YOLOX-s"
+    print(f"model: {name} 640 bf16", flush=True)
     if args.train:
-        profile_train(card, dev, gen)
+        profile_train(card, dev, gen, args.yolov7)
         return 0
-    predictor = Predictor(YoloxConfig(), device=dev, seed=0)
+    forward, postprocess = serving(dev, args.yolov7)
 
     for bs in BATCHES:
         x = torch.randint(0, 256, (bs, 640, 640, 3), generator=gen,
                           dtype=torch.uint8).to(dev)
-        e2e = cuda_ms(lambda: predictor.predict_batch(x))
-        fwd = cuda_ms(lambda: predictor.forward(x))
-        head = predictor.forward(x)
-        tail = cuda_ms(lambda: predictor.postprocess(head))
+        e2e = cuda_ms(lambda: postprocess(forward(x)))
+        fwd = cuda_ms(lambda: forward(x))
+        head = forward(x)
+        tail = cuda_ms(lambda: postprocess(head))
         print(f"bs {bs}: e2e {e2e:.3f} ms ({bs * 1000 / e2e:.1f} img/s), "
               f"forward {fwd:.3f} ms, tail {tail:.3f} ms [{card}]",
               flush=True)
@@ -196,7 +240,7 @@ def main() -> int:
     bs = max(BATCHES)
     x = torch.randint(0, 256, (bs, 640, 640, 3), generator=gen,
                       dtype=torch.uint8).to(dev)
-    trace(lambda: predictor.predict_batch(x), card, f"bs {bs}")
+    trace(lambda: postprocess(forward(x)), card, f"bs {bs}")
     return 0
 
 

@@ -1,14 +1,18 @@
-"""High-level assembly of the YOLOX training step (JAX ``engine.py:26-130``):
-config -> (model, state, train_step).
+"""High-level assembly of the training step (JAX ``engine.py``): config ->
+(model, state, train_step), for YOLOX (``build_yolox_system``) and, through
+``build_system``, for the anchor-based YOLO family.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
+from yolov7_d2_tpu_torch.config import AnchorYoloConfig, YoloxConfig
 from yolov7_d2_tpu_torch.models.build import build_model
+from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import anchor_yolo_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_loss_fn
 from yolov7_d2_tpu_torch.parallel.dist import is_initialized
 from yolov7_d2_tpu_torch.parallel.norm_sync import convert_sync_batchnorm
@@ -73,21 +77,15 @@ def dummy_batch(cfg, batch_size: int = 2,
     }
 
 
-def build_yolox_system(cfg, device="cuda", seed: int = 0):
-    """(model, state, train_step) for YOLOX from a ``YoloxConfig``: the
-    model in train mode with weights from ``seed``, SGD over the decay
-    classes, the schedule, the EMA and the L1 switch at
-    ``aug_disable_at_iter`` (the reference turns L1 on when the strong
-    augmentation turns off). The JAX builder's sample batch only traces
-    the flax init, so no batch size is needed here.
-
+def _train_state(cfg, model: nn.Module, device) -> TrainState:
+    """The model in train mode, SGD over the decay classes and the EMA.
     Inside a process group (``parallel.launch``) the BatchNorms become
     ``SyncBatchNorm2d`` and the forward runs through
     ``DistributedDataParallel``, whose construction broadcasts rank 0's
-    weights (every rank draws the same from ``seed`` anyway, but an init
+    weights (every rank draws the same from the seed anyway, but an init
     that depends on the device cannot split the ranks); the EMA starts from
     the broadcast weights. Without a group: plain BatchNorm, no wrapper."""
-    model = build_model(cfg, device, seed).train()
+    model.train()
     ddp = None
     if is_initialized():
         # imported here: the import takes seconds, and one process needs none
@@ -98,12 +96,23 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0):
         ddp = DistributedDataParallel(
             model, device_ids=None if device.type == "cpu" else [device],
             broadcast_buffers=False, gradient_as_bucket_view=True)
-    state = TrainState(
+    return TrainState(
         step=0, model=model, optimizer=build_optimizer(cfg, model),
         ema_params=({n: p.detach().clone()
                      for n, p in model.named_parameters()}
                     if cfg.ema else None),
         ddp=ddp)
+
+
+def build_yolox_system(cfg, device="cuda", seed: int = 0):
+    """(model, state, train_step) for YOLOX from a ``YoloxConfig``: the
+    model in train mode with weights from ``seed``, SGD over the decay
+    classes, the schedule, the EMA and the L1 switch at
+    ``aug_disable_at_iter`` (the reference turns L1 on when the strong
+    augmentation turns off). The JAX builder's sample batch only traces
+    the flax init, so no batch size is needed here. Inside a process group,
+    SyncBatchNorm and DDP (:func:`_train_state`)."""
+    state = _train_state(cfg, build_model(cfg, device, seed), device)
     train_step = make_train_step(
         make_yolox_loss_adapter(cfg.num_classes,
                                 resolve_simota_prefilter(cfg)),
@@ -112,7 +121,73 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0):
         use_l1_after=cfg.aug_disable_at_iter,
         clip_cfg=cfg if cfg.clip_gradients else None,
     )
-    return model, state, train_step
+    return state.model, state, train_step
+
+
+BATCH_FIELDS = ("image", "gt_boxes", "gt_classes", "gt_valid")
+ANCHOR_YOLO_ARCHS = ("YOLO", "YOLOV7", "YOLOV7P")
+# where each architecture the JAX build_system trains comes in the port
+_ROADMAP_ITEM = {
+    "YOLOV5": "A.8", "YOLOV6": "A.8", "YOLOF": "A.8", "SOLOv2": "A.8",
+    "MaskRCNN": "A.8", "FasterRCNN": "A.8", "PanopticFPN": "A.8",
+    "YOLOMask": "A.8", "DetrSegm": "A.8", "SparseInst": "A.7b",
+    "Detr": "A.7c", "DetrD2go": "A.7c", "AnchorDetr": "A.7c",
+    "SMCADetr": "A.7c", "DABDetr": "A.7c", "YOLOX_KPTS": "A.7d",
+}
+
+
+def make_anchor_yolo_loss(cfg: AnchorYoloConfig) -> Callable:
+    """The training loss of ``cfg``'s architecture (JAX ``engine.py:
+    176-209``): the v7 decode (``variant`` for YOLO), the configured target
+    builder, the v4 or v7 box loss, the ``LAMBDA_*`` and an ignore
+    threshold of at least 0.5. The loss takes no L1 switch."""
+    variant = (cfg.variant if cfg.meta_architecture == "YOLO"
+               else "yolov7")
+    lambdas = dict(lambda_iou=cfg.lambda_iou, lambda_conf=cfg.lambda_conf,
+                   lambda_cls=cfg.lambda_cls, lambda_xy=cfg.lambda_xy,
+                   lambda_wh=cfg.lambda_wh)
+    loss_type = "v4" if cfg.loss_type == "v4" else "v7"
+
+    def loss_fn(head_out, batch, use_l1: bool) -> Dict[str, torch.Tensor]:
+        return anchor_yolo_loss_fn(
+            head_out, batch, cfg.anchors, cfg.num_classes, variant=variant,
+            build_target_type=cfg.build_target_type, iou_type=cfg.iou_type,
+            loss_type=loss_type,
+            ignore_threshold=max(cfg.ignore_threshold, 0.5),
+            lambdas=lambdas)
+
+    return loss_fn
+
+
+def build_system(cfg, device="cuda", seed: int = 0):
+    """cfg -> (model, state, train_step, batch fields) for every
+    architecture the port trains (JAX ``engine.py:155``). ``cfg`` is a
+    merged ``CfgNode`` or a config dataclass (``YoloxConfig``,
+    ``AnchorYoloConfig``). YOLOX goes to :func:`build_yolox_system`; YOLO,
+    YOLOV7 and YOLOV7P train the anchor losses of
+    :func:`make_anchor_yolo_loss` without an L1 switch; any other
+    architecture raises, naming the ROADMAP.md item that brings it."""
+    if hasattr(cfg, "MODEL"):
+        arch = cfg.MODEL.META_ARCHITECTURE
+        if arch == "YOLOX":
+            cfg = YoloxConfig.from_cfg(cfg)
+        elif arch in ANCHOR_YOLO_ARCHS:
+            cfg = AnchorYoloConfig.from_cfg(cfg)
+    else:
+        arch = cfg.meta_architecture
+    if arch == "YOLOX":
+        model, state, train_step = build_yolox_system(cfg, device, seed)
+        return model, state, train_step, BATCH_FIELDS
+    if arch not in ANCHOR_YOLO_ARCHS:
+        item = _ROADMAP_ITEM.get(arch, "A.8")
+        raise NotImplementedError(
+            f"training {arch!r} is not ported yet (ROADMAP.md Queue {item})")
+    state = _train_state(cfg, build_model(cfg, device, seed), device)
+    train_step = make_train_step(
+        make_anchor_yolo_loss(cfg), build_lr_schedule(cfg),
+        ema_decay=cfg.ema_decay if cfg.ema else 0.0,
+        clip_cfg=cfg if cfg.clip_gradients else None)
+    return state.model, state, train_step, BATCH_FIELDS
 
 
 def resolve_device(name: str) -> torch.device:

@@ -36,6 +36,11 @@ class CSPDarknetX(nn.Module):
                 CSPLayer(c_out, c_out, n=n, depthwise=depthwise, act=act),
             )
 
+        channels = {"stem": base_ch, "dark2": base_ch * 2,
+                    "dark3": base_ch * 4, "dark4": base_ch * 8,
+                    "dark5": base_ch * 16}
+        self.out_channels = {k: v for k, v in channels.items()
+                             if k in self.out_features}
         self.stem = Focus(3, base_ch, ksize=3, act=act)
         self.dark2 = stage(base_ch, base_ch * 2, base_depth)
         self.dark3 = stage(base_ch * 2, base_ch * 4, base_depth * 3)

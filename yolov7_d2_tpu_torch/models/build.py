@@ -13,8 +13,12 @@ META_ARCH_REGISTRY = Registry("META_ARCH")
 
 
 def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
-    """Build ``cfg.meta_architecture`` (a ``YoloxConfig``) on ``device``."""
-    from yolov7_d2_tpu_torch.models.meta_arch import yolox  # noqa: F401
+    """Build ``cfg.meta_architecture`` on ``device``: a ``YoloxConfig``
+    for YOLOX, an ``AnchorYoloConfig`` for YOLO, YOLOV7 and YOLOV7P."""
+    from yolov7_d2_tpu_torch.models.meta_arch import (  # noqa: F401
+        yolov7,
+        yolox,
+    )
 
     if cfg.meta_architecture not in META_ARCH_REGISTRY:
         raise NotImplementedError(

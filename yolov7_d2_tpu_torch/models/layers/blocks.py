@@ -101,15 +101,17 @@ class SPPBottleneck(nn.Module):
     Torch pads the pools with -inf, as flax does."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_sizes: Sequence[int] = (5, 9, 13), act: str = "silu"):
+                 kernel_sizes: Sequence[int] = (5, 9, 13), act: str = "silu",
+                 bn_eps: float = BN_EPS):
         super().__init__()
         hidden = in_channels // 2
-        self.conv1 = BaseConv(in_channels, hidden, 1, 1, act=act)
+        self.conv1 = BaseConv(in_channels, hidden, 1, 1, act=act,
+                              bn_eps=bn_eps)
         self.m = nn.ModuleList(
             nn.MaxPool2d(k, stride=1, padding=k // 2) for k in kernel_sizes
         )
         self.conv2 = BaseConv(hidden * (len(kernel_sizes) + 1), out_channels,
-                              1, 1, act=act)
+                              1, 1, act=act, bn_eps=bn_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(x)

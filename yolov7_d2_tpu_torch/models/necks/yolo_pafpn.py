@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,22 +20,30 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 
 class YOLOPAFPN(nn.Module):
+    """``in_channels`` times ``width`` are the widths of the neck's levels.
+    ``feat_channels`` are the channels of the features it is given, by
+    default those widths (YOLOX, whose backbone has the neck's width);
+    the anchor-YOLO models feed CSP-Darknet53's fixed 256/512/1024 into a
+    neck of any width, which flax infers and the port is told."""
+
     def __init__(self, depth: float = 1.0, width: float = 1.0,
                  in_channels: Sequence[int] = (256, 512, 1024),
-                 depthwise: bool = False, act: str = "silu"):
+                 depthwise: bool = False, act: str = "silu",
+                 feat_channels: Optional[Sequence[int]] = None):
         super().__init__()
         n = max(round(3 * depth), 1)
         c0, c1, c2 = [int(c * width) for c in in_channels]
+        f0, f1, f2 = feat_channels or (c0, c1, c2)
         conv = conv_class(depthwise)
 
         def csp(c_in, c_out):
             return CSPLayer(c_in, c_out, n=n, shortcut=False,
                             depthwise=depthwise, act=act)
 
-        self.lateral_conv0 = BaseConv(c2, c1, 1, 1, act=act)
-        self.C3_p4 = csp(2 * c1, c1)
+        self.lateral_conv0 = BaseConv(f2, c1, 1, 1, act=act)
+        self.C3_p4 = csp(c1 + f1, c1)
         self.reduce_conv1 = BaseConv(c1, c0, 1, 1, act=act)
-        self.C3_p3 = csp(2 * c0, c0)
+        self.C3_p3 = csp(c0 + f0, c0)
         self.bu_conv2 = conv(c0, c0, 3, 2, act=act)
         self.C3_n3 = csp(2 * c0, c1)
         self.bu_conv1 = conv(c1, c1, 3, 2, act=act)

@@ -22,10 +22,17 @@ from yolov7_d2_tpu_torch.structures.instances import Detections
 
 class Predictor:
     """YOLOX serving on ``device``; random weights from ``seed`` unless a
-    built ``model`` is given."""
+    built ``model`` is given. Another architecture raises: its outputs need
+    their own tail (the anchor-YOLO family serves through ``build_model``
+    and ``models/meta_arch/yolov7.anchor_yolo_postprocess``)."""
 
     def __init__(self, cfg: YoloxConfig = YoloxConfig(), device="cuda",
                  seed: int = 0, model: Optional[torch.nn.Module] = None):
+        if cfg.meta_architecture != "YOLOX":
+            raise NotImplementedError(
+                f"Predictor serves YOLOX only, not "
+                f"{cfg.meta_architecture!r}: serve the anchor-YOLO family "
+                "with build_model + anchor_yolo_postprocess")
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model if model is not None else build_model(

@@ -1,9 +1,10 @@
 """JAX variables -> the port's ``state_dict``.
 
-The inverse of ``yolov7_d2_tpu/utils/weight_port.py:port_torch_state_dict``
-for YOLOX: for every key of the port's ``state_dict()`` the flax path comes
-from ``map_yolox_torch_name`` (a copy of the JAX package's map of the
-same name, ``yolov7_d2_tpu/utils/weight_port.py:44``), conv kernels go
+The inverse of ``yolov7_d2_tpu/utils/weight_port.py:port_torch_state_dict``:
+for every key of the port's ``state_dict()`` the flax path comes from a
+name map (``map_yolox_torch_name`` for YOLOX, ``map_anchor_yolo_torch_name``
+for the anchor-YOLO family, built on copies of the JAX package's maps of
+the same names), conv kernels go
 ``[kH, kW, I, O] -> [O, I, kH, kW]``, and BatchNorm ``scale/bias``
 (params) and ``mean/var`` (batch_stats) become
 ``weight/bias/running_mean/running_var``. The flax tree is nested dicts of
@@ -83,6 +84,103 @@ def map_yolox_torch_name(name: str) -> Tuple[str, ...]:
         return ("head", f"{m.group(1)}_pred_{m.group(2)}")
 
     # fallthrough: dots to slashes
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_darknet_torch_name(name: str) -> Tuple[str, ...]:
+    """Translate reference Darknet-53 state-dict keys (``stem.conv``,
+    ``dark{i}.0`` down conv, ``dark{i}.{j}.layer{1,2}`` residual convs) into
+    the flax paths (``stem``, ``stage{i}_down``, ``stage{i}_res{j-1}/
+    conv{1,2}``); a copy of ``yolov7_d2_tpu/utils/weight_port.py:102``."""
+    m = re.match(r"^stem\.(conv|bn)$", name)
+    if m:
+        return ("stem", m.group(1))
+    m = re.match(r"^dark(\d)\.0\.(conv|bn)$", name)
+    if m:
+        return (f"stage{m.group(1)}_down", m.group(2))
+    m = re.match(r"^dark(\d)\.(\d+)\.layer(\d)\.(conv|bn)$", name)
+    if m:
+        lvl, j, k, leaf = m.groups()
+        return (f"stage{lvl}_res{int(j) - 1}", f"conv{k}", leaf)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_cspdarknet_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference PP-YOLO CSP-DarkNet keys -> the flax paths; a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:1017``."""
+    if name == "conv1":
+        return ("stem", "conv")
+    if name == "bn1":
+        return ("stem", "bn")
+    m = re.match(
+        r"^layer(\d)\.(base_layer|partial_transition1|partial_transition2|"
+        r"fuse_transition)\.(\d)$", name)
+    if m:
+        lvl, part, j = m.groups()
+        short = {"base_layer": "base", "partial_transition1": "pt1",
+                 "partial_transition2": "pt2", "fuse_transition": "fuse"}
+        return (f"stage{lvl}", short[part],
+                {0: "conv", 1: "bn"}[int(j)])
+    m = re.match(r"^layer(\d)\.stage_layers\.(\d+)\.downsample\.(\d)$", name)
+    if m:
+        lvl, blk, j = m.groups()
+        return (f"stage{lvl}", f"block{blk}", "down",
+                {0: "conv", 1: "bn"}[int(j)])
+    m = re.match(r"^layer(\d)\.stage_layers\.(\d+)\.(conv|bn)(\d)$", name)
+    if m:
+        lvl, blk, kind, k = m.groups()
+        return (f"stage{lvl}", f"block{blk}", f"conv{k}",
+                "conv" if kind == "conv" else "bn")
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_yolofpn_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference YOLOFPN keys -> the flax paths: ``out{0,1,2}.{j}`` 5-conv
+    stacks -> ``block{5,4,3}/conv{j}``, ``out{1,2}_cbl`` laterals,
+    ``spp.conv{1,2}``; a copy of ``yolov7_d2_tpu/utils/weight_port.py:1046``.
+    """
+    m = re.match(r"^out(\d)\.(\d)\.(conv|bn)$", name)
+    if m:
+        lvl, j, leaf = m.groups()
+        return ({"0": "block5", "1": "block4", "2": "block3"}[lvl],
+                f"conv{j}", leaf)
+    m = re.match(r"^out(\d)_cbl\.(conv|bn)$", name)
+    if m:
+        return (f"lateral{m.group(1)}", m.group(2))
+    m = re.match(r"^spp\.conv(\d)\.(conv|bn)$", name)
+    if m:
+        return ("spp", f"conv{m.group(1)}", m.group(2))
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_anchor_yolo_torch_name(name: str,
+                               backbone_type: str = "darknet53"
+                               ) -> Tuple[str, ...]:
+    """Translate a key of the port's ``AnchorYOLO`` (``models/meta_arch/
+    yolov7.py``) into the flax path of the JAX ``AnchorYOLO``, by prefix:
+    ``backbone.`` through the map of ``backbone_type`` (``darknet53``,
+    ``cspdarknet53`` or ``cspdarknetx``, whose names overlap, so the caller
+    says which), ``neck.`` through the YOLOFPN map or the YOLOX one
+    (YOLOPAFPN), ``head.towers.{l}`` -> ``head/tower_{l}`` and
+    ``head.preds.{l}`` -> ``head/pred_{l}``."""
+    prefix, _, rest = name.partition(".")
+    if prefix == "backbone":
+        if backbone_type == "cspdarknetx":
+            return map_yolox_torch_name(name)
+        mapper = (map_cspdarknet_torch_name
+                  if backbone_type == "cspdarknet53"
+                  else map_darknet_torch_name)
+        return ("backbone",) + mapper(rest)
+    if prefix == "neck":
+        if re.match(r"^(out\d|spp)", rest):
+            return ("neck",) + map_yolofpn_torch_name(rest)
+        return map_yolox_torch_name(name)
+    m = re.match(r"^head\.towers\.(\d+)\.(.*)$", name)
+    if m:
+        return ("head", f"tower_{m.group(1)}", *m.group(2).split("."))
+    m = re.match(r"^head\.preds\.(\d+)$", name)
+    if m:
+        return ("head", f"pred_{m.group(1)}")
     return tuple(name.replace(".", "/").split("/"))
 
 
