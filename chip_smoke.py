@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's YOLOX-s serving path, training step,
-training CLI and multi-GPU training, and of the anchor-YOLO family's
-serving and training, on one CUDA card.
+training CLI and multi-GPU training, of the anchor-YOLO family's serving
+and training, and of SparseInst's serving, training and CLI, on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -44,6 +45,8 @@ set to 0 just before it and read just after:
   kernels' launches in the JSON line are those of (b) (GridMask on its
   steps before DISABLE_AT_ITER, normalize on the plain steps and in the
   eval, NMS in the eval); the uint8 GridMask's are the mixup-off path's;
+  ``normalize_sparseinst``'s are the sum of SparseInst's serving (b) and
+  training (d) paths below;
 * the anchor-YOLO family (``anchor_yolo_phase``): YOLOV7 at 640 from
   ``configs/coco/yolov7.yaml``, full depth and width (CSP-Darknet53,
   YOLOPAFPN, the anchor head), bf16 over f32 weights from the seed.
@@ -57,8 +60,27 @@ set to 0 just before it and read just after:
   weights, EMA and BN statistics moved, ms a step, peak memory, GridMask
   launches), then one f32 step (128 px, 2 images) on the card against the
   CPU within 1e-3 with the same fg count. Then one request and one train
-  step each for ``YOLO`` (``configs/coco/darknet53.yaml``) and
-  ``YOLOV7P`` (CSP-Darknet53), full depth.
+  step each for ``YOLO`` (``configs/coco/darknet53.yaml``), ``YOLOV7P``
+  (CSP-Darknet53) and ``YOLOV7P`` on ResNet-50 (``configs/coco/r50.yaml``),
+  full depth;
+* SparseInst R-50 (``sparseinst_phase``): ``configs/coco/sparseinst/
+  sparse_inst_r50_base.yaml`` at 640, full depth and width (ResNet-50
+  with FrozenBN, the FPN-PPM encoder, ``BaseIAMDecoder`` with 100 masks),
+  bf16 over f32 weights from the seed. (a) the normalize kernel at
+  SparseInst's ImageNet mean and std on [128,640,640,3], bit-exact (the
+  ``normalize_sparseinst`` entry); (b) serving, uint8 -> normalize kernel
+  -> forward -> ``sparseinst_postprocess``, for requests of 1, 8 and 128
+  images (instances found, finite masks, one launch a request, times by
+  CUDA events) and ``upsample_masks_two_stage`` on one request; (c) the
+  f32 forward on the card against the CPU at 128 px within 1e-4 of each
+  output's max; (d) 13 steps of 16 images through ``build_system``
+  (AdamW, 100 dense mask slots an image): finite losses, matched
+  instances, parameters moved, FrozenBN statistics unmoved, ms a step,
+  peak memory, the auction's rounds a step; one f32 step on the card
+  against the CPU (assignments equal, losses and grad norm within 1e-3);
+  (e) ``train_inseg`` on a mini-COCO of 64 JPEGs with polygons, the blend
+  mosaic on: 12 steps with checkpoints at 6 and 12, ``--resume`` to 14,
+  ``--eval-only`` (``COCOMaskEvaluator``'s keys).
 
 ``python3 chip_smoke.py --nccl`` runs (c) alone, on a machine of 2 or more
 cards.
@@ -263,10 +285,12 @@ def train_batch(n: int, gen: torch.Generator, size: int = SIZE) -> dict:
     }
 
 
-def write_mini_coco(root: str, n: int = CLI_IMAGES, seed: int = SEED):
+def write_mini_coco(root: str, n: int = CLI_IMAGES, seed: int = SEED,
+                    segm: bool = False):
     """``n`` JPEGs of 640x480 (OpenCV), each with 1-8 flat boxes of the 80
     COCO categories on a noisy background, and their COCO JSON; returns
-    (json path, image dir)."""
+    (json path, image dir). ``segm``: each box also gets a polygon, the
+    box with its lower-right corner cut off (the SparseInst feed)."""
     import cv2
     import numpy as np
 
@@ -288,6 +312,10 @@ def write_mini_coco(root: str, n: int = CLI_IMAGES, seed: int = SEED):
                          "category_id": int(rng.choice(COCO_CATEGORY_IDS)),
                          "bbox": [x, y, bw, bh], "area": bw * bh,
                          "iscrowd": 0})
+            if segm:
+                anns[-1]["segmentation"] = [[
+                    x, y, x + bw, y, x + bw, y + 0.6 * bh,
+                    x + 0.6 * bw, y + bh, x, y + bh]]
         name = f"{i:012d}.jpg"
         cv2.imwrite(os.path.join(img_dir, name), img)
         images.append({"id": i + 1, "file_name": name, "height": 480,
@@ -1111,8 +1139,9 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     with GridMask (mode 1, prob 0.3) and mixup on, ``train_n`` images a step
     for 13 steps, then one f32 step on the card against the CPU; (c) one
     request and one train step each for ``YOLO`` (darknet53.yaml) and
-    ``YOLOV7P`` (CSP-Darknet53). Each path's kernel launches are counted
-    from 0."""
+    ``YOLOV7P`` (CSP-Darknet53), and ``YOLOV7P`` on ResNet-50 from
+    ``configs/coco/r50.yaml`` (section 12 (f)). Each path's kernel launches
+    are counted from 0."""
     from yolov7_d2_tpu_torch.data.device_aug import (
         DevicePhotometric,
         PhotoDraws,
@@ -1268,7 +1297,8 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     for arch, ccfg in (
             ("YOLO", anchor_yolo_cfg("darknet53.yaml")),
             ("YOLOV7P", anchor_yolo_cfg(
-                "yolov7.yaml", meta_architecture="YOLOV7P"))):
+                "yolov7.yaml", meta_architecture="YOLOV7P")),
+            ("YOLOV7P r50.yaml", anchor_yolo_cfg("r50.yaml"))):
         model = build_model(ccfg, dev, SEED)
         req = letterboxed_batch(requests[1], gen)[:, :size, :size]
         build.reset_launches()
@@ -1300,6 +1330,380 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
             f" launches {train_launches}")
         del state, train_step, step
         torch.cuda.empty_cache()
+
+
+INSEG_DATASET = "chip_smoke_mini_coco_segm"
+
+
+SPARSEINST_YAML = os.path.join(REPO, "configs", "coco", "sparseinst",
+                               "sparse_inst_r50_base.yaml")
+
+
+def sparseinst_cfg(**replace):
+    """A ``SparseInstConfig`` from ``sparse_inst_r50_base.yaml`` (merged
+    into the port's ``get_cfg``), with dataclass fields replaced."""
+    from yolov7_d2_tpu_torch.config import SparseInstConfig
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(SPARSEINST_YAML)
+    return dataclasses.replace(SparseInstConfig.from_cfg(cfg), **replace)
+
+
+def inseg_batch(n: int, gen: torch.Generator, dev, size: int = SIZE,
+                slots: int = 100, max_inst: int = 20) -> dict:
+    """A SparseInst training batch in the JAX layout: uint8 images [n,
+    size, size, 3] and 1-``max_inst`` elliptic instances an image as dense
+    uint8 masks [n, slots, size, size] (valid slots first), classes and
+    validity; the masks are drawn on ``dev``."""
+    count = torch.randint(1, max_inst + 1, (n, 1), generator=gen)
+    valid = torch.arange(slots)[None] < count
+    centre = (torch.rand((n, slots, 2), generator=gen) * size).to(dev)
+    radius = (8 + torch.rand((n, slots, 2), generator=gen)
+              * (size // 4)).to(dev)
+    grid = torch.arange(size, dtype=torch.float32, device=dev)
+    dy = ((grid - centre[..., 1:]) / radius[..., 1:]) ** 2
+    dx = ((grid - centre[..., :1]) / radius[..., :1]) ** 2
+    masks = (dy[..., :, None] + dx[..., None, :]) <= 1.0
+    masks &= valid.to(dev)[..., None, None]
+    return {
+        "image": torch.randint(0, 256, (n, size, size, 3), generator=gen,
+                               dtype=torch.uint8).to(dev),
+        "gt_masks": masks.to(torch.uint8),
+        "gt_classes": (torch.randint(0, 80, (n, slots), generator=gen)
+                       * valid).to(torch.int32).to(dev),
+        "gt_valid": valid.to(dev),
+    }
+
+
+def sparseinst_serve(model, cfg, images):
+    """uint8 batch -> the normalize kernel and the model -> the tail."""
+    from yolov7_d2_tpu_torch.models.meta_arch.sparseinst import (
+        sparseinst_postprocess,
+    )
+
+    with torch.inference_mode():
+        out = model(images)
+        return out, sparseinst_postprocess(
+            out, cfg.cls_threshold, cfg.mask_threshold, cfg.max_detections)
+
+
+def check_inst_detections(dets, n: int, cfg, size: int, what: str) -> str:
+    hm = size // 4
+    if dets.masks.shape != (n, cfg.max_detections, hm, hm) or \
+            dets.boxes.shape != (n, cfg.max_detections, 4):
+        raise AssertionError(f"{what}: Detections shapes "
+                             f"{tuple(dets.masks.shape)}")
+    counts = dets.num_valid()
+    if int(counts.min()) < 1:
+        raise AssertionError(f"{what}: an image with no instance")
+    if not torch.isfinite(dets.scores).all() or \
+            not torch.isfinite(dets.masks).all():
+        raise AssertionError(f"{what}: non-finite scores or masks")
+    return f"instances per image {int(counts.min())}-{int(counts.max())}"
+
+
+def sparseinst_phase(dev, card: str, gen: torch.Generator, kernels: dict,
+                     requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+                     size: int = SIZE, small: int = 128,
+                     cli_images: int = CLI_IMAGES, **cli_opts) -> None:
+    """Section 12: SparseInst R-50 at ``size`` from
+    ``configs/coco/sparseinst/sparse_inst_r50_base.yaml``, full depth and
+    width (ResNet-50 with FrozenBN, the FPN-PPM encoder at 256 channels,
+    ``BaseIAMDecoder`` with 100 masks, 80 classes), bf16 over f32 weights
+    from ``SEED``. (a) the normalize kernel at SparseInst's mean and std on
+    [128, size, size, 3] against its plain version (the
+    ``normalize_sparseinst`` entry); (b) serving: uint8 -> normalize kernel
+    -> forward -> ``sparseinst_postprocess`` for each request size, times
+    by CUDA events, ``upsample_masks_two_stage`` on one request; (c) the
+    f32 forward on the card against the CPU at ``small`` px; (d) 13
+    training steps of ``train_n`` images through ``build_system`` (AdamW),
+    then one f32 step card against CPU; (e) ``train_inseg`` on a synthetic
+    mini-COCO with polygons, the blend mosaic on: 12 steps, checkpoints,
+    ``--resume``, the mask eval (``cli_opts`` override its config keys,
+    ``__`` for ``.``). (f), YOLOV7P on ResNet-50, runs in section 11.
+    Each path's launches are counted from 0."""
+    from yolov7_d2_tpu_torch import train_inseg
+    from yolov7_d2_tpu_torch.data.catalog import (
+        DatasetCatalog,
+        register_coco_instances,
+    )
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.kernels.preprocess import (
+        normalize_images,
+        normalize_images_plain,
+    )
+    from yolov7_d2_tpu_torch.models.backbones.resnet import (
+        frozen_bn_buffers,
+    )
+    from yolov7_d2_tpu_torch.models.build import build_model
+    from yolov7_d2_tpu_torch.models.meta_arch import sparseinst as si
+    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
+
+    cfg = sparseinst_cfg(input_size=(size, size))
+
+    # ---- (a) the normalize kernel at SparseInst's statistics
+    images = torch.randint(0, 256, (requests[-1], size, size, 3),
+                           generator=gen, dtype=torch.uint8).to(dev)
+    args = (images, si.PIXEL_MEAN, si.PIXEL_STD, torch.bfloat16)
+    got, want = normalize_images(*args), normalize_images_plain(*args)
+    torch.cuda.synchronize()
+    if got.stride() != want.stride() or not torch.equal(got, want):
+        raise AssertionError("normalize kernel differs from its plain "
+                             "version at SparseInst's mean and std")
+    kernels["normalize_sparseinst"] = {
+        "name": "normalize_sparseinst", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/preprocess.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:34",
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": kernel_ms(lambda: normalize_images(*args)),
+        "plain_ms": kernel_ms(lambda: normalize_images_plain(*args),
+                              host_ok="normalize_sparseinst plain"),
+        # no one PyTorch call takes uint8 NHWC to (x - mean) / std in
+        # channels_last
+        "library_ms": None,
+        # u8 read once, bf16 written once; a subtract and a divide each
+        **bound(images.numel() * 3, images.numel() * 2),
+    }
+    log(f"(12a) normalize at SparseInst's mean {si.PIXEL_MEAN} and std "
+        f"{si.PIXEL_STD}: bit-exact against its plain version on "
+        f"{tuple(images.shape)} -> bf16 channels_last")
+    del images, got, want, args
+
+    # ---- (b) serving
+    model = build_model(cfg, dev, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"(12b) SparseInst R-50 {size} from sparse_inst_r50_base.yaml: "
+        f"{n_params / 1e6:.3f} M parameters, {model.dtype}, stride_in_1x1 "
+        f"{cfg.resnet.stride_in_1x1}")
+    batches = [letterboxed_batch(n, gen)[:, :size, :size].contiguous()
+               for n in requests]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for req in batches:
+        _, dets = sparseinst_serve(model, cfg, req.to(dev))
+        log(f"(12b) request bs {req.shape[0]}: " + check_inst_detections(
+            dets, req.shape[0], cfg, size, "SparseInst serving"))
+    torch.cuda.synchronize()
+    serve_launches = dict(build.LAUNCHES)
+    log(f"(12b) SparseInst serving path launches: {serve_launches}")
+    if serve_launches.get("normalize", 0) != len(requests):
+        raise AssertionError("the SparseInst serving path launched "
+                             f"normalize {serve_launches} times")
+    for req in batches:
+        n = req.shape[0]
+        x = req.to(dev)
+        e2e = cuda_ms(lambda: sparseinst_serve(model, cfg, x))
+        with torch.inference_mode():
+            fwd = cuda_ms(lambda: model(x))
+            out = model(x)
+        tail = cuda_ms(lambda: si.sparseinst_postprocess(
+            out, cfg.cls_threshold, cfg.mask_threshold, cfg.max_detections))
+        log(f"SparseInst R-50 {size} bs {n} bf16 on [{card}]: e2e "
+            f"{e2e:.3f} ms = {n * 1000 / e2e:.1f} img/s; forward-only "
+            f"{fwd:.3f} ms = {n * 1000 / fwd:.1f} img/s; tail {tail:.3f} ms")
+        del out
+    # the two-stage upsample of one request: originals 1.5x the letterboxed
+    # content (stage 2 enlarges) and 0.75x (stage 2 shrinks, antialiased)
+    req = batches[1]
+    _, dets = sparseinst_serve(model, cfg, req.to(dev))
+    kept = 0
+    t0 = time.perf_counter()
+    for i in range(req.shape[0]):
+        filled = (req[i] != 114).any(-1)
+        vh = int(filled.any(1).nonzero().max()) + 1
+        vw = int(filled.any(0).nonzero().max()) + 1
+        f = 1.5 if i % 2 else 0.75
+        orig = (round(vh * f), round(vw * f))
+        up = si.upsample_masks_two_stage(
+            dets.masks[i][dets.valid[i]], (size, size), (vh, vw), orig,
+            cfg.mask_threshold)
+        if up.shape[1:] != orig:
+            raise AssertionError(f"two-stage upsample gave {up.shape}")
+        kept += int(up.any((1, 2)).sum())
+    torch.cuda.synchronize()
+    log(f"(12b) upsample_masks_two_stage of bs {req.shape[0]}: "
+        f"{int(dets.valid.sum())} masks, {kept} non-empty at the original "
+        f"sizes, {(time.perf_counter() - t0) * 1e3:.1f} ms (host clock)")
+    del batches, dets
+
+    # ---- (c) f32 card against CPU, full width, small px
+    f32 = dataclasses.replace(cfg, amp=False, input_size=(small, small))
+    one = letterboxed_batch(2, gen)[:, :small, :small].contiguous()
+    with torch.inference_mode():
+        ref = build_model(f32, "cpu", SEED)(one)
+        on_card = build_model(f32, dev, SEED)(one.to(dev))
+        bf16 = model(one.to(dev))
+    gaps = []
+    for k in ("cls_logits", "obj_logits", "mask_logits", "iam"):
+        scale = float(ref[k].abs().max())
+        err = float((on_card[k].cpu() - ref[k]).abs().max())
+        err16 = float((bf16[k].float().cpu() - ref[k]).abs().max())
+        gaps.append(f"{k} {err / scale:.3g} (bf16 {err16 / scale:.3g})")
+        if err > 1e-4 * scale:
+            raise AssertionError(f"SparseInst {k} on the card differs from "
+                                 f"the CPU by {err} of {scale}")
+    log(f"(12c) f32 forward at {small} px, card against CPU, error over "
+        "each output's max: " + ", ".join(gaps))
+    del model, ref, on_card, bf16
+    torch.cuda.empty_cache()
+
+    # ---- (d) training: build_system, AdamW, 16 images at 640
+    _, state, train_step, fields = build_system(cfg, device=dev, seed=SEED)
+    frozen = [b.clone() for b in frozen_bn_buffers(state.model)]
+    before = [p.detach().clone() for p in state.model.parameters()]
+    tbatches = [inseg_batch(train_n, gen, dev, size) for _ in range(4)]
+    metrics = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    for i in range(WARMUP):
+        state, m = train_step(state, tbatches[i % 4])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(WARMUP, WARMUP + ITERS):
+        state, m = train_step(state, tbatches[i % 4])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    train_launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"(12d) SparseInst training path launches: {train_launches}")
+    if train_launches.get("normalize", 0) != len(metrics):
+        raise AssertionError("the SparseInst training path launched "
+                             f"normalize {train_launches} times")
+    kernels["normalize_sparseinst"]["launches"] = (
+        serve_launches["normalize"] + train_launches["normalize"])
+    for i, m in enumerate(metrics):
+        for key in ("loss_ce", "loss_dice", "loss_mask", "loss_objectness",
+                    "total_loss", "grad_norm"):
+            if not bool(torch.isfinite(m[key])):
+                raise AssertionError(f"SparseInst step {i}: {key} = "
+                                     f"{float(m[key])}")
+        if not float(m["num_inst"]) > 0:
+            raise AssertionError(f"SparseInst step {i}: no instance matched")
+    if all(torch.equal(a, b.detach())
+           for a, b in zip(before, state.model.parameters())):
+        raise AssertionError("SparseInst training moved no parameter")
+    if not all(torch.equal(a, b)
+               for a, b in zip(frozen, frozen_bn_buffers(state.model))):
+        raise AssertionError("SparseInst training moved FrozenBN statistics")
+    fmt = ("total_loss", "loss_ce", "loss_dice", "loss_mask",
+           "loss_objectness", "num_inst", "grad_norm")
+    for i in (0, len(metrics) - 1):
+        log(f"(12d) SparseInst train step {i}: " + ", ".join(
+            f"{k} {float(metrics[i][k]):.4f}" for k in fmt))
+    iters = [int(m["match_iters"]) for m in metrics]
+    slots = tbatches[0]["gt_masks"].shape[1]
+    log(f"(12d) SparseInst R-50 {size} train step bs {train_n} bf16 on "
+        f"[{card}]: {step_ms:.3f} ms a step = "
+        f"{train_n * 1000 / step_ms:.1f} img/s (host clock over {ITERS} "
+        f"steps after {WARMUP}, batches on the card, {slots} mask slots an "
+        f"image, 1-20 valid); peak memory {peak_gb:.3f} GB; auction rounds "
+        f"a step {iters}; parameters moved, FrozenBN statistics did not")
+    del state, train_step, tbatches, metrics, before, frozen
+    torch.cuda.empty_cache()
+
+    # one f32 step, card against CPU, from the same weights and batch: the
+    # assignments, the loss terms and the gradient norm
+    scfg = dataclasses.replace(cfg, input_size=(small, small), amp=False,
+                               warmup_iters=0)
+    sbatch = inseg_batch(2, gen, "cpu", small, slots=8, max_inst=6)
+    got = {}
+    for where in ("cpu", dev):
+        model, st, ts, _ = build_system(scfg, device=where, seed=SEED)
+        b = {k: v.to(where) for k, v in sbatch.items()}
+        with torch.no_grad():
+            out = model(b["image"])
+            small_gt = si._resize(b["gt_masks"].float(), out[
+                "mask_logits"].shape[-2:])
+            pred, ok, _ = si.sparseinst_match(out, small_gt,
+                                              b["gt_classes"], b["gt_valid"])
+        _, m = ts(st, b)
+        got[str(where)] = ({k: float(v) for k, v in m.items()},
+                           pred.cpu(), ok.cpu())
+    (ref_m, ref_p, ref_ok), (card_m, card_p, card_ok) = (
+        got["cpu"], got[str(dev)])
+    log(f"(12d) SparseInst f32 train step at {small} px, card vs CPU: "
+        + ", ".join(f"{k} {card_m[k]:.6g} / {ref_m[k]:.6g}" for k in fmt))
+    if not (torch.equal(card_p, ref_p) and torch.equal(card_ok, ref_ok)):
+        raise AssertionError("SparseInst assignments differ between the "
+                             "card and the CPU")
+    for k in ("total_loss", "loss_ce", "loss_dice", "loss_mask",
+              "loss_objectness", "grad_norm"):
+        if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
+            raise AssertionError(f"SparseInst {k} differs between the card "
+                                 "and the CPU")
+    del model, st, ts
+    torch.cuda.empty_cache()
+
+    # ---- (e) the CLI: train_inseg on a mini-COCO with polygons
+    work = os.path.join(REPO, "build", "chip_smoke_inseg")
+    shutil.rmtree(work, ignore_errors=True)
+    js, img_dir = write_mini_coco(work, n=cli_images, segm=True)
+    register_coco_instances(INSEG_DATASET, {}, js, img_dir)
+    out_dir = os.path.join(work, "out")
+    opts = {"DATASETS.TRAIN": (INSEG_DATASET,),
+            "DATASETS.TEST": (INSEG_DATASET,), "OUTPUT_DIR": out_dir,
+            "SEED": SEED, "SOLVER.IMS_PER_BATCH": train_n,
+            "SOLVER.MAX_ITER": 12, "SOLVER.CHECKPOINT_PERIOD": 6,
+            "INPUT.MOSAIC.ENABLED": True, "INPUT.INPUT_SIZE": [size, size],
+            "INPUT.MOSAIC.MOSAIC_HEIGHT": size,
+            "INPUT.MOSAIC.MOSAIC_WIDTH": size,
+            **{k.replace("__", "."): v for k, v in cli_opts.items()}}
+
+    def cli(*flags, **more):
+        argv = ["--config-file", SPARSEINST_YAML, *flags]
+        more = {k.replace("__", "."): v for k, v in more.items()}
+        for k, v in dict(opts, **more).items():
+            argv += [k, v if isinstance(v, str) else repr(v)]
+        return default_argument_parser().parse_args(argv)
+
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        run = train_inseg.main(cli())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        latest = run.storage.latest()
+        for key in ("total_loss", "loss_ce", "loss_dice", "loss_mask",
+                    "loss_objectness", "grad_norm"):
+            if not math.isfinite(latest.get(key, float("nan"))):
+                raise AssertionError(f"train_inseg: {key} = "
+                                     f"{latest.get(key)}")
+        if launches.get("normalize", 0) != 12:
+            raise AssertionError(f"train_inseg launches {launches}")
+        median = run.storage.median("time_per_iter")
+        del run
+        resumed = train_inseg.main(cli("--resume", SOLVER__MAX_ITER=14))
+        if resumed.start_iter != 12 or resumed.storage.iter != 14:
+            raise AssertionError(f"train_inseg --resume ran "
+                                 f"{resumed.start_iter} -> "
+                                 f"{resumed.storage.iter}, not 12 -> 14")
+        del resumed
+        build.reset_launches()
+        t0 = time.perf_counter()
+        results = train_inseg.main(cli("--eval-only"))
+        eval_s = time.perf_counter() - t0
+        missing = [k for k in ("AP", "AP50", "AP75", "APs", "APm", "APl",
+                               "AR100") if k not in results]
+        if missing:
+            raise AssertionError(f"COCOMaskEvaluator: no {missing}")
+        log(f"(12e) train_inseg on [{card}], {train_n} images a step, blend "
+            f"mosaic on: time_per_iter median {median * 1e3:.3f} ms = "
+            f"{train_n / median:.1f} img/s; 12 steps and 2 checkpoints in "
+            f"{wall:.2f} s (build included); launches {launches}; --resume "
+            f"12 -> 14; segm eval of {cli_images} images in {eval_s:.2f} s "
+            f"(launches {dict(build.LAUNCHES)}): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in results.items()))
+    finally:
+        DatasetCatalog.remove(INSEG_DATASET)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def snapshot(state) -> dict:
@@ -1699,10 +2103,14 @@ def main() -> int:
     shutil.rmtree(data.work, ignore_errors=True)
 
     # ---- 11. the anchor-YOLO family: YOLOV7 serving and training, then
-    # YOLO and YOLOV7P (anchor_yolo_phase)
+    # YOLO and YOLOV7P, YOLOV7P on ResNet-50 (anchor_yolo_phase)
     anchor_yolo_phase(dev, card, gen)
 
-    # ---- 12. times
+    # ---- 12. SparseInst R-50: the normalize kernel at its statistics,
+    # serving, card against CPU, training, train_inseg (sparseinst_phase)
+    sparseinst_phase(dev, card, gen, kernels)
+
+    # ---- 13. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "

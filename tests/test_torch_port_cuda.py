@@ -503,3 +503,53 @@ def test_anchor_nms_tail_on_card_matches_plain_and_cpu_on_ties(dev):
         assert torch.equal(got, getattr(plain, field)), field
         assert torch.equal(got.cpu(), getattr(cpu, field)), field
     assert int(kernel.valid.sum()) > 100
+
+
+@pytest.mark.cuda
+def test_sparseinst_serving_on_card_launches_normalize(dev, monkeypatch):
+    """SparseInst's uint8 head goes through the normalize kernel with the
+    model's ImageNet mean and std (bit-exact against the plain version),
+    and the float32 outputs agree with the CPU's (full width, 64 px, TF32
+    off: cuDNN's TF32 convolutions differ from the CPU by 4e-4 of the
+    max)."""
+    from yolov7_d2_tpu_torch.config import SparseInstConfig
+    from yolov7_d2_tpu_torch.models.build import build_model
+    from yolov7_d2_tpu_torch.models.meta_arch import sparseinst as tsi
+
+    images = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    got = normalize_images(images.to(dev), tsi.PIXEL_MEAN, tsi.PIXEL_STD)
+    want = normalize_images_plain(images.to(dev), tsi.PIXEL_MEAN,
+                                  tsi.PIXEL_STD)
+    assert torch.equal(got, want)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = SparseInstConfig(amp=False, input_size=(64, 64))
+    before = build.LAUNCHES["normalize"]
+    with torch.inference_mode():
+        on_card = build_model(cfg, dev)(images.to(dev))
+        ref = build_model(cfg, "cpu")(images)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["normalize"] == before + 1
+    for k in ("cls_logits", "obj_logits", "mask_logits"):
+        scale = float(ref[k].abs().max())
+        assert float((on_card[k].cpu() - ref[k]).abs().max()) <= \
+            1e-4 * max(scale, 1.0), k
+
+
+@pytest.mark.cuda
+def test_auction_on_card_matches_cpu(dev):
+    """The batched auction on the card gives the CPU's assignments, ties
+    included (24 quantized costs, 1-100 valid rows of 100)."""
+    from yolov7_d2_tpu_torch.ops.matchers import hungarian_match
+
+    rng = np.random.default_rng(0)
+    costs = np.round(rng.random((24, 100, 100)) * 20) / 20
+    valid = np.arange(100)[None] < rng.integers(1, 101, (24, 1))
+    cost = torch.tensor(costs, dtype=torch.float32)
+    rows = torch.tensor(valid)
+    cols = torch.ones(24, 100, dtype=torch.bool)
+    want = hungarian_match(cost, rows, cols)
+    got = hungarian_match(cost.to(dev), rows.to(dev), cols.to(dev))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

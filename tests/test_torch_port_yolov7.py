@@ -141,7 +141,7 @@ def test_yolov7_flagship_size():
 def test_unported_parts_raise():
     cfg = dataclasses.replace(AnchorYoloConfig(), amp=False)
     for replace, item in (
-            (dict(backbone="build_resnet_backbone"), "A.7b"),
+            (dict(backbone="build_swin_backbone"), "A.8"),
             (dict(meta_architecture="YOLOV5"), "A.8"),
             (dict(neck_type="bifpn"), "A.8"),
             (dict(neck_type="pan"), "A.8")):
@@ -156,7 +156,7 @@ def test_unported_parts_raise():
 @pytest.mark.parametrize("arch,item", [
     ("YOLOV5", "A.8"), ("YOLOV6", "A.8"), ("YOLOF", "A.8"),
     ("SOLOv2", "A.8"), ("MaskRCNN", "A.8"), ("PanopticFPN", "A.8"),
-    ("YOLOMask", "A.8"), ("SparseInst", "A.7b"), ("Detr", "A.7c"),
+    ("YOLOMask", "A.8"), ("Detr", "A.7c"),
     ("AnchorDetr", "A.7c"), ("YOLOX_KPTS", "A.7d")])
 def test_build_system_raises_for_unported_architectures(arch, item):
     cfg, _ = _cfg("yolov7.yaml", **{"MODEL.META_ARCHITECTURE": arch})

@@ -260,7 +260,7 @@ def test_build_model_registry():
                          again.state_dict().values()):
         assert torch.equal(a, b), k
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(YoloxConfig(meta_architecture="SparseInst"))
+        build_model(YoloxConfig(meta_architecture="SOLOv2"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(YoloxConfig(backbone="build_regnet_backbone"))
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's YOLOX-s serving path, or of its
-training step, goes on one CUDA card; with ``--yolov7``, YOLOV7's.
+training step, goes on one CUDA card; with ``--yolov7``, YOLOV7's; with
+``--sparseinst``, SparseInst R-50's.
 
     python3 tools/profile_torch_port.py            # serving
     python3 tools/profile_torch_port.py --train    # training step
     python3 tools/profile_torch_port.py --yolov7 [--train]
+    python3 tools/profile_torch_port.py --sparseinst [--train]
 
 Full-width YOLOX-s (or YOLOV7 from ``configs/coco/yolov7.yaml``'s
 defaults) at 640, bf16, random weights from seed 0, uint8 batches already
@@ -16,8 +18,12 @@ calls of the largest batch. Training: the step of ``build_yolox_system``
 images with GridMask on, three steps traced after three of warm-up.
 For the traced window it prints the device's busy share, the device time
 by operator group (convolution, batch norm, SiLU, concat, ...) and the top
-kernels by name. Every line carries the card's name and power limit.
-Imports no JAX.
+kernels by name. SparseInst (``configs/coco/sparseinst/
+sparse_inst_r50_base.yaml``): serving through ``build_model`` and
+``sparseinst_postprocess``; training through ``build_system`` (AdamW) on
+16 images with 100 dense mask slots each (1-20 valid), and the auction
+matcher alone on the step's outputs (ms and rounds). Every line carries
+the card's name and power limit. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from yolov7_d2_tpu_torch.config import (  # noqa: E402
     AnchorYoloConfig,
+    SparseInstConfig,
     YoloxConfig,
 )
 from yolov7_d2_tpu_torch.data.device_aug import (  # noqa: E402
@@ -48,6 +55,9 @@ from yolov7_d2_tpu_torch.engine import (  # noqa: E402
     build_yolox_system,
 )
 from yolov7_d2_tpu_torch.models.build import build_model  # noqa: E402
+from yolov7_d2_tpu_torch.models.meta_arch import (  # noqa: E402
+    sparseinst as si,
+)
 from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import (  # noqa: E402
     anchor_yolo_postprocess,
 )
@@ -68,6 +78,7 @@ GROUPS = (
     ("mish", r"mish"),
     ("concat", r"CatArray|cat_"),
     ("max-pool", r"max_pool"),
+    ("avg-pool", r"avg_pool"),
     ("upsample", r"upsample"),
     ("sort / top-k", r"[Ss]ort|[Tt]op[Kk]|radix|bitonic"),
     # cuDNN runs the 1x1 convolutions as cuBLAS GEMMs (nvjet kernels)
@@ -155,9 +166,25 @@ def trace(fn, card: str, label: str) -> None:
         print(f"  {ms:9.3f}  {n:5d}  {key[:110]}")
 
 
-def serving(dev, yolov7: bool):
-    """(forward, postprocess) of YOLOX-s's ``Predictor`` or of YOLOV7."""
-    if not yolov7:
+def serving(dev, model_name: str):
+    """(forward, postprocess) of YOLOX-s's ``Predictor``, of YOLOV7 or of
+    SparseInst."""
+    if model_name == "SparseInst":
+        scfg = SparseInstConfig()
+        smodel = build_model(scfg, dev, 0)
+
+        @torch.inference_mode()
+        def si_forward(x):
+            return smodel(x)
+
+        @torch.inference_mode()
+        def si_postprocess(out):
+            return si.sparseinst_postprocess(
+                out, scfg.cls_threshold, scfg.mask_threshold,
+                scfg.max_detections)
+
+        return si_forward, si_postprocess
+    if model_name == "YOLOX-s":
         predictor = Predictor(YoloxConfig(), device=dev, seed=0)
         return predictor.forward, predictor.postprocess
     cfg = AnchorYoloConfig()
@@ -174,6 +201,34 @@ def serving(dev, yolov7: bool):
             cfg.max_detections, cfg.pre_nms_topk)
 
     return forward, postprocess
+
+
+def profile_train_sparseinst(card: str, dev, gen) -> None:
+    """SparseInst's step through ``build_system``; then the matcher alone
+    on the outputs of that batch (CUDA events over 10 calls after 3)."""
+    from chip_smoke import inseg_batch
+
+    _, state, train_step, _ = build_system(SparseInstConfig(), device=dev,
+                                           seed=0)
+    batch = inseg_batch(TRAIN_BATCH, gen, dev)
+
+    def one_step():
+        nonlocal state
+        state, metrics = train_step(state, batch)
+        return metrics
+
+    rounds = int(one_step()["match_iters"])
+    trace(one_step, card, f"SparseInst train step bs {TRAIN_BATCH}")
+    with torch.no_grad():
+        out = state.model(batch["image"])
+        small = si._resize(batch["gt_masks"].float(),
+                           out["mask_logits"].shape[-2:])
+    ms = cuda_ms(lambda: si.sparseinst_match(out, small, batch["gt_classes"],
+                                             batch["gt_valid"]))
+    _, _, iters = si.sparseinst_match(out, small, batch["gt_classes"],
+                                      batch["gt_valid"])
+    print(f"auction matcher alone: {ms:.3f} ms a call, rounds an image "
+          f"{iters.tolist()} (the first step's batch: {rounds}) [{card}]")
 
 
 def profile_train(card: str, dev, gen, yolov7: bool) -> None:
@@ -212,6 +267,8 @@ def main() -> int:
                         help="profile the training step instead of serving")
     parser.add_argument("--yolov7", action="store_true",
                         help="YOLOV7 (configs/coco/yolov7.yaml) for YOLOX-s")
+    parser.add_argument("--sparseinst", action="store_true",
+                        help="SparseInst R-50 (sparse_inst_r50_base.yaml)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_port: no CUDA device")
@@ -219,12 +276,16 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    name = "YOLOV7" if args.yolov7 else "YOLOX-s"
+    name = ("SparseInst" if args.sparseinst else
+            "YOLOV7" if args.yolov7 else "YOLOX-s")
     print(f"model: {name} 640 bf16", flush=True)
+    if args.train and args.sparseinst:
+        profile_train_sparseinst(card, dev, gen)
+        return 0
     if args.train:
         profile_train(card, dev, gen, args.yolov7)
         return 0
-    forward, postprocess = serving(dev, args.yolov7)
+    forward, postprocess = serving(dev, name)
 
     for bs in BATCHES:
         x = torch.randint(0, 256, (bs, 640, 640, 3), generator=gen,

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Tuple
 
 from yolov7_d2_tpu_torch.config.yolox import YoloxConfig
+from yolov7_d2_tpu_torch.models.backbones.resnet import ResNetSpec
 
 Anchors = Tuple[Tuple[Tuple[float, float], ...], ...]
 
@@ -63,6 +64,7 @@ class AnchorYoloConfig(YoloxConfig):
     darknet_out_features: Tuple[str, ...] = ("dark3", "dark4", "dark5")
     pixel_mean: Tuple[float, float, float] = (103.53, 116.28, 123.675)
     pixel_std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    resnet: ResNetSpec = ResNetSpec()  # MODEL.RESNETS, for a ResNet trunk
 
     @classmethod
     def from_cfg(cls, cfg) -> "AnchorYoloConfig":
@@ -92,4 +94,7 @@ class AnchorYoloConfig(YoloxConfig):
             darknet_out_features=tuple(darknet.OUT_FEATURES),
             pixel_mean=tuple(float(v) for v in cfg.MODEL.PIXEL_MEAN),
             pixel_std=tuple(float(v) for v in cfg.MODEL.PIXEL_STD),
+            resnet=ResNetSpec.from_cfg(
+                cfg, vd_builder=(cfg.MODEL.BACKBONE.NAME
+                                 == "build_resnet_vd_backbone")),
         )

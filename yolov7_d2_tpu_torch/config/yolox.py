@@ -49,7 +49,8 @@ class YoloxConfig:
     grid_mask_use_height: bool = True
     grid_mask_use_width: bool = True
     # training: optimizer and schedule (SOLVER)
-    optimizer: str = "sgd"
+    optimizer: str = "sgd"          # or "adamw"
+    adam_bf16_state: bool = False   # AdamW's first moment in bfloat16
     base_lr: float = 0.02
     momentum: float = 0.9
     nesterov: bool = True
@@ -114,6 +115,7 @@ class YoloxConfig:
             grid_mask_use_height=bool(grid.USE_HEIGHT),
             grid_mask_use_width=bool(grid.USE_WIDTH),
             optimizer=str(solver.OPTIMIZER).lower(),
+            adam_bf16_state=bool(solver.ADAM_BF16_STATE),
             base_lr=float(solver.BASE_LR),
             momentum=float(solver.MOMENTUM),
             nesterov=bool(solver.NESTEROV),

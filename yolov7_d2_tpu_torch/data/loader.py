@@ -23,6 +23,42 @@ def stack_batch(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarra
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
+def exact_uint8(images: np.ndarray) -> np.ndarray:
+    """The mappers' float32 images as uint8. The cast is exact only where
+    every value is an integer in [0, 255], which the letterboxed uint8
+    decode gives; anything else raises (nothing is rounded)."""
+    with np.errstate(invalid="ignore"):  # NaN or out of range: caught below
+        out = images.astype(np.uint8)
+    if not np.array_equal(out, images):
+        raise ValueError("images are not integers in [0, 255]: the uint8 "
+                         "input of the model would change them")
+    return out
+
+
+GT_KEYS = ("gt_masks", "gt_boxes", "gt_classes", "gt_valid")
+
+
+def stack_mask_batch(
+        samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """The SparseInst feed's collate: :func:`stack_batch` with uint8 images
+    (the float32 samples hold integers 0..255; anything else raises) and
+    the ground-truth slots cut to the batch's largest valid count (at
+    least 1). Valid slots come first in every sample, the cut slots are
+    empty, and the auction and the losses give them no weight, so the
+    assignments and losses equal those of the full ``MAX_BOXES_NUM``
+    slots; the dense masks, 41 MB an image at 640 px and 100 slots, then
+    cost the host and the copy to the card only what they hold."""
+    g = max(1, max(int(s["gt_valid"].sum()) for s in samples))
+    out = {}
+    for k in samples[0]:
+        if k in GT_KEYS:
+            out[k] = np.stack([s[k][:g] for s in samples])
+        else:
+            out[k] = np.stack([s[k] for s in samples])
+    out["image"] = exact_uint8(out["image"])
+    return out
+
+
 class DataLoader:
     """Infinite (train) or single-pass (eval) batched loader."""
 
@@ -37,6 +73,7 @@ class DataLoader:
         prefetch: int = 2,
         seed: int = 0,
         drop_last: bool = True,
+        collate: Callable = stack_batch,
     ):
         if not records:
             raise ValueError("empty dataset")
@@ -49,6 +86,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.rng = np.random.default_rng(seed)
         self.drop_last = drop_last
+        self.collate = collate
 
     def _index_stream(self) -> Iterator[int]:
         n = len(self.records)
@@ -110,10 +148,10 @@ class DataLoader:
                             continue
                         batch.append(sample)
                         if len(batch) == self.batch_size:
-                            put(stack_batch(batch))
+                            put(self.collate(batch))
                             batch = []
                     if batch and not self.drop_last and not stop.is_set():
-                        put(stack_batch(batch))
+                        put(self.collate(batch))
             finally:
                 put(None)
 
@@ -131,9 +169,11 @@ class DataLoader:
 
 def build_detection_train_loader(cfg, records: List[dict], mapper,
                                  seed: int = 0,
-                                 batch_size: Optional[int] = None):
+                                 batch_size: Optional[int] = None,
+                                 collate: Callable = stack_batch):
     """The infinite shuffled loader of ``batch_size`` images (one process's
-    share; ``SOLVER.IMS_PER_BATCH`` where None)."""
+    share; ``SOLVER.IMS_PER_BATCH`` where None), batches made by
+    ``collate``."""
     return DataLoader(
         records,
         mapper,
@@ -143,11 +183,13 @@ def build_detection_train_loader(cfg, records: List[dict], mapper,
         num_workers=cfg.DATALOADER.NUM_WORKERS,
         prefetch=cfg.DATALOADER.PREFETCH_BUFFER,
         seed=seed,
+        collate=collate,
     )
 
 
 def build_detection_test_loader(
-    cfg, records: List[dict], mapper, batch_size: Optional[int] = None
+    cfg, records: List[dict], mapper, batch_size: Optional[int] = None,
+    collate: Callable = stack_batch,
 ):
     return DataLoader(
         records,
@@ -156,6 +198,7 @@ def build_detection_test_loader(
         shuffle=False,
         infinite=False,
         drop_last=False,
+        collate=collate,
     )
 
 

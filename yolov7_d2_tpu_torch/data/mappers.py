@@ -6,7 +6,10 @@
     ``enable_aug`` switch that the trainer's ``AugDisableHook`` turns off
     at ``DISABLE_AT_ITER``.
   * ``SimpleDatasetMapper``: the config's augmentation chain, then the
-    letterbox; the eval mapper.
+    letterbox; the eval mapper; with ``with_masks`` the dense instance
+    masks too.
+  * ``DarknetMosaicDatasetMapper``: the Darknet blend mosaic from a record
+    pool, the SparseInst feed.
 
 Samples have static shapes: the image letterboxed to ``INPUT.INPUT_SIZE``
 (float32 0..255), the labels densified to ``MAX_BOXES_NUM`` slots with a
@@ -106,10 +109,13 @@ class SimpleDatasetMapper:
     ``INPUT.*`` toggle (flips, color jitter, distortion, GridMask,
     jitter-crop, forced resize, shift) changes the emitted sample.
 
-    Boxes only: the JAX mapper's mask and keypoint paths come with the
-    families that train on them (SparseInst, SOLOv2, YOLOX-KPTS)."""
+    ``with_masks=True`` also rasterizes the polygon segmentations and
+    carries them through the same geometry into dense ``gt_masks``
+    ``[max_boxes, H, W]`` uint8 (the SparseInst feed). The JAX mapper's
+    keypoint path comes with YOLOX-KPTS."""
 
-    def __init__(self, cfg, is_train: bool = True, seed: int = 0):
+    def __init__(self, cfg, is_train: bool = True, seed: int = 0,
+                 with_masks: bool = False):
         from yolov7_d2_tpu_torch.data.detection_utils import build_augmentation
 
         if cfg.MODEL.KEYPOINT_ON:
@@ -119,6 +125,7 @@ class SimpleDatasetMapper:
         self.input_size = tuple(cfg.INPUT.INPUT_SIZE)
         self.max_boxes = cfg.MODEL.YOLO.MAX_BOXES_NUM
         self.pad_value = int(cfg.MODEL.PADDED_VALUE)
+        self.with_masks = with_masks
         self.flip_prob = (
             cfg.INPUT.RANDOM_FLIP_HORIZONTAL.PROB
             if cfg.INPUT.RANDOM_FLIP_HORIZONTAL.ENABLED and is_train
@@ -127,7 +134,26 @@ class SimpleDatasetMapper:
         self.augmentations = build_augmentation(cfg, is_train)
         self.rng = np.random.default_rng(seed)
 
-    def _apply_augmentations(self, img, boxes, classes):
+    def _rasterize_masks_raw(self, record: dict):
+        """Per-instance [H0, W0] uint8 masks aligned with the non-crowd
+        annotation order (same filter as annotations_to_arrays)."""
+        from yolov7_d2_tpu_torch.evaluation.coco_eval import polygons_to_mask
+
+        h0 = record.get("height")
+        w0 = record.get("width")
+        masks = []
+        for ann in record.get("annotations", []):
+            if ann.get("iscrowd", 0):
+                continue
+            seg = ann.get("segmentation")
+            if seg and isinstance(seg, list):
+                m = polygons_to_mask(seg, h0, w0).astype(np.uint8)
+            else:
+                m = np.zeros((h0, w0), np.uint8)
+            masks.append(m)
+        return masks
+
+    def _apply_augmentations(self, img, boxes, classes, masks=None):
         """Run the cfg chain; returns transformed arrays plus the cumulative
         uniform resize scale (for eval coordinate bookkeeping)."""
         from yolov7_d2_tpu_torch.data.transforms.api import ResizeTransform
@@ -138,6 +164,8 @@ class SimpleDatasetMapper:
             img = t.apply_image(img)
             if len(boxes):
                 boxes = t.apply_box(boxes)
+            if masks is not None:
+                masks = [t.apply_segmentation(m) for m in masks]
             if isinstance(t, ResizeTransform):
                 pre_scale *= t.scale
 
@@ -151,16 +179,31 @@ class SimpleDatasetMapper:
                 boxes[:, 3] - boxes[:, 1] > 1
             )
             boxes, classes = boxes[keep], classes[keep]
-        return img, boxes, classes, pre_scale
+            if masks is not None:
+                masks = [m for m, k in zip(masks, keep) if k]
+        return img, boxes, classes, masks, pre_scale
 
     def _finalize(
-        self, record, img, boxes, classes, pre_scale
+        self, record, img, boxes, classes, masks, pre_scale
     ) -> Dict[str, np.ndarray]:
         """Letterbox to the static shape and densify to [max_boxes]."""
         img, boxes, r = _letterbox_fast(
             img, boxes, self.input_size, self.pad_value
         )
         sample = densify(boxes, classes, self.max_boxes)
+        th, tw = self.input_size
+        if masks is not None:
+            dense = np.zeros((self.max_boxes, th, tw), np.uint8)
+            for i, m in enumerate(masks):
+                if i >= self.max_boxes:
+                    break
+                nh = max(round(m.shape[0] * r), 1)
+                nw = max(round(m.shape[1] * r), 1)
+                rm = cv2.resize(m, (nw, nh), interpolation=cv2.INTER_NEAREST)
+                dense[i, : min(nh, th), : min(nw, tw)] = rm[
+                    : min(nh, th), : min(nw, tw)
+                ]
+            sample["gt_masks"] = dense
         sample["image"] = np.ascontiguousarray(img, np.float32)
         sample["image_id"] = np.asarray(record.get("image_id", 0), np.int64)
         sample["scale"] = np.asarray(pre_scale * r, np.float32)
@@ -173,10 +216,11 @@ class SimpleDatasetMapper:
     def __call__(self, record: dict) -> Dict[str, np.ndarray]:
         img = read_image_bgr(record["file_name"])
         boxes, classes = annotations_to_arrays(record)
-        img, boxes, classes, pre_scale = self._apply_augmentations(
-            img, boxes, classes
+        masks = self._rasterize_masks_raw(record) if self.with_masks else None
+        img, boxes, classes, masks, pre_scale = self._apply_augmentations(
+            img, boxes, classes, masks
         )
-        return self._finalize(record, img, boxes, classes, pre_scale)
+        return self._finalize(record, img, boxes, classes, masks, pre_scale)
 
 
 class YOLOXDatasetMapper(SimpleDatasetMapper):
@@ -261,3 +305,57 @@ class YOLOXDatasetMapper(SimpleDatasetMapper):
         )
         return sample
 
+
+class DarknetMosaicDatasetMapper(SimpleDatasetMapper):
+    """Darknet-style cut-point blend mosaic with a stateful record pool
+    (``MyDatasetMapper``): once the pool holds more than
+    ``INPUT.MOSAIC.NUM_IMAGES`` records, a coin flip (50%) blends this
+    record with ``NUM_IMAGES - 1`` drawn from the pool, each re-loaded and
+    re-augmented through the config's chain, at a random cut point
+    (``blend_mosaic4``). With ``with_masks=True`` this is the SparseInst
+    feed (``train_inseg``)."""
+
+    def __init__(self, cfg, is_train: bool = True, seed: int = 0,
+                 with_masks: bool = False):
+        super().__init__(cfg, is_train, seed, with_masks)
+        mcfg = cfg.INPUT.MOSAIC
+        self.mosaic_enabled = bool(mcfg.ENABLED) and is_train
+        self.num_images = int(mcfg.NUM_IMAGES)
+        self.min_offset = float(mcfg.MIN_OFFSET)
+        self.mosaic_hw = (int(mcfg.MOSAIC_HEIGHT), int(mcfg.MOSAIC_WIDTH))
+        self.pool: deque = deque(maxlen=mcfg.POOL_CAPACITY)
+        # late-training aug disable switch (AugDisableHook)
+        self.enable_aug = True
+
+    def _load_tile(self, record: dict):
+        img = read_image_bgr(record["file_name"])
+        boxes, classes = annotations_to_arrays(record)
+        masks = self._rasterize_masks_raw(record) if self.with_masks else None
+        img, boxes, classes, masks, _ = self._apply_augmentations(
+            img, boxes, classes, masks
+        )
+        return img, boxes, classes, masks
+
+    def __call__(self, record: dict) -> Dict[str, np.ndarray]:
+        if not (self.mosaic_enabled and self.enable_aug):
+            return super().__call__(record)
+
+        do_mosaic = (
+            len(self.pool) > self.num_images
+            and int(self.rng.integers(2)) == 1
+        )
+        samples = None
+        if do_mosaic:
+            idxs = self.rng.choice(
+                len(self.pool), self.num_images - 1, replace=True
+            )
+            samples = [self.pool[int(i)] for i in idxs]
+        self.pool.append(record)
+        if not do_mosaic:
+            return super().__call__(record)
+
+        tiles = [self._load_tile(r) for r in [record] + samples]
+        img, boxes, classes, masks = A.blend_mosaic4(
+            tiles, self.mosaic_hw, self.min_offset, self.rng
+        )
+        return self._finalize(record, img, boxes, classes, masks, 1.0)

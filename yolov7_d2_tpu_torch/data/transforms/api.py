@@ -2,9 +2,10 @@
 them (copies from ``yolov7_d2_tpu/data/transforms/api.py``).
 
 A ``Transform`` is the sampled, deterministic geometry or photometry op:
-``apply_image(img)``, ``apply_coords(pts[N, 2])`` and
-``apply_box(boxes[N, 4] xyxy)`` (the JAX package's ``apply_segmentation``
-comes with the mask families). An ``Augmentation`` samples from an
+``apply_image(img)``, ``apply_coords(pts[N, 2])``,
+``apply_box(boxes[N, 4] xyxy)`` and ``apply_segmentation(mask[H, W])``
+(geometry only, nearest interpolation; photometric ops leave masks as they
+are). An ``Augmentation`` samples from an
 explicit ``np.random.Generator`` and returns a Transform:
 ``get_transform(img, rng) -> Transform``.
 """
@@ -36,6 +37,9 @@ class Transform:
         c = self.apply_coords(corners.astype(np.float32)).reshape(-1, 4, 2)
         return np.concatenate([c.min(axis=1), c.max(axis=1)], axis=1)
 
+    def apply_segmentation(self, mask: np.ndarray) -> np.ndarray:
+        return mask
+
 
 class NoOpTransform(Transform):
     pass
@@ -53,6 +57,9 @@ class HFlipTransform(Transform):
         coords[:, 0] = self.width - coords[:, 0]
         return coords
 
+    def apply_segmentation(self, mask):
+        return np.ascontiguousarray(mask[:, ::-1])
+
 
 class VFlipTransform(Transform):
     def __init__(self, height: int):
@@ -65,6 +72,9 @@ class VFlipTransform(Transform):
         coords = coords.copy()
         coords[:, 1] = self.height - coords[:, 1]
         return coords
+
+    def apply_segmentation(self, mask):
+        return np.ascontiguousarray(mask[::-1])
 
 
 class ResizeTransform(Transform):
@@ -86,6 +96,10 @@ class ResizeTransform(Transform):
         coords[:, 1] *= self.h1 / self.h0
         return coords
 
+    def apply_segmentation(self, mask):
+        return cv2.resize(mask, (self.w1, self.h1),
+                          interpolation=cv2.INTER_NEAREST)
+
 
 class CropTransform(Transform):
     def __init__(self, x0: int, y0: int, w: int, h: int):
@@ -106,6 +120,9 @@ class CropTransform(Transform):
             out[:, [0, 2]] = np.clip(out[:, [0, 2]], 0, self.w)
             out[:, [1, 3]] = np.clip(out[:, [1, 3]], 0, self.h)
         return out
+
+    def apply_segmentation(self, mask):
+        return self.apply_image(mask)
 
 
 class ShiftTransform(Transform):
@@ -130,6 +147,9 @@ class ShiftTransform(Transform):
         coords[:, 0] += self.dx
         coords[:, 1] += self.dy
         return coords
+
+    def apply_segmentation(self, mask):
+        return self.apply_image(mask)
 
 
 class PhotometricTransform(Transform):

@@ -3,7 +3,8 @@
 flip, HSV distortion, GridMask, ``random_perspective`` with
 ``box_candidates_mask``, ``mosaic4`` and ``mixup``. Geometry is tracked on
 boxes [N, 4] xyxy; randomness comes from an explicit
-``np.random.Generator``.
+``np.random.Generator``. ``blend_mosaic4``, the Darknet cut-point mosaic of
+the SparseInst feed, also carries instance masks.
 """
 
 from __future__ import annotations
@@ -292,3 +293,80 @@ def mixup(
         boxes, classes = boxes_a, classes_a
     return mixed.astype(np.uint8), boxes, classes
 
+
+def blend_mosaic4(
+    tiles,
+    canvas_hw: Tuple[int, int],
+    min_offset: float,
+    rng: np.random.Generator,
+):
+    """Darknet-style cut-point blend mosaic (the original reference's
+    ``MyDatasetMapper._blend_moasic``; JAX ``augment.py:364``).
+
+    A random cut point splits the canvas into 4 quadrants; each quadrant is
+    filled from the corresponding window of one source image (with a random
+    crop shift when the source is larger than the canvas). Boxes are
+    translated, clipped to their quadrant, and degenerate remains dropped.
+
+    ``tiles``: list of 4 ``(img, boxes, classes, masks_or_None)``;
+    ``masks`` is a list of [H, W] uint8 arrays aligned with ``boxes``.
+    Returns (canvas, boxes, classes, masks_list_or_None).
+    """
+    h, w = canvas_hw
+    cut_x = int(rng.integers(int(w * min_offset), int(w * (1 - min_offset))))
+    cut_y = int(rng.integers(int(h * min_offset), int(h * (1 - min_offset))))
+    quads = [
+        (0, 0, cut_x, cut_y),
+        (cut_x, 0, w - cut_x, cut_y),
+        (0, cut_y, cut_x, h - cut_y),
+        (cut_x, cut_y, w - cut_x, h - cut_y),
+    ]
+    out = np.zeros((h, w, 3), np.uint8)
+    out_boxes, out_classes, out_masks = [], [], []
+    with_masks = tiles[0][3] is not None
+
+    for (img, boxes, classes, masks), (qx, qy, qw, qh) in zip(tiles, quads):
+        ih, iw = img.shape[:2]
+        if ih < h or iw < w:
+            # upsize so every quadrant window exists (the reference
+            # guarantees this via the forced-resize aug before the mosaic)
+            r = max(h / ih, w / iw)
+            nh, nw = int(math.ceil(ih * r)), int(math.ceil(iw * r))
+            img = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)
+            if len(boxes):
+                boxes = boxes.astype(np.float32) * r
+            if with_masks:
+                masks = [
+                    cv2.resize(m, (nw, nh), interpolation=cv2.INTER_NEAREST)
+                    for m in masks
+                ]
+            ih, iw = nh, nw
+        # source window: quadrant position plus random slack shift
+        sx = qx + (int(rng.integers(0, iw - w + 1)) if iw > w else 0)
+        sy = qy + (int(rng.integers(0, ih - h + 1)) if ih > h else 0)
+        out[qy : qy + qh, qx : qx + qw] = img[sy : sy + qh, sx : sx + qw]
+
+        if len(boxes):
+            b = boxes.astype(np.float32).copy()
+            b[:, [0, 2]] += qx - sx
+            b[:, [1, 3]] += qy - sy
+            b[:, [0, 2]] = b[:, [0, 2]].clip(qx, qx + qw)
+            b[:, [1, 3]] = b[:, [1, 3]].clip(qy, qy + qh)
+            keep = box_candidates_mask(b)
+            out_boxes.append(b[keep])
+            out_classes.append(classes[keep])
+            if with_masks:
+                for i in np.nonzero(keep)[0]:
+                    mc = np.zeros((h, w), np.uint8)
+                    mc[qy : qy + qh, qx : qx + qw] = masks[int(i)][
+                        sy : sy + qh, sx : sx + qw
+                    ]
+                    out_masks.append(mc)
+
+    if out_boxes:
+        boxes = np.concatenate(out_boxes)
+        classes = np.concatenate(out_classes)
+    else:
+        boxes = np.zeros((0, 4), np.float32)
+        classes = np.zeros((0,), np.int64)
+    return out, boxes, classes, (out_masks if with_masks else None)

@@ -1,6 +1,6 @@
 """High-level assembly of the training step (JAX ``engine.py``): config ->
 (model, state, train_step), for YOLOX (``build_yolox_system``) and, through
-``build_system``, for the anchor-based YOLO family.
+``build_system``, for the anchor-based YOLO family and SparseInst.
 """
 
 from __future__ import annotations
@@ -10,8 +10,13 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from yolov7_d2_tpu_torch.config import AnchorYoloConfig, YoloxConfig
+from yolov7_d2_tpu_torch.config import (
+    AnchorYoloConfig,
+    SparseInstConfig,
+    YoloxConfig,
+)
 from yolov7_d2_tpu_torch.models.build import build_model
+from yolov7_d2_tpu_torch.models.meta_arch.sparseinst import sparseinst_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import anchor_yolo_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_loss_fn
 from yolov7_d2_tpu_torch.parallel.dist import is_initialized
@@ -125,12 +130,13 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0):
 
 
 BATCH_FIELDS = ("image", "gt_boxes", "gt_classes", "gt_valid")
+MASK_FIELDS = ("image", "gt_masks", "gt_classes", "gt_valid")
 ANCHOR_YOLO_ARCHS = ("YOLO", "YOLOV7", "YOLOV7P")
 # where each architecture the JAX build_system trains comes in the port
 _ROADMAP_ITEM = {
     "YOLOV5": "A.8", "YOLOV6": "A.8", "YOLOF": "A.8", "SOLOv2": "A.8",
     "MaskRCNN": "A.8", "FasterRCNN": "A.8", "PanopticFPN": "A.8",
-    "YOLOMask": "A.8", "DetrSegm": "A.8", "SparseInst": "A.7b",
+    "YOLOMask": "A.8", "DetrSegm": "A.8",
     "Detr": "A.7c", "DetrD2go": "A.7c", "AnchorDetr": "A.7c",
     "SMCADetr": "A.7c", "DABDetr": "A.7c", "YOLOX_KPTS": "A.7d",
 }
@@ -163,31 +169,40 @@ def build_system(cfg, device="cuda", seed: int = 0):
     """cfg -> (model, state, train_step, batch fields) for every
     architecture the port trains (JAX ``engine.py:155``). ``cfg`` is a
     merged ``CfgNode`` or a config dataclass (``YoloxConfig``,
-    ``AnchorYoloConfig``). YOLOX goes to :func:`build_yolox_system`; YOLO,
-    YOLOV7 and YOLOV7P train the anchor losses of
-    :func:`make_anchor_yolo_loss` without an L1 switch; any other
-    architecture raises, naming the ROADMAP.md item that brings it."""
+    ``AnchorYoloConfig``, ``SparseInstConfig``). YOLOX goes to
+    :func:`build_yolox_system`; YOLO, YOLOV7 and YOLOV7P train the anchor
+    losses of :func:`make_anchor_yolo_loss` without an L1 switch;
+    SparseInst trains its mask losses (``sparseinst_loss_fn``) on the
+    fields ``image`` (uint8 through the normalize kernel), ``gt_masks``,
+    ``gt_classes`` and ``gt_valid``; any other architecture raises, naming
+    the ROADMAP.md item that brings it."""
     if hasattr(cfg, "MODEL"):
         arch = cfg.MODEL.META_ARCHITECTURE
         if arch == "YOLOX":
             cfg = YoloxConfig.from_cfg(cfg)
         elif arch in ANCHOR_YOLO_ARCHS:
             cfg = AnchorYoloConfig.from_cfg(cfg)
+        elif arch == "SparseInst":
+            cfg = SparseInstConfig.from_cfg(cfg)
     else:
         arch = cfg.meta_architecture
     if arch == "YOLOX":
         model, state, train_step = build_yolox_system(cfg, device, seed)
         return model, state, train_step, BATCH_FIELDS
-    if arch not in ANCHOR_YOLO_ARCHS:
+    if arch == "SparseInst":
+        loss_fn, fields = sparseinst_loss_fn(cfg), MASK_FIELDS
+    elif arch in ANCHOR_YOLO_ARCHS:
+        loss_fn, fields = make_anchor_yolo_loss(cfg), BATCH_FIELDS
+    else:
         item = _ROADMAP_ITEM.get(arch, "A.8")
         raise NotImplementedError(
             f"training {arch!r} is not ported yet (ROADMAP.md Queue {item})")
     state = _train_state(cfg, build_model(cfg, device, seed), device)
     train_step = make_train_step(
-        make_anchor_yolo_loss(cfg), build_lr_schedule(cfg),
+        loss_fn, build_lr_schedule(cfg),
         ema_decay=cfg.ema_decay if cfg.ema else 0.0,
         clip_cfg=cfg if cfg.clip_gradients else None)
-    return state.model, state, train_step, BATCH_FIELDS
+    return state.model, state, train_step, fields
 
 
 def resolve_device(name: str) -> torch.device:

@@ -1,7 +1,8 @@
-"""COCO-style box mAP evaluation in numpy (copied from
+"""COCO-style box and mask mAP evaluation in numpy (copied from
 ``yolov7_d2_tpu/evaluation/coco_eval.py``: ``COCOEvaluator`` with its box
-IoU and matching helpers, boxes only; the mask and keypoint evaluators come
-with their families).
+and mask IoU and matching helpers, ``COCOMaskEvaluator`` for the box-free
+SparseInst and ``polygons_to_mask``; the keypoint evaluator comes with its
+family).
 
   * IoU thresholds 0.50:0.05:0.95, recall thresholds 0:0.01:1
   * area ranges all / small(<32^2) / medium / large(>96^2)
@@ -12,7 +13,7 @@ with their families).
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -44,6 +45,25 @@ def box_iou_matrix(
     inter = np.clip(x1 - x0, 0, None) * np.clip(y1 - y0, 0, None)
     area_d = (dets[:, 2] - dets[:, 0]) * (dets[:, 3] - dets[:, 1])
     area_g = (gts[:, 2] - gts[:, 0]) * (gts[:, 3] - gts[:, 1])
+    union = area_d[:, None] + area_g[None, :] - inter
+    union = np.where(iscrowd[None, :].astype(bool), area_d[:, None], union)
+    return inter / np.maximum(union, 1e-10)
+
+
+def mask_iou_matrix(
+    det_masks: Sequence[np.ndarray],
+    gt_masks: Sequence[np.ndarray],
+    iscrowd: np.ndarray,
+) -> np.ndarray:
+    """IoU [D, G] of binary masks; crowd GTs use intersection over the
+    detection's area."""
+    if len(det_masks) == 0 or len(gt_masks) == 0:
+        return np.zeros((len(det_masks), len(gt_masks)))
+    d = np.stack([m.astype(bool).ravel() for m in det_masks]).astype(np.float32)
+    g = np.stack([m.astype(bool).ravel() for m in gt_masks]).astype(np.float32)
+    inter = d @ g.T
+    area_d = d.sum(1)
+    area_g = g.sum(1)
     union = area_d[:, None] + area_g[None, :] - inter
     union = np.where(iscrowd[None, :].astype(bool), area_d[:, None], union)
     return inter / np.maximum(union, 1e-10)
@@ -87,10 +107,14 @@ def _match_image(
 
 
 class COCOEvaluator:
-    """Accumulates per-image predictions, computes COCO box AP/AR."""
+    """Accumulates per-image predictions, computes COCO AP/AR.
 
-    def __init__(self, num_classes: int):
+    ``iou_type``: 'bbox' or 'segm'. For 'segm', predictions and GT carry
+    binary masks at the original image's resolution."""
+
+    def __init__(self, num_classes: int, iou_type: str = "bbox"):
         self.num_classes = num_classes
+        self.iou_type = iou_type
         self.area_ranges = dict(AREA_RANGES)
         self.max_dets = 100
         self.reset()
@@ -107,6 +131,7 @@ class COCOEvaluator:
         classes: np.ndarray,
         iscrowd: Optional[np.ndarray] = None,
         areas: Optional[np.ndarray] = None,
+        masks: Optional[Sequence[np.ndarray]] = None,
     ) -> None:
         self._image_ids.add(image_id)
         iscrowd = (
@@ -121,6 +146,7 @@ class COCOEvaluator:
                     "class": int(classes[i]),
                     "iscrowd": bool(iscrowd[i]),
                     "area": float(areas[i]),
+                    "mask": masks[i] if masks is not None else None,
                 }
             )
 
@@ -130,6 +156,7 @@ class COCOEvaluator:
         boxes: np.ndarray,
         scores: np.ndarray,
         classes: np.ndarray,
+        masks: Optional[Sequence[np.ndarray]] = None,
     ) -> None:
         self._image_ids.add(image_id)
         for i in range(len(boxes)):
@@ -138,6 +165,7 @@ class COCOEvaluator:
                     "bbox": boxes[i],
                     "score": float(scores[i]),
                     "class": int(classes[i]),
+                    "mask": masks[i] if masks is not None else None,
                 }
             )
 
@@ -165,23 +193,41 @@ class COCOEvaluator:
         gt_ignore = gt_ignore[order]
         iscrowd = np.array([g["iscrowd"] for g in gts], bool)
 
-        gt_boxes = (
-            np.stack([g["bbox"] for g in gts])
-            if gts
-            else np.zeros((0, 4))
-        )
-        det_boxes = (
-            np.stack([d["bbox"] for d in dets])
-            if dets
-            else np.zeros((0, 4))
-        )
-        ious = box_iou_matrix(det_boxes, gt_boxes, iscrowd)
+        if self.iou_type == "segm":
+            ious = mask_iou_matrix(
+                [d["mask"] for d in dets], [g["mask"] for g in gts], iscrowd
+            )
+        else:
+            gt_boxes = (
+                np.stack([g["bbox"] for g in gts])
+                if gts
+                else np.zeros((0, 4))
+            )
+            det_boxes = (
+                np.stack([d["bbox"] for d in dets])
+                if dets
+                else np.zeros((0, 4))
+            )
+            ious = box_iou_matrix(det_boxes, gt_boxes, iscrowd)
 
         scores = np.array([d["score"] for d in dets])
         # pycocotools det 'area' (used for the unmatched-det area ignore):
-        # bbox w*h for iouType 'bbox'
-        det_areas = (det_boxes[:, 2] - det_boxes[:, 0]) * (
-            det_boxes[:, 3] - det_boxes[:, 1])
+        # bbox w*h for iouType 'bbox', MASK PIXEL AREA for 'segm'
+        # (pycocotools coco.loadRes: ann['area'] = maskUtils.area(rle))
+        if self.iou_type == "segm":
+            det_areas = (
+                np.array([float(np.count_nonzero(d["mask"])) for d in dets])
+                if dets
+                else np.zeros((0,))
+            )
+        else:
+            det_areas = (
+                (lambda b: (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]))(
+                    np.stack([d["bbox"] for d in dets])
+                )
+                if dets
+                else np.zeros((0,))
+            )
         out = []
         for t in IOU_THRS:
             match, ignore = _match_image(ious, scores, gt_ignore, iscrowd, t)
@@ -270,3 +316,23 @@ class COCOEvaluator:
                 float(np.stack(recalls).mean()) if recalls else float("nan")
             ),
         }
+
+
+class COCOMaskEvaluator(COCOEvaluator):
+    """Instance-segmentation evaluator (box-free, the reference's
+    ``coco_evaluation.py:79``: SparseInst outputs have no boxes; IoUs come
+    from masks, boxes only bin the areas)."""
+
+    def __init__(self, num_classes: int):
+        super().__init__(num_classes, iou_type="segm")
+
+
+def polygons_to_mask(polygons, height: int, width: int) -> np.ndarray:
+    """Rasterize a COCO polygon segmentation to a binary mask."""
+    import cv2
+
+    mask = np.zeros((height, width), np.uint8)
+    for poly in polygons:
+        pts = np.asarray(poly, np.float64).reshape(-1, 2)
+        cv2.fillPoly(mask, [np.round(pts).astype(np.int32)], 1)
+    return mask.astype(bool)

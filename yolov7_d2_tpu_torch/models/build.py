@@ -14,8 +14,10 @@ META_ARCH_REGISTRY = Registry("META_ARCH")
 
 def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     """Build ``cfg.meta_architecture`` on ``device``: a ``YoloxConfig``
-    for YOLOX, an ``AnchorYoloConfig`` for YOLO, YOLOV7 and YOLOV7P."""
+    for YOLOX, an ``AnchorYoloConfig`` for YOLO, YOLOV7 and YOLOV7P, a
+    ``SparseInstConfig`` for SparseInst."""
     from yolov7_d2_tpu_torch.models.meta_arch import (  # noqa: F401
+        sparseinst,
         yolov7,
         yolox,
     )
@@ -30,11 +32,11 @@ def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
 
 @torch.no_grad()
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
-    """Draw every convolution kernel from N(0, 1/fan_in) (flax's
+    """Draw every convolution and linear kernel from N(0, 1/fan_in) (flax's
     lecun-normal scale) with ``generator``; biases and BatchNorm keep their
     identity initialisation (zero bias, unit scale, zero mean, unit var)."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                              generator=generator)

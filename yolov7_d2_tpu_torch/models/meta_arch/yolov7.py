@@ -25,6 +25,7 @@ from yolov7_d2_tpu_torch.kernels.nms import nms_batched
 from yolov7_d2_tpu_torch.kernels.preprocess import normalize_images
 from yolov7_d2_tpu_torch.models.backbones.darknet import Darknet53
 from yolov7_d2_tpu_torch.models.backbones.darknetx import CSPDarknetX
+from yolov7_d2_tpu_torch.models.backbones.resnet import ResNet
 from yolov7_d2_tpu_torch.models.build import (
     META_ARCH_REGISTRY,
     init_weights_,
@@ -212,6 +213,9 @@ _BACKBONE_NAME_MAP = {
     "build_darknet_backbone": "darknet53",
     "build_cspdarknet_backbone": "cspdarknet53",
     "build_cspdarknetx_backbone": "cspdarknetx",
+    # the registry's ResNets (JAX BACKBONE_REGISTRY), 512/1024/2048 channels
+    "build_resnet_backbone": "resnet",
+    "build_resnet_vd_backbone": "resnet_vd",
 }
 
 
@@ -219,8 +223,16 @@ def _backbone_type(cfg: AnchorYoloConfig) -> str:
     if cfg.backbone not in _BACKBONE_NAME_MAP:
         raise NotImplementedError(
             f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md Queue "
-            "A.7b for ResNet, A.8 for the others)")
+            "A.8)")
     return _BACKBONE_NAME_MAP[cfg.backbone]
+
+
+def _backbone(cfg: AnchorYoloConfig):
+    """A built ResNet (``cfg.resnet``, from ``MODEL.RESNETS``) for the
+    ResNet builders, else None (``AnchorYOLO`` builds its darknet)."""
+    if _backbone_type(cfg).startswith("resnet"):
+        return ResNet(cfg.resnet)
+    return None
 
 
 def _finish(model: AnchorYOLO, device, seed: int) -> AnchorYOLO:
@@ -268,11 +280,13 @@ def build_yolov5(cfg: AnchorYoloConfig, device="cuda", seed: int = 0):
 def build_yolov7p(cfg: AnchorYoloConfig, device="cuda",
                   seed: int = 0) -> AnchorYOLO:
     """YOLOV7P (JAX :284): PAFPN, the direct 1x1 head, pixel mean and
-    std. The width and depth multipliers stay 1.0, as in the JAX builder."""
+    std. The width and depth multipliers stay 1.0, as in the JAX builder.
+    ``configs/coco/r50.yaml`` gives it a ResNet-50 (FrozenBN)."""
     dtype = _dtype(cfg)
     return _finish(AnchorYOLO(
         num_classes=cfg.num_classes, anchors=cfg.anchors,
-        backbone_type=_backbone_type(cfg), neck_type="pafpn",
+        backbone_type=_backbone_type(cfg), backbone=_backbone(cfg),
+        neck_type="pafpn",
         in_features=cfg.in_features, act="silu", head_style="direct",
         pixel_mean=cfg.pixel_mean, pixel_std=cfg.pixel_std,
         dtype=dtype), device, seed)
@@ -289,7 +303,8 @@ def build_yolov7(cfg: AnchorYoloConfig, device="cuda",
         "pafpn", "bifpn", "pan", "ppyolo_pan") else "yolov3"
     return _finish(AnchorYOLO(
         num_classes=cfg.num_classes, anchors=cfg.anchors,
-        backbone_type=_backbone_type(cfg), neck_type=neck,
+        backbone_type=_backbone_type(cfg), backbone=_backbone(cfg),
+        neck_type=neck,
         in_features=cfg.in_features, with_spp=cfg.with_spp,
         width_mul=cfg.width_mul, depth_mul=cfg.depth_mul, act="silu",
         dtype=dtype), device, seed)

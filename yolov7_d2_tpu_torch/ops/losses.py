@@ -1,5 +1,5 @@
-"""Classification losses (JAX ``ops/losses.py``). Unreduced: the caller
-reduces."""
+"""Classification and mask losses (JAX ``ops/losses.py``). Unreduced: the
+caller reduces."""
 
 from __future__ import annotations
 
@@ -12,3 +12,29 @@ def sigmoid_binary_cross_entropy(logits: torch.Tensor,
     ``max(x, 0) - x t + log1p(exp(-|x|))``."""
     return (logits.clamp(min=0.0) - logits * targets
             + torch.log1p(torch.exp(-logits.abs())))
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       alpha: float = 0.25,
+                       gamma: float = 2.0) -> torch.Tensor:
+    """RetinaNet's sigmoid focal loss, unreduced (JAX :30):
+    ``alpha_t * bce * (1 - p_t) ** gamma``; no alpha weighting where
+    ``alpha < 0``."""
+    p = torch.sigmoid(logits)
+    ce = sigmoid_binary_cross_entropy(logits, targets)
+    p_t = p * targets + (1.0 - p) * (1.0 - targets)
+    loss = ce * (1.0 - p_t) ** gamma
+    if alpha >= 0:
+        alpha_t = alpha * targets + (1.0 - alpha) * (1.0 - targets)
+        loss = alpha_t * loss
+    return loss
+
+
+def dice_score(pred: torch.Tensor, target: torch.Tensor,
+               eps: float = 1e-8) -> torch.Tensor:
+    """Soft dice coefficient over the last axis (JAX :85):
+    ``2 sum(p t) / (sum(p^2) + sum(t^2) + eps)``."""
+    inter = 2.0 * torch.sum(pred * target, dim=-1)
+    denom = (torch.sum(pred * pred, dim=-1)
+             + torch.sum(target * target, dim=-1))
+    return inter / (denom + eps)

@@ -1,4 +1,5 @@
-"""SGD with detectron2-style parameter groups (JAX ``train/optimizer.py``).
+"""SGD and AdamW with detectron2-style parameter groups (JAX
+``train/optimizer.py``).
 
 One ``torch.optim.SGD`` group for each (weight-decay class, learning-rate
 multiplier) pair. The decay class comes from the module type, as the
@@ -11,8 +12,12 @@ the momentum, which is the order the JAX optimizer copies.
 
 The learning rate is set before every update by the train step: the
 schedule's value times the group's ``lr_mult`` (bias factor, overwrite keys
-found in the module name, backbone multiplier). AdamW comes with the DETR
-slice.
+found in the module name, backbone multiplier).
+
+:class:`AdamW` is optax's chain in the JAX ``adamw_with_groups`` (:171):
+``scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8; the first moment in
+bfloat16 with ``SOLVER.ADAM_BF16_STATE``), then the decoupled decay of the
+group's class, both scaled by the group's learning rate.
 """
 
 from __future__ import annotations
@@ -22,8 +27,11 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
+from yolov7_d2_tpu_torch.models.backbones.resnet import FrozenBatchNorm2d
+
 _NORM_TYPES = (nn.modules.batchnorm._BatchNorm, nn.GroupNorm, nn.LayerNorm,
-               nn.modules.instancenorm._InstanceNorm, nn.LocalResponseNorm)
+               nn.modules.instancenorm._InstanceNorm, nn.LocalResponseNorm,
+               FrozenBatchNorm2d)
 
 
 def param_decay_class(module: nn.Module, param_name: str) -> str:
@@ -71,14 +79,89 @@ def param_groups(model: nn.Module, cfg) -> List[Dict]:
     return list(groups.values())
 
 
+class AdamW(torch.optim.Optimizer):
+    """optax ``scale_by_adam`` -> ``add_decayed_weights`` -> ``-lr``, one
+    update over every group (JAX ``adamw_with_groups``):
+
+        mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
+        u = mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps) + wd p
+        p = p - lr u
+
+    with the group's ``lr`` (the schedule's value times ``lr_mult``, set by
+    the train step) and ``weight_decay``; the bias corrections ``1 - b^t``
+    in float32, as optax computes them. ``mu_dtype`` bfloat16 keeps the
+    first moment in bfloat16 between steps, with optax's decay of it by
+    bf16(b1). Not ``torch.optim.AdamW``, which keeps its moments in the
+    parameters' dtype."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8  # optax's defaults, which the JAX uses
+
+    def __init__(self, params, lr: float,
+                 mu_dtype: torch.dtype = torch.float32):
+        super().__init__(params, dict(lr=lr, weight_decay=0.0))
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        b1, b2 = self.B1, self.B2
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            states = [self.state[p] for p in params]
+            for st, p in zip(states, params):
+                if not st:
+                    st["count"] = 0
+                    st["mu"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    st["nu"] = torch.zeros_like(p)
+            count = states[0]["count"] + 1
+            for st in states:
+                st["count"] = count
+            # a resumed state holds float32 moments (load_state_dict casts
+            # to the parameters' dtype)
+            mus = [st["mu"].to(self.mu_dtype) for st in states]
+            nus = [st["nu"] for st in states]
+            # mu = (1 - b1) g + b1 mu in float32. Over a bf16 moment optax
+            # multiplies by b1 in bf16, so by bf16(0.9) = 0.8984375, and
+            # XLA keeps that product in float32
+            b1_mu = b1
+            if self.mu_dtype != torch.float32:
+                mus = [m.float() for m in mus]
+                b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
+            mu = torch._foreach_mul(mus, b1_mu)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+            nu = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(nu, 1.0 - b2)
+            torch._foreach_add_(nu, torch._foreach_mul(nus, b2))
+            # optax's bias corrections 1 - b^t, computed in float32
+            bc1, bc2 = (float(1.0 - torch.tensor(b, dtype=torch.float32)
+                              ** count) for b in (b1, b2))
+            upd = torch._foreach_div(mu, bc1)
+            den = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.EPS)
+            torch._foreach_div_(upd, den)
+            if group["weight_decay"]:
+                torch._foreach_add_(upd, params, alpha=group["weight_decay"])
+            torch._foreach_add_(params, upd, alpha=-group["lr"])
+            for st, m, n in zip(states, mu, nu):
+                st["mu"] = m.to(self.mu_dtype)
+                st["nu"] = n
+
+
 def build_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
-    """SGD (``cfg.optimizer == "sgd"``) over :func:`param_groups`."""
-    if cfg.optimizer != "sgd":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet; AdamW comes "
-            "with the DETR slice (ROADMAP.md Queue A.7)")
-    return torch.optim.SGD(param_groups(model, cfg), lr=cfg.base_lr,
-                           momentum=cfg.momentum, nesterov=cfg.nesterov)
+    """SGD (``cfg.optimizer == "sgd"``) or :class:`AdamW` (``"adamw"``)
+    over :func:`param_groups`."""
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(param_groups(model, cfg), lr=cfg.base_lr,
+                               momentum=cfg.momentum, nesterov=cfg.nesterov)
+    if cfg.optimizer == "adamw":
+        return AdamW(param_groups(model, cfg), lr=cfg.base_lr,
+                     mu_dtype=(torch.bfloat16 if cfg.adam_bf16_state
+                               else torch.float32))
+    raise NotImplementedError(f"optimizer {cfg.optimizer!r}: the JAX "
+                              "package has sgd and adamw")
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

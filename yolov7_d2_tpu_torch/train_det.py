@@ -42,21 +42,11 @@ import types
 import numpy as np
 import torch
 
+from yolov7_d2_tpu_torch.data.loader import exact_uint8  # noqa: F401
+
 logger = logging.getLogger("yolov7_d2_tpu_torch")
 
 TRAIN_FIELDS = ("image", "gt_boxes", "gt_classes", "gt_valid")
-
-
-def exact_uint8(images: np.ndarray) -> np.ndarray:
-    """The eval mapper's float32 images as uint8. The cast is exact only
-    where every value is an integer in [0, 255], which the letterboxed
-    uint8 decode gives; anything else raises (nothing is rounded)."""
-    with np.errstate(invalid="ignore"):  # NaN or out of range: caught below
-        out = images.astype(np.uint8)
-    if not np.array_equal(out, images):
-        raise ValueError("eval images are not integers in [0, 255]: the "
-                         "uint8 input of the predictor would change them")
-    return out
 
 
 def eval_model(state) -> torch.nn.Module:

@@ -7,8 +7,10 @@ for the anchor-YOLO family, built on copies of the JAX package's maps of
 the same names), conv kernels go
 ``[kH, kW, I, O] -> [O, I, kH, kW]``, and BatchNorm ``scale/bias``
 (params) and ``mean/var`` (batch_stats) become
-``weight/bias/running_mean/running_var``. The flax tree is nested dicts of
-numpy arrays, so no JAX is needed here.
+``weight/bias/running_mean/running_var``, dense kernels ``[I, O] -> [O, I]``.
+SparseInst (``map_sparseinst_torch_name``) and the ResNet of YOLOV7P take
+copies of the JAX package's detectron2-ResNet and SparseInst maps. The
+flax tree is nested dicts of numpy arrays, so no JAX is needed here.
 """
 
 from __future__ import annotations
@@ -159,12 +161,14 @@ def map_anchor_yolo_torch_name(name: str,
     """Translate a key of the port's ``AnchorYOLO`` (``models/meta_arch/
     yolov7.py``) into the flax path of the JAX ``AnchorYOLO``, by prefix:
     ``backbone.`` through the map of ``backbone_type`` (``darknet53``,
-    ``cspdarknet53`` or ``cspdarknetx``, whose names overlap, so the caller
-    says which), ``neck.`` through the YOLOFPN map or the YOLOX one
+    ``cspdarknet53``, ``cspdarknetx``, ``resnet`` or ``resnet_vd``, whose
+    names overlap, so the caller says which), ``neck.`` through the YOLOFPN map or the YOLOX one
     (YOLOPAFPN), ``head.towers.{l}`` -> ``head/tower_{l}`` and
     ``head.preds.{l}`` -> ``head/pred_{l}``."""
     prefix, _, rest = name.partition(".")
     if prefix == "backbone":
+        if backbone_type in ("resnet", "resnet_vd"):
+            return map_resnet_torch_name(name, backbone_type == "resnet_vd")
         if backbone_type == "cspdarknetx":
             return map_yolox_torch_name(name)
         mapper = (map_cspdarknet_torch_name
@@ -182,6 +186,95 @@ def map_anchor_yolo_torch_name(name: str,
     if m:
         return ("head", f"pred_{m.group(1)}")
     return tuple(name.replace(".", "/").split("/"))
+
+
+def map_d2_resnet_name(name: str) -> Tuple[str, ...]:
+    """detectron2 ResNet keys (``backbone.stem.conv1[.norm]``,
+    ``backbone.res{s}.{i}.{conv1,conv2,conv3,shortcut}[.norm]``) -> the
+    flax paths (``backbone/stem/{conv,bn}``, ``backbone/res{s}_{i}/{part}/
+    {conv,bn}``); a copy of ``yolov7_d2_tpu/utils/weight_port.py:151``."""
+    m = re.match(r"^backbone\.stem\.conv1\.norm$", name)
+    if m:
+        return ("backbone", "stem", "bn")
+    m = re.match(r"^backbone\.stem\.conv1$", name)
+    if m:
+        return ("backbone", "stem", "conv")
+    m = re.match(r"^backbone\.res(\d)\.(\d+)\.(conv\d|shortcut)(\.norm)?$",
+                 name)
+    if m:
+        stage, idx, part, norm = m.groups()
+        return (
+            "backbone", f"res{stage}_{idx}", part, "bn" if norm else "conv",
+        )
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_resnet_torch_name(name: str, vd: bool = False) -> Tuple[str, ...]:
+    """A key of the port's ResNet (``models/backbones/resnet.py``, under
+    ``backbone.``) -> the flax path: :func:`map_d2_resnet_name`, except the
+    vd stem, whose ``stem.conv{k}`` are the flax ``stem{k}``."""
+    m = re.match(r"^backbone\.stem\.conv(\d)(\.norm)?$", name)
+    if vd and m:
+        return ("backbone", f"stem{m.group(1)}",
+                "bn" if m.group(2) else "conv")
+    return map_d2_resnet_name(name)
+
+
+def map_sparseinst_encoder_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference ``InstanceContextEncoder`` keys -> the JAX encoder's flax
+    paths (``fpn_laterals`` / ``fpn_outputs`` deepest first: c5, c4, c3);
+    a copy of ``yolov7_d2_tpu/utils/weight_port.py:533``."""
+    m = re.match(r"^fpn_laterals\.(\d)$", name)
+    if m:
+        return (f"lateral{5 - int(m.group(1))}",)
+    m = re.match(r"^fpn_outputs\.(\d)$", name)
+    if m:
+        return (f"out{5 - int(m.group(1))}",)
+    m = re.match(r"^ppm\.stages\.(\d)\.1$", name)
+    if m:
+        return ("ppm", f"pool_conv_{m.group(1)}")
+    if name == "ppm.bottleneck":
+        return ("ppm", "bottleneck")
+    if name == "fusion":
+        return ("fusion",)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_sparseinst_decoder_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference Base/GroupIAMDecoder keys -> the JAX ``IAMDecoder``'s flax
+    paths (``inst_convs`` / ``mask_convs`` are Sequential(conv, relu, ...):
+    convolutions at even indices); a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:553``."""
+    m = re.match(r"^inst_branch\.inst_convs\.(\d+)$", name)
+    if m:
+        return (f"inst_conv_{int(m.group(1)) // 2}",)
+    m = re.match(r"^mask_branch\.mask_convs\.(\d+)$", name)
+    if m:
+        return (f"mask_conv_{int(m.group(1)) // 2}",)
+    simple = {
+        "inst_branch.iam_conv": ("iam_conv",),
+        "inst_branch.fc": ("fc",),
+        "inst_branch.cls_score": ("cls_score",),
+        "inst_branch.mask_kernel": ("mask_kernel",),
+        "inst_branch.objectness": ("objectness",),
+        "mask_branch.projection": ("mask_proj",),
+    }
+    if name in simple:
+        return simple[name]
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_sparseinst_torch_name(name: str, vd: bool = False
+                              ) -> Tuple[str, ...]:
+    """A key of the port's ``SparseInst`` -> the flax path of the JAX
+    model, by prefix: ``backbone.`` through :func:`map_resnet_torch_name`,
+    ``encoder.`` and ``decoder.`` through the two SparseInst maps."""
+    prefix, _, rest = name.partition(".")
+    if prefix == "encoder":
+        return ("encoder",) + map_sparseinst_encoder_torch_name(rest)
+    if prefix == "decoder":
+        return ("decoder",) + map_sparseinst_decoder_torch_name(rest)
+    return map_resnet_torch_name(name, vd)
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], Any]:
@@ -232,7 +325,8 @@ def jax_to_torch_state_dict(
         fpath = found[0]
         value = np.asarray(trees[coll][fpath])
         if fpath[-1] == "kernel":
-            value = np.transpose(value, (3, 2, 0, 1))
+            value = (value.T if value.ndim == 2
+                     else np.transpose(value, (3, 2, 0, 1)))
         if tuple(value.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: flax {'/'.join(fpath)} has shape "
                              f"{value.shape}, the port {tuple(ref.shape)}")
