@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's YOLOX-s serving path, training step,
 training CLI and multi-GPU training, of the anchor-YOLO family's serving
-and training, and of SparseInst's serving, training and CLI, on one CUDA
-card.
+and training, of SparseInst's and of DETR's and AnchorDETR's serving,
+training and CLI, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -80,7 +80,26 @@ set to 0 just before it and read just after:
   against the CPU (assignments equal, losses and grad norm within 1e-3);
   (e) ``train_inseg`` on a mini-COCO of 64 JPEGs with polygons, the blend
   mosaic on: 12 steps with checkpoints at 6 and 12, ``--resume`` to 14,
-  ``--eval-only`` (``COCOMaskEvaluator``'s keys).
+  ``--eval-only`` (``COCOMaskEvaluator``'s keys);
+* DETR R-50 and AnchorDETR R-50 (``detr_phase``):
+  ``configs/coco/detr/detr_256_6_6_r50.yaml`` and ``anchordetr_r50.yaml``
+  at 800, full depth and width (ResNet-50 with FrozenBN, 6 + 6 layers,
+  100 queries, or 300 x 3 with RCDA), bf16 over f32 weights from the seed.
+  (a) the normalize kernel at DETR's mean and std on [128,800,800,3],
+  bit-exact (the ``normalize_detr`` entry, whose launches are those of
+  both models' serving and training paths); serving, uint8 -> normalize
+  kernel -> forward -> ``detr_postprocess`` / ``anchor_detr_postprocess``,
+  for requests of 1, 8 and 128 images (one launch a request, e2e, forward
+  and tail by CUDA events, the device's busy share at 128) and the kernel
+  path's ``Detections`` equal to the plain path's at 8; (b) f32 outputs
+  on the card against the CPU at 128 px within 1e-4 of the max, bf16
+  within 5e-2; (c) 13 steps of 8 images through ``build_system``: finite
+  losses and matched counts equal to the valid gts at all 6 levels,
+  parameters moved, FrozenBN statistics unmoved, ms a step, peak memory,
+  auction rounds; one f32 step at dropout 0 on the card against the CPU
+  (assignments equal at every level, losses and grad norm within 1e-3);
+  (d) ``train_transformer`` (DETR) on a mini-COCO of 64 JPEGs, the crop
+  branch on: 12 steps, checkpoints at 6 and 12, ``--resume`` to 14.
 
 ``python3 chip_smoke.py --nccl`` runs (c) alone, on a machine of 2 or more
 cards.
@@ -212,17 +231,18 @@ def nms_walk_pairs(scores, idx, valid, max_out) -> int:
     return int(torch.where(valid, visited[:, None] - 1 - pos, 0).sum())
 
 
-def letterboxed_batch(n: int, gen: torch.Generator) -> torch.Tensor:
-    """uint8 [n, 640, 640, 3]: random content of random size, anchored
+def letterboxed_batch(n: int, gen: torch.Generator,
+                      size: int = SIZE) -> torch.Tensor:
+    """uint8 [n, size, size, 3]: random content of random size, anchored
     top-left, padded with 114 as the letterbox does."""
-    batch = torch.full((n, SIZE, SIZE, 3), 114, dtype=torch.uint8)
+    batch = torch.full((n, size, size, 3), 114, dtype=torch.uint8)
     for i in range(n):
-        h, w = (int(v) for v in torch.randint(160, SIZE + 1, (2,),
+        h, w = (int(v) for v in torch.randint(size // 4, size + 1, (2,),
                                               generator=gen))
         if i % 2:
-            h = SIZE
+            h = size
         else:
-            w = SIZE
+            w = size
         batch[i, :h, :w] = torch.randint(0, 256, (h, w, 3), generator=gen,
                                          dtype=torch.uint8)
     return batch
@@ -1706,6 +1726,416 @@ def sparseinst_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     torch.cuda.empty_cache()
 
 
+DETR_DATASET = "chip_smoke_mini_coco_detr"
+DETR_DIR = os.path.join(REPO, "configs", "coco", "detr")
+DETR_SIZE = 800
+DETR_TRAIN_BATCH = 8  # one card's share of IMS_PER_BATCH 32 over 4 cards
+DETR_MODELS = (("DETR", "detr_256_6_6_r50.yaml"),
+               ("AnchorDETR", "anchordetr_r50.yaml"))
+
+
+def detr_cfg(yaml: str, **replace):
+    """A ``DetrConfig`` from ``configs/coco/detr/<yaml>`` (merged into the
+    port's ``get_cfg``), with dataclass fields replaced."""
+    from yolov7_d2_tpu_torch.config import DetrConfig
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(DETR_DIR, yaml))
+    return dataclasses.replace(DetrConfig.from_cfg(cfg), **replace)
+
+
+def detr_tail(out, cfg):
+    """The family's tail: ``detr_postprocess`` or
+    ``anchor_detr_postprocess`` -> ``Detections`` of
+    ``cfg.max_detections``."""
+    from yolov7_d2_tpu_torch.models.meta_arch.detr import detr_postprocess
+    from yolov7_d2_tpu_torch.models.meta_arch.detr_variants import (
+        anchor_detr_postprocess,
+    )
+
+    tail = (detr_postprocess if cfg.meta_architecture == "Detr"
+            else anchor_detr_postprocess)
+    with torch.inference_mode():
+        return tail(out, cfg.input_size, cfg.max_detections)
+
+
+def detr_serve(model, cfg, images):
+    """uint8 batch -> the normalize kernel and the model -> the tail."""
+    with torch.inference_mode():
+        out = model(images)
+    return out, detr_tail(out, cfg)
+
+
+def detr_batch(n: int, gen: torch.Generator, dev, size: int = DETR_SIZE,
+               slots: int = 100, max_boxes: int = 20) -> dict:
+    """A DETR training batch in the JAX layout: uint8 images [n, size,
+    size, 3] and 1-``max_boxes`` xyxy boxes in pixels an image (valid
+    slots first), classes and validity."""
+    count = torch.randint(1, max_boxes + 1, (n, 1), generator=gen)
+    valid = torch.arange(slots)[None] < count
+    xy = torch.rand((n, slots, 2), generator=gen) * (size - 16)
+    wh = 8 + torch.rand((n, slots, 2), generator=gen) * (size // 2)
+    boxes = torch.cat([xy, (xy + wh).clamp(max=size)], -1)
+    return {k: v.to(dev) for k, v in {
+        "image": torch.randint(0, 256, (n, size, size, 3), generator=gen,
+                               dtype=torch.uint8),
+        "gt_boxes": boxes * valid[..., None],
+        "gt_classes": (torch.randint(0, 80, (n, slots), generator=gen)
+                       * valid).to(torch.int32),
+        "gt_valid": valid}.items()}
+
+
+def level_assignments(out, batch, cfg):
+    """Every decoder level's assignment, as ``detr_losses`` makes them (one
+    auction over the stacked levels): ``(pred_of_gt, ok)`` [L * B, G],
+    the last level first."""
+    from yolov7_d2_tpu_torch.models.meta_arch import detr as dm
+
+    gt = dm.normalized_gt_boxes(batch["gt_boxes"], cfg.input_size)
+    logits = torch.cat([out["pred_logits"][None], out["aux_logits"]])
+    boxes = torch.cat([out["pred_boxes"][None], out["aux_boxes"]])
+    n = logits.shape[0]
+    with torch.no_grad():
+        pred, ok, _ = dm.detr_match(
+            logits.flatten(0, 1), boxes.flatten(0, 1), gt.repeat(n, 1, 1),
+            batch["gt_classes"].repeat(n, 1), batch["gt_valid"].repeat(n, 1),
+            use_focal=cfg.use_focal)
+    return pred, ok
+
+
+def device_busy_ms(fn, calls: int = 3) -> tuple:
+    """(device busy ms a call, window ms a call) of ``fn`` under
+    torch.profiler: the kernels' summed device time against CUDA events
+    around the traced calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    busy = sum(k.self_device_time_total for k in prof.key_averages()
+               if k.device_type == torch.autograd.DeviceType.CUDA
+               and "#" not in k.key) / 1000.0
+    return busy / calls, start.elapsed_time(end) / calls
+
+
+def detr_phase(dev, card: str, gen: torch.Generator, kernels: dict,
+               requests=REQUEST_BATCHES, train_n: int = DETR_TRAIN_BATCH,
+               size: int = DETR_SIZE, small: int = 128,
+               cli_images: int = CLI_IMAGES, steps: int = WARMUP + ITERS,
+               **cli_opts) -> None:
+    """Section 13: DETR R-50 (``configs/coco/detr/detr_256_6_6_r50.yaml``)
+    and AnchorDETR R-50 (``anchordetr_r50.yaml``, RCDA, 300 x 3 queries)
+    at ``size``, full depth and width, 80 classes, bf16 over f32 weights
+    from ``SEED``. (a) the normalize kernel at DETR's mean and std on
+    [128, size, size, 3] against its plain version (the ``normalize_detr``
+    entry); then for each model serving, uint8 -> normalize kernel ->
+    forward -> the tail, for each request size (one launch a request,
+    times by CUDA events, the device's busy share at the largest), and the
+    kernel path's ``Detections`` against the plain path's (float input)
+    at bs 8; (b) the f32 outputs on the card against the CPU at ``small``
+    px within 1e-4 of each output's max, bf16 within 5e-2; (c) ``steps``
+    training steps of ``train_n`` images through ``build_system`` (AdamW,
+    the set criterion over 6 levels, dropout 0.1 for DETR): finite losses
+    at every level, matched counts equal to the valid gts, parameters
+    moved, FrozenBN statistics unmoved, ms a step, peak memory, auction
+    rounds; one f32 step at dropout 0 on the card against the CPU
+    (assignments equal at every level, losses and grad norm within 1e-3);
+    (d) ``train_transformer`` on a synthetic mini-COCO of ``cli_images``
+    JPEGs, the crop branch on: 12 steps with checkpoints at 6 and 12,
+    ``--resume`` to 14 (``cli_opts`` override its config keys, ``__`` for
+    ``.``). Each path's launches are counted from 0."""
+    from yolov7_d2_tpu_torch import train_transformer
+    from yolov7_d2_tpu_torch.data.catalog import (
+        DatasetCatalog,
+        register_coco_instances,
+    )
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.kernels.preprocess import (
+        normalize_images,
+        normalize_images_plain,
+    )
+    from yolov7_d2_tpu_torch.models.backbones.resnet import (
+        frozen_bn_buffers,
+    )
+    from yolov7_d2_tpu_torch.models.build import build_model
+    from yolov7_d2_tpu_torch.models.meta_arch import detr as dm
+    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
+
+    # ---- (a) the normalize kernel at DETR's statistics
+    images = torch.randint(0, 256, (requests[-1], size, size, 3),
+                           generator=gen, dtype=torch.uint8).to(dev)
+    args = (images, dm.PIXEL_MEAN, dm.PIXEL_STD, torch.bfloat16)
+    got, want = normalize_images(*args), normalize_images_plain(*args)
+    torch.cuda.synchronize()
+    if got.stride() != want.stride() or not torch.equal(got, want):
+        raise AssertionError("normalize kernel differs from its plain "
+                             "version at DETR's mean and std")
+    kernels["normalize_detr"] = {
+        "name": "normalize_detr", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/preprocess.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:34",
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": kernel_ms(lambda: normalize_images(*args)),
+        "plain_ms": kernel_ms(lambda: normalize_images_plain(*args),
+                              host_ok="normalize_detr plain"),
+        # no one PyTorch call takes uint8 NHWC to (x - mean) / std in
+        # channels_last
+        "library_ms": None,
+        # u8 read once, bf16 written once; a subtract and a divide each
+        **bound(images.numel() * 3, images.numel() * 2),
+        "launches": 0,
+    }
+    log(f"(13a) normalize at DETR's mean {dm.PIXEL_MEAN} and std "
+        f"{dm.PIXEL_STD}: bit-exact against its plain version on "
+        f"{tuple(images.shape)} -> bf16 channels_last")
+    del images, got, want, args
+    batches = [letterboxed_batch(n, gen, size) for n in requests]
+
+    for name, yaml in DETR_MODELS:
+        cfg = detr_cfg(yaml)
+        if cfg.input_size != (size, size):
+            cfg = dataclasses.replace(cfg, input_size=(size, size))
+        model = build_model(cfg, dev, SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"(13a) {name} R-50 {size} from {yaml}: {n_params / 1e6:.3f} M "
+            f"parameters, {model.dtype}, {cfg.enc_layers} + "
+            f"{cfg.dec_layers} layers, "
+            + (f"{cfg.num_queries} queries" if name == "DETR" else
+               f"{cfg.num_query_position} x {cfg.num_query_pattern} "
+               f"queries, {cfg.attention_type}"))
+        torch.cuda.synchronize()
+        build.reset_launches()
+        for req in batches:
+            _, dets = detr_serve(model, cfg, req.to(dev))
+            log(f"(13a) {name} request bs {req.shape[0]}: " +
+                check_detections(dets, req.shape[0], cfg, f"{name} serving"))
+        torch.cuda.synchronize()
+        serve_launches = dict(build.LAUNCHES)
+        if serve_launches.get("normalize", 0) != len(requests):
+            raise AssertionError(f"the {name} serving path launched "
+                                 f"normalize {serve_launches} times")
+        kernels["normalize_detr"]["launches"] += serve_launches["normalize"]
+        for req in batches:
+            n = req.shape[0]
+            x = req.to(dev)
+            e2e = cuda_ms(lambda: detr_serve(model, cfg, x))
+            with torch.inference_mode():
+                fwd = cuda_ms(lambda: model(x))
+                out = model(x)
+            tail = cuda_ms(lambda: detr_tail(out, cfg))
+            extra = ""
+            if n == requests[-1]:
+                busy, window = device_busy_ms(
+                    lambda: detr_serve(model, cfg, x))
+                extra = (f"; device busy {busy:.3f} ms a call = "
+                         f"{100 * busy / e2e:.1f}% of the untraced call "
+                         f"(traced {window:.3f} ms)")
+            log(f"{name} R-50 {size} bs {n} bf16 on [{card}]: e2e "
+                f"{e2e:.3f} ms = {n * 1000 / e2e:.1f} img/s; forward-only "
+                f"{fwd:.3f} ms = {n * 1000 / fwd:.1f} img/s; tail "
+                f"{tail:.3f} ms{extra}")
+            del out
+        # the kernel path against the plain path (float input, the plain
+        # normalize): the same Detections
+        x = batches[1].to(dev)
+        _, dets = detr_serve(model, cfg, x)
+        _, plain = detr_serve(model, cfg, x.float())
+        for f in ("boxes", "scores", "classes", "valid"):
+            if not torch.equal(getattr(dets, f), getattr(plain, f)):
+                raise AssertionError(f"{name}: the kernel path's {f} differ "
+                                     "from the plain path's")
+        log(f"(13a) {name} bs {x.shape[0]}: the kernel path's Detections "
+            "equal the plain path's")
+
+        # ---- (b) f32 card against CPU, full width, small px
+        f32 = dataclasses.replace(cfg, amp=False, input_size=(small, small))
+        one = letterboxed_batch(2, gen, small)
+        with torch.inference_mode():
+            ref = build_model(f32, "cpu", SEED)(one)
+            on_card = build_model(f32, dev, SEED)(one.to(dev))
+            bf16 = model(one.to(dev))
+        gaps = []
+        for k in ("pred_logits", "pred_boxes", "aux_logits", "aux_boxes"):
+            scale = float(ref[k].abs().max())
+            err = float((on_card[k].cpu() - ref[k]).abs().max())
+            err16 = float((bf16[k].float().cpu() - ref[k]).abs().max())
+            gaps.append(f"{k} {err / scale:.3g} (bf16 {err16 / scale:.3g})")
+            if err > 1e-4 * scale or err16 > 5e-2 * scale:
+                raise AssertionError(f"{name} {k} on the card differs from "
+                                     f"the CPU by {err} (bf16 {err16}) of "
+                                     f"{scale}")
+        log(f"(13b) {name} f32 forward at {small} px, card against CPU, "
+            "error over each output's max: " + ", ".join(gaps))
+        del model, ref, on_card, bf16
+        torch.cuda.empty_cache()
+
+        # ---- (c) training: build_system, AdamW, train_n images at size
+        _, state, train_step, _ = build_system(cfg, device=dev, seed=SEED)
+        frozen = [b.clone() for b in frozen_bn_buffers(state.model)]
+        before = [p.detach().clone() for p in state.model.parameters()]
+        tbatches = [detr_batch(train_n, gen, dev, size) for _ in range(4)]
+        metrics = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        warm = min(WARMUP, steps - 1)
+        for i in range(steps):
+            if i == warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = train_step(state, tbatches[i % 4])
+            metrics.append(m)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (steps - warm)
+        train_launches = dict(build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if train_launches.get("normalize", 0) != steps:
+            raise AssertionError(f"the {name} training path launched "
+                                 f"normalize {train_launches} times")
+        kernels["normalize_detr"]["launches"] += train_launches["normalize"]
+        prefixes = [""] + [f"aux{i}_" for i in range(cfg.dec_layers - 1)]
+        for i, m in enumerate(metrics):
+            valid = int(tbatches[i % 4]["gt_valid"].sum())
+            for p in prefixes:
+                for key in ("loss_ce", "loss_bbox", "loss_giou"):
+                    if not bool(torch.isfinite(m[p + key])):
+                        raise AssertionError(f"{name} step {i}: {p}{key} = "
+                                             f"{float(m[p + key])}")
+                if int(m[p + "num_matched"]) != valid:
+                    raise AssertionError(
+                        f"{name} step {i}: {p}num_matched "
+                        f"{int(m[p + 'num_matched'])}, {valid} valid gts")
+            for key in ("total_loss", "grad_norm"):
+                if not bool(torch.isfinite(m[key])):
+                    raise AssertionError(f"{name} step {i}: {key} = "
+                                         f"{float(m[key])}")
+        if all(torch.equal(a, b.detach())
+               for a, b in zip(before, state.model.parameters())):
+            raise AssertionError(f"{name} training moved no parameter")
+        if not all(torch.equal(a, b)
+                   for a, b in zip(frozen, frozen_bn_buffers(state.model))):
+            raise AssertionError(f"{name} training moved FrozenBN "
+                                 "statistics")
+        fmt = ("total_loss", "loss_ce", "loss_bbox", "loss_giou",
+               "aux0_loss_ce", "num_matched", "grad_norm")
+        for i in (0, len(metrics) - 1):
+            log(f"(13c) {name} train step {i}: " + ", ".join(
+                f"{k} {float(metrics[i][k]):.4f}" for k in fmt))
+        rounds = [int(m["match_iters"]) for m in metrics]
+        log(f"(13c) {name} R-50 {size} train step bs {train_n} bf16 on "
+            f"[{card}]: {step_ms:.3f} ms a step = "
+            f"{train_n * 1000 / step_ms:.1f} img/s (host clock over "
+            f"{steps - warm} steps after {warm}, batches on the card, 100 "
+            f"box slots an image, 1-20 valid, {len(prefixes)} levels "
+            f"matched in one auction); peak memory {peak_gb:.3f} GB; "
+            f"auction rounds a step {rounds}; launches {train_launches}; "
+            "every level's matched count = the valid gts; parameters moved, "
+            "FrozenBN statistics did not")
+        del state, train_step, tbatches, metrics, before, frozen
+        torch.cuda.empty_cache()
+
+        # one f32 step at dropout 0, card against CPU, from the same
+        # weights and batch: every level's assignments, the losses, the
+        # gradient norm
+        scfg = dataclasses.replace(cfg, input_size=(small, small), amp=False,
+                                   warmup_iters=0, dropout=0.0)
+        sbatch = detr_batch(2, gen, "cpu", small, slots=8, max_boxes=6)
+        got = {}
+        for where in ("cpu", dev):
+            model, st, ts, _ = build_system(scfg, device=where, seed=SEED)
+            b = {k: v.to(where) for k, v in sbatch.items()}
+            with torch.no_grad():
+                pred, ok = level_assignments(model(b["image"]), b, scfg)
+            _, m = ts(st, b)
+            got[str(where)] = ({k: float(v) for k, v in m.items()},
+                               pred.cpu(), ok.cpu())
+        (ref_m, ref_p, ref_ok), (card_m, card_p, card_ok) = (
+            got["cpu"], got[str(dev)])
+        keys = ("total_loss", "loss_ce", "loss_bbox", "loss_giou",
+                "aux4_loss_ce", "grad_norm")
+        log(f"(13c) {name} f32 train step at {small} px, card vs CPU: "
+            + ", ".join(f"{k} {card_m[k]:.6g} / {ref_m[k]:.6g}"
+                        for k in keys)
+            + f"; matched {int(card_ok.sum())} over {len(prefixes)} levels")
+        if not (torch.equal(card_p, ref_p) and torch.equal(card_ok, ref_ok)):
+            raise AssertionError(f"{name} assignments differ between the "
+                                 "card and the CPU")
+        for k in ref_m:
+            if "loss" in k or k == "grad_norm":
+                if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
+                    raise AssertionError(f"{name} {k} differs between the "
+                                         "card and the CPU")
+        del model, st, ts
+        torch.cuda.empty_cache()
+
+    # ---- (d) the CLI: train_transformer on a mini-COCO, the crop branch
+    work = os.path.join(REPO, "build", "chip_smoke_detr")
+    shutil.rmtree(work, ignore_errors=True)
+    js, img_dir = write_mini_coco(work, n=cli_images)
+    register_coco_instances(DETR_DATASET, {}, js, img_dir)
+    out_dir = os.path.join(work, "out")
+    yaml = os.path.join(DETR_DIR, DETR_MODELS[0][1])
+    opts = {"DATASETS.TRAIN": (DETR_DATASET,), "OUTPUT_DIR": out_dir,
+            "SEED": SEED, "SOLVER.IMS_PER_BATCH": train_n,
+            "SOLVER.MAX_ITER": 12, "SOLVER.CHECKPOINT_PERIOD": 6,
+            "INPUT.CROP.ENABLED": True, "INPUT.INPUT_SIZE": [size, size],
+            **{k.replace("__", "."): v for k, v in cli_opts.items()}}
+
+    def cli(*flags, **more):
+        argv = ["--config-file", yaml, *flags]
+        more = {k.replace("__", "."): v for k, v in more.items()}
+        for k, v in dict(opts, **more).items():
+            argv += [k, v if isinstance(v, str) else repr(v)]
+        return default_argument_parser().parse_args(argv)
+
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        run = train_transformer.main(cli())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        latest = run.storage.latest()
+        for key in ("total_loss", "loss_ce", "loss_bbox", "loss_giou",
+                    "aux4_loss_giou", "grad_norm"):
+            if not math.isfinite(latest.get(key, float("nan"))):
+                raise AssertionError(f"train_transformer: {key} = "
+                                     f"{latest.get(key)}")
+        if launches.get("normalize", 0) != 12:
+            raise AssertionError(f"train_transformer launches {launches}")
+        ckpts = sorted(os.listdir(os.path.join(out_dir, "ckpt")))
+        if len(ckpts) != 2:
+            raise AssertionError(f"train_transformer checkpoints {ckpts}")
+        median = run.storage.median("time_per_iter")
+        del run
+        resumed = train_transformer.main(cli("--resume",
+                                             SOLVER__MAX_ITER=14))
+        if resumed.start_iter != 12 or resumed.storage.iter != 14:
+            raise AssertionError(f"train_transformer --resume ran "
+                                 f"{resumed.start_iter} -> "
+                                 f"{resumed.storage.iter}, not 12 -> 14")
+        del resumed
+        log(f"(13d) train_transformer DETR on [{card}], {train_n} images a "
+            f"step, the crop branch on: time_per_iter median "
+            f"{median * 1e3:.3f} ms = {train_n / median:.1f} img/s; 12 steps "
+            f"and checkpoints {ckpts} in {wall:.2f} s (build included); "
+            f"launches {launches}; --resume 12 -> 14")
+    finally:
+        DatasetCatalog.remove(DETR_DATASET)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -2110,7 +2540,12 @@ def main() -> int:
     # serving, card against CPU, training, train_inseg (sparseinst_phase)
     sparseinst_phase(dev, card, gen, kernels)
 
-    # ---- 13. times
+    # ---- 13. DETR and AnchorDETR R-50 at 800: the normalize kernel at
+    # their statistics, serving, card against CPU, training,
+    # train_transformer (detr_phase)
+    detr_phase(dev, card, gen, kernels)
+
+    # ---- 14. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "

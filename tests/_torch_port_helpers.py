@@ -5,6 +5,7 @@ numpy and handed to both sides."""
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 from pathlib import Path
@@ -334,3 +335,169 @@ def anchor_yolo_pair(arch: str, size: int = 64, seed: int = 0):
     variables = flax_variables_like(jmodel, images, rng)
     load_into(tmodel, variables, anchor_yolo_name_mapper(arch))
     return jmodel, variables, tmodel, images
+
+
+# ---------------------------------------------------------------------------
+# DETR and AnchorDETR at tiny size, the same model on both sides
+# ---------------------------------------------------------------------------
+
+DETR_DIR = REPO / "configs" / "coco" / "detr"
+DETR_SIZE = 64
+# ResNet-50 at 64 px, hidden 32, 4 heads, 2 + 2 layers, FFN 64, 3 classes
+DETR_DIMS = dict(num_classes=3, hidden_dim=32, nheads=4, enc_layers=2,
+                 dec_layers=2, dim_feedforward=64)
+# the same models as config options (both packages' keys); 10 queries,
+# AnchorDETR 4 positions x 2 patterns
+DETR_TINY_OPTS = {
+    "MODEL.DETR.NUM_CLASSES": 3, "MODEL.DETR.HIDDEN_DIM": 32,
+    "MODEL.DETR.NHEADS": 4, "MODEL.DETR.ENC_LAYERS": 2,
+    "MODEL.DETR.DEC_LAYERS": 2, "MODEL.DETR.DIM_FEEDFORWARD": 64,
+    "MODEL.DETR.NUM_OBJECT_QUERIES": 10,
+    "MODEL.DETR.NUM_QUERY_POSITION": 4, "MODEL.DETR.NUM_QUERY_PATTERN": 2,
+    "INPUT.INPUT_SIZE": [DETR_SIZE, DETR_SIZE], "SOLVER.AMP.ENABLED": False,
+}
+# the gts of the gradient and train-step checks
+DETR_GRAD_GT_SEED = 40
+
+
+def merged_detr_cfg(get_cfg, yaml: str, **opts):
+    """``configs/coco/detr/<yaml>`` merged into ``get_cfg()`` (either
+    package's), then ``opts`` ({KEY: value})."""
+    cfg = get_cfg()
+    cfg.merge_from_file(str(DETR_DIR / yaml))
+    cfg.merge_from_list(opts_list(opts))
+    return cfg
+
+
+def detr_variables_like(jmodel, shape, rng: np.random.Generator):
+    """Variables of the flax ``jmodel`` drawn with numpy (no flax init):
+    kernels N(0, 1/fan_in) (attention kernels [E, H, hd] by their E,
+    ``out`` kernels [H, hd, E] by H hd), norm scales U(0.5, 1.5), biases
+    N(0, 0.3), BN statistics random, query embeddings and patterns N(0,
+    1), anchor points U(-2, 2) (their sigmoid spans (0.12, 0.88))."""
+    import jax
+    import jax.numpy as jnp
+
+    shapes = jax.eval_shape(
+        lambda x: jmodel.init(jax.random.PRNGKey(0), x),
+        jnp.zeros(shape, jnp.float32))
+
+    def draw(path, leaf):
+        p = tuple(str(getattr(k, "key", k)) for k in path)
+        s = leaf.shape
+        if p[-1] == "kernel":
+            fan = (s[0] * s[1] if len(s) == 3 and p[-2] == "out"
+                   else s[0] if len(s) == 3 else int(np.prod(s[:-1])))
+            return rng.normal(0.0, fan ** -0.5, s)
+        if p[-1] == "scale" or p[-1] == "var":
+            return rng.uniform(0.5, 1.5 if p[-1] == "scale" else 2.0, s)
+        if p[-1] in ("bias", "mean"):
+            return rng.normal(0.0, 0.3 if p[-1] == "bias" else 0.5, s)
+        if p[-1] == "anchor_points":
+            return rng.uniform(-2.0, 2.0, s)
+        return rng.normal(0.0, 1.0, s)
+
+    return {coll: jax.tree_util.tree_map_with_path(
+        lambda path, leaf: draw(path, leaf).astype(np.float32), tree)
+        for coll, tree in shapes.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def detr_pair(kind: str, attention_type: str = "RCDA",
+              spatial_prior: str = "learned"):
+    """(flax model, variables, port model holding them in eval mode,
+    integer-valued float32 images [2, 64, 64, 3], name map) of the tiny
+    DETR ("detr", dropout 0) or AnchorDETR ("anchor"), built once a
+    process."""
+    from yolov7_d2_tpu.models.meta_arch import detr as jd
+    from yolov7_d2_tpu.models.meta_arch import detr_variants as jdv
+    from yolov7_d2_tpu_torch.models.meta_arch import detr as td
+    from yolov7_d2_tpu_torch.models.meta_arch import detr_variants as tdv
+    from yolov7_d2_tpu_torch.utils import weight_port as twp
+
+    rng = np.random.default_rng(
+        {"detr": 0, "anchor": 1}[kind] + 10 * (spatial_prior == "grid"))
+    images = rng.integers(0, 256, (2, DETR_SIZE, DETR_SIZE, 3)).astype(
+        np.float32)
+    if kind == "detr":
+        kw = dict(DETR_DIMS, num_queries=10, dropout=0.0)
+        jmodel, tmodel = jd.DETR(**kw), td.DETR(**kw)
+        mapper = twp.map_detr_torch_name
+    else:
+        kw = dict(DETR_DIMS, num_query_position=4, num_query_pattern=2,
+                  attention_type=attention_type, spatial_prior=spatial_prior)
+        jmodel, tmodel = jdv.AnchorDETR(**kw), tdv.AnchorDETR(**kw)
+        mapper = functools.partial(twp.map_anchor_detr_torch_name,
+                                   attention_type=attention_type)
+    variables = detr_variables_like(jmodel, images.shape, rng)
+    load_into(tmodel, variables, mapper)
+    return jmodel, variables, tmodel, images, mapper
+
+
+def detr_gt(rng, b=2, g=6, counts=(4, 6), classes=3, size=DETR_SIZE,
+            ties=False):
+    """A DETR batch's gts: xyxy boxes in pixels [b, g, 4], classes,
+    validity (``counts`` valid slots first); with ``ties`` gts 1-2 copy gt
+    0 in image 0."""
+    boxes = np.zeros((b, g, 4), np.float32)
+    cls = np.zeros((b, g), np.int32)
+    valid = np.zeros((b, g), bool)
+    for i, n in enumerate(counts):
+        xy = rng.uniform(0, size * 0.6, (n, 2))
+        wh = rng.uniform(4, size * 0.4, (n, 2))
+        boxes[i, :n] = np.concatenate([xy, xy + wh], -1)
+        cls[i, :n] = rng.integers(0, classes, n)
+        valid[i, :n] = True
+    if ties:
+        boxes[0, 1:3] = boxes[0, 0]
+        cls[0, 1:3] = cls[0, 0]
+    return {"gt_boxes": boxes, "gt_classes": cls, "gt_valid": valid}
+
+
+def check_detr_gradients(kind, jgrads, jlosses, monkeypatch,
+                         grad_tol: float = 1e-4, loss_rtol: float = 1e-4):
+    """One train-mode forward, ``detr_losses`` (softmax CE for "detr",
+    focal for "anchor") and backward of the port's pair model on the gts
+    of ``DETR_GRAD_GT_SEED``, in NCHW (the normalize's plain version made
+    contiguous; ROADMAP.md C.20), against the JAX ``jgrads`` and
+    ``jlosses``: every loss term within ``loss_rtol``, every parameter's
+    gradient within ``grad_tol`` of the larger of its norm and 1e-2 of the
+    whole gradient's (a gradient that is 0 in exact arithmetic, as the
+    first decoder self-attention's query and key weights', which read
+    zeros, is float32 noise)."""
+    from yolov7_d2_tpu_torch.models.meta_arch import detr as td
+
+    _, variables, tmodel, images, mapper = detr_pair(kind)
+    gt = detr_gt(np.random.default_rng(DETR_GRAD_GT_SEED))
+    plain = td.normalize_images_plain
+    monkeypatch.setattr(td, "normalize_images_plain",
+                        lambda *a: plain(*a).contiguous())
+    tmodel.train()
+    tmodel.zero_grad()
+    try:
+        losses = td.detr_losses(
+            tmodel(torch.from_numpy(images)),
+            {k: torch.from_numpy(v) for k, v in gt.items()}, 3,
+            (DETR_SIZE, DETR_SIZE), use_focal=kind == "anchor")
+        losses["total_loss"].backward()
+    finally:
+        tmodel.eval()
+    for k in jlosses:
+        np.testing.assert_allclose(float(losses[k].detach()),
+                                   float(jlosses[k]), rtol=loss_rtol,
+                                   err_msg=k)
+    grads = jax_to_torch_state_dict(
+        numpy_variables({"params": jgrads,
+                         "batch_stats": variables["batch_stats"]}),
+        tmodel.state_dict(), mapper)
+    names = [n for n, _ in tmodel.named_parameters()]
+    whole = float(np.sqrt(sum(np.sum(np.square(grads[n], dtype=np.float64))
+                              for n in names)))
+    checked = 0
+    for name, p in tmodel.named_parameters():
+        want_g = grads[name]
+        err = float(np.abs(p.grad.numpy() - want_g).max())
+        floor = max(float(np.linalg.norm(want_g)), 1e-2 * whole)
+        assert err <= grad_tol * floor, (name, err)
+        checked += float(np.abs(want_g).max()) > 0
+    assert checked > 150

@@ -553,3 +553,80 @@ def test_auction_on_card_matches_cpu(dev):
     got = hungarian_match(cost.to(dev), rows.to(dev), cols.to(dev))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["Detr", "AnchorDetr"])
+def test_detr_serving_on_card_matches_cpu(dev, monkeypatch, arch):
+    """DETR's and AnchorDETR's uint8 batch goes through the normalize
+    kernel at their ImageNet mean and std, once a request; the float32
+    outputs agree with the CPU's (full width, 6 + 6 layers, 128 px, TF32
+    off), and the tail on the card gives the CPU tail's detections on the
+    same outputs, quantized to quarters so that every score is either
+    tied (the stable sort's order on both) or far from the others (the
+    card's and the CPU's sigmoid and softmax differ in the last bit)."""
+    from yolov7_d2_tpu_torch.config import DetrConfig
+    from yolov7_d2_tpu_torch.models.build import build_model
+    from yolov7_d2_tpu_torch.models.meta_arch import detr as td
+    from yolov7_d2_tpu_torch.models.meta_arch import detr_variants as tdv
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = DetrConfig(meta_architecture=arch, amp=False,
+                     input_size=(128, 128),
+                     dim_feedforward=2048 if arch == "Detr" else 1024)
+    images = torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    before = build.LAUNCHES["normalize"]
+    with torch.inference_mode():
+        on_card = build_model(cfg, dev)(images.to(dev))
+        ref = build_model(cfg, "cpu")(images)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["normalize"] == before + 1
+    for k in ("pred_logits", "pred_boxes", "aux_logits", "aux_boxes"):
+        scale = float(ref[k].abs().max())
+        assert float((on_card[k].cpu() - ref[k]).abs().max()) <= \
+            1e-4 * max(scale, 1.0), k
+    tail = (td.detr_postprocess if arch == "Detr"
+            else tdv.anchor_detr_postprocess)
+    out = {k: v.clone() for k, v in on_card.items()}
+    out["pred_logits"] = torch.round(out["pred_logits"] * 4) / 4
+    got = tail(out, cfg.input_size)
+    want = tail({k: v.cpu() for k, v in out.items()}, cfg.input_size)
+    assert got.boxes.shape == (2, 100, 4)
+    for f in ("boxes", "classes", "valid"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert torch.allclose(got.scores.cpu(), want.scores, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_focal", [False, True])
+def test_stacked_detr_auction_on_card_matches_cpu(dev, use_focal):
+    """``detr_match`` over six decoder levels stacked on the batch axis
+    ([6 x 4, 20, 100], copied queries and gts for ties) gives the CPU's
+    assignments and the assignments of one call a level."""
+    from yolov7_d2_tpu_torch.models.meta_arch.detr import detr_match
+
+    rng = np.random.default_rng(1)
+    lv, b, q, g = 6, 4, 100, 20
+    logits = rng.normal(0, 2, (lv * b, q, 80 if use_focal else 81))
+    boxes = 1 / (1 + np.exp(-rng.normal(0, 1, (lv * b, q, 4))))
+    logits[:, 10:20] = logits[:, 9:10]
+    boxes[:, 10:20] = boxes[:, 9:10]
+    gt = rng.uniform(0.2, 0.6, (b, g, 4))
+    gt[:, 1:4] = gt[:, :1]
+    cls = rng.integers(0, 80, (b, g))
+    valid = np.arange(g)[None] < rng.integers(1, g + 1, (b, 1))
+    args = [torch.tensor(a, dtype=torch.float32) for a in (logits, boxes)] + [
+        torch.tensor(np.tile(a, (lv,) + (1,) * (a.ndim - 1)))
+        for a in (gt.astype(np.float32), cls, valid)]
+    want = detr_match(*args, use_focal=use_focal)
+    got = detr_match(*(a.to(dev) for a in args), use_focal=use_focal)
+    for x, y in zip(got[:2], want[:2]):
+        assert torch.equal(x.cpu(), y)
+    for i in range(lv):
+        rows = slice(i * b, (i + 1) * b)
+        one = detr_match(*(a[rows].to(dev) for a in args),
+                         use_focal=use_focal)
+        assert torch.equal(one[0].cpu(), want[0][rows])
+        assert torch.equal(one[1].cpu(), want[1][rows])

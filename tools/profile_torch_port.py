@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's YOLOX-s serving path, or of its
 training step, goes on one CUDA card; with ``--yolov7``, YOLOV7's; with
-``--sparseinst``, SparseInst R-50's.
+``--sparseinst``, SparseInst R-50's; with ``--detr`` / ``--anchordetr``,
+DETR R-50's / AnchorDETR R-50's.
 
     python3 tools/profile_torch_port.py            # serving
     python3 tools/profile_torch_port.py --train    # training step
     python3 tools/profile_torch_port.py --yolov7 [--train]
     python3 tools/profile_torch_port.py --sparseinst [--train]
+    python3 tools/profile_torch_port.py --detr | --anchordetr [--train]
 
 Full-width YOLOX-s (or YOLOV7 from ``configs/coco/yolov7.yaml``'s
 defaults) at 640, bf16, random weights from seed 0, uint8 batches already
@@ -22,8 +24,13 @@ kernels by name. SparseInst (``configs/coco/sparseinst/
 sparse_inst_r50_base.yaml``): serving through ``build_model`` and
 ``sparseinst_postprocess``; training through ``build_system`` (AdamW) on
 16 images with 100 dense mask slots each (1-20 valid), and the auction
-matcher alone on the step's outputs (ms and rounds). Every line carries
-the card's name and power limit. Imports no JAX.
+matcher alone on the step's outputs (ms and rounds). DETR and AnchorDETR
+(``configs/coco/detr/detr_256_6_6_r50.yaml``, ``anchordetr_r50.yaml``) at
+800: serving through ``build_model`` and the family's tail; training
+through ``build_system`` (AdamW, the set criterion over 6 levels) on 8
+images with 100 box slots each (1-20 valid), and the stacked six-level
+auction alone on the step's outputs. Every line carries the card's name
+and power limit. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -80,9 +87,13 @@ GROUPS = (
     ("max-pool", r"max_pool"),
     ("avg-pool", r"avg_pool"),
     ("upsample", r"upsample"),
+    ("attention (SDPA)", r"flash|fmha|attention|efficient_attention"),
+    ("softmax", r"softmax"),
+    ("layer norm", r"layer_norm|LayerNorm"),
     ("sort / top-k", r"[Ss]ort|[Tt]op[Kk]|radix|bitonic"),
-    # cuDNN runs the 1x1 convolutions as cuBLAS GEMMs (nvjet kernels)
-    ("convolution", r"conv|xmma|implicit_gemm|fprop|cudnn|sm90_|cutlass|"
+    # cuDNN runs the 1x1 convolutions as cuBLAS GEMMs (nvjet kernels), so
+    # the linear layers' and einsums' GEMMs count here too
+    ("convolution and GEMM", r"conv|xmma|implicit_gemm|fprop|cudnn|sm90_|cutlass|"
                     r"nvjet"),
     ("residual add", r"CUDAFunctor_add"),
     ("casts and copies", r"copy|cast"),
@@ -166,9 +177,25 @@ def trace(fn, card: str, label: str) -> None:
         print(f"  {ms:9.3f}  {n:5d}  {key[:110]}")
 
 
+DETR_YAMLS = {"DETR": "detr_256_6_6_r50.yaml",
+              "AnchorDETR": "anchordetr_r50.yaml"}
+DETR_TRAIN_BATCH = 8
+
+
 def serving(dev, model_name: str):
-    """(forward, postprocess) of YOLOX-s's ``Predictor``, of YOLOV7 or of
-    SparseInst."""
+    """(forward, postprocess) of YOLOX-s's ``Predictor``, of YOLOV7, of
+    SparseInst, of DETR or of AnchorDETR."""
+    if model_name in DETR_YAMLS:
+        from chip_smoke import detr_cfg, detr_tail
+
+        dcfg = detr_cfg(DETR_YAMLS[model_name])
+        dmodel = build_model(dcfg, dev, 0)
+
+        @torch.inference_mode()
+        def detr_forward(x):
+            return dmodel(x)
+
+        return detr_forward, lambda out: detr_tail(out, dcfg)
     if model_name == "SparseInst":
         scfg = SparseInstConfig()
         smodel = build_model(scfg, dev, 0)
@@ -231,6 +258,30 @@ def profile_train_sparseinst(card: str, dev, gen) -> None:
           f"{iters.tolist()} (the first step's batch: {rounds}) [{card}]")
 
 
+def profile_train_detr(card: str, dev, gen, model_name: str) -> None:
+    """DETR's or AnchorDETR's step through ``build_system``; then the
+    stacked six-level auction alone on the outputs of that batch (CUDA
+    events over 10 calls after 3)."""
+    from chip_smoke import detr_batch, detr_cfg, level_assignments
+
+    cfg = detr_cfg(DETR_YAMLS[model_name])
+    _, state, train_step, _ = build_system(cfg, device=dev, seed=0)
+    batch = detr_batch(DETR_TRAIN_BATCH, gen, dev, cfg.input_size[0])
+
+    def one_step():
+        nonlocal state
+        state, metrics = train_step(state, batch)
+        return metrics
+
+    rounds = int(one_step()["match_iters"])
+    trace(one_step, card, f"{model_name} train step bs {DETR_TRAIN_BATCH}")
+    with torch.no_grad():
+        out = state.model(batch["image"])
+    ms = cuda_ms(lambda: level_assignments(out, batch, cfg))
+    print(f"six-level auction alone: {ms:.3f} ms a call (the first step's "
+          f"rounds: {rounds}) [{card}]")
+
+
 def profile_train(card: str, dev, gen, yolov7: bool) -> None:
     if yolov7:
         cfg = dataclasses.replace(AnchorYoloConfig(), grid_mask=True,
@@ -269,6 +320,10 @@ def main() -> int:
                         help="YOLOV7 (configs/coco/yolov7.yaml) for YOLOX-s")
     parser.add_argument("--sparseinst", action="store_true",
                         help="SparseInst R-50 (sparse_inst_r50_base.yaml)")
+    parser.add_argument("--detr", action="store_true",
+                        help="DETR R-50 (detr_256_6_6_r50.yaml) at 800")
+    parser.add_argument("--anchordetr", action="store_true",
+                        help="AnchorDETR R-50 (anchordetr_r50.yaml) at 800")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_port: no CUDA device")
@@ -277,8 +332,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     name = ("SparseInst" if args.sparseinst else
-            "YOLOV7" if args.yolov7 else "YOLOX-s")
-    print(f"model: {name} 640 bf16", flush=True)
+            "YOLOV7" if args.yolov7 else "DETR" if args.detr else
+            "AnchorDETR" if args.anchordetr else "YOLOX-s")
+    size = 800 if name in DETR_YAMLS else 640
+    print(f"model: {name} {size} bf16", flush=True)
+    if args.train and name in DETR_YAMLS:
+        profile_train_detr(card, dev, gen, name)
+        return 0
     if args.train and args.sparseinst:
         profile_train_sparseinst(card, dev, gen)
         return 0
@@ -288,7 +348,7 @@ def main() -> int:
     forward, postprocess = serving(dev, name)
 
     for bs in BATCHES:
-        x = torch.randint(0, 256, (bs, 640, 640, 3), generator=gen,
+        x = torch.randint(0, 256, (bs, size, size, 3), generator=gen,
                           dtype=torch.uint8).to(dev)
         e2e = cuda_ms(lambda: postprocess(forward(x)))
         fwd = cuda_ms(lambda: forward(x))
@@ -299,7 +359,7 @@ def main() -> int:
               flush=True)
 
     bs = max(BATCHES)
-    x = torch.randint(0, 256, (bs, 640, 640, 3), generator=gen,
+    x = torch.randint(0, 256, (bs, size, size, 3), generator=gen,
                       dtype=torch.uint8).to(dev)
     trace(lambda: postprocess(forward(x)), card, f"bs {bs}")
     return 0

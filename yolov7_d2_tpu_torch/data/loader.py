@@ -35,6 +35,16 @@ def exact_uint8(images: np.ndarray) -> np.ndarray:
     return out
 
 
+def stack_uint8_batch(
+        samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """:func:`stack_batch` with the images as uint8 (exact, else it
+    raises), so that the model takes them through the normalize kernel
+    (the DETR feed's collate)."""
+    out = stack_batch(samples)
+    out["image"] = exact_uint8(out["image"])
+    return out
+
+
 GT_KEYS = ("gt_masks", "gt_boxes", "gt_classes", "gt_valid")
 
 

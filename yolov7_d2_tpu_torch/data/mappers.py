@@ -10,6 +10,9 @@
     masks too.
   * ``DarknetMosaicDatasetMapper``: the Darknet blend mosaic from a record
     pool, the SparseInst feed.
+  * ``DetrDatasetMapper``: flip and ``ResizeShortestEdge``, half the time
+    with a small resize and ``RandomCrop`` before the last resize, the DETR
+    family's feed.
 
 Samples have static shapes: the image letterboxed to ``INPUT.INPUT_SIZE``
 (float32 0..255), the labels densified to ``MAX_BOXES_NUM`` slots with a
@@ -359,3 +362,56 @@ class DarknetMosaicDatasetMapper(SimpleDatasetMapper):
             tiles, self.mosaic_hw, self.min_offset, self.rng
         )
         return self._finalize(record, img, boxes, classes, masks, 1.0)
+
+
+class DetrDatasetMapper(SimpleDatasetMapper):
+    """The DETR family's mapper (JAX :423, reference dataset_mapper.py:
+    804-884): flip and ``ResizeShortestEdge``; where ``INPUT.CROP.ENABLED``
+    (training), half the time (``rng.random() > 0.5`` keeps the plain
+    chain) ``ResizeShortestEdge([400, 500, 600], 10000)`` and
+    ``RandomCrop`` go in before the last resize. Then the letterbox to
+    ``INPUT_SIZE``."""
+
+    def __init__(self, cfg, is_train: bool = True, seed: int = 0):
+        from yolov7_d2_tpu_torch.data.transforms.api import (
+            RandomCrop,
+            RandomFlip,
+            ResizeShortestEdge,
+        )
+
+        super().__init__(cfg, is_train, seed)
+        if is_train:
+            self.tfm_gens = [
+                RandomFlip(cfg.INPUT.RANDOM_FLIP_HORIZONTAL.PROB),
+                ResizeShortestEdge(
+                    cfg.INPUT.MIN_SIZE_TRAIN,
+                    cfg.INPUT.MAX_SIZE_TRAIN,
+                    cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING,
+                ),
+            ]
+        else:
+            self.tfm_gens = [
+                ResizeShortestEdge(
+                    cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST
+                )
+            ]
+        self.crop_gen = None
+        if cfg.INPUT.CROP.ENABLED and is_train:
+            self.crop_gen = [
+                ResizeShortestEdge([400, 500, 600], 10_000, "choice"),
+                RandomCrop(cfg.INPUT.CROP.TYPE, cfg.INPUT.CROP.SIZE),
+            ]
+
+    def __call__(self, record: dict) -> Dict[str, np.ndarray]:
+        if self.crop_gen is None or self.rng.random() > 0.5:
+            self.augmentations = self.tfm_gens
+        else:
+            self.augmentations = (
+                self.tfm_gens[:-1] + self.crop_gen + self.tfm_gens[-1:]
+            )
+        img = read_image_bgr(record["file_name"])
+        boxes, classes = annotations_to_arrays(record)
+        img, boxes, classes, _, pre_scale = self._apply_augmentations(
+            img, boxes, classes
+        )
+        return self._finalize(record, img, boxes, classes, None, pre_scale)

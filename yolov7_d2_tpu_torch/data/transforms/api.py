@@ -125,6 +125,24 @@ class CropTransform(Transform):
         return self.apply_image(mask)
 
 
+class PadTransform(Transform):
+    """Pad to (h, w) with a fill value, top-left anchored."""
+
+    def __init__(self, h: int, w: int, fill: int = GRAY):
+        self.h, self.w, self.fill = h, w, fill
+
+    def apply_image(self, img):
+        out_shape = (self.h, self.w) + img.shape[2:]
+        out = np.full(out_shape, self.fill, img.dtype)
+        out[: img.shape[0], : img.shape[1]] = img
+        return out
+
+    def apply_segmentation(self, mask):
+        out = np.zeros((self.h, self.w), mask.dtype)
+        out[: mask.shape[0], : mask.shape[1]] = mask
+        return out
+
+
 class ShiftTransform(Transform):
     """Pixel shift, gray fill (YOLOFShiftTransform, ref transform.py:341)."""
 
@@ -160,6 +178,33 @@ class PhotometricTransform(Transform):
 
     def apply_image(self, img):
         return self.fn(img)
+
+
+class TransformList(Transform):
+    """Several transforms applied in order, as one."""
+
+    def __init__(self, transforms: Sequence[Transform]):
+        self.transforms = list(transforms)
+
+    def apply_image(self, img):
+        for t in self.transforms:
+            img = t.apply_image(img)
+        return img
+
+    def apply_coords(self, coords):
+        for t in self.transforms:
+            coords = t.apply_coords(coords)
+        return coords
+
+    def apply_box(self, boxes):
+        for t in self.transforms:
+            boxes = t.apply_box(boxes)
+        return boxes
+
+    def apply_segmentation(self, mask):
+        for t in self.transforms:
+            mask = t.apply_segmentation(mask)
+        return mask
 
 
 class Augmentation:
@@ -330,3 +375,27 @@ class RandomShift(Augmentation):
         dy = int(rng.integers(-self.max_shifts, self.max_shifts + 1))
         return ShiftTransform(dx, dy)
 
+
+class RandomCrop(Augmentation):
+    """d2 T.RandomCrop: crop a random window of relative/absolute size."""
+
+    def __init__(self, crop_type: str, crop_size):
+        self.crop_type = crop_type
+        self.crop_size = tuple(crop_size)
+
+    def get_transform(self, img, rng):
+        h, w = img.shape[:2]
+        if self.crop_type == "relative_range":
+            ch_r = float(rng.uniform(self.crop_size[0], 1.0))
+            cw_r = float(rng.uniform(self.crop_size[1], 1.0))
+            ch, cw = int(h * ch_r + 0.5), int(w * cw_r + 0.5)
+        elif self.crop_type == "relative":
+            ch = int(h * self.crop_size[0] + 0.5)
+            cw = int(w * self.crop_size[1] + 0.5)
+        else:  # absolute
+            ch = min(int(self.crop_size[0]), h)
+            cw = min(int(self.crop_size[1]), w)
+        ch, cw = max(ch, 1), max(cw, 1)
+        y0 = int(rng.integers(0, h - ch + 1))
+        x0 = int(rng.integers(0, w - cw + 1))
+        return CropTransform(x0, y0, cw, ch)

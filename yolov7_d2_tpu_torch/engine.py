@@ -1,6 +1,7 @@
 """High-level assembly of the training step (JAX ``engine.py``): config ->
 (model, state, train_step), for YOLOX (``build_yolox_system``) and, through
-``build_system``, for the anchor-based YOLO family and SparseInst.
+``build_system``, for the anchor-based YOLO family, SparseInst, DETR and
+AnchorDETR.
 """
 
 from __future__ import annotations
@@ -12,10 +13,13 @@ from torch import nn
 
 from yolov7_d2_tpu_torch.config import (
     AnchorYoloConfig,
+    DetrConfig,
     SparseInstConfig,
     YoloxConfig,
 )
+from yolov7_d2_tpu_torch.config.detr import DETR_ARCHS
 from yolov7_d2_tpu_torch.models.build import build_model
+from yolov7_d2_tpu_torch.models.meta_arch.detr import detr_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.sparseinst import sparseinst_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import anchor_yolo_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_loss_fn
@@ -137,8 +141,8 @@ _ROADMAP_ITEM = {
     "YOLOV5": "A.8", "YOLOV6": "A.8", "YOLOF": "A.8", "SOLOv2": "A.8",
     "MaskRCNN": "A.8", "FasterRCNN": "A.8", "PanopticFPN": "A.8",
     "YOLOMask": "A.8", "DetrSegm": "A.8",
-    "Detr": "A.7c", "DetrD2go": "A.7c", "AnchorDetr": "A.7c",
-    "SMCADetr": "A.7c", "DABDetr": "A.7c", "YOLOX_KPTS": "A.7d",
+    "DetrD2go": "A.7c′", "SMCADetr": "A.7c′", "DABDetr": "A.7c′",
+    "YOLOX_KPTS": "A.7d",
 }
 
 
@@ -169,12 +173,17 @@ def build_system(cfg, device="cuda", seed: int = 0):
     """cfg -> (model, state, train_step, batch fields) for every
     architecture the port trains (JAX ``engine.py:155``). ``cfg`` is a
     merged ``CfgNode`` or a config dataclass (``YoloxConfig``,
-    ``AnchorYoloConfig``, ``SparseInstConfig``). YOLOX goes to
-    :func:`build_yolox_system`; YOLO, YOLOV7 and YOLOV7P train the anchor
-    losses of :func:`make_anchor_yolo_loss` without an L1 switch;
+    ``AnchorYoloConfig``, ``SparseInstConfig``, ``DetrConfig``). YOLOX
+    goes to :func:`build_yolox_system`; YOLO, YOLOV7 and YOLOV7P train the
+    anchor losses of :func:`make_anchor_yolo_loss` without an L1 switch;
     SparseInst trains its mask losses (``sparseinst_loss_fn``) on the
     fields ``image`` (uint8 through the normalize kernel), ``gt_masks``,
-    ``gt_classes`` and ``gt_valid``; any other architecture raises, naming
+    ``gt_classes`` and ``gt_valid``; Detr and AnchorDetr train the set
+    criterion (``detr_loss_fn``: focal for AnchorDetr or
+    ``USE_FOCAL_LOSS``) on ``image`` (uint8 through the normalize
+    kernel), ``gt_boxes``, ``gt_classes`` and ``gt_valid``, with the
+    dropout masks of a step drawn from the seed and the step
+    (:func:`seed_dropout_by_step`); any other architecture raises, naming
     the ROADMAP.md item that brings it."""
     if hasattr(cfg, "MODEL"):
         arch = cfg.MODEL.META_ARCHITECTURE
@@ -184,6 +193,8 @@ def build_system(cfg, device="cuda", seed: int = 0):
             cfg = AnchorYoloConfig.from_cfg(cfg)
         elif arch == "SparseInst":
             cfg = SparseInstConfig.from_cfg(cfg)
+        elif arch in DETR_ARCHS:
+            cfg = DetrConfig.from_cfg(cfg)
     else:
         arch = cfg.meta_architecture
     if arch == "YOLOX":
@@ -193,6 +204,8 @@ def build_system(cfg, device="cuda", seed: int = 0):
         loss_fn, fields = sparseinst_loss_fn(cfg), MASK_FIELDS
     elif arch in ANCHOR_YOLO_ARCHS:
         loss_fn, fields = make_anchor_yolo_loss(cfg), BATCH_FIELDS
+    elif arch in DETR_ARCHS:
+        loss_fn, fields = detr_loss_fn(cfg), BATCH_FIELDS
     else:
         item = _ROADMAP_ITEM.get(arch, "A.8")
         raise NotImplementedError(
@@ -202,7 +215,24 @@ def build_system(cfg, device="cuda", seed: int = 0):
         loss_fn, build_lr_schedule(cfg),
         ema_decay=cfg.ema_decay if cfg.ema else 0.0,
         clip_cfg=cfg if cfg.clip_gradients else None)
+    if arch in DETR_ARCHS:
+        train_step = seed_dropout_by_step(train_step, seed)
     return state.model, state, train_step, fields
+
+
+def seed_dropout_by_step(train_step: Callable, seed: int) -> Callable:
+    """Reseed the model's dropout generator (``model.generator``) before
+    each step from ``seed`` and the step, as the JAX step folds the step
+    into its seed's key: a step's masks do not depend on the steps before
+    it, so a resumed run draws what an unbroken one would."""
+
+    def step(state, batch):
+        gen = state.model.generator
+        if gen is not None:
+            gen.manual_seed(seed * 1_000_003 + state.step)
+        return train_step(state, batch)
+
+    return step
 
 
 def resolve_device(name: str) -> torch.device:

@@ -15,8 +15,11 @@ META_ARCH_REGISTRY = Registry("META_ARCH")
 def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     """Build ``cfg.meta_architecture`` on ``device``: a ``YoloxConfig``
     for YOLOX, an ``AnchorYoloConfig`` for YOLO, YOLOV7 and YOLOV7P, a
-    ``SparseInstConfig`` for SparseInst."""
+    ``SparseInstConfig`` for SparseInst, a ``DetrConfig`` for Detr and
+    AnchorDetr."""
     from yolov7_d2_tpu_torch.models.meta_arch import (  # noqa: F401
+        detr,
+        detr_variants,
         sparseinst,
         yolov7,
         yolox,

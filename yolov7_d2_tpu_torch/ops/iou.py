@@ -1,4 +1,5 @@
-"""Box IoU and the IoU loss family (JAX ``ops/iou.py:19-40, 76-157``).
+"""Box IoU, generalized IoU and the IoU loss family (JAX ``ops/iou.py:19-66,
+76-157``).
 
 The operations and their order are those of the JAX functions, one rounding
 each, so that the plain NMS and the NMS kernel take the same decisions at
@@ -29,6 +30,30 @@ def elementwise_box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def pairwise_box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., N, 4] x b [..., M, 4] -> [..., N, M]."""
     return elementwise_box_iou(a[..., :, None, :], b[..., None, :, :])
+
+
+def generalized_box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """GIoU of aligned xyxy boxes: the IoU less the enclosing box's share
+    outside the union, as the JAX ``pairwise_generalized_box_iou``
+    computes each pair (the union from unclamped areas)."""
+    iou = elementwise_box_iou(a, b)
+    ax0, ay0, ax1, ay1 = a.unbind(-1)
+    bx0, by0, bx1, by1 = b.unbind(-1)
+    enclose = ((torch.maximum(ax1, bx1) - torch.minimum(ax0, bx0))
+               .clamp(min=0.0)
+               * (torch.maximum(ay1, by1) - torch.minimum(ay0, by0))
+               .clamp(min=0.0))
+    iw = (torch.minimum(ax1, bx1) - torch.maximum(ax0, bx0)).clamp(min=0.0)
+    ih = (torch.minimum(ay1, by1) - torch.maximum(ay0, by0)).clamp(min=0.0)
+    union = (ax1 - ax0) * (ay1 - ay0) + (bx1 - bx0) * (by1 - by0) - iw * ih
+    return iou - (enclose - union) / (enclose + EPS)
+
+
+def pairwise_generalized_box_iou(a: torch.Tensor,
+                                 b: torch.Tensor) -> torch.Tensor:
+    """a [..., N, 4] x b [..., M, 4] -> GIoU [..., N, M] (DETR's matching
+    cost, JAX :43)."""
+    return generalized_box_iou(a[..., :, None, :], b[..., None, :, :])
 
 
 def _iou_terms(pred: torch.Tensor, target: torch.Tensor):

@@ -30,6 +30,24 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     return loss
 
 
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Cross entropy of integer ``labels`` against the last axis of
+    ``logits``, unreduced over the leading axes (JAX :47)."""
+    logp = torch.log_softmax(logits, -1)
+    return -logp.gather(-1, labels.long()[..., None])[..., 0]
+
+
+def weighted_softmax_cross_entropy(logits: torch.Tensor,
+                                   labels: torch.Tensor,
+                                   class_weights: torch.Tensor
+                                   ) -> torch.Tensor:
+    """:func:`softmax_cross_entropy` times the weight of each label's class
+    (DETR's no-object down-weighting, JAX :56)."""
+    return softmax_cross_entropy(logits, labels) * class_weights[
+        labels.long()]
+
+
 def dice_score(pred: torch.Tensor, target: torch.Tensor,
                eps: float = 1e-8) -> torch.Tensor:
     """Soft dice coefficient over the last axis (JAX :85):

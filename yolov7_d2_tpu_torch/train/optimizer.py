@@ -4,8 +4,10 @@
 One ``torch.optim.SGD`` group for each (weight-decay class, learning-rate
 multiplier) pair. The decay class comes from the module type, as the
 original reference's ``build.py`` takes it: a norm layer's weight and bias
-are ``norm`` (``weight_decay_norm``), another parameter named ``bias`` is
-``bias`` (``weight_decay_bias``), the rest ``weight`` (``weight_decay``).
+are ``norm`` (``weight_decay_norm``), another parameter named ``bias`` or
+ending in ``_bias`` (the attention's ``in_proj_bias``, whose flax
+counterparts are the query, key and value ``bias``) is ``bias``
+(``weight_decay_bias``), the rest ``weight`` (``weight_decay``).
 The JAX package finds the same classes from the flax path
 (``param_decay_class``). torch's SGD adds the decay to the gradient before
 the momentum, which is the order the JAX optimizer copies.
@@ -39,9 +41,14 @@ def param_decay_class(module: nn.Module, param_name: str) -> str:
     ``module`` (its own name, without the module path)."""
     if isinstance(module, _NORM_TYPES):
         return "norm"
-    if param_name == "bias":
+    if is_bias(param_name):
         return "bias"
     return "weight"
+
+
+def is_bias(param_name: str) -> bool:
+    """``bias``, or a fused one such as ``in_proj_bias``."""
+    return param_name == "bias" or param_name.endswith("_bias")
 
 
 def _lr_multiplier(module_name: str, param_name: str, cfg) -> float:
@@ -49,7 +56,7 @@ def _lr_multiplier(module_name: str, param_name: str, cfg) -> float:
     module name, then the backbone multiplier (JAX ``_lr_multiplier``; the
     names here are torch module names, ``backbone.dark2.0.conv``)."""
     m = 1.0
-    if param_name == "bias":
+    if is_bias(param_name):
         m *= cfg.bias_lr_factor
     name = module_name.lower()
     for key, mult in cfg.lr_multiplier_overwrite:

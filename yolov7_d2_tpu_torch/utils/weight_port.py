@@ -9,8 +9,17 @@ the same names), conv kernels go
 (params) and ``mean/var`` (batch_stats) become
 ``weight/bias/running_mean/running_var``, dense kernels ``[I, O] -> [O, I]``.
 SparseInst (``map_sparseinst_torch_name``) and the ResNet of YOLOV7P take
-copies of the JAX package's detectron2-ResNet and SparseInst maps. The
-flax tree is nested dicts of numpy arrays, so no JAX is needed here.
+copies of the JAX package's detectron2-ResNet and SparseInst maps. DETR
+(``map_detr_torch_name``, a copy of the JAX map of the reference's names)
+and AnchorDETR (``map_anchor_detr_torch_name``) add attention: a flax
+``MultiHeadDotProductAttention`` keeps query, key and value kernels [E, H,
+hd] with biases [H, hd] and an ``out`` kernel [H, hd, E]; the port's
+``in_proj_weight`` [3E, E] / ``in_proj_bias`` [3E] stack the three (the
+inverse of the JAX ``split_torch_mha``) and ``out_proj`` takes ``out``.
+A key whose leaf is neither a weight, a bias nor a statistic (AnchorDETR's
+``anchor_points``) and an embedding's ``weight`` (``query_embed``) take the
+flax parameter of the same path as it is. The flax tree is nested dicts of
+numpy arrays, so no JAX is needed here.
 """
 
 from __future__ import annotations
@@ -277,6 +286,70 @@ def map_sparseinst_torch_name(name: str, vd: bool = False
     return map_resnet_torch_name(name, vd)
 
 
+def _attention_out(parts: Tuple[str, ...]) -> Tuple[str, ...]:
+    """``.../<attn>/out_proj`` of a flax ``MultiHeadDotProductAttention``
+    -> ``.../<attn>/out``."""
+    return parts[:-1] + ("out",) if parts[-1] == "out_proj" else parts
+
+
+def map_detr_torch_name(name: str) -> Tuple[str, ...]:
+    """A key of the port's DETR (the reference's names) -> the flax path of
+    the JAX ``DETR``: ``backbone.`` through :func:`map_d2_resnet_name`, the
+    rest through a copy of the JAX ``map_detr_torch_name`` (``transformer.
+    encoder.layers.N`` -> ``transformer/enc_N``, ``decoder.norm`` ->
+    ``dec_norm``, ``bbox_embed.layers.N`` -> ``bbox_embed/layer_N``), with
+    the attention renames that the JAX ``port_detr_state_dict`` makes:
+    ``multihead_attn`` -> ``cross_attn``, ``out_proj`` -> ``out``."""
+    if name.startswith("backbone."):
+        return map_d2_resnet_name(name)
+    n = re.sub(r"^detr\.", "", name)
+    n = re.sub(r"^transformer\.encoder\.layers\.(\d+)\.",
+               r"transformer/enc_\1/", n)
+    n = re.sub(r"^transformer\.decoder\.layers\.(\d+)\.",
+               r"transformer/dec_\1/", n)
+    n = n.replace("transformer.decoder.norm", "transformer/dec_norm")
+    n = n.replace("transformer.encoder.norm", "transformer/enc_norm")
+    n = re.sub(r"^bbox_embed\.layers\.(\d+)$", r"bbox_embed/layer_\1", n)
+    parts = tuple(n.replace(".", "/").split("/"))
+    parts = tuple("cross_attn" if p == "multihead_attn" else p
+                  for p in parts)
+    if len(parts) >= 2 and parts[-2] in ("self_attn", "cross_attn"):
+        parts = _attention_out(parts)
+    return parts
+
+
+def map_anchor_detr_torch_name(name: str,
+                               attention_type: str = "RCDA"
+                               ) -> Tuple[str, ...]:
+    """A key of the port's ``AnchorDETR`` -> the flax path of the JAX
+    model: ``backbone.`` through :func:`map_d2_resnet_name`,
+    ``transformer.encoder.layers.N`` -> ``enc_N``,
+    ``transformer.decoder.layers.N`` -> ``dec_N``, ``bbox_embed.layers.N``
+    -> ``bbox_embed/layer_N``. The decoders' ``self_attn`` and, with
+    ``attention_type`` "nn.MultiheadAttention", the encoders' are flax
+    attention (``out_proj`` -> ``out``); the RCDA modules keep their
+    ``out_proj``."""
+    if name.startswith("backbone."):
+        return map_d2_resnet_name(name)
+    m = re.match(r"^transformer\.(encoder|decoder)\.layers\.(\d+)\.(.*)$",
+                 name)
+    if m:
+        kind, i, rest = m.groups()
+        parts = (f"{kind[:3]}_{i}",) + tuple(rest.split("."))
+        dense = (kind == "decoder"
+                 or attention_type == "nn.MultiheadAttention")
+        if dense and parts[1] == "self_attn":
+            parts = _attention_out(parts)
+        return parts
+    m = re.match(r"^bbox_embed\.layers\.(\d+)$", name)
+    if m:
+        return ("bbox_embed", f"layer_{m.group(1)}")
+    return tuple(name.split(".")) if name else ()
+
+
+_QKV = ("query", "key", "value")
+
+
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], Any]:
     out = {}
     for k, v in tree.items():
@@ -303,30 +376,55 @@ def jax_to_torch_state_dict(
     }
     taken = set()
     out: Dict[str, np.ndarray] = {}
+    params = trees["params"]
     for key, ref in template.items():
         module, _, leaf = key.rpartition(".")
         if leaf == "num_batches_tracked":
             out[key] = np.zeros((), np.int64)
             continue
-        path = name_mapper(module)
+        path = name_mapper(module) if module else ()
+        if leaf in ("in_proj_weight", "in_proj_bias"):
+            # the q, k, v blocks of a fused projection [3E, E] / [3E]
+            part = "kernel" if leaf == "in_proj_weight" else "bias"
+            fpaths = [path + (p, part) for p in _QKV]
+            missing = [f for f in fpaths if f not in params]
+            if missing:
+                raise KeyError(f"{key}: no flax leaf at "
+                               f"{'/'.join(missing[0])}")
+            blocks = [np.asarray(params[f]) for f in fpaths]
+            e = blocks[0].shape[0]
+            value = np.concatenate([
+                b.reshape(e, -1).T if part == "kernel" else b.reshape(-1)
+                for b in blocks])
+            if tuple(value.shape) != tuple(ref.shape):
+                raise ValueError(f"{key}: flax {'/'.join(path)} gives shape "
+                                 f"{value.shape}, the port {tuple(ref.shape)}")
+            out[key] = np.array(value, order="C")
+            taken.update(("params", f) for f in fpaths)
+            continue
         if leaf in _STATS_LEAF:
-            coll, candidates = "batch_stats", (_STATS_LEAF[leaf],)
+            coll, candidates = "batch_stats", (path + (_STATS_LEAF[leaf],),)
         elif leaf == "weight":
-            coll, candidates = "params", ("kernel", "scale")
+            # an embedding's table is the flax parameter at its path
+            coll, candidates = "params", (path + ("kernel",),
+                                          path + ("scale",), path)
         elif leaf == "bias":
-            coll, candidates = "params", ("bias",)
+            coll, candidates = "params", (path + ("bias",),)
         else:
-            raise KeyError(f"{key}: no flax counterpart for leaf {leaf!r}")
-        found = [path + (c,) for c in candidates
-                 if path + (c,) in trees[coll]]
+            coll, candidates = "params", (path + (leaf,),)
+        found = [c for c in candidates if c in trees[coll]]
         if not found:
-            raise KeyError(f"{key}: no flax leaf at {'/'.join(path)} "
-                           f"among {candidates}")
+            raise KeyError(f"{key}: no flax leaf among "
+                           f"{['/'.join(c) for c in candidates]}")
         fpath = found[0]
         value = np.asarray(trees[coll][fpath])
         if fpath[-1] == "kernel":
-            value = (value.T if value.ndim == 2
-                     else np.transpose(value, (3, 2, 0, 1)))
+            if value.ndim == 2:
+                value = value.T
+            elif value.ndim == 3:    # attention's out kernel [H, hd, E]
+                value = value.reshape(-1, value.shape[-1]).T
+            else:
+                value = np.transpose(value, (3, 2, 0, 1))
         if tuple(value.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: flax {'/'.join(fpath)} has shape "
                              f"{value.shape}, the port {tuple(ref.shape)}")
