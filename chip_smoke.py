@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port's YOLOX-s serving path, training step,
 training CLI and multi-GPU training, of the anchor-YOLO family's serving
 and training, of SparseInst's and of DETR's and AnchorDETR's serving,
-training and CLI, on one CUDA card.
+training and CLI, and of YOLOX-KPTS's serving, training and eval, on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -99,7 +100,26 @@ set to 0 just before it and read just after:
   auction rounds; one f32 step at dropout 0 on the card against the CPU
   (assignments equal at every level, losses and grad norm within 1e-3);
   (d) ``train_transformer`` (DETR) on a mini-COCO of 64 JPEGs, the crop
-  branch on: 12 steps, checkpoints at 6 and 12, ``--resume`` to 14.
+  branch on: 12 steps, checkpoints at 6 and 12, ``--resume`` to 14;
+* YOLOX-KPTS (``yolox_kpts_phase``): ``configs/coco/yolox_kpts_swin.yaml``
+  (Swin-T, YOLOPAFPN at 0.33 / 0.50, one class, 17 keypoints), then
+  ``yolox_kpts.yaml`` (CSPDarknet-X) and PVTv2-b1, at 640, full depth and
+  width, bf16 over f32 weights from the seed. (a) serving, uint8 ->
+  normalize kernel -> forward -> ``yolox_kpts_postprocess`` -> NMS
+  kernel, for requests of 1, 8 and 128 images (launches counted from 0,
+  e2e, forward and tail by CUDA events, the device's busy share at 128)
+  and the kernel path's ``Detections``, keypoints included, equal to the
+  plain path's at 8; (b) f32 outputs and keypoints on the card against
+  the CPU at 128 px within 1e-4 of the max, bf16 within 5e-2; (c) 13
+  steps of 16 images through ``build_system`` on Swin-T, 1-8 persons of
+  17 keypoints an image (finite losses, foreground anchors, ``loss_kpt``
+  > 0, parameters moved, ms a step, peak memory), then one f32 step at
+  128 px on the card against the CPU; (d) ``eval_coco`` on a mini-COCO
+  of 64 JPEGs of persons with keypoints (box and ``kpt_`` keys), and
+  again with ``--weights`` of a saved state dict; (e) YOLOV7 on
+  ``swin_t.yaml`` and ``pvt_v2_b0.yaml``: one request and one train step
+  each. The launches of (a), (c) and (d) are added to the normalize and
+  NMS entries of the kernels line.
 
 ``python3 chip_smoke.py --nccl`` runs (c) alone, on a machine of 2 or more
 cards.
@@ -115,6 +135,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import logging
 import math
@@ -306,11 +327,14 @@ def train_batch(n: int, gen: torch.Generator, size: int = SIZE) -> dict:
 
 
 def write_mini_coco(root: str, n: int = CLI_IMAGES, seed: int = SEED,
-                    segm: bool = False):
+                    segm: bool = False, keypoints: bool = False):
     """``n`` JPEGs of 640x480 (OpenCV), each with 1-8 flat boxes of the 80
     COCO categories on a noisy background, and their COCO JSON; returns
     (json path, image dir). ``segm``: each box also gets a polygon, the
-    box with its lower-right corner cut off (the SparseInst feed)."""
+    box with its lower-right corner cut off (the SparseInst feed).
+    ``keypoints``: every box is a person (the one category) with 17
+    keypoints inside it, visible, occluded or unlabelled (0, 0, 0) (the
+    YOLOX-KPTS feed)."""
     import cv2
     import numpy as np
 
@@ -332,6 +356,15 @@ def write_mini_coco(root: str, n: int = CLI_IMAGES, seed: int = SEED,
                          "category_id": int(rng.choice(COCO_CATEGORY_IDS)),
                          "bbox": [x, y, bw, bh], "area": bw * bh,
                          "iscrowd": 0})
+            if keypoints:
+                v = rng.integers(0, 3, 17)
+                pts = np.stack([x + rng.uniform(0, bw, 17),
+                                y + rng.uniform(0, bh, 17)], -1)
+                kp = np.concatenate([np.where(v[:, None] > 0, pts, 0.0),
+                                     v[:, None]], -1)
+                anns[-1].update(category_id=1, num_keypoints=int(
+                    (v > 0).sum()), keypoints=[float(k) for k in
+                                               kp.reshape(-1)])
             if segm:
                 anns[-1]["segmentation"] = [[
                     x, y, x + bw, y, x + bw, y + 0.6 * bh,
@@ -342,8 +375,9 @@ def write_mini_coco(root: str, n: int = CLI_IMAGES, seed: int = SEED,
                        "width": 640})
     js = os.path.join(root, "instances.json")
     with open(js, "w") as f:
+        cats = [1] if keypoints else COCO_CATEGORY_IDS
         json.dump({"images": images, "annotations": anns, "categories": [
-            {"id": c, "name": str(c)} for c in COCO_CATEGORY_IDS]}, f)
+            {"id": c, "name": str(c)} for c in cats]}, f)
     return js, img_dir
 
 
@@ -2136,6 +2170,368 @@ def detr_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     torch.cuda.empty_cache()
 
 
+KPTS_MODELS = (("Swin-T", "yolox_kpts_swin.yaml", {}),
+               ("CSPDarknet-X", "yolox_kpts.yaml", {}),
+               ("PVTv2-b1", "yolox_kpts.yaml",
+                {"backbone": "build_pvt_v2_backbone"}))
+KPTS_YOLOV7 = ("swin_t.yaml", "pvt_v2_b0.yaml")
+BOX_KEYS = ("AP", "AP50", "AP75", "AR100")
+
+
+def kpts_cfg(yaml: str, **replace):
+    """A ``YoloxKptsConfig`` from ``configs/coco/<yaml>`` (merged into the
+    port's ``get_cfg``), with dataclass fields replaced."""
+    from yolov7_d2_tpu_torch.config import YoloxKptsConfig
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "coco", yaml))
+    return dataclasses.replace(YoloxKptsConfig.from_cfg(cfg), **replace)
+
+
+def kpts_tail(head, cfg, nms=None):
+    """``yolox_kpts_postprocess`` with the NMS kernel unless ``nms``."""
+    from yolov7_d2_tpu_torch.models.meta_arch.yolox_kpts import (
+        yolox_kpts_postprocess,
+    )
+
+    with torch.inference_mode():
+        return yolox_kpts_postprocess(
+            head, cfg.conf_threshold, cfg.nms_threshold, cfg.max_detections,
+            cfg.pre_nms_topk, **({} if nms is None else {"nms": nms}))
+
+
+def kpts_serve(model, cfg, images):
+    """uint8 batch -> the normalize kernel and the model -> the tail."""
+    with torch.inference_mode():
+        head = model(images)
+    return head, kpts_tail(head, cfg)
+
+
+def kpts_batch(n: int, gen: torch.Generator, dev, size: int = SIZE,
+               slots: int = 100, max_persons: int = 8) -> dict:
+    """A YOLOX-KPTS training batch: uint8 images, 1-``max_persons``
+    persons an image (valid slots first) with 17 keypoints each inside
+    their box, visible, occluded or unlabelled ((0, 0) with v 0)."""
+    count = torch.randint(1, max_persons + 1, (n, 1), generator=gen)
+    valid = torch.arange(slots)[None] < count
+    xy = torch.rand((n, slots, 2), generator=gen) * (size * 0.7)
+    wh = 32 + torch.rand((n, slots, 2), generator=gen) * (size * 0.3)
+    boxes = torch.cat([xy, (xy + wh).clamp(max=size)], -1)
+    u = torch.rand((n, slots, 17, 2), generator=gen)
+    pts = boxes[..., None, :2] + u * (boxes[..., None, 2:]
+                                      - boxes[..., None, :2])
+    v = torch.randint(0, 3, (n, slots, 17), generator=gen).float()
+    kp = torch.cat([torch.where(v[..., None] > 0, pts, 0.0), v[..., None]],
+                   -1)
+    return {k: t.to(dev) for k, t in {
+        "image": torch.randint(0, 256, (n, size, size, 3), generator=gen,
+                               dtype=torch.uint8),
+        "gt_boxes": boxes * valid[..., None],
+        "gt_classes": torch.zeros((n, slots), dtype=torch.int32),
+        "gt_valid": valid,
+        "gt_keypoints": kp * valid[..., None, None]}.items()}
+
+
+def check_kpt_detections(dets, n: int, cfg, what: str) -> str:
+    summary = check_detections(dets, n, cfg, what)
+    kp = dets.keypoints
+    if kp is None or tuple(kp.shape) != (n, cfg.max_detections,
+                                         cfg.num_keypoints, 3):
+        raise AssertionError(f"{what}: keypoints "
+                             f"{None if kp is None else tuple(kp.shape)}")
+    kept = kp[dets.valid]
+    if not torch.isfinite(kept).all() or float(kept[..., 2].min()) < 0 \
+            or float(kept[..., 2].max()) > 1:
+        raise AssertionError(f"{what}: keypoints not finite or scores out "
+                             "of [0, 1]")
+    return summary
+
+
+def yolox_kpts_phase(dev, card: str, gen: torch.Generator, kernels: dict,
+                     requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+                     size: int = SIZE, small: int = 128,
+                     eval_images: int = CLI_IMAGES,
+                     steps: int = WARMUP + ITERS, **eval_opts) -> None:
+    """Section 14: YOLOX-KPTS at ``size``, full depth and width, one class,
+    17 keypoints, bf16 over f32 weights from ``SEED``. (a) serving on
+    ``yolox_kpts_swin.yaml`` (Swin-T), then ``yolox_kpts.yaml``
+    (CSPDarknet-X) and PVTv2-b1: uint8 -> normalize kernel -> forward ->
+    ``yolox_kpts_postprocess`` -> NMS kernel, for each request size (one
+    launch of each a request; e2e, forward and tail by CUDA events, the
+    device's busy share at the largest), the kernel path's ``Detections``,
+    keypoints included, equal to the plain path's at bs 8; (b) each model's
+    f32 outputs on the card against the CPU at ``small`` px within 1e-4 of
+    the max, bf16 within 5e-2; (c) ``steps`` training steps of
+    ``train_n`` images through ``build_system`` on the Swin config (1-8
+    persons of 17 keypoints an image): finite losses, foreground anchors,
+    ``loss_kpt`` > 0, parameters moved, ms a step, peak memory, normalize
+    launches; one f32 step at ``small`` px on the card against the CPU
+    (fg count equal, losses and grad norm within 1e-3); (d) ``eval_coco``
+    on a synthetic mini-COCO-keypoints of ``eval_images`` JPEGs: the box
+    and ``kpt_`` keys, then the same keys from ``--weights`` of a saved
+    state dict (``eval_opts`` override its config keys, ``__`` for
+    ``.``); (e) YOLOV7 on ``swin_t.yaml`` and ``pvt_v2_b0.yaml``, full
+    depth: one request and one train step each. The launches of (a), (c)
+    and (d) go into the normalize and NMS entries."""
+    from yolov7_d2_tpu_torch import eval_coco
+    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
+    from yolov7_d2_tpu_torch.engine import KPTS_FIELDS, build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
+    from yolov7_d2_tpu_torch.models.build import build_model
+
+    batches = [letterboxed_batch(n, gen, size) for n in requests]
+    for name, yaml, replace in KPTS_MODELS:
+        # ---- (a) serving
+        cfg = kpts_cfg(yaml, **replace)
+        model = build_model(cfg, dev, SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"(14a) YOLOX-KPTS {name} {size} from {yaml}: "
+            f"{n_params / 1e6:.3f} M parameters, {model.dtype}, "
+            f"{cfg.num_keypoints} keypoints")
+        torch.cuda.synchronize()
+        build.reset_launches()
+        for req in batches:
+            _, dets = kpts_serve(model, cfg, req.to(dev))
+            log(f"(14a) {name} request bs {req.shape[0]}: " +
+                check_kpt_detections(dets, req.shape[0], cfg,
+                                     f"YOLOX-KPTS {name} serving"))
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        for k in ("normalize", "nms"):
+            if launches.get(k, 0) != len(requests):
+                raise AssertionError(f"the YOLOX-KPTS {name} serving path "
+                                     f"launched {k} {launches} times")
+            kernels[k]["launches"] += launches[k]
+        log(f"(14a) {name} serving path launches, counted from 0: "
+            f"{launches}")
+        for req in batches:
+            n = req.shape[0]
+            x = req.to(dev)
+            e2e = cuda_ms(lambda: kpts_serve(model, cfg, x))
+            with torch.inference_mode():
+                fwd = cuda_ms(lambda: model(x))
+                head = model(x)
+            tail = cuda_ms(lambda: kpts_tail(head, cfg))
+            extra = ""
+            if n == requests[-1]:
+                busy, window = device_busy_ms(
+                    lambda: kpts_serve(model, cfg, x))
+                extra = (f"; device busy {busy:.3f} ms a call = "
+                         f"{100 * busy / e2e:.1f}% of the untraced call "
+                         f"(traced {window:.3f} ms)")
+            log(f"YOLOX-KPTS {name} {size} bs {n} bf16 on [{card}]: e2e "
+                f"{e2e:.3f} ms = {n * 1000 / e2e:.1f} img/s; forward-only "
+                f"{fwd:.3f} ms = {n * 1000 / fwd:.1f} img/s; tail "
+                f"{tail:.3f} ms{extra}")
+            del head
+        # the kernel path against the plain path (float input, the plain
+        # normalize; the plain NMS): the same Detections, keypoints too
+        x = batches[1].to(dev)
+        _, dets = kpts_serve(model, cfg, x)
+        with torch.inference_mode():
+            plain = kpts_tail(model(x.float()), cfg, nms=nms_batched_plain)
+        for f in ("boxes", "scores", "classes", "valid", "keypoints"):
+            if not torch.equal(getattr(dets, f), getattr(plain, f)):
+                raise AssertionError(f"YOLOX-KPTS {name}: the kernel path's "
+                                     f"{f} differ from the plain path's")
+        log(f"(14a) {name} bs {x.shape[0]}: the kernel path's Detections "
+            f"(keypoints included) equal the plain path's "
+            f"({int(dets.valid.sum())} kept)")
+
+        # ---- (b) f32 card against CPU, full width, small px
+        f32 = dataclasses.replace(cfg, amp=False)
+        one = letterboxed_batch(2, gen, small)
+        with torch.inference_mode():
+            ref = build_model(f32, "cpu", SEED)(one)
+            on_card = build_model(f32, dev, SEED)(one.to(dev))
+            bf16 = model(one.to(dev))
+        gaps = []
+        for k in ("outputs", "kpts"):
+            scale = float(ref[k].abs().max())
+            err = float((on_card[k].cpu() - ref[k]).abs().max())
+            err16 = float((bf16[k].float().cpu() - ref[k]).abs().max())
+            gaps.append(f"{k} {err / scale:.3g} (bf16 {err16 / scale:.3g})")
+            if err > 1e-4 * scale or err16 > 5e-2 * scale:
+                raise AssertionError(f"YOLOX-KPTS {name} {k} on the card "
+                                     f"differs from the CPU by {err} (bf16 "
+                                     f"{err16}) of {scale}")
+        log(f"(14b) {name} f32 forward at {small} px, card against CPU, "
+            "error over each output's max: " + ", ".join(gaps))
+        del model, ref, on_card, bf16, x, dets, plain
+        torch.cuda.empty_cache()
+
+    # ---- (c) training on the Swin config: build_system, train_n images
+    cfg = kpts_cfg(KPTS_MODELS[0][1])
+    _, state, train_step, fields = build_system(cfg, device=dev, seed=SEED)
+    if fields != KPTS_FIELDS:
+        raise AssertionError(f"YOLOX-KPTS batch fields {fields}")
+    before = [p.detach().clone() for p in state.model.parameters()]
+    tbatches = [kpts_batch(train_n, gen, dev, size) for _ in range(4)]
+    metrics = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    warm = min(WARMUP, steps - 1)
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = train_step(state, tbatches[i % 4])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - warm)
+    launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches.get("normalize", 0) != steps:
+        raise AssertionError(f"the YOLOX-KPTS training path launched "
+                             f"normalize {launches} times")
+    kernels["normalize"]["launches"] += launches["normalize"]
+    keys = ("total_loss", "loss_iou", "loss_obj", "loss_cls", "loss_kpt",
+            "loss_kpt_vis", "grad_norm")
+    for i, m in enumerate(metrics):
+        for key in keys:
+            if not bool(torch.isfinite(m[key])):
+                raise AssertionError(f"YOLOX-KPTS step {i}: {key} = "
+                                     f"{float(m[key])}")
+        if not float(m["num_fg"]) > 1.0 or not float(m["loss_kpt"]) > 0:
+            raise AssertionError(f"YOLOX-KPTS step {i}: num_fg "
+                                 f"{float(m['num_fg'])}, loss_kpt "
+                                 f"{float(m['loss_kpt'])}")
+    if all(torch.equal(a, b.detach())
+           for a, b in zip(before, state.model.parameters())):
+        raise AssertionError("YOLOX-KPTS training moved no parameter")
+    for i in (0, len(metrics) - 1):
+        log(f"(14c) YOLOX-KPTS Swin-T train step {i}: " + ", ".join(
+            f"{k} {float(metrics[i][k]):.4f}" for k in keys + ("num_fg",)))
+    log(f"(14c) YOLOX-KPTS Swin-T {size} train step bs {train_n} bf16 on "
+        f"[{card}]: {step_ms:.3f} ms a step = "
+        f"{train_n * 1000 / step_ms:.1f} img/s (host clock over "
+        f"{steps - warm} steps after {warm}, batches on the card, 100 "
+        f"slots, 1-8 persons of 17 keypoints an image, SimOTA over all "
+        f"anchors); peak memory {peak_gb:.3f} GB; launches {launches}; "
+        "parameters moved")
+    del state, train_step, tbatches, metrics, before
+    torch.cuda.empty_cache()
+
+    # one f32 step, card against CPU, from the same weights and batch
+    scfg = dataclasses.replace(cfg, input_size=(small, small), amp=False,
+                               warmup_iters=0)
+    sbatch = kpts_batch(2, gen, "cpu", small, slots=8, max_persons=4)
+    got = {}
+    for where in ("cpu", dev):
+        _, st, ts, _ = build_system(scfg, device=where, seed=SEED)
+        _, m = ts(st, {k: v.to(where) for k, v in sbatch.items()})
+        got[str(where)] = {k: float(v) for k, v in m.items()}
+    ref_m, card_m = got["cpu"], got[str(dev)]
+    log(f"(14c) YOLOX-KPTS Swin-T f32 train step at {small} px, card vs "
+        "CPU: " + ", ".join(f"{k} {card_m[k]:.6g} / {ref_m[k]:.6g}"
+                            for k in keys + ("num_fg",)))
+    if card_m["num_fg"] != ref_m["num_fg"]:
+        raise AssertionError("YOLOX-KPTS fg count differs between the card "
+                             "and the CPU")
+    for k in keys:
+        if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
+            raise AssertionError(f"YOLOX-KPTS {k} differs between the card "
+                                 "and the CPU")
+    del st, ts
+    torch.cuda.empty_cache()
+
+    # ---- (d) eval_coco on a synthetic mini-COCO-keypoints
+    work = os.path.join(REPO, "build", "chip_smoke_kpts")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        js, img_dir = write_mini_coco(work, n=eval_images, keypoints=True)
+        yaml = os.path.join(REPO, "configs", "coco", KPTS_MODELS[0][1])
+        base = ["--config-file", yaml, "--json", js, "--image-root",
+                img_dir, "--batch", "8"]
+        opts = []
+        for k, v in eval_opts.items():
+            opts += [k.replace("__", "."), v if isinstance(v, str)
+                     else repr(v)]
+        parse = eval_coco.build_argument_parser().parse_args
+        printed = {}
+        for run, flags in (("random", []), ("--weights", None)):
+            if flags is None:
+                path = os.path.join(work, "weights.pth")
+                torch.save({"model": build_model(cfg, "cpu",
+                                                 SEED + 1).state_dict()},
+                           path)
+                flags = ["--weights", path]
+            torch.cuda.synchronize()
+            build.reset_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = eval_coco.main(parse(base + flags + opts))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+            text = buf.getvalue()
+            keys_seen = [line.split(":")[0] for line in text.splitlines()
+                         if ": " in line and not line.startswith("ported")]
+            want = list(BOX_KEYS) + [f"kpt_{k}" for k in BOX_KEYS]
+            missing = [k for k in want if k not in keys_seen]
+            if missing or res["keypoints"] is None:
+                raise AssertionError(f"eval_coco ({run}) printed {keys_seen}")
+            if run == "--weights" and "ported" not in text:
+                raise AssertionError("eval_coco --weights loaded nothing")
+            batches_n = -(-eval_images // 8)
+            for k in ("normalize", "nms"):
+                if launches.get(k, 0) != batches_n:
+                    raise AssertionError(f"eval_coco ({run}) launched {k} "
+                                         f"{launches} times")
+                kernels[k]["launches"] += launches[k]
+            printed[run] = keys_seen
+            log(f"(14d) eval_coco {run} on [{card}], {eval_images} images "
+                f"(640x480) in batches of 8, Swin-T: {wall:.2f} s "
+                f"(build included); launches {launches}; " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in res["bbox"].items()
+                    if k in BOX_KEYS) + "; " + ", ".join(
+                    f"kpt_{k} {v:.4f}" for k, v in res["keypoints"].items()
+                    if k in BOX_KEYS))
+        if printed["random"] != printed["--weights"]:
+            raise AssertionError("eval_coco --weights printed other keys")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # ---- (e) YOLOV7 on Swin-T and PVTv2-b0: one request, one train step
+    for yaml in KPTS_YOLOV7:
+        ccfg = anchor_yolo_cfg(yaml)
+        model = build_model(ccfg, dev, SEED)
+        req = batches[1]
+        build.reset_launches()
+        _, dets = anchor_serve(model, ccfg, req.to(dev))
+        torch.cuda.synchronize()
+        serve_launches = dict(build.LAUNCHES)
+        summary = check_detections(dets, req.shape[0], ccfg, yaml)
+        del model
+        ccfg = dataclasses.replace(ccfg, grid_mask=True, ema=True)
+        _, state, train_step, _ = build_system(ccfg, device=dev, seed=SEED)
+        step = make_packed_photo_step(ccfg, train_step, seed=SEED)
+        build.reset_launches()
+        state, m = step(state, {k: v.to(dev) for k, v in train_batch(
+            train_n, gen, size).items()})
+        torch.cuda.synchronize()
+        train_launches = dict(build.LAUNCHES)
+        check_train_metrics([m], yaml)
+        for path, got_l, names in (("serving", serve_launches,
+                                    ("normalize", "nms")),
+                                   ("training", train_launches,
+                                    ("grid_mask",))):
+            for name in names:
+                if got_l.get(name, 0) < 1:
+                    raise AssertionError(f"YOLOV7 {yaml} {path} never "
+                                         f"launched {name}")
+        log(f"(14e) YOLOV7 {yaml}: bs {req.shape[0]} {summary}, launches "
+            f"{serve_launches}; one train step of {train_n}: total loss "
+            f"{float(m['total_loss']):.4f}, num_fg {float(m['num_fg']):.0f},"
+            f" launches {train_launches}")
+        del state, train_step, step
+        torch.cuda.empty_cache()
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -2545,7 +2941,12 @@ def main() -> int:
     # train_transformer (detr_phase)
     detr_phase(dev, card, gen, kernels)
 
-    # ---- 14. times
+    # ---- 14. YOLOX-KPTS on Swin-T, CSPDarknet-X and PVTv2-b1: serving,
+    # card against CPU, training, eval_coco; YOLOV7 on Swin-T and PVTv2-b0
+    # (yolox_kpts_phase)
+    yolox_kpts_phase(dev, card, gen, kernels)
+
+    # ---- 15. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "

@@ -1,17 +1,38 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package: flax variables with non-trivial BatchNorm, moved into a torch
 module through ``jax_to_torch_state_dict``. Inputs and noise are made with
-numpy and handed to both sides."""
+numpy and handed to both sides.
+
+Importing this module inside a pytest-xdist worker gives the worker's
+torch its share of the CPU's cores (:func:`share_cores_among_workers`)."""
 
 from __future__ import annotations
 
 import functools
 import json
+import os
 import re
 from pathlib import Path
 
 import numpy as np
 import torch
+
+
+def share_cores_among_workers() -> None:
+    """Each pytest-xdist worker is a process with its own torch, whose
+    intra-op pool defaults to one thread a core: six workers on eight cores
+    then run 48 threads, and the spinning threads slowed the port's CPU
+    train steps 5-40x (on an 8-core host, a full-size Swin-S step of 2
+    images at 64 px took 1.2 s alone and 50 s among four workers). In a
+    worker, torch gets the cores over the workers (at least one); a run
+    without xdist keeps torch's default."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        cores = len(os.sched_getaffinity(0))
+        torch.set_num_threads(max(1, cores // int(workers)))
+
+
+share_cores_among_workers()
 
 from yolov7_d2_tpu_torch.utils.weight_port import jax_to_torch_state_dict
 
@@ -160,6 +181,75 @@ def write_mini_coco(root, n: int = 8, seed: int = 7):
     return str(js), str(img_dir)
 
 
+def write_mini_coco_keypoints(root, n: int = 6, seed: int = 5):
+    """``n`` JPEGs of 40-80 px a side, each with 1-3 persons (category id
+    1) carrying 17 COCO keypoints: visible (v 2), occluded (v 1) and
+    unlabelled ones (0, 0, 0); image 0 also holds a keypoint beyond its
+    right edge (v 2), a box 0.5 px wide (dropped by the mapper, its
+    keypoints with it) and a crowd person. Returns (json path, image
+    dir)."""
+    import cv2
+
+    img_dir = root / "imgs"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    images, anns = [], []
+
+    def person(i, box, kp, crowd=0):
+        anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                     "category_id": 1, "bbox": [float(v) for v in box],
+                     "area": float(box[2] * box[3]), "iscrowd": crowd,
+                     "keypoints": [float(v) for v in kp.reshape(-1)],
+                     "num_keypoints": int((kp[:, 2] > 0).sum())})
+
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(40, 81, 2))
+        img = (40 + rng.integers(0, 30, (h, w, 3))).astype(np.uint8)
+        for _ in range(int(rng.integers(1, 4))):
+            bw, bh = int(rng.integers(10, w // 2)), int(rng.integers(12, h // 2))
+            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            img[y:y + bh, x:x + bw] = 200
+            v = rng.integers(0, 3, 17).astype(np.float32)
+            pts = np.stack([x + rng.uniform(0, bw, 17),
+                            y + rng.uniform(0, bh, 17)], -1)
+            kp = np.concatenate([np.where(v[:, None] > 0, pts, 0.0),
+                                 v[:, None]], -1)
+            if i == 0 and not anns:
+                kp[5] = [w + 3.0, y + 1.0, 2.0]
+            person(i, (x, y, bw, bh), kp)
+        if i == 0:
+            kp = np.zeros((17, 3))
+            kp[0] = [5.0, 5.0, 2.0]
+            person(i, (4, 4, 0.5, 10), kp)
+            person(i, (0, 0, 12, 12), kp, crowd=1)
+        name = f"p{i}.jpg"
+        cv2.imwrite(str(img_dir / name), img)
+        images.append({"id": i + 1, "file_name": name, "height": h,
+                       "width": w})
+    js = root / "person_keypoints.json"
+    js.write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": 1, "name": "person"}]}))
+    return str(js), str(img_dir)
+
+
+def tied_kpts_head(rng, a: int = 2100, p: int = 17, size: int = 64):
+    """YOLOX-KPTS head outputs (``outputs`` [2, a, 6] of one class,
+    ``kpts`` [2, a, p, 3], ``grids``, ``strides``) over ``a`` anchors in a
+    ``size`` px frame, whose scores tie in runs of 3 and, in image 0, in a
+    run of 20 straddling the 1024th place."""
+    out = rng.normal(0, 1, (2, a, 6)).astype(np.float32)
+    out[..., 4] = np.repeat(rng.normal(0, 2, (2, a // 3 + 1)), 3,
+                            axis=1)[:, :a]
+    out[..., 5] = 3.0
+    order = np.argsort(-out[0, :, 4], kind="stable")
+    out[0, order[1015:1035], 4] = out[0, order[1020], 4]
+    kpts = rng.normal(0, 1, (2, a, p, 3)).astype(np.float32)
+    cells = rng.integers(0, size // 8, (a, 2)).astype(np.float32)
+    strides = rng.choice([8.0, 16.0, 32.0], a).astype(np.float32)
+    return {"outputs": out, "kpts": kpts, "grids": cells, "strides": strides}
+
+
 def assert_trajectory_close(name, final, init, want):
     """Each leaf's change over a trajectory, the port's against the JAX
     package's (flax trees of the final, initial and JAX final values): 3e-2
@@ -302,8 +392,9 @@ def anchor_yolo_modules(arch: str, dtype=torch.float32):
 def flax_variables_like(jmodel, images, rng: np.random.Generator):
     """Variables of the flax ``jmodel`` drawn with numpy, without running
     the flax init (its XLA compile costs seconds a model): conv kernels
-    from N(0, 1/fan_in) (flax's lecun-normal scale), then every BatchNorm
-    and bias random (:func:`randomize_bn`)."""
+    from N(0, 1/fan_in) (flax's lecun-normal scale), Swin's relative
+    position bias tables from N(0, 1), then every BatchNorm and
+    LayerNorm and every bias random (:func:`randomize_bn`)."""
     import jax
     import jax.numpy as jnp
 
@@ -316,13 +407,16 @@ def flax_variables_like(jmodel, images, rng: np.random.Generator):
             fan_in = int(np.prod(leaf.shape[:-1]))
             return rng.normal(0.0, fan_in ** -0.5, leaf.shape).astype(
                 np.float32)
+        if path[-1] == "rel_pos_bias":
+            return rng.normal(0.0, 1.0, leaf.shape).astype(np.float32)
         return np.zeros(leaf.shape, np.float32)
 
     return randomize_bn({
         coll: jax.tree_util.tree_map_with_path(
             lambda path, leaf: draw(tuple(str(getattr(k, "key", k))
                                           for k in path), leaf),
-            shapes[coll]) for coll in ("params", "batch_stats")}, rng)
+            shapes[coll]) for coll in ("params", "batch_stats")
+        if coll in shapes}, rng)
 
 
 def anchor_yolo_pair(arch: str, size: int = 64, seed: int = 0):

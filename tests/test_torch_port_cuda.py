@@ -630,3 +630,83 @@ def test_stacked_detr_auction_on_card_matches_cpu(dev, use_focal):
                          use_focal=use_focal)
         assert torch.equal(one[0].cpu(), want[0][rows])
         assert torch.equal(one[1].cpu(), want[1][rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ["build_swin_transformer_backbone",
+                                      "build_pvt_v2_backbone",
+                                      "build_cspdarknetx_backbone"])
+def test_yolox_kpts_serving_on_card_matches_cpu(dev, monkeypatch, backbone):
+    """YOLOX-KPTS's uint8 batch goes through the normalize kernel once a
+    request; the float32 outputs and keypoints agree with the CPU's (full
+    width, 128 px, TF32 off); the tail launches the NMS kernel once, gives
+    the plain tail's ``Detections`` on the card, keypoints included, and
+    the CPU tail's on the same outputs, quantized to quarters so that
+    every score is tied or far from the others: the same kept anchors and
+    classes, boxes, scores and keypoints to float32 rounding (the card's
+    and the CPU's exp and sigmoid differ in the last bit)."""
+    from yolov7_d2_tpu_torch.config import YoloxKptsConfig
+    from yolov7_d2_tpu_torch.models.build import build_model
+    from yolov7_d2_tpu_torch.models.meta_arch.yolox_kpts import (
+        yolox_kpts_postprocess,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = YoloxKptsConfig(backbone=backbone, amp=False,
+                          input_size=(128, 128))
+    images = torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    before = dict(build.LAUNCHES)
+    with torch.inference_mode():
+        on_card = build_model(cfg, dev)(images.to(dev))
+        ref = build_model(cfg, "cpu")(images)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["normalize"] == before.get("normalize", 0) + 1
+    for k in ("outputs", "kpts"):
+        scale = float(ref[k].abs().max())
+        assert float((on_card[k].cpu() - ref[k]).abs().max()) <= \
+            1e-4 * max(scale, 1.0), k
+    out = dict(on_card)
+    out["outputs"] = torch.round(out["outputs"] * 4) / 4
+    got = yolox_kpts_postprocess(out)
+    plain = yolox_kpts_postprocess(out, nms=nms_batched_plain)
+    want = yolox_kpts_postprocess({k: v.cpu() for k, v in out.items()})
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["nms"] == before.get("nms", 0) + 1
+    for f in ("boxes", "scores", "classes", "valid", "keypoints"):
+        assert torch.equal(getattr(got, f), getattr(plain, f)), f
+    for f in ("classes", "valid"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f in ("boxes", "scores", "keypoints"):
+        assert torch.allclose(getattr(got, f).cpu(), getattr(want, f),
+                              rtol=1e-6, atol=1e-5), f
+
+
+@pytest.mark.cuda
+def test_yolox_kpts_tail_on_card_matches_plain_and_cpu_on_ties(dev):
+    """``yolox_kpts_postprocess`` over 8400 anchors with tied scores across
+    the pre-NMS cut: the NMS kernel's tail equals the plain tail on the
+    card, and the CPU's in the kept anchors and classes, boxes and
+    keypoints to float32 rounding (exp and sigmoid differ in the last bit
+    between the card and the CPU)."""
+    from _torch_port_helpers import tied_kpts_head
+    from yolov7_d2_tpu_torch.models.meta_arch.yolox_kpts import (
+        yolox_kpts_postprocess,
+    )
+
+    head = {k: torch.from_numpy(v) for k, v in tied_kpts_head(
+        np.random.default_rng(4), a=8400, size=640).items()}
+    head["outputs"] = torch.round(head["outputs"] * 4) / 4
+    cpu = yolox_kpts_postprocess(head)
+    on_card = {k: v.to(dev) for k, v in head.items()}
+    kernel = yolox_kpts_postprocess(on_card)
+    plain = yolox_kpts_postprocess(on_card, nms=nms_batched_plain)
+    for f in ("valid", "classes", "boxes", "scores", "keypoints"):
+        assert torch.equal(getattr(kernel, f), getattr(plain, f)), f
+    for f in ("valid", "classes"):
+        assert torch.equal(getattr(kernel, f).cpu(), getattr(cpu, f)), f
+    for f in ("boxes", "scores", "keypoints"):
+        assert torch.allclose(getattr(kernel, f).cpu(), getattr(cpu, f),
+                              rtol=1e-6, atol=1e-5), f
+    assert int(kernel.valid.sum()) > 100

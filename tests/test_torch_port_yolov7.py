@@ -157,7 +157,7 @@ def test_unported_parts_raise():
     ("YOLOV5", "A.8"), ("YOLOV6", "A.8"), ("YOLOF", "A.8"),
     ("SOLOv2", "A.8"), ("MaskRCNN", "A.8"), ("PanopticFPN", "A.8"),
     ("YOLOMask", "A.8"), ("SMCADetr", "A.7c"),
-    ("DABDetr", "A.7c"), ("YOLOX_KPTS", "A.7d")])
+    ("DABDetr", "A.7c"), ("DetrD2go", "A.7c")])
 def test_build_system_raises_for_unported_architectures(arch, item):
     cfg, _ = _cfg("yolov7.yaml", **{"MODEL.META_ARCHITECTURE": arch})
     with pytest.raises(NotImplementedError, match=f"Queue {item}"):

@@ -2,13 +2,15 @@
 """Where the time of the PyTorch port's YOLOX-s serving path, or of its
 training step, goes on one CUDA card; with ``--yolov7``, YOLOV7's; with
 ``--sparseinst``, SparseInst R-50's; with ``--detr`` / ``--anchordetr``,
-DETR R-50's / AnchorDETR R-50's.
+DETR R-50's / AnchorDETR R-50's; with ``--yolox-kpts``, YOLOX-KPTS on
+Swin-T's.
 
     python3 tools/profile_torch_port.py            # serving
     python3 tools/profile_torch_port.py --train    # training step
     python3 tools/profile_torch_port.py --yolov7 [--train]
     python3 tools/profile_torch_port.py --sparseinst [--train]
     python3 tools/profile_torch_port.py --detr | --anchordetr [--train]
+    python3 tools/profile_torch_port.py --yolox-kpts [--train]
 
 Full-width YOLOX-s (or YOLOV7 from ``configs/coco/yolov7.yaml``'s
 defaults) at 640, bf16, random weights from seed 0, uint8 batches already
@@ -29,8 +31,16 @@ matcher alone on the step's outputs (ms and rounds). DETR and AnchorDETR
 800: serving through ``build_model`` and the family's tail; training
 through ``build_system`` (AdamW, the set criterion over 6 levels) on 8
 images with 100 box slots each (1-20 valid), and the stacked six-level
-auction alone on the step's outputs. Every line carries the card's name
-and power limit. Imports no JAX.
+auction alone on the step's outputs. YOLOX-KPTS
+(``configs/coco/yolox_kpts_swin.yaml``, Swin-T) at 640: serving through
+``build_model`` and ``yolox_kpts_postprocess``, then the window attention
+alone at bs 128 (each stage's ``WindowAttention`` on its windows, shifted
+with the mask, as the port runs it, and the same through
+``F.scaled_dot_product_attention`` with the bias and mask as an additive
+``attn_mask``, for comparison); training through ``build_system`` on 16
+images (1-8 persons of 17 keypoints each), and SimOTA alone on the step's
+outputs. Every line carries the card's name and power limit. Imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -90,6 +100,8 @@ GROUPS = (
     ("attention (SDPA)", r"flash|fmha|attention|efficient_attention"),
     ("softmax", r"softmax"),
     ("layer norm", r"layer_norm|LayerNorm"),
+    ("GELU", r"gelu|GeluCUDA"),
+    ("roll", r"roll"),
     ("sort / top-k", r"[Ss]ort|[Tt]op[Kk]|radix|bitonic"),
     # cuDNN runs the 1x1 convolutions as cuBLAS GEMMs (nvjet kernels), so
     # the linear layers' and einsums' GEMMs count here too
@@ -180,11 +192,25 @@ def trace(fn, card: str, label: str) -> None:
 DETR_YAMLS = {"DETR": "detr_256_6_6_r50.yaml",
               "AnchorDETR": "anchordetr_r50.yaml"}
 DETR_TRAIN_BATCH = 8
+KPTS_YAML = "yolox_kpts_swin.yaml"
 
 
 def serving(dev, model_name: str):
     """(forward, postprocess) of YOLOX-s's ``Predictor``, of YOLOV7, of
-    SparseInst, of DETR or of AnchorDETR."""
+    SparseInst, of DETR, of AnchorDETR or of YOLOX-KPTS (its model as
+    ``forward.model``)."""
+    if model_name == "YOLOX-KPTS":
+        from chip_smoke import kpts_cfg, kpts_tail
+
+        kcfg = kpts_cfg(KPTS_YAML)
+        kmodel = build_model(kcfg, dev, 0)
+
+        @torch.inference_mode()
+        def kpts_forward(x):
+            return kmodel(x)
+
+        kpts_forward.model = kmodel
+        return kpts_forward, lambda out: kpts_tail(out, kcfg)
     if model_name in DETR_YAMLS:
         from chip_smoke import detr_cfg, detr_tail
 
@@ -282,6 +308,97 @@ def profile_train_detr(card: str, dev, gen, model_name: str) -> None:
           f"rounds: {rounds}) [{card}]")
 
 
+def window_attention_alone(card: str, dev, model, bs: int) -> None:
+    """Each Swin stage's window attention at ``bs`` images of 640: the
+    port's matmuls and float32 softmax against SDPA with the same additive
+    bias and mask, CUDA events over 10 calls after 3, bf16 under
+    autocast."""
+    import torch.nn.functional as F
+
+    from yolov7_d2_tpu_torch.models.backbones import swin
+
+    total = {"port": 0.0, "sdpa": 0.0}
+    side = 640 // 4
+    for s, stage in enumerate(model.backbone.layers):
+        blocks = stage.blocks
+        attn = blocks[1].attn if len(blocks) > 1 else blocks[0].attn
+        ws = blocks[0].window_size
+        hp = -(-side // ws) * ws
+        nw = (hp // ws) ** 2
+        dim = attn.qkv.in_features
+        x = torch.randn((bs * nw, ws * ws, dim), device=dev,
+                        dtype=torch.bfloat16)
+        mask = swin._shift_mask(hp, hp, ws, ws // 2, dev)
+        heads, n = attn.num_heads, ws * ws
+
+        def sdpa():
+            qkv = attn.qkv(x).reshape(bs * nw, n, 3, heads, -1).permute(
+                2, 0, 3, 1, 4)
+            bias = attn.relative_position_bias_table[
+                attn.relative_position_index.reshape(-1)].reshape(
+                    n, n, heads).permute(2, 0, 1)
+            m = (bias[None] + mask[:, None]).to(qkv.dtype)  # [nW, h, n, n]
+            out = F.scaled_dot_product_attention(
+                qkv[0].reshape(bs, nw, heads, n, -1),
+                qkv[1].reshape(bs, nw, heads, n, -1),
+                qkv[2].reshape(bs, nw, heads, n, -1), attn_mask=m)
+            return attn.proj(out.reshape(bs * nw, heads, n, -1)
+                             .transpose(1, 2).reshape(bs * nw, n, -1))
+
+        with torch.inference_mode(), torch.autocast(
+                torch.device(dev).type, dtype=torch.bfloat16):
+            port_ms = cuda_ms(lambda: attn(x, mask))
+            sdpa_ms = cuda_ms(sdpa)
+        total["port"] += port_ms * len(blocks)
+        total["sdpa"] += sdpa_ms * len(blocks)
+        print(f"stage {s} window attention, bs {bs}: {bs * nw} windows x "
+              f"{heads} heads x {n}x{n}, dim {dim}: port {port_ms:.3f} ms, "
+              f"SDPA {sdpa_ms:.3f} ms a block, {len(blocks)} blocks "
+              f"[{card}]", flush=True)
+        side //= 2
+    print(f"window attention of the whole backbone, bs {bs}: port "
+          f"{total['port']:.3f} ms, SDPA {total['sdpa']:.3f} ms [{card}]")
+
+
+def profile_train_kpts(card: str, dev, gen) -> None:
+    """YOLOX-KPTS's (Swin-T) step through ``build_system`` on 16 images;
+    then SimOTA alone on the step's outputs (CUDA events over 10 calls
+    after 3)."""
+    from chip_smoke import kpts_batch, kpts_cfg
+
+    from yolov7_d2_tpu_torch.models.heads.yolox_head import (
+        decode_outputs,
+        simota_assign,
+    )
+
+    _, state, train_step, _ = build_system(kpts_cfg(KPTS_YAML), device=dev,
+                                           seed=0)
+    batch = kpts_batch(TRAIN_BATCH, gen, dev)
+
+    def one_step():
+        nonlocal state
+        state, metrics = train_step(state, batch)
+        return metrics
+
+    one_step()
+    trace(one_step, card, f"YOLOX-KPTS Swin-T train step bs {TRAIN_BATCH}")
+    with torch.no_grad():
+        out = state.model(batch["image"])
+        boxes, obj, cls = decode_outputs(out["outputs"], out["grids"],
+                                         out["strides"])
+
+        def assign():
+            return simota_assign(boxes, obj, cls, out["grids"],
+                                 out["strides"], batch["gt_boxes"],
+                                 batch["gt_classes"], batch["gt_valid"])
+
+        ms = cuda_ms(assign)
+        fg = int(assign()["num_fg"].sum())
+    print(f"SimOTA alone over {boxes.shape[1]} anchors, {TRAIN_BATCH} "
+          f"images, 100 gt slots: {ms:.3f} ms a call, {fg} foreground "
+          f"anchors [{card}]")
+
+
 def profile_train(card: str, dev, gen, yolov7: bool) -> None:
     if yolov7:
         cfg = dataclasses.replace(AnchorYoloConfig(), grid_mask=True,
@@ -324,6 +441,8 @@ def main() -> int:
                         help="DETR R-50 (detr_256_6_6_r50.yaml) at 800")
     parser.add_argument("--anchordetr", action="store_true",
                         help="AnchorDETR R-50 (anchordetr_r50.yaml) at 800")
+    parser.add_argument("--yolox-kpts", action="store_true",
+                        help="YOLOX-KPTS on Swin-T (yolox_kpts_swin.yaml)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_port: no CUDA device")
@@ -333,11 +452,15 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     name = ("SparseInst" if args.sparseinst else
             "YOLOV7" if args.yolov7 else "DETR" if args.detr else
-            "AnchorDETR" if args.anchordetr else "YOLOX-s")
+            "AnchorDETR" if args.anchordetr else
+            "YOLOX-KPTS" if args.yolox_kpts else "YOLOX-s")
     size = 800 if name in DETR_YAMLS else 640
     print(f"model: {name} {size} bf16", flush=True)
     if args.train and name in DETR_YAMLS:
         profile_train_detr(card, dev, gen, name)
+        return 0
+    if args.train and args.yolox_kpts:
+        profile_train_kpts(card, dev, gen)
         return 0
     if args.train and args.sparseinst:
         profile_train_sparseinst(card, dev, gen)
@@ -362,6 +485,9 @@ def main() -> int:
     x = torch.randint(0, 256, (bs, size, size, 3), generator=gen,
                       dtype=torch.uint8).to(dev)
     trace(lambda: postprocess(forward(x)), card, f"bs {bs}")
+    if name == "YOLOX-KPTS":
+        del x
+        window_attention_alone(card, dev, forward.model, bs)
     return 0
 
 

@@ -5,7 +5,8 @@ yaml files of ``configs/`` into ``config/defaults.get_cfg()`` (a
 ``YoloxConfig.from_cfg``; the anchor-based YOLO family reads its subclass
 ``AnchorYoloConfig`` (``config/anchor_yolo.py``), SparseInst
 ``SparseInstConfig`` (``config/sparseinst.py``), DETR and AnchorDETR
-``DetrConfig`` (``config/detr.py``). Only the dataclasses are
+``DetrConfig`` (``config/detr.py``), YOLOX-KPTS ``YoloxKptsConfig``
+(``config/yolox_kpts.py``). Only the dataclasses are
 imported here, so that serving needs no PyYAML."""
 
 from yolov7_d2_tpu_torch.config.anchor_yolo import (  # noqa: F401
@@ -16,3 +17,6 @@ from yolov7_d2_tpu_torch.config.sparseinst import (  # noqa: F401
     SparseInstConfig,
 )
 from yolov7_d2_tpu_torch.config.yolox import YoloxConfig  # noqa: F401
+from yolov7_d2_tpu_torch.config.yolox_kpts import (  # noqa: F401
+    YoloxKptsConfig,
+)

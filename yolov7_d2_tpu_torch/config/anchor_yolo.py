@@ -65,6 +65,13 @@ class AnchorYoloConfig(YoloxConfig):
     pixel_mean: Tuple[float, float, float] = (103.53, 116.28, 123.675)
     pixel_std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     resnet: ResNetSpec = ResNetSpec()  # MODEL.RESNETS, for a ResNet trunk
+    # MODEL.SWIN and MODEL.PVT, for a transformer trunk
+    swin_type: str = "tiny"
+    swin_patch: int = 4
+    swin_window: int = 7
+    swin_out_features: Tuple[int, ...] = (1, 2, 3)
+    pvt_type: str = "b1"
+    pvt_out_features: Tuple[int, ...] = (1, 2, 3)
 
     @classmethod
     def from_cfg(cls, cfg) -> "AnchorYoloConfig":
@@ -97,4 +104,12 @@ class AnchorYoloConfig(YoloxConfig):
             resnet=ResNetSpec.from_cfg(
                 cfg, vd_builder=(cfg.MODEL.BACKBONE.NAME
                                  == "build_resnet_vd_backbone")),
+            swin_type=str(cfg.MODEL.SWIN.TYPE),
+            swin_patch=int(cfg.MODEL.SWIN.PATCH),
+            swin_window=int(cfg.MODEL.SWIN.WINDOW),
+            swin_out_features=tuple(int(s)
+                                    for s in cfg.MODEL.SWIN.OUT_FEATURES),
+            pvt_type=str(cfg.MODEL.PVT.TYPE),
+            pvt_out_features=tuple(int(s)
+                                   for s in cfg.MODEL.PVT.OUT_FEATURES),
         )

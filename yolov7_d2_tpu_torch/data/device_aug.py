@@ -175,11 +175,17 @@ def make_packed_photo_step(cfg, train_step: Callable, seed: int = 0,
     Each rank draws for its own batch, so MixUp pairs images within a
     rank's share (the reference's per-GPU mapper; the JAX mesh permutes the
     global batch). The metrics gain ``grid_masked``, the number of images
-    GridMask masked in the rank's step."""
+    GridMask masked in the rank's step. A batch with ``gt_keypoints``
+    raises: the flip and MixUp would not move them (the JAX package has no
+    device photometric stage for keypoints)."""
     aug = DevicePhotometric(cfg)
     disable_at = int(cfg.aug_disable_at_iter)
 
     def step(state, batch: Dict[str, torch.Tensor]):
+        if "gt_keypoints" in batch:
+            raise NotImplementedError(
+                "the device photometric stage does not move keypoints: "
+                "train YOLOX_KPTS with build_system's step on the batch")
         dev = next(state.model.parameters()).device
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
         masked = 0

@@ -7,7 +7,8 @@
     at ``DISABLE_AT_ITER``.
   * ``SimpleDatasetMapper``: the config's augmentation chain, then the
     letterbox; the eval mapper; with ``with_masks`` the dense instance
-    masks too.
+    masks too, with ``MODEL.KEYPOINT_ON`` the keypoints (the YOLOX-KPTS
+    feed).
   * ``DarknetMosaicDatasetMapper``: the Darknet blend mosaic from a record
     pool, the SparseInst feed.
   * ``DetrDatasetMapper``: flip and ``ResizeShortestEdge``, half the time
@@ -33,6 +34,19 @@ from yolov7_d2_tpu_torch.data.transforms import augment as A
 from yolov7_d2_tpu_torch.structures.boxes import BoxMode
 
 from yolov7_d2_tpu_torch import native as _native
+
+# the COCO 17 keypoints' left <-> right permutation under a horizontal flip
+# (nose, eyes, ears, shoulders, elbows, wrists, hips, knees, ankles)
+COCO_KP_HFLIP_17 = np.asarray(
+    [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15], np.int64
+)
+
+
+def keypoint_hflip_indices(num_keypoints: int) -> np.ndarray:
+    """The flip permutation: COCO's for 17 keypoints, else the identity."""
+    if num_keypoints == 17:
+        return COCO_KP_HFLIP_17
+    return np.arange(num_keypoints, dtype=np.int64)
 
 # native C++ letterbox (native/) when the toolchain built it; resolved, and
 # the library built, at the first letterbox
@@ -114,21 +128,28 @@ class SimpleDatasetMapper:
 
     ``with_masks=True`` also rasterizes the polygon segmentations and
     carries them through the same geometry into dense ``gt_masks``
-    ``[max_boxes, H, W]`` uint8 (the SparseInst feed). The JAX mapper's
-    keypoint path comes with YOLOX-KPTS."""
+    ``[max_boxes, H, W]`` uint8 (the SparseInst feed).
+
+    ``MODEL.KEYPOINT_ON`` carries each
+    non-crowd annotation's ``keypoints`` (x, y, v) through every
+    transform's ``apply_coords``: a horizontal flip also swaps the left
+    and right identities (:func:`keypoint_hflip_indices`), the keypoints
+    of dropped boxes go with them, a keypoint out of the frame turns
+    invisible (v = 0, its x and y kept), and the letterbox scales them into
+    ``gt_keypoints`` ``[max_boxes, P, 3]`` float32 (the YOLOX-KPTS
+    feed)."""
 
     def __init__(self, cfg, is_train: bool = True, seed: int = 0,
                  with_masks: bool = False):
         from yolov7_d2_tpu_torch.data.detection_utils import build_augmentation
 
-        if cfg.MODEL.KEYPOINT_ON:
-            raise NotImplementedError(
-                "keypoints come with YOLOX-KPTS (ROADMAP.md Queue A.7)")
         self.is_train = is_train
         self.input_size = tuple(cfg.INPUT.INPUT_SIZE)
         self.max_boxes = cfg.MODEL.YOLO.MAX_BOXES_NUM
         self.pad_value = int(cfg.MODEL.PADDED_VALUE)
         self.with_masks = with_masks
+        self.with_keypoints = bool(cfg.MODEL.KEYPOINT_ON)
+        self.num_keypoints = int(cfg.MODEL.YOLO.KEYPOINTS_NUM)
         self.flip_prob = (
             cfg.INPUT.RANDOM_FLIP_HORIZONTAL.PROB
             if cfg.INPUT.RANDOM_FLIP_HORIZONTAL.ENABLED and is_train
@@ -156,9 +177,30 @@ class SimpleDatasetMapper:
             masks.append(m)
         return masks
 
-    def _apply_augmentations(self, img, boxes, classes, masks=None):
-        """Run the cfg chain; returns transformed arrays plus the cumulative
-        uniform resize scale (for eval coordinate bookkeeping)."""
+    def _extract_keypoints(self, record: dict) -> np.ndarray:
+        """[N, P, 3] keypoints in the order of the non-crowd annotations
+        (the filter of :func:`annotations_to_arrays`); an annotation
+        without them gets zeros."""
+        p = self.num_keypoints
+        rows = []
+        for ann in record.get("annotations", []):
+            if ann.get("iscrowd", 0):
+                continue
+            k = np.asarray(
+                ann.get("keypoints", [0.0] * (p * 3)), np.float32
+            ).reshape(-1, 3)[:p]
+            kk = np.zeros((p, 3), np.float32)
+            kk[: len(k)] = k
+            rows.append(kk)
+        if rows:
+            return np.stack(rows)
+        return np.zeros((0, p, 3), np.float32)
+
+    def _apply_augmentations(self, img, boxes, classes, masks=None,
+                             kpts=None):
+        """Run the cfg chain; returns transformed arrays (keypoints None
+        where none are carried) plus the cumulative uniform resize scale
+        (for eval coordinate bookkeeping)."""
         from yolov7_d2_tpu_torch.data.transforms.api import ResizeTransform
 
         pre_scale = 1.0
@@ -169,6 +211,13 @@ class SimpleDatasetMapper:
                 boxes = t.apply_box(boxes)
             if masks is not None:
                 masks = [t.apply_segmentation(m) for m in masks]
+            if kpts is not None and len(kpts):
+                kpts = kpts.copy()
+                kpts[..., :2] = t.apply_coords(
+                    kpts[..., :2].reshape(-1, 2).astype(np.float32)
+                ).reshape(kpts.shape[0], -1, 2)
+                if t.is_hflip:
+                    kpts = kpts[:, keypoint_hflip_indices(self.num_keypoints)]
             if isinstance(t, ResizeTransform):
                 pre_scale *= t.scale
 
@@ -184,10 +233,18 @@ class SimpleDatasetMapper:
             boxes, classes = boxes[keep], classes[keep]
             if masks is not None:
                 masks = [m for m, k in zip(masks, keep) if k]
-        return img, boxes, classes, masks, pre_scale
+            if kpts is not None and len(kpts):
+                kpts = kpts[keep]
+        if kpts is not None and len(kpts):
+            # keypoints pushed out of the frame turn invisible
+            kpts = kpts.copy()
+            oob = ((kpts[..., 0] < 0) | (kpts[..., 0] >= w)
+                   | (kpts[..., 1] < 0) | (kpts[..., 1] >= h))
+            kpts[..., 2] = np.where(oob, 0.0, kpts[..., 2])
+        return img, boxes, classes, masks, kpts, pre_scale
 
     def _finalize(
-        self, record, img, boxes, classes, masks, pre_scale
+        self, record, img, boxes, classes, masks, kpts, pre_scale
     ) -> Dict[str, np.ndarray]:
         """Letterbox to the static shape and densify to [max_boxes]."""
         img, boxes, r = _letterbox_fast(
@@ -207,6 +264,15 @@ class SimpleDatasetMapper:
                     : min(nh, th), : min(nw, tw)
                 ]
             sample["gt_masks"] = dense
+        if kpts is not None:
+            out = np.zeros((self.max_boxes, self.num_keypoints, 3),
+                           np.float32)
+            g = min(len(kpts), self.max_boxes)
+            if g:
+                kk = kpts[:g].copy()
+                kk[..., :2] *= r
+                out[:g] = kk
+            sample["gt_keypoints"] = out
         sample["image"] = np.ascontiguousarray(img, np.float32)
         sample["image_id"] = np.asarray(record.get("image_id", 0), np.int64)
         sample["scale"] = np.asarray(pre_scale * r, np.float32)
@@ -220,10 +286,12 @@ class SimpleDatasetMapper:
         img = read_image_bgr(record["file_name"])
         boxes, classes = annotations_to_arrays(record)
         masks = self._rasterize_masks_raw(record) if self.with_masks else None
-        img, boxes, classes, masks, pre_scale = self._apply_augmentations(
-            img, boxes, classes, masks
-        )
-        return self._finalize(record, img, boxes, classes, masks, pre_scale)
+        kpts = (self._extract_keypoints(record) if self.with_keypoints
+                else None)
+        img, boxes, classes, masks, kpts, pre_scale = (
+            self._apply_augmentations(img, boxes, classes, masks, kpts))
+        return self._finalize(record, img, boxes, classes, masks, kpts,
+                              pre_scale)
 
 
 class YOLOXDatasetMapper(SimpleDatasetMapper):
@@ -334,7 +402,7 @@ class DarknetMosaicDatasetMapper(SimpleDatasetMapper):
         img = read_image_bgr(record["file_name"])
         boxes, classes = annotations_to_arrays(record)
         masks = self._rasterize_masks_raw(record) if self.with_masks else None
-        img, boxes, classes, masks, _ = self._apply_augmentations(
+        img, boxes, classes, masks, _, _ = self._apply_augmentations(
             img, boxes, classes, masks
         )
         return img, boxes, classes, masks
@@ -361,7 +429,7 @@ class DarknetMosaicDatasetMapper(SimpleDatasetMapper):
         img, boxes, classes, masks = A.blend_mosaic4(
             tiles, self.mosaic_hw, self.min_offset, self.rng
         )
-        return self._finalize(record, img, boxes, classes, masks, 1.0)
+        return self._finalize(record, img, boxes, classes, masks, None, 1.0)
 
 
 class DetrDatasetMapper(SimpleDatasetMapper):
@@ -411,7 +479,8 @@ class DetrDatasetMapper(SimpleDatasetMapper):
             )
         img = read_image_bgr(record["file_name"])
         boxes, classes = annotations_to_arrays(record)
-        img, boxes, classes, _, pre_scale = self._apply_augmentations(
+        img, boxes, classes, _, _, pre_scale = self._apply_augmentations(
             img, boxes, classes
         )
-        return self._finalize(record, img, boxes, classes, None, pre_scale)
+        return self._finalize(record, img, boxes, classes, None, None,
+                              pre_scale)

@@ -40,12 +40,18 @@ class Transform:
     def apply_segmentation(self, mask: np.ndarray) -> np.ndarray:
         return mask
 
+    # a transform that mirrors x says so: the mapper then swaps the left
+    # and right keypoints' identities
+    is_hflip: bool = False
+
 
 class NoOpTransform(Transform):
     pass
 
 
 class HFlipTransform(Transform):
+    is_hflip = True
+
     def __init__(self, width: int):
         self.width = width
 

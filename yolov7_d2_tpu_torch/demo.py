@@ -29,8 +29,7 @@ from yolov7_d2_tpu_torch.config import YoloxConfig
 from yolov7_d2_tpu_torch.engine import resolve_device
 from yolov7_d2_tpu_torch.models.build import build_model
 from yolov7_d2_tpu_torch.predictor import Predictor
-from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer, strip_optimizer
-from yolov7_d2_tpu_torch.utils.weight_port import load_torch_checkpoint
+from yolov7_d2_tpu_torch.train.checkpoint import load_weights
 
 
 def build_predictor(cfg, weights_path: str = "") -> Predictor:
@@ -42,11 +41,7 @@ def build_predictor(cfg, weights_path: str = "") -> Predictor:
     model = build_model(ycfg, device, seed=0)
     weights_path = weights_path or cfg.MODEL.WEIGHTS
     if weights_path:
-        if os.path.isdir(weights_path):
-            weights = strip_optimizer(Checkpointer(weights_path).load())
-        else:
-            weights = load_torch_checkpoint(weights_path)
-        report = model.load_state_dict(weights, strict=False)
+        _, report = load_weights(model, weights_path)
         if report.missing_keys or report.unexpected_keys:
             print(f"warning: {len(report.missing_keys)} weights missing, "
                   f"{len(report.unexpected_keys)} unmatched keys")

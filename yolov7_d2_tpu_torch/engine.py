@@ -1,7 +1,7 @@
 """High-level assembly of the training step (JAX ``engine.py``): config ->
 (model, state, train_step), for YOLOX (``build_yolox_system``) and, through
-``build_system``, for the anchor-based YOLO family, SparseInst, DETR and
-AnchorDETR.
+``build_system``, for the anchor-based YOLO family, SparseInst, DETR,
+AnchorDETR and YOLOX-KPTS.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from yolov7_d2_tpu_torch.config import (
     DetrConfig,
     SparseInstConfig,
     YoloxConfig,
+    YoloxKptsConfig,
 )
 from yolov7_d2_tpu_torch.config.detr import DETR_ARCHS
 from yolov7_d2_tpu_torch.models.build import build_model
@@ -23,6 +24,7 @@ from yolov7_d2_tpu_torch.models.meta_arch.detr import detr_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.sparseinst import sparseinst_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import anchor_yolo_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_loss_fn
+from yolov7_d2_tpu_torch.models.meta_arch.yolox_kpts import yolox_kpts_loss_fn
 from yolov7_d2_tpu_torch.parallel.dist import is_initialized
 from yolov7_d2_tpu_torch.parallel.norm_sync import convert_sync_batchnorm
 from yolov7_d2_tpu_torch.train.optimizer import build_optimizer
@@ -135,6 +137,7 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0):
 
 BATCH_FIELDS = ("image", "gt_boxes", "gt_classes", "gt_valid")
 MASK_FIELDS = ("image", "gt_masks", "gt_classes", "gt_valid")
+KPTS_FIELDS = BATCH_FIELDS + ("gt_keypoints",)
 ANCHOR_YOLO_ARCHS = ("YOLO", "YOLOV7", "YOLOV7P")
 # where each architecture the JAX build_system trains comes in the port
 _ROADMAP_ITEM = {
@@ -142,7 +145,6 @@ _ROADMAP_ITEM = {
     "MaskRCNN": "A.8", "FasterRCNN": "A.8", "PanopticFPN": "A.8",
     "YOLOMask": "A.8", "DetrSegm": "A.8",
     "DetrD2go": "A.7c′", "SMCADetr": "A.7c′", "DABDetr": "A.7c′",
-    "YOLOX_KPTS": "A.7d",
 }
 
 
@@ -173,8 +175,8 @@ def build_system(cfg, device="cuda", seed: int = 0):
     """cfg -> (model, state, train_step, batch fields) for every
     architecture the port trains (JAX ``engine.py:155``). ``cfg`` is a
     merged ``CfgNode`` or a config dataclass (``YoloxConfig``,
-    ``AnchorYoloConfig``, ``SparseInstConfig``, ``DetrConfig``). YOLOX
-    goes to :func:`build_yolox_system`; YOLO, YOLOV7 and YOLOV7P train the
+    ``AnchorYoloConfig``, ``SparseInstConfig``, ``DetrConfig``,
+    ``YoloxKptsConfig``). YOLOX goes to :func:`build_yolox_system`; YOLO, YOLOV7 and YOLOV7P train the
     anchor losses of :func:`make_anchor_yolo_loss` without an L1 switch;
     SparseInst trains its mask losses (``sparseinst_loss_fn``) on the
     fields ``image`` (uint8 through the normalize kernel), ``gt_masks``,
@@ -183,8 +185,10 @@ def build_system(cfg, device="cuda", seed: int = 0):
     ``USE_FOCAL_LOSS``) on ``image`` (uint8 through the normalize
     kernel), ``gt_boxes``, ``gt_classes`` and ``gt_valid``, with the
     dropout masks of a step drawn from the seed and the step
-    (:func:`seed_dropout_by_step`); any other architecture raises, naming
-    the ROADMAP.md item that brings it."""
+    (:func:`seed_dropout_by_step`); YOLOX_KPTS trains
+    ``yolox_kpts_losses`` on the box fields and ``gt_keypoints`` [B, G,
+    P, 3] (``image`` uint8 through the normalize kernel); any other
+    architecture raises, naming the ROADMAP.md item that brings it."""
     if hasattr(cfg, "MODEL"):
         arch = cfg.MODEL.META_ARCHITECTURE
         if arch == "YOLOX":
@@ -195,6 +199,8 @@ def build_system(cfg, device="cuda", seed: int = 0):
             cfg = SparseInstConfig.from_cfg(cfg)
         elif arch in DETR_ARCHS:
             cfg = DetrConfig.from_cfg(cfg)
+        elif arch == "YOLOX_KPTS":
+            cfg = YoloxKptsConfig.from_cfg(cfg)
     else:
         arch = cfg.meta_architecture
     if arch == "YOLOX":
@@ -206,6 +212,8 @@ def build_system(cfg, device="cuda", seed: int = 0):
         loss_fn, fields = make_anchor_yolo_loss(cfg), BATCH_FIELDS
     elif arch in DETR_ARCHS:
         loss_fn, fields = detr_loss_fn(cfg), BATCH_FIELDS
+    elif arch == "YOLOX_KPTS":
+        loss_fn, fields = yolox_kpts_loss_fn(cfg), KPTS_FIELDS
     else:
         item = _ROADMAP_ITEM.get(arch, "A.8")
         raise NotImplementedError(

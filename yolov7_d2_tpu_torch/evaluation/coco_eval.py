@@ -1,8 +1,8 @@
-"""COCO-style box and mask mAP evaluation in numpy (copied from
+"""COCO-style box, mask and keypoint mAP evaluation in numpy (copied from
 ``yolov7_d2_tpu/evaluation/coco_eval.py``: ``COCOEvaluator`` with its box
 and mask IoU and matching helpers, ``COCOMaskEvaluator`` for the box-free
-SparseInst and ``polygons_to_mask``; the keypoint evaluator comes with its
-family).
+SparseInst, ``polygons_to_mask``, and ``oks_matrix`` with
+``COCOKeypointEvaluator`` for YOLOX-KPTS).
 
   * IoU thresholds 0.50:0.05:0.95, recall thresholds 0:0.01:1
   * area ranges all / small(<32^2) / medium / large(>96^2)
@@ -316,6 +316,168 @@ class COCOEvaluator:
                 float(np.stack(recalls).mean()) if recalls else float("nan")
             ),
         }
+
+
+COCO_KPT_SIGMAS = np.array(
+    [
+        0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072,
+        0.062, 0.062, 0.107, 0.107, 0.087, 0.087, 0.089, 0.089,
+    ]
+)
+
+
+def oks_matrix(
+    det_kpts: np.ndarray,   # [D, P, 3] (x, y, score)
+    gt_kpts: np.ndarray,    # [G, P, 3] (x, y, visibility)
+    gt_areas: np.ndarray,   # [G]
+    sigmas: Optional[np.ndarray] = None,
+    gt_boxes: Optional[np.ndarray] = None,  # [G, 4] xywh, for the v==0 case
+) -> np.ndarray:
+    """Object-keypoint-similarity matrix [D, G] (the COCO OKS formula).
+
+    GTs with no visible keypoint use the COCO fallback: the per-keypoint
+    distance is measured to the GT box expanded by its own size on every
+    side (so detections inside the vicinity of an unannotated person score
+    high against it and get ignored rather than counted as FPs).
+    """
+    if len(det_kpts) == 0 or len(gt_kpts) == 0:
+        return np.zeros((len(det_kpts), len(gt_kpts)))
+    s = sigmas if sigmas is not None else COCO_KPT_SIGMAS[: det_kpts.shape[1]]
+    var = (2 * s) ** 2
+    vis = gt_kpts[:, :, 2] > 0                          # [G, P]
+    dx = det_kpts[:, None, :, 0] - gt_kpts[None, :, :, 0]
+    dy = det_kpts[:, None, :, 1] - gt_kpts[None, :, :, 1]
+    if gt_boxes is not None:
+        x0 = gt_boxes[:, 0] - gt_boxes[:, 2]
+        x1 = gt_boxes[:, 0] + 2 * gt_boxes[:, 2]
+        y0 = gt_boxes[:, 1] - gt_boxes[:, 3]
+        y1 = gt_boxes[:, 1] + 2 * gt_boxes[:, 3]
+        fdx = (
+            np.maximum(0.0, x0[None, :, None] - det_kpts[:, None, :, 0])
+            + np.maximum(0.0, det_kpts[:, None, :, 0] - x1[None, :, None])
+        )
+        fdy = (
+            np.maximum(0.0, y0[None, :, None] - det_kpts[:, None, :, 1])
+            + np.maximum(0.0, det_kpts[:, None, :, 1] - y1[None, :, None])
+        )
+        none_vis = ~vis.any(-1)                         # [G]
+        dx = np.where(none_vis[None, :, None], fdx, dx)
+        dy = np.where(none_vis[None, :, None], fdy, dy)
+    e = (
+        (dx**2 + dy**2)
+        / var[None, None, :]
+        / (gt_areas[None, :, None] + np.spacing(1))
+        / 2
+    )
+    any_vis = vis.any(-1)                               # [G]
+    use = np.where(any_vis[:, None], vis, True)         # [G, P]
+    oks = np.where(use[None], np.exp(-e), 0.0).sum(-1)
+    n = np.maximum(use.sum(-1), 1)                      # [G]
+    return oks / n[None, :]
+
+
+class COCOKeypointEvaluator(COCOEvaluator):
+    """Keypoint AP (JAX ``evaluation/coco_eval.py:379``): greedy matching
+    on OKS instead of box IoU (pycocotools' 'keypoints' iouType), the COCO
+    keypoint parameters (areas all / medium / large, maxDets 20); a
+    detection's area and box come from its keypoints' extent."""
+
+    def __init__(self, num_classes: int = 1):
+        super().__init__(num_classes, iou_type="keypoints")
+        self.area_ranges = {
+            k: AREA_RANGES[k] for k in ("all", "medium", "large")
+        }
+        self.max_dets = 20
+
+    def _evaluate_img_cat(self, image_id, cat, area_rng, max_dets):
+        gts = [g for g in self._gts[image_id] if g["class"] == cat]
+        dets = [d for d in self._dets[image_id] if d["class"] == cat]
+        if not gts and not dets:
+            return None
+        dets = sorted(dets, key=lambda d: -d["score"])[:max_dets]
+        gt_ignore = np.array(
+            [
+                g["iscrowd"] or g["area"] < area_rng[0]
+                or g["area"] > area_rng[1]
+                for g in gts
+            ],
+            bool,
+        )
+        order = np.argsort(gt_ignore, kind="stable")
+        gts = [gts[i] for i in order]
+        gt_ignore = gt_ignore[order]
+        iscrowd = np.array([g["iscrowd"] for g in gts], bool)
+        ious = oks_matrix(
+            np.stack([d["mask"] for d in dets]) if dets else np.zeros((0, 17, 3)),
+            np.stack([g["mask"] for g in gts]) if gts else np.zeros((0, 17, 3)),
+            np.array([g["area"] for g in gts]) if gts else np.zeros((0,)),
+            gt_boxes=(
+                np.stack([g["bbox"] for g in gts]) if gts
+                else np.zeros((0, 4))
+            ),
+        )
+        scores = np.array([d["score"] for d in dets])
+        # det area = keypoint-extent box area (pycocotools loadRes for
+        # 'keypoints' results), used for the unmatched-det area ignore
+        det_areas = np.array([d["area"] for d in dets])
+        out = []
+        for t in IOU_THRS:
+            match, ignore = _match_image(ious, scores, gt_ignore, iscrowd, t)
+            ignore = ignore | (
+                (match == -1)
+                & ((det_areas < area_rng[0]) | (det_areas > area_rng[1]))
+            )
+            out.append((match, ignore))
+        return {
+            "scores": scores,
+            "matches": out,
+            "num_gt": int((~gt_ignore).sum()),
+        }
+
+    def add_gt_keypoints(self, image_id, keypoints, areas, classes=None,
+                         boxes=None, iscrowd=None):
+        """keypoints [G, P, 3]; areas [G] (the OKS scale); boxes [G, 4]
+        xywh (the vicinity box for all-invisible GTs)."""
+        self._image_ids.add(image_id)
+        for i in range(len(keypoints)):
+            kp = np.asarray(keypoints[i])
+            if boxes is not None:
+                bb = np.asarray(boxes[i], np.float64)
+            else:
+                vis = kp[:, 2] > 0
+                pts = kp[vis] if vis.any() else kp
+                bb = np.array([
+                    pts[:, 0].min(), pts[:, 1].min(),
+                    pts[:, 0].max() - pts[:, 0].min(),
+                    pts[:, 1].max() - pts[:, 1].min(),
+                ])
+            self._gts[image_id].append(
+                {
+                    "bbox": bb,
+                    "class": int(classes[i]) if classes is not None else 0,
+                    "iscrowd": (
+                        bool(iscrowd[i]) if iscrowd is not None else False
+                    ),
+                    "area": float(areas[i]),
+                    "mask": kp,  # kpts ride this slot
+                }
+            )
+
+    def add_pred_keypoints(self, image_id, keypoints, scores, classes=None):
+        self._image_ids.add(image_id)
+        for i in range(len(keypoints)):
+            kp = np.asarray(keypoints[i])
+            x0, x1 = kp[:, 0].min(), kp[:, 0].max()
+            y0, y1 = kp[:, 1].min(), kp[:, 1].max()
+            self._dets[image_id].append(
+                {
+                    "bbox": np.array([x0, y0, x1 - x0, y1 - y0]),
+                    "area": float((x1 - x0) * (y1 - y0)),
+                    "score": float(scores[i]),
+                    "class": int(classes[i]) if classes is not None else 0,
+                    "mask": kp,
+                }
+            )
 
 
 class COCOMaskEvaluator(COCOEvaluator):

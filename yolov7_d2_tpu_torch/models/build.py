@@ -16,13 +16,14 @@ def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     """Build ``cfg.meta_architecture`` on ``device``: a ``YoloxConfig``
     for YOLOX, an ``AnchorYoloConfig`` for YOLO, YOLOV7 and YOLOV7P, a
     ``SparseInstConfig`` for SparseInst, a ``DetrConfig`` for Detr and
-    AnchorDetr."""
+    AnchorDetr, a ``YoloxKptsConfig`` for YOLOX_KPTS."""
     from yolov7_d2_tpu_torch.models.meta_arch import (  # noqa: F401
         detr,
         detr_variants,
         sparseinst,
         yolov7,
         yolox,
+        yolox_kpts,
     )
 
     if cfg.meta_architecture not in META_ARCH_REGISTRY:
@@ -36,8 +37,10 @@ def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
 @torch.no_grad()
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every convolution and linear kernel from N(0, 1/fan_in) (flax's
-    lecun-normal scale) with ``generator``; biases and BatchNorm keep their
-    identity initialisation (zero bias, unit scale, zero mean, unit var)."""
+    lecun-normal scale) and every relative position bias table (Swin) from
+    flax's truncated N(0, 0.02) with ``generator``; biases and BatchNorm
+    keep their identity initialisation (zero bias, unit scale, zero mean,
+    unit var)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -45,3 +48,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
                              generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        table = getattr(m, "relative_position_bias_table", None)
+        if table is not None:
+            nn.init.trunc_normal_(table, std=0.02, a=-0.04, b=0.04,
+                                  generator=generator)

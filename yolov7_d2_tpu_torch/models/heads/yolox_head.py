@@ -57,6 +57,16 @@ class YOLOXHead(nn.Module):
         self.obj_preds = nn.ModuleList(
             nn.Conv2d(hidden, 1, 1) for _ in in_channels)
 
+    def level_outputs(self, lvl: int, x: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """Level ``lvl``'s raw predictions, NCHW, from its stem's output
+        ``x``: ``outputs`` (tx, ty, tw, th, obj, cls...)."""
+        c = self.cls_convs[lvl](x)
+        r = self.reg_convs[lvl](x)
+        return {"outputs": torch.cat([self.reg_preds[lvl](r),
+                                      self.obj_preds[lvl](r),
+                                      self.cls_preds[lvl](c)], dim=1)}
+
     def forward(self, feats: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
         """feats: per-level features, strides 8/16/32.
 
@@ -64,28 +74,35 @@ class YOLOXHead(nn.Module):
         in the compute dtype, ``grids`` [A, 2] f32 cell (x, y), ``strides``
         [A] f32; anchors row-major per level, level-major overall.
         """
-        outputs, grids, strides = [], [], []
+        flat, grids, strides = {}, [], []
         for lvl, (x, stride) in enumerate(zip(feats, self.strides)):
             x = self.stems[lvl](x)
-            c = self.cls_convs[lvl](x)
-            r = self.reg_convs[lvl](x)
-            out = torch.cat([self.reg_preds[lvl](r), self.obj_preds[lvl](r),
-                             self.cls_preds[lvl](c)], dim=1)
-            b, ch, h, w = out.shape
-            outputs.append(out.permute(0, 2, 3, 1).reshape(b, h * w, ch))
-            ys, xs = torch.meshgrid(
-                torch.arange(h, dtype=torch.float32, device=out.device),
-                torch.arange(w, dtype=torch.float32, device=out.device),
-                indexing="ij",
-            )
-            grids.append(torch.stack([xs, ys], dim=-1).reshape(h * w, 2))
-            strides.append(torch.full((h * w,), float(stride),
-                                      dtype=torch.float32, device=out.device))
+            b, _, h, w = x.shape
+            for key, out in self.level_outputs(lvl, x).items():
+                flat.setdefault(key, []).append(
+                    out.permute(0, 2, 3, 1).reshape(b, h * w, -1))
+            grid, stride_vec = level_grid(h, w, stride, x.device)
+            grids.append(grid)
+            strides.append(stride_vec)
         return {
-            "outputs": torch.cat(outputs, dim=1),
+            **{key: torch.cat(outs, dim=1) for key, outs in flat.items()},
             "grids": torch.cat(grids, dim=0),
             "strides": torch.cat(strides, dim=0),
         }
+
+
+def level_grid(h: int, w: int, stride: int,
+               device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cells (x, y) [h w, 2] of a level, row-major, and its stride
+    [h w], both float32."""
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=device),
+        torch.arange(w, dtype=torch.float32, device=device),
+        indexing="ij",
+    )
+    return (torch.stack([xs, ys], dim=-1).reshape(h * w, 2),
+            torch.full((h * w,), float(stride), dtype=torch.float32,
+                       device=device))
 
 
 def decode_outputs(

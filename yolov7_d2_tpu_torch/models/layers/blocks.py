@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_MOMENTUM = 0.03  # = 1 - flax 0.97
@@ -138,6 +139,18 @@ class CSPLayer(nn.Module):
         x1 = self.m(self.conv1(x))
         x2 = self.conv2(x)
         return self.conv3(torch.cat([x1, x2], dim=1))
+
+
+def pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Pad NCHW ``x`` as flax's ``SAME`` convolution does for a square
+    ``kernel`` at ``stride``: the output side is ceil(side / stride), the
+    padding split low = total // 2, high = the rest. Unpadded where none
+    is needed (a side a multiple of a kernel equal to the stride)."""
+    pads = []
+    for side in (x.shape[-1], x.shape[-2]):
+        total = max((-(-side // stride) - 1) * stride + kernel - side, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,11 @@ from yolov7_d2_tpu_torch.kernels.nms import nms_batched
 from yolov7_d2_tpu_torch.kernels.preprocess import normalize_images
 from yolov7_d2_tpu_torch.models.backbones.darknet import Darknet53
 from yolov7_d2_tpu_torch.models.backbones.darknetx import CSPDarknetX
+from yolov7_d2_tpu_torch.models.backbones.pvt_v2 import build_pvt_v2_backbone
 from yolov7_d2_tpu_torch.models.backbones.resnet import ResNet
+from yolov7_d2_tpu_torch.models.backbones.swin import (
+    build_swin_transformer_backbone,
+)
 from yolov7_d2_tpu_torch.models.build import (
     META_ARCH_REGISTRY,
     init_weights_,
@@ -216,6 +220,9 @@ _BACKBONE_NAME_MAP = {
     # the registry's ResNets (JAX BACKBONE_REGISTRY), 512/1024/2048 channels
     "build_resnet_backbone": "resnet",
     "build_resnet_vd_backbone": "resnet_vd",
+    # the transformers (MODEL.SWIN, MODEL.PVT), features stage1..3
+    "build_swin_transformer_backbone": "swin",
+    "build_pvt_v2_backbone": "pvt_v2",
 }
 
 
@@ -228,10 +235,16 @@ def _backbone_type(cfg: AnchorYoloConfig) -> str:
 
 
 def _backbone(cfg: AnchorYoloConfig):
-    """A built ResNet (``cfg.resnet``, from ``MODEL.RESNETS``) for the
-    ResNet builders, else None (``AnchorYOLO`` builds its darknet)."""
-    if _backbone_type(cfg).startswith("resnet"):
+    """A built ResNet (``cfg.resnet``, from ``MODEL.RESNETS``), Swin
+    (``MODEL.SWIN``) or PVTv2 (``MODEL.PVT``) for those builders, else None
+    (``AnchorYOLO`` builds its darknet)."""
+    kind = _backbone_type(cfg)
+    if kind.startswith("resnet"):
         return ResNet(cfg.resnet)
+    if kind == "swin":
+        return build_swin_transformer_backbone(cfg)
+    if kind == "pvt_v2":
+        return build_pvt_v2_backbone(cfg)
     return None
 
 

@@ -1,6 +1,6 @@
 """Checkpoints of the train state on ``torch.save`` (JAX
 ``train/checkpoint.py:17-70``, which is on orbax), and the deploy-time
-helpers ``strip_optimizer`` and ``fuse_conv_bn``.
+helpers ``strip_optimizer``, ``load_weights`` and ``fuse_conv_bn``.
 
 A checkpoint is one file ``<directory>/ckpt_<step>.pt`` holding the step,
 the model's ``state_dict`` (parameters and BatchNorm buffers), the
@@ -113,6 +113,21 @@ def strip_optimizer(blob: Dict) -> Dict[str, torch.Tensor]:
     weights = dict(blob["model"])
     weights.update(blob.get("ema_params") or {})
     return weights
+
+
+def load_weights(model: torch.nn.Module, path: str):
+    """Load the weights of ``path`` into ``model`` by name, leniently: a
+    reference-format ``.pth`` / ``.pt`` / ``.pkl`` state dict (whose names
+    are the port's), or the port's checkpoint directory, of which the
+    latest checkpoint's EMA weights are taken. Returns (the number of
+    weights read, ``load_state_dict``'s missing and unexpected keys)."""
+    from yolov7_d2_tpu_torch.utils.weight_port import load_torch_checkpoint
+
+    if os.path.isdir(path):
+        weights = strip_optimizer(Checkpointer(path).load())
+    else:
+        weights = load_torch_checkpoint(path)
+    return len(weights), model.load_state_dict(weights, strict=False)
 
 
 def fuse_conv_bn(kernel, bn_scale, bn_bias, bn_mean, bn_var, eps=1e-3):

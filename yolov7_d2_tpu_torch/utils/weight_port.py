@@ -18,8 +18,14 @@ hd] with biases [H, hd] and an ``out`` kernel [H, hd, E]; the port's
 inverse of the JAX ``split_torch_mha``) and ``out_proj`` takes ``out``.
 A key whose leaf is neither a weight, a bias nor a statistic (AnchorDETR's
 ``anchor_points``) and an embedding's ``weight`` (``query_embed``) take the
-flax parameter of the same path as it is. The flax tree is nested dicts of
-numpy arrays, so no JAX is needed here.
+flax parameter of the same path as it is. Swin and PVTv2
+(``map_swin_torch_name``, ``map_pvt_v2_torch_name``, copies of the JAX
+maps) and YOLOX-KPTS (``map_yolox_kpts_torch_name``): a window attention's
+``relative_position_bias_table`` takes flax's ``rel_pos_bias``, its
+``relative_position_index`` (a buffer the model computes) stays as the
+template holds it, and a patch merging's norm and reduction go from flax's
+channel order into the reference's (``swin_merge_perm``). The flax tree is
+nested dicts of numpy arrays, so no JAX is needed here.
 """
 
 from __future__ import annotations
@@ -84,13 +90,13 @@ def map_yolox_torch_name(name: str) -> Tuple[str, ...]:
         return tuple(
             f"head/stem_{m.group(1)}/{m.group(2)}".replace(".", "/").split("/")
         )
-    m = re.match(r"^head\.(cls|reg)_convs\.(\d+)\.(\d+)\.(.*)$", name)
+    m = re.match(r"^head\.(cls|reg|kpt)_convs\.(\d+)\.(\d+)\.(.*)$", name)
     if m:
         kind, lvl, j, rest = m.groups()
         return tuple(
             f"head/{kind}_conv_{lvl}_{j}/{rest}".replace(".", "/").split("/")
         )
-    m = re.match(r"^head\.(cls|reg|obj)_preds\.(\d+)$", name)
+    m = re.match(r"^head\.(cls|reg|obj|kpt)_preds\.(\d+)$", name)
     if m:
         return ("head", f"{m.group(1)}_pred_{m.group(2)}")
 
@@ -170,12 +176,15 @@ def map_anchor_yolo_torch_name(name: str,
     """Translate a key of the port's ``AnchorYOLO`` (``models/meta_arch/
     yolov7.py``) into the flax path of the JAX ``AnchorYOLO``, by prefix:
     ``backbone.`` through the map of ``backbone_type`` (``darknet53``,
-    ``cspdarknet53``, ``cspdarknetx``, ``resnet`` or ``resnet_vd``, whose
-    names overlap, so the caller says which), ``neck.`` through the YOLOFPN map or the YOLOX one
-    (YOLOPAFPN), ``head.towers.{l}`` -> ``head/tower_{l}`` and
-    ``head.preds.{l}`` -> ``head/pred_{l}``."""
+    ``cspdarknet53``, ``cspdarknetx``, ``resnet``, ``resnet_vd``, ``swin``
+    or ``pvt_v2``, whose names overlap, so the caller says which),
+    ``neck.`` through the YOLOFPN map or the YOLOX one (YOLOPAFPN),
+    ``head.towers.{l}`` -> ``head/tower_{l}`` and ``head.preds.{l}`` ->
+    ``head/pred_{l}``."""
     prefix, _, rest = name.partition(".")
     if prefix == "backbone":
+        if backbone_type in TRANSFORMER_MAPS:
+            return ("backbone",) + TRANSFORMER_MAPS[backbone_type](rest)
         if backbone_type in ("resnet", "resnet_vd"):
             return map_resnet_torch_name(name, backbone_type == "resnet_vd")
         if backbone_type == "cspdarknetx":
@@ -347,6 +356,100 @@ def map_anchor_detr_torch_name(name: str,
     return tuple(name.split(".")) if name else ()
 
 
+def map_swin_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference Swin keys (``patch_embed.proj``, ``layers.{s}.blocks.{i}.
+    ...``, ``layers.{s}.downsample.{norm, reduction}``, ``norm{s}``) ->
+    the flax paths of the JAX ``SwinTransformer`` (``patch_embed``,
+    ``stage{s}_block{i}/...``, ``merge_{s+1}``, ``out_norm_{s}``); a copy
+    of ``yolov7_d2_tpu/utils/weight_port.py:731``."""
+    if name == "patch_embed.proj":
+        return ("patch_embed",)
+    if name == "patch_embed.norm":
+        return ("patch_norm",)
+    m = re.match(r"^layers\.(\d)\.blocks\.(\d+)\.(.*)$", name)
+    if m:
+        s, i, rest = m.groups()
+        rest = {
+            "norm1": "norm1", "norm2": "norm2",
+            "attn.qkv": "attn/qkv", "attn.proj": "attn/proj",
+            "mlp.fc1": "mlp1", "mlp.fc2": "mlp2",
+        }.get(rest, rest.replace(".", "/"))
+        return tuple(f"stage{s}_block{i}/{rest}".split("/"))
+    m = re.match(r"^layers\.(\d)\.downsample\.(norm|reduction)$", name)
+    if m:
+        return (f"merge_{int(m.group(1)) + 1}", m.group(2))
+    m = re.match(r"^norm(\d)$", name)
+    if m:
+        return (f"out_norm_{m.group(1)}",)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_pvt_v2_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference PVTv2 keys (``patch_embed{1..4}``, ``block{1..4}.{i}``,
+    ``norm{1..4}``; 1-based stages) -> the flax paths of the JAX ``PVTv2``
+    (0-based ``patch_embed_{s}``, ``embed_norm_{s}``, ``stage{s}_block{i}``,
+    ``out_norm_{s}``); a copy of ``yolov7_d2_tpu/utils/weight_port.py:963``.
+    """
+    m = re.match(r"^patch_embed(\d)\.proj$", name)
+    if m:
+        return (f"patch_embed_{int(m.group(1)) - 1}",)
+    m = re.match(r"^patch_embed(\d)\.norm$", name)
+    if m:
+        return (f"embed_norm_{int(m.group(1)) - 1}",)
+    m = re.match(r"^norm(\d)$", name)
+    if m:
+        return (f"out_norm_{int(m.group(1)) - 1}",)
+    m = re.match(r"^block(\d)\.(\d+)\.(.*)$", name)
+    if m:
+        stage, i, rest = int(m.group(1)) - 1, m.group(2), m.group(3)
+        base = (f"stage{stage}_block{i}",)
+        table = {
+            "norm1": ("norm1",), "norm2": ("norm2",),
+            "attn.q": ("attn", "q"), "attn.kv": ("attn", "kv"),
+            "attn.proj": ("attn", "proj"), "attn.sr": ("attn", "sr"),
+            "attn.norm": ("attn", "sr_norm"),
+            "mlp.fc1": ("ffn", "fc1"), "mlp.fc2": ("ffn", "fc2"),
+            "mlp.dwconv.dwconv": ("ffn", "dwconv"),
+        }
+        if rest in table:
+            return base + table[rest]
+        return base + tuple(rest.split("."))
+    return tuple(name.replace(".", "/").split("/"))
+
+
+# the transformer backbones' maps, by the models' ``backbone_type``
+TRANSFORMER_MAPS = {"swin": map_swin_torch_name,
+                    "pvt_v2": map_pvt_v2_torch_name}
+
+# Swin's PatchMerging: the reference concatenates the 2x2 neighbours as
+# [x0; x1; x2; x3] with x1 = (row + 1, col), x2 = (row, col + 1); the flax
+# reshape gives [x0; x2; x1; x3]: flax channel block i is reference block
+# _SWIN_MERGE_PERM_BLOCKS[i] (JAX ``weight_port.py:717-729``)
+_SWIN_MERGE_PERM_BLOCKS = (0, 2, 1, 3)
+_SWIN_MERGE = re.compile(r"(^|\.)layers\.\d+\.downsample\.(norm|reduction)$")
+
+
+def swin_merge_perm(c4: int) -> np.ndarray:
+    """flax channel j of a merging's 4 C reads reference channel
+    ``perm[j]`` (an involution)."""
+    idx = np.arange(c4).reshape(4, c4 // 4)
+    return idx[list(_SWIN_MERGE_PERM_BLOCKS)].reshape(-1)
+
+
+def map_yolox_kpts_torch_name(name: str,
+                             backbone_type: str = "swin") -> Tuple[str, ...]:
+    """A key of the port's ``YOLOXKPTS`` -> the flax path of the JAX model:
+    ``backbone.`` through :func:`map_swin_torch_name`,
+    :func:`map_pvt_v2_torch_name` or the YOLOX map (CSPDarknet-X), as
+    ``backbone_type`` says; the neck and head through
+    :func:`map_yolox_torch_name` (which maps ``head.kpt_convs`` /
+    ``kpt_preds`` too)."""
+    prefix, _, rest = name.partition(".")
+    if prefix == "backbone" and backbone_type in TRANSFORMER_MAPS:
+        return ("backbone",) + TRANSFORMER_MAPS[backbone_type](rest)
+    return map_yolox_torch_name(name)
+
+
 _QKV = ("query", "key", "value")
 
 
@@ -382,6 +485,10 @@ def jax_to_torch_state_dict(
         if leaf == "num_batches_tracked":
             out[key] = np.zeros((), np.int64)
             continue
+        if leaf == "relative_position_index":
+            # a buffer the model computes, no flax leaf: kept as it is
+            out[key] = np.array(np.asarray(ref), order="C")
+            continue
         path = name_mapper(module) if module else ()
         if leaf in ("in_proj_weight", "in_proj_bias"):
             # the q, k, v blocks of a fused projection [3E, E] / [3E]
@@ -410,6 +517,8 @@ def jax_to_torch_state_dict(
                                           path + ("scale",), path)
         elif leaf == "bias":
             coll, candidates = "params", (path + ("bias",),)
+        elif leaf == "relative_position_bias_table":
+            coll, candidates = "params", (path + ("rel_pos_bias",),)
         else:
             coll, candidates = "params", (path + (leaf,),)
         found = [c for c in candidates if c in trees[coll]]
@@ -425,6 +534,10 @@ def jax_to_torch_state_dict(
                 value = value.reshape(-1, value.shape[-1]).T
             else:
                 value = np.transpose(value, (3, 2, 0, 1))
+        if _SWIN_MERGE.search(module):
+            # a merging's channels into the reference's block order
+            perm = swin_merge_perm(value.shape[-1])
+            value = value[..., perm]
         if tuple(value.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: flax {'/'.join(fpath)} has shape "
                              f"{value.shape}, the port {tuple(ref.shape)}")
