@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port's YOLOX-s serving path, training step,
 training CLI and multi-GPU training, of the anchor-YOLO family's serving
 and training, of SparseInst's and of DETR's and AnchorDETR's serving,
-training and CLI, and of YOLOX-KPTS's serving, training and eval, on one
-CUDA card.
+training and CLI, of YOLOX-KPTS's serving, training and eval, and of the
+one-stage box detectors' (YOLOv5, YOLOv6, YOLOF, BiFPN and PAN necks)
+serving and training, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -119,7 +120,27 @@ set to 0 just before it and read just after:
   again with ``--weights`` of a saved state dict; (e) YOLOV7 on
   ``swin_t.yaml`` and ``pvt_v2_b0.yaml``: one request and one train step
   each. The launches of (a), (c) and (d) are added to the normalize and
-  NMS entries of the kernels line.
+  NMS entries of the kernels line;
+* the one-stage box detectors (``onestage_phase``): YOLOv5-s and YOLOv6-s
+  at 640 (``configs/coco/yolov5_s.yaml``, ``yolov6_s.yaml``) and YOLOF
+  R-50 at 800 (``yolof/yolof_R_50_DC5_1x.yaml``), full depth and width,
+  bf16 over f32 weights from the seed. The normalize kernel at YOLOF's
+  mean and std on [128,800,800,3], bit-exact (the ``normalize_yolof``
+  entry); then for each model (a) serving through ``build_model`` and its
+  tail (``anchor_yolo_postprocess`` with the v5 gate,
+  ``yolox_postprocess``, ``yolof_postprocess``) for requests of 1, 8 and
+  128 images (one normalize and one NMS launch a request, times, the
+  device's busy share at 128), the kernel path's ``Detections`` equal to
+  the plain path's at 8; (b) f32 outputs on the card against the CPU at
+  128 px within 1e-4 of the max, bf16 within 5e-2; (c) 13 steps of 16
+  images through ``build_system`` (YOLOv5 and YOLOv6 with mixup and
+  GridMask, YOLOF on uint8 through the normalize kernel): finite losses,
+  foreground, parameters, EMA and BN statistics moved, FrozenBN unmoved,
+  ms a step, peak memory; (d) one f32 step against the CPU, the loss's
+  assignments equal; (e) one request and one step each of YOLOv6-tiny,
+  YOLOv6-m and YOLOV7 on ResNet-50 with the BiFPN and PP-YOLO PAN necks.
+  Its launches are added to the normalize, normalize_yolof, NMS and
+  GridMask entries.
 
 ``python3 chip_smoke.py --nccl`` runs (c) alone, on a machine of 2 or more
 cards.
@@ -1135,12 +1156,14 @@ def anchor_yolo_cfg(yaml: str, **replace):
 
 def anchor_tail(head, cfg, nms=None):
     """``anchor_yolo_postprocess`` of ``cfg``'s architecture on head
-    outputs, with the NMS kernel unless ``nms`` is given."""
+    outputs (the v5 gate for YOLOV5), with the NMS kernel unless ``nms`` is
+    given."""
     from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import (
         anchor_yolo_postprocess,
     )
 
-    variant = cfg.variant if cfg.meta_architecture == "YOLO" else "yolov7"
+    variant = {"YOLO": cfg.variant, "YOLOV5": "yolov5"}.get(
+        cfg.meta_architecture, "yolov7")
     with torch.inference_mode():
         return anchor_yolo_postprocess(
             head, variant, cfg.conf_threshold, cfg.nms_threshold,
@@ -2532,6 +2555,412 @@ def yolox_kpts_phase(dev, card: str, gen: torch.Generator, kernels: dict,
         torch.cuda.empty_cache()
 
 
+ONESTAGE_MODELS = (("YOLOv5-s", "yolov5_s.yaml"),
+                   ("YOLOv6-s", "yolov6_s.yaml"),
+                   ("YOLOF R-50", "yolof/yolof_R_50_DC5_1x.yaml"))
+ONESTAGE_EXTRA = (("YOLOv6-tiny", "yolov6/yolov6_tiny.yaml", {}),
+                  ("YOLOv6-m", "yolov6/yolov6_m.yaml", {}),
+                  ("YOLOV7 R-50 bifpn", "../wearmask/r50_bifpn.yaml",
+                   {"meta_architecture": "YOLOV7"}),
+                  ("YOLOV7 R-50 pan", "../wearmask/r50_pan.yaml",
+                   {"meta_architecture": "YOLOV7"}))
+
+
+def onestage_cfg(yaml: str, **replace):
+    """The config dataclass of ``configs/coco/<yaml>``'s architecture
+    (``AnchorYoloConfig`` for YOLOV5 and YOLOV7, ``Yolov6Config``,
+    ``YolofConfig``), fields replaced."""
+    from yolov7_d2_tpu_torch.config import (
+        AnchorYoloConfig,
+        YolofConfig,
+        Yolov6Config,
+    )
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "coco", yaml))
+    cls = {"YOLOV6": Yolov6Config, "YOLOF": YolofConfig}.get(
+        cfg.MODEL.META_ARCHITECTURE, AnchorYoloConfig)
+    return dataclasses.replace(cls.from_cfg(cfg), **replace)
+
+
+def onestage_tail(out, cfg, nms=None):
+    """The serving tail of ``cfg``'s architecture, with the NMS kernel
+    unless ``nms`` is given: ``yolox_postprocess`` (YOLOV6),
+    ``yolof_postprocess`` or :func:`anchor_tail`."""
+    from yolov7_d2_tpu_torch.models.meta_arch.yolof import yolof_postprocess
+    from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_postprocess
+
+    kw = {} if nms is None else {"nms": nms}
+    arch = cfg.meta_architecture
+    with torch.inference_mode():
+        if arch == "YOLOV6":
+            return yolox_postprocess(out, cfg.conf_threshold,
+                                     cfg.nms_threshold, cfg.max_detections,
+                                     cfg.pre_nms_topk, **kw)
+        if arch == "YOLOF":
+            return yolof_postprocess(out, **kw)
+    return anchor_tail(out, cfg, nms)
+
+
+def onestage_serve(model, cfg, images):
+    with torch.inference_mode():
+        out = model(images)
+    return out, onestage_tail(out, cfg)
+
+
+def onestage_loss_keys(cfg) -> tuple:
+    return {"YOLOV6": ("loss_iou", "loss_l1", "loss_obj", "loss_cls"),
+            "YOLOF": ("loss_cls", "loss_box")}.get(
+        cfg.meta_architecture, ("loss_box", "loss_obj", "loss_cls"))
+
+
+def onestage_assignment(model, cfg, batch) -> dict:
+    """What the loss of ``cfg``'s architecture assigns on ``model``'s
+    train-mode outputs for ``batch``: SimOTA's foreground and matched gts
+    (YOLOV6), the uniform matcher's winners and class map (YOLOF), the
+    foreground count (YOLOV5: the ratio targets do not depend on the
+    outputs)."""
+    from yolov7_d2_tpu_torch.models.heads.yolox_head import (
+        decode_outputs,
+        simota_assign,
+    )
+    from yolov7_d2_tpu_torch.models.meta_arch import yolof as fm
+
+    model.train()
+    with torch.no_grad():
+        out = model(batch["image"])
+    model.eval()
+    arch = cfg.meta_architecture
+    with torch.no_grad():
+        if arch == "YOLOV6":
+            dec = decode_outputs(out["outputs"], out["grids"],
+                                 out["strides"])
+            a = simota_assign(*dec, out["grids"], out["strides"],
+                              batch["gt_boxes"], batch["gt_classes"],
+                              batch["gt_valid"])
+            fg = a["fg_mask"]
+            return {"fg_mask": fg,
+                    "matched_gt": torch.where(fg, a["matched_gt"], -1)}
+        if arch == "YOLOF":
+            anchors = out["anchors"]
+            pred = fm.decode_deltas(anchors[None], out["deltas"])
+            m = fm.uniform_match(pred, anchors, batch["gt_boxes"],
+                                 batch["gt_valid"],
+                                 num_classes=cfg.num_classes)
+            return {"winner": m["winner"],
+                    "cls_map": fm.class_map(m, batch["gt_classes"],
+                                            anchors.shape[0])}
+    return {}
+
+
+def onestage_phase(dev, card: str, gen: torch.Generator, kernels: dict,
+                   requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+                   small: int = 128, steps: int = WARMUP + ITERS,
+                   big_batch: int = BATCH) -> None:
+    """Section 15: the one-stage box detectors of ``configs/coco`` at the
+    full width and depth of their yaml files, bf16 over f32 weights from
+    ``SEED``: YOLOv5-s at 640 (``yolov5_s.yaml``), YOLOv6-s at 640
+    (``yolov6_s.yaml``), YOLOF R-50 at 800 (``yolof/yolof_R_50_DC5_1x
+    .yaml``). First the normalize kernel at YOLOF's mean and std on
+    [``big_batch``, 800, 800, 3] against its plain version (the
+    ``normalize_yolof`` entry). Then for each model (a) serving,
+    ``build_model`` + the tail (``anchor_yolo_postprocess`` with the v5
+    gate, ``yolox_postprocess``, ``yolof_postprocess``), for requests of 1,
+    8 and 128 images (one normalize and one NMS launch a request; e2e,
+    forward and tail by CUDA events, the device's busy share at the
+    largest) and the kernel path's ``Detections`` equal to the plain
+    path's (float input, plain NMS) at 8; (b) f32 outputs on the card
+    against the CPU at ``small`` px within 1e-4 of the max, bf16 within
+    5e-2; (c) ``steps`` steps of ``train_n`` images through
+    ``build_system``, EMA on: YOLOv5 and YOLOv6 in ``make_packed_photo_
+    step`` with mixup and GridMask (mode 1, prob 0.3), YOLOF on the uint8
+    batch (the normalize kernel at its statistics); finite losses,
+    foreground, parameters, EMA and BN statistics moved, FrozenBN
+    statistics unmoved, ms a step, peak memory; (d) one f32 step at
+    ``small`` px on the card against the CPU: the loss's assignments equal
+    (SimOTA's foreground for YOLOv6, the winners and class map for YOLOF,
+    the fg count), losses and grad norm within 1e-3. (e) one request and
+    one train step each for ``yolov6_tiny.yaml`` (416), ``yolov6_m.yaml``
+    and YOLOV7 on ResNet-50 with the ``bifpn`` and ``pan`` necks
+    (``wearmask/r50_bifpn.yaml``, ``r50_pan.yaml`` under YOLOV7, which the
+    necks need: the yaml's YOLOV7P keeps YOLOPAFPN). Each path's launches
+    are counted from 0 and added to the normalize, normalize_yolof, NMS
+    and GridMask entries."""
+    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
+    from yolov7_d2_tpu_torch.kernels.preprocess import (
+        normalize_images,
+        normalize_images_plain,
+    )
+    from yolov7_d2_tpu_torch.models.backbones.resnet import (
+        frozen_bn_buffers,
+    )
+    from yolov7_d2_tpu_torch.models.build import build_model
+    from yolov7_d2_tpu_torch.models.meta_arch import yolof as fm
+
+    # ---- the normalize kernel at YOLOF's statistics, 800 px
+    yolof_size = 800
+    images = torch.randint(0, 256, (big_batch, yolof_size, yolof_size, 3),
+                           generator=gen, dtype=torch.uint8).to(dev)
+    args = (images, fm.PIXEL_MEAN, fm.PIXEL_STD, torch.bfloat16)
+    got, want = normalize_images(*args), normalize_images_plain(*args)
+    torch.cuda.synchronize()
+    if got.stride() != want.stride() or not torch.equal(got, want):
+        raise AssertionError("normalize kernel differs from its plain "
+                             "version at YOLOF's mean and std")
+    kernels["normalize_yolof"] = {
+        "name": "normalize_yolof", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/preprocess.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:34",
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": kernel_ms(lambda: normalize_images(*args)),
+        "plain_ms": kernel_ms(lambda: normalize_images_plain(*args),
+                              host_ok="normalize_yolof plain"),
+        # no one PyTorch call takes uint8 NHWC to (x - mean) / std in
+        # channels_last
+        "library_ms": None,
+        # u8 read once, bf16 written once; a subtract and a divide each
+        **bound(images.numel() * 3, images.numel() * 2),
+        "launches": 0,
+    }
+    log(f"(15) normalize at YOLOF's mean {fm.PIXEL_MEAN} and std "
+        f"{fm.PIXEL_STD}: bit-exact against its plain version on "
+        f"{tuple(images.shape)} -> bf16 channels_last")
+    del images, got, want, args
+
+    for name, yaml in ONESTAGE_MODELS:
+        cfg = onestage_cfg(yaml)
+        size = cfg.input_size[0]
+        is_yolof = cfg.meta_architecture == "YOLOF"
+        norm_key = "normalize_yolof" if is_yolof else "normalize"
+        # ---- (a) serving
+        model = build_model(cfg, dev, SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"(15a) {name} {size} from {yaml}: {n_params / 1e6:.3f} M "
+            f"parameters, {model.dtype}")
+        batches = [letterboxed_batch(n, gen, size) for n in requests]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        for req in batches:
+            _, dets = onestage_serve(model, cfg, req.to(dev))
+            log(f"(15a) {name} request bs {req.shape[0]}: " +
+                check_detections(dets, req.shape[0], cfg, name))
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        if launches.get("normalize", 0) != len(requests) or \
+                launches.get("nms", 0) != len(requests):
+            raise AssertionError(f"the {name} serving path launched "
+                                 f"{launches}")
+        kernels[norm_key]["launches"] += launches["normalize"]
+        kernels["nms"]["launches"] += launches["nms"]
+        log(f"(15a) {name} serving path launches, counted from 0: "
+            f"{launches} ({'normalize_yolof' if is_yolof else 'normalize'}"
+            " and nms a request)")
+        for req in batches:
+            n = req.shape[0]
+            x = req.to(dev)
+            e2e = cuda_ms(lambda: onestage_serve(model, cfg, x))
+            with torch.inference_mode():
+                fwd = cuda_ms(lambda: model(x))
+                head = model(x)
+            tail = cuda_ms(lambda: onestage_tail(head, cfg))
+            extra = ""
+            if n == requests[-1]:
+                busy, window = device_busy_ms(
+                    lambda: onestage_serve(model, cfg, x))
+                extra = (f"; device busy {busy:.3f} ms a call = "
+                         f"{100 * busy / e2e:.1f}% of the untraced call "
+                         f"(traced {window:.3f} ms)")
+            log(f"{name} {size} bs {n} bf16 on [{card}]: e2e {e2e:.3f} ms "
+                f"= {n * 1000 / e2e:.1f} img/s; forward-only {fwd:.3f} ms "
+                f"= {n * 1000 / fwd:.1f} img/s; tail {tail:.3f} ms{extra}")
+            del head, x
+        x = batches[1].to(dev)
+        _, dets = onestage_serve(model, cfg, x)
+        with torch.inference_mode():
+            plain = onestage_tail(model(x.float()), cfg,
+                                  nms=nms_batched_plain)
+        for f in ("boxes", "scores", "classes", "valid"):
+            if not torch.equal(getattr(dets, f), getattr(plain, f)):
+                raise AssertionError(f"{name}: the kernel path's {f} differ "
+                                     "from the plain path's")
+        log(f"(15a) {name} bs {x.shape[0]}: the kernel path's Detections "
+            f"equal the plain path's index for index "
+            f"({int(dets.valid.sum())} kept)")
+
+        # ---- (b) f32 card against CPU, full width, small px
+        f32 = dataclasses.replace(cfg, amp=False)
+        one = letterboxed_batch(2, gen, small)
+        with torch.inference_mode():
+            ref = build_model(f32, "cpu", SEED)(one)
+            on_card = build_model(f32, dev, SEED)(one.to(dev))
+            bf16 = model(one.to(dev))
+        gaps = []
+        for k in (("logits", "deltas") if is_yolof else ("outputs",)):
+            scale = float(ref[k].abs().max())
+            err = float((on_card[k].cpu() - ref[k]).abs().max())
+            err16 = float((bf16[k].float().cpu() - ref[k]).abs().max())
+            gaps.append(f"{k} {err / scale:.3g} (bf16 {err16 / scale:.3g})")
+            if err > 1e-4 * scale or err16 > 5e-2 * scale:
+                raise AssertionError(f"{name} {k} on the card differs from "
+                                     f"the CPU by {err} (bf16 {err16}) of "
+                                     f"{scale}")
+        log(f"(15b) {name} f32 forward at {small} px, card against CPU, "
+            "error over each output's max: " + ", ".join(gaps))
+        del model, batches, dets, plain, ref, on_card, bf16, x
+        torch.cuda.empty_cache()
+
+        # ---- (c) training through build_system
+        tcfg = dataclasses.replace(cfg, ema=True, grid_mask=not is_yolof,
+                                   grid_mask_mode=1, grid_mask_prob=0.3,
+                                   mixup=True)
+        _, state, train_step, fields = build_system(tcfg, device=dev,
+                                                    seed=SEED)
+        step = (train_step if is_yolof else
+                make_packed_photo_step(tcfg, train_step, seed=SEED))
+        frozen = [b.clone() for b in frozen_bn_buffers(state.model)]
+        tbatches = [{k: v.to(dev) for k, v in train_batch(
+            train_n, gen, size).items()} for _ in range(4)]
+        before = snapshot(state)
+        metrics = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        warm = min(WARMUP, steps - 1)
+        for i in range(steps):
+            if i == warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = step(state, tbatches[i % 4])
+            metrics.append(m)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (steps - warm)
+        launches = dict(build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        keys = onestage_loss_keys(cfg) + ("total_loss", "grad_norm")
+        for i, m in enumerate(metrics):
+            for key in keys:
+                if not bool(torch.isfinite(m[key])):
+                    raise AssertionError(f"{name} step {i}: {key} = "
+                                         f"{float(m[key])}")
+            if not float(m["num_fg"]) > 1.0:
+                raise AssertionError(f"{name} step {i}: no foreground")
+        after = snapshot(state)
+        for key in before:
+            if all(torch.equal(a, b) for a, b in zip(before[key],
+                                                     after[key])):
+                raise AssertionError(f"{name} training moved no {key} "
+                                     "tensor")
+        if is_yolof:
+            if not frozen or not all(torch.equal(a, b) for a, b in zip(
+                    frozen, frozen_bn_buffers(state.model))):
+                raise AssertionError("YOLOF training moved FrozenBN "
+                                     "statistics")
+            if launches.get("normalize", 0) != steps:
+                raise AssertionError(f"the YOLOF training path launched "
+                                     f"{launches}")
+            kernels["normalize_yolof"]["launches"] += launches["normalize"]
+        else:
+            if launches.get("grid_mask", 0) < 1:
+                raise AssertionError(f"the {name} training path never "
+                                     "launched grid_mask")
+            kernels["grid_mask"]["launches"] += launches["grid_mask"]
+        for i in (0, len(metrics) - 1):
+            log(f"(15c) {name} train step {i}: " + ", ".join(
+                f"{k} {float(metrics[i][k]):.4f}"
+                for k in keys + ("num_fg",)))
+        log(f"(15c) {name} {size} train step bs {train_n} bf16 on [{card}]: "
+            f"{step_ms:.3f} ms a step = {train_n * 1000 / step_ms:.1f} img/s"
+            f" (host clock over {steps - warm} steps after {warm}, batches "
+            f"on the card, 100 slots, 1-100 boxes an image); peak memory "
+            f"{peak_gb:.3f} GB; launches {launches}; parameters, EMA and BN "
+            "statistics moved" + ("; FrozenBN statistics unmoved"
+                                  if is_yolof else ""))
+        del state, train_step, step, tbatches, metrics, before, after
+        torch.cuda.empty_cache()
+
+        # ---- (d) one f32 step, card against CPU, same weights and batch
+        scfg = dataclasses.replace(cfg, input_size=(small, small),
+                                   amp=False, warmup_iters=0)
+        sbatch = train_batch(2, gen, small)
+        sbatch["image"] = sbatch["image"].float()
+        got, assigned = {}, {}
+        for where in ("cpu", dev):
+            b = {k: v.to(where) for k, v in sbatch.items()}
+            assigned[str(where)] = onestage_assignment(
+                build_model(scfg, where, SEED), scfg, b)
+            _, st, ts, _ = build_system(scfg, device=where, seed=SEED)
+            _, m = ts(st, b)
+            got[str(where)] = {k: float(v) for k, v in m.items()}
+        ref_m, card_m = got["cpu"], got[str(dev)]
+        log(f"(15d) {name} f32 train step at {small} px, card vs CPU: "
+            + ", ".join(f"{k} {card_m[k]:.6g} / {ref_m[k]:.6g}"
+                        for k in keys + ("num_fg",)))
+        if card_m["num_fg"] != ref_m["num_fg"]:
+            raise AssertionError(f"{name} fg count differs between the card "
+                                 "and the CPU")
+        for k, v in assigned["cpu"].items():
+            if not torch.equal(assigned[str(dev)][k].cpu(), v):
+                raise AssertionError(f"{name} assignment {k} differs "
+                                     "between the card and the CPU")
+        for k in keys:
+            if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
+                raise AssertionError(f"{name} {k} differs between the card "
+                                     "and the CPU")
+        log(f"(15d) {name}: assignments equal on the card and the CPU "
+            f"({', '.join(assigned['cpu']) or 'the fg count'})")
+        del st, ts
+        torch.cuda.empty_cache()
+
+    # ---- (e) the other configurations: one request, one train step
+    for name, yaml, replace in ONESTAGE_EXTRA:
+        ccfg = onestage_cfg(yaml, **replace)
+        size = ccfg.input_size[0]
+        model = build_model(ccfg, dev, SEED)
+        req = letterboxed_batch(requests[1], gen, size)
+        build.reset_launches()
+        _, dets = onestage_serve(model, ccfg, req.to(dev))
+        torch.cuda.synchronize()
+        serve_launches = dict(build.LAUNCHES)
+        summary = check_detections(dets, req.shape[0], ccfg, name)
+        del model
+        ccfg = dataclasses.replace(ccfg, grid_mask=True, ema=True)
+        _, state, train_step, _ = build_system(ccfg, device=dev, seed=SEED)
+        step = make_packed_photo_step(ccfg, train_step, seed=SEED)
+        tb = train_batch(train_n, gen, size)
+        tb["gt_classes"] = tb["gt_classes"] % ccfg.num_classes
+        build.reset_launches()
+        state, m = step(state, {k: v.to(dev) for k, v in tb.items()})
+        torch.cuda.synchronize()
+        train_launches = dict(build.LAUNCHES)
+        keys = onestage_loss_keys(ccfg) + ("total_loss", "grad_norm")
+        if not all(bool(torch.isfinite(m[k])) for k in keys) or \
+                not float(m["num_fg"]) > 1.0:
+            raise AssertionError(f"{name} train step: " + ", ".join(
+                f"{k} {float(m[k])}" for k in keys + ("num_fg",)))
+        for path, got_l, names in (("serving", serve_launches,
+                                    ("normalize", "nms")),
+                                   ("training", train_launches,
+                                    ("grid_mask",))):
+            for k in names:
+                if got_l.get(k, 0) < 1:
+                    raise AssertionError(f"{name} {path} never launched "
+                                         f"{k}")
+        for k in ("normalize", "nms"):
+            kernels[k]["launches"] += serve_launches[k]
+        kernels["grid_mask"]["launches"] += train_launches["grid_mask"]
+        log(f"(15e) {name} {size} ({yaml}, {type(state.model.neck).__name__}"
+            f"): bs {req.shape[0]} {summary}, launches {serve_launches}; one "
+            f"train step of {train_n}: total loss "
+            f"{float(m['total_loss']):.4f}, num_fg {float(m['num_fg']):.0f},"
+            f" launches {train_launches}")
+        del state, train_step, step
+        torch.cuda.empty_cache()
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -2946,7 +3375,12 @@ def main() -> int:
     # (yolox_kpts_phase)
     yolox_kpts_phase(dev, card, gen, kernels)
 
-    # ---- 15. times
+    # ---- 15. the one-stage box detectors: YOLOv5-s, YOLOv6-s and YOLOF
+    # R-50 serving, card against CPU, training; YOLOv6-tiny, YOLOv6-m and
+    # YOLOV7 R-50 with the bifpn and pan necks (onestage_phase)
+    onestage_phase(dev, card, gen, kernels)
+
+    # ---- 16. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "

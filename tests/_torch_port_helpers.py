@@ -390,7 +390,8 @@ def anchor_yolo_modules(arch: str, dtype=torch.float32):
 
 
 def flax_variables_like(jmodel, images, rng: np.random.Generator):
-    """Variables of the flax ``jmodel`` drawn with numpy, without running
+    """Variables of the flax ``jmodel`` (whose input is ``images``, an
+    array or a list of them) drawn with numpy, without running
     the flax init (its XLA compile costs seconds a model): conv kernels
     from N(0, 1/fan_in) (flax's lecun-normal scale), Swin's relative
     position bias tables from N(0, 1), then every BatchNorm and
@@ -400,7 +401,7 @@ def flax_variables_like(jmodel, images, rng: np.random.Generator):
 
     shapes = jax.eval_shape(
         lambda x: jmodel.init(jax.random.PRNGKey(0), x),
-        jnp.zeros(images.shape, jnp.float32))
+        jax.tree.map(lambda a: jnp.zeros(a.shape, jnp.float32), images))
 
     def draw(path, leaf):
         if path[-1] == "kernel":

@@ -710,3 +710,125 @@ def test_yolox_kpts_tail_on_card_matches_plain_and_cpu_on_ties(dev):
         assert torch.allclose(getattr(kernel, f).cpu(), getattr(cpu, f),
                               rtol=1e-6, atol=1e-5), f
     assert int(kernel.valid.sum()) > 100
+
+
+@pytest.mark.cuda
+def test_normalize_yolof_kernel_matches_plain(dev):
+    """The normalize kernel at YOLOF's mean and std (the JAX model's
+    constants) on an 800 px batch, bf16 and float32: bit for bit its plain
+    version, in channels_last."""
+    from yolov7_d2_tpu_torch.models.meta_arch import yolof as tf
+
+    images = torch.randint(0, 256, (4, 800, 800, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(2)).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = normalize_images(images, tf.PIXEL_MEAN, tf.PIXEL_STD, dtype)
+        want = normalize_images_plain(images, tf.PIXEL_MEAN, tf.PIXEL_STD,
+                                      dtype)
+        assert got.stride() == want.stride()
+        assert torch.equal(got, want), dtype
+
+
+def _onestage_cfg(arch):
+    from yolov7_d2_tpu_torch.config import (
+        AnchorYoloConfig,
+        YolofConfig,
+        Yolov6Config,
+    )
+
+    if arch == "YOLOV5":
+        return AnchorYoloConfig(meta_architecture="YOLOV5", width_mul=0.5,
+                                depth_mul=0.33, amp=False,
+                                input_size=(128, 128))
+    if arch == "YOLOV6":
+        return Yolov6Config(amp=False, input_size=(128, 128))
+    return YolofConfig(amp=False, input_size=(128, 128))
+
+
+def _onestage_tail(cfg, out, nms=nms_batched):
+    from yolov7_d2_tpu_torch.models.meta_arch.yolof import yolof_postprocess
+    from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import (
+        anchor_yolo_postprocess,
+    )
+    from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_postprocess
+
+    if cfg.meta_architecture == "YOLOV6":
+        return yolox_postprocess(out, cfg.conf_threshold, cfg.nms_threshold,
+                                 nms=nms)
+    if cfg.meta_architecture == "YOLOF":
+        return yolof_postprocess(out, nms=nms)
+    return anchor_yolo_postprocess(out, "yolov5", cfg.conf_threshold,
+                                   cfg.nms_threshold, nms=nms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["YOLOV5", "YOLOV6", "YOLOF"])
+def test_onestage_serving_on_card_matches_cpu(dev, monkeypatch, arch):
+    """YOLOv5-s, YOLOv6-s and YOLOF R-50 at full width, 128 px, float32
+    (TF32 off): the uint8 batch goes through the normalize kernel once a
+    request (YOLOF's at its mean and std), the outputs agree with the
+    CPU's within 1e-4 of their max, and the tail launches the NMS kernel
+    once and gives the plain tail's ``Detections`` on the card, and the
+    CPU tail's on the same outputs quantized to quarters (every score tied
+    or far from the others; the card's and the CPU's sigmoid and exp
+    differ in the last bit)."""
+    from yolov7_d2_tpu_torch.models.build import build_model
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = _onestage_cfg(arch)
+    images = torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    before = dict(build.LAUNCHES)
+    with torch.inference_mode():
+        on_card = build_model(cfg, dev)(images.to(dev))
+        ref = build_model(cfg, "cpu")(images)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["normalize"] == before.get("normalize", 0) + 1
+    key = "logits" if arch == "YOLOF" else "outputs"
+    for k in (key, "deltas") if arch == "YOLOF" else (key,):
+        scale = float(ref[k].abs().max())
+        assert float((on_card[k].cpu() - ref[k]).abs().max()) <= \
+            1e-4 * max(scale, 1.0), k
+    out = dict(on_card)
+    out[key] = torch.round(out[key] * 4) / 4
+    got = _onestage_tail(cfg, out)
+    plain = _onestage_tail(cfg, out, nms=nms_batched_plain)
+    want = _onestage_tail(cfg, {k: v.cpu() if torch.is_tensor(v) else v
+                                for k, v in out.items()})
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["nms"] == before.get("nms", 0) + 1
+    assert int(got.valid.sum()) > 0
+    for f in ("boxes", "scores", "classes", "valid"):
+        assert torch.equal(getattr(got, f), getattr(plain, f)), f
+    for f in ("classes", "valid"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f in ("boxes", "scores"):
+        assert torch.allclose(getattr(got, f).cpu(), getattr(want, f),
+                              rtol=1e-6, atol=1e-4), f
+
+
+@pytest.mark.cuda
+def test_uniform_match_on_card_matches_cpu(dev):
+    """``uniform_match`` on the card takes the CPU's assignments on a scene
+    with ties and anchors claimed more than once: the stable sort and the
+    ``amax`` scatter have one answer on both."""
+    from yolov7_d2_tpu_torch.models.meta_arch import yolof as tf
+
+    anchors = tf.yolof_anchors(25, 25)
+    rng = np.random.default_rng(3)
+    pred = anchors[None].repeat(4, 1, 1).clone()
+    pred[1:] += torch.tensor(rng.normal(0, 4, (3,) + tuple(anchors.shape)),
+                             dtype=torch.float32)
+    boxes = torch.tensor(rng.uniform(0, 700, (4, 30, 2)), dtype=torch.float32)
+    boxes = torch.cat([boxes, boxes + torch.tensor(
+        rng.uniform(20, 300, (4, 30, 2)), dtype=torch.float32)], -1)
+    boxes[:, 10:15] = boxes[:, 9:10]                     # repeated gts
+    boxes[0, 0] = torch.tensor([32.0, 16.0, 96.0, 80.0])  # a cell boundary
+    valid = torch.tensor(np.arange(30)[None] < rng.integers(5, 31, (4, 1)))
+    want = tf.uniform_match(pred, anchors, boxes, valid)
+    got = tf.uniform_match(pred.to(dev), anchors.to(dev), boxes.to(dev),
+                           valid.to(dev))
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), v), k
+    assert not bool(want["winner"][want["occ_valid"]].all())

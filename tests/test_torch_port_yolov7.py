@@ -142,9 +142,8 @@ def test_unported_parts_raise():
     cfg = dataclasses.replace(AnchorYoloConfig(), amp=False)
     for replace, item in (
             (dict(backbone="build_swin_backbone"), "A.8"),
-            (dict(meta_architecture="YOLOV5"), "A.8"),
-            (dict(neck_type="bifpn"), "A.8"),
-            (dict(neck_type="pan"), "A.8")):
+            (dict(backbone="build_res2net_backbone"), "A.8"),
+            (dict(meta_architecture="YOLOMask"), "Queue A")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(dataclasses.replace(cfg, **replace), "cpu")
     # a YoloxConfig (what the CLIs read) cannot build this family
@@ -154,7 +153,7 @@ def test_unported_parts_raise():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("YOLOV5", "A.8"), ("YOLOV6", "A.8"), ("YOLOF", "A.8"),
+    ("FasterRCNN", "A.8"), ("DetrSegm", "A.8"),
     ("SOLOv2", "A.8"), ("MaskRCNN", "A.8"), ("PanopticFPN", "A.8"),
     ("YOLOMask", "A.8"), ("SMCADetr", "A.7c"),
     ("DABDetr", "A.7c"), ("DetrD2go", "A.7c")])
@@ -174,7 +173,7 @@ def test_anchor_yolo_defaults_to_the_card():
 
     from yolov7_d2_tpu_torch.models.meta_arch import yolov7
 
-    for fn in (yolov7.build_yolo, yolov7.build_yolov7, yolov7.build_yolov7p,
-               build_system):
+    for fn in (yolov7.build_yolo, yolov7.build_yolov5, yolov7.build_yolov7,
+               yolov7.build_yolov7p, build_system):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert AnchorYOLO().dtype == torch.float32

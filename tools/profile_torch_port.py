@@ -3,7 +3,8 @@
 training step, goes on one CUDA card; with ``--yolov7``, YOLOV7's; with
 ``--sparseinst``, SparseInst R-50's; with ``--detr`` / ``--anchordetr``,
 DETR R-50's / AnchorDETR R-50's; with ``--yolox-kpts``, YOLOX-KPTS on
-Swin-T's.
+Swin-T's; with ``--yolov5`` / ``--yolov6`` / ``--yolof``, YOLOv5-s's,
+YOLOv6-s's or YOLOF R-50's.
 
     python3 tools/profile_torch_port.py            # serving
     python3 tools/profile_torch_port.py --train    # training step
@@ -11,6 +12,7 @@ Swin-T's.
     python3 tools/profile_torch_port.py --sparseinst [--train]
     python3 tools/profile_torch_port.py --detr | --anchordetr [--train]
     python3 tools/profile_torch_port.py --yolox-kpts [--train]
+    python3 tools/profile_torch_port.py --yolov5 | --yolov6 | --yolof [--train]
 
 Full-width YOLOX-s (or YOLOV7 from ``configs/coco/yolov7.yaml``'s
 defaults) at 640, bf16, random weights from seed 0, uint8 batches already
@@ -39,7 +41,14 @@ with the mask, as the port runs it, and the same through
 ``F.scaled_dot_product_attention`` with the bias and mask as an additive
 ``attn_mask``, for comparison); training through ``build_system`` on 16
 images (1-8 persons of 17 keypoints each), and SimOTA alone on the step's
-outputs. Every line carries the card's name and power limit. Imports no
+outputs. YOLOv5-s (``configs/coco/yolov5_s.yaml``), YOLOv6-s
+(``yolov6_s.yaml``) at 640 and YOLOF R-50 (``yolof/yolof_R_50_DC5_1x.yaml``)
+at 800: serving through ``build_model`` and the family's tail
+(``chip_smoke.onestage_tail``); training through ``build_system`` (EMA on)
+on 16 images, YOLOv5 and YOLOv6 in ``make_packed_photo_step`` with GridMask
+on, YOLOF on the uint8 batch, and the loss's assignment alone on the step's
+outputs (SimOTA over all anchors for YOLOv6, the uniform matcher for
+YOLOF). Every line carries the card's name and power limit. Imports no
 JAX.
 """
 
@@ -90,7 +99,7 @@ GROUPS = (
     ("NMS kernel (K1)", r"nms_kernel"),
     ("GridMask kernel (K3)", r"grid_mask_kernel"),
     ("optimizer and EMA (foreach)", r"multi_tensor_apply|foreach"),
-    ("batch norm", r"batch_norm|bn_fw"),
+    ("batch norm", r"batch_norm|batchnorm|bn_fw"),
     ("SiLU", r"silu"),
     ("mish", r"mish"),
     ("concat", r"CatArray|cat_"),
@@ -191,6 +200,8 @@ def trace(fn, card: str, label: str) -> None:
 
 DETR_YAMLS = {"DETR": "detr_256_6_6_r50.yaml",
               "AnchorDETR": "anchordetr_r50.yaml"}
+ONESTAGE_YAMLS = {"YOLOv5-s": "yolov5_s.yaml", "YOLOv6-s": "yolov6_s.yaml",
+                  "YOLOF R-50": "yolof/yolof_R_50_DC5_1x.yaml"}
 DETR_TRAIN_BATCH = 8
 KPTS_YAML = "yolox_kpts_swin.yaml"
 
@@ -199,6 +210,17 @@ def serving(dev, model_name: str):
     """(forward, postprocess) of YOLOX-s's ``Predictor``, of YOLOV7, of
     SparseInst, of DETR, of AnchorDETR or of YOLOX-KPTS (its model as
     ``forward.model``)."""
+    if model_name in ONESTAGE_YAMLS:
+        from chip_smoke import onestage_cfg, onestage_tail
+
+        ocfg = onestage_cfg(ONESTAGE_YAMLS[model_name])
+        omodel = build_model(ocfg, dev, 0)
+
+        @torch.inference_mode()
+        def onestage_forward(x):
+            return omodel(x)
+
+        return onestage_forward, lambda out: onestage_tail(out, ocfg)
     if model_name == "YOLOX-KPTS":
         from chip_smoke import kpts_cfg, kpts_tail
 
@@ -399,6 +421,39 @@ def profile_train_kpts(card: str, dev, gen) -> None:
           f"anchors [{card}]")
 
 
+def profile_train_onestage(card: str, dev, gen, model_name: str) -> None:
+    """The step of YOLOv5-s, YOLOv6-s or YOLOF R-50 through
+    ``build_system`` (EMA on) on 16 images of 100 box slots (1-100 valid);
+    then the loss's assignment alone on the step's outputs."""
+    from chip_smoke import onestage_assignment, onestage_cfg, train_batch
+
+    cfg = dataclasses.replace(onestage_cfg(ONESTAGE_YAMLS[model_name]),
+                              ema=True)
+    is_yolof = cfg.meta_architecture == "YOLOF"
+    if not is_yolof:
+        cfg = dataclasses.replace(cfg, grid_mask=True)
+    model, state, train_step, _ = build_system(cfg, device=dev, seed=0)
+    step = (train_step if is_yolof
+            else make_packed_photo_step(cfg, train_step, seed=0))
+    batch = {k: v.to(dev) for k, v in train_batch(
+        TRAIN_BATCH, gen, cfg.input_size[0]).items()}
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    trace(one_step, card, f"train step bs {TRAIN_BATCH}")
+    if cfg.meta_architecture == "YOLOV5":
+        return
+    fbatch = dict(batch, image=batch["image"].float())
+    ms = cuda_ms(lambda: onestage_assignment(model, cfg, fbatch))
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: model.train()(fbatch["image"]))
+    model.eval()
+    print(f"train-mode forward and the loss's assignment: {ms:.3f} ms, of "
+          f"which the forward {fwd:.3f} ms ({TRAIN_BATCH} images) [{card}]")
+
+
 def profile_train(card: str, dev, gen, yolov7: bool) -> None:
     if yolov7:
         cfg = dataclasses.replace(AnchorYoloConfig(), grid_mask=True,
@@ -443,6 +498,12 @@ def main() -> int:
                         help="AnchorDETR R-50 (anchordetr_r50.yaml) at 800")
     parser.add_argument("--yolox-kpts", action="store_true",
                         help="YOLOX-KPTS on Swin-T (yolox_kpts_swin.yaml)")
+    parser.add_argument("--yolov5", action="store_true",
+                        help="YOLOv5-s (yolov5_s.yaml)")
+    parser.add_argument("--yolov6", action="store_true",
+                        help="YOLOv6-s (yolov6_s.yaml)")
+    parser.add_argument("--yolof", action="store_true",
+                        help="YOLOF R-50 (yolof_R_50_DC5_1x.yaml) at 800")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_port: no CUDA device")
@@ -453,9 +514,14 @@ def main() -> int:
     name = ("SparseInst" if args.sparseinst else
             "YOLOV7" if args.yolov7 else "DETR" if args.detr else
             "AnchorDETR" if args.anchordetr else
-            "YOLOX-KPTS" if args.yolox_kpts else "YOLOX-s")
-    size = 800 if name in DETR_YAMLS else 640
+            "YOLOX-KPTS" if args.yolox_kpts else
+            "YOLOv5-s" if args.yolov5 else "YOLOv6-s" if args.yolov6 else
+            "YOLOF R-50" if args.yolof else "YOLOX-s")
+    size = 800 if name in DETR_YAMLS or name == "YOLOF R-50" else 640
     print(f"model: {name} {size} bf16", flush=True)
+    if args.train and name in ONESTAGE_YAMLS:
+        profile_train_onestage(card, dev, gen, name)
+        return 0
     if args.train and name in DETR_YAMLS:
         profile_train_detr(card, dev, gen, name)
         return 0

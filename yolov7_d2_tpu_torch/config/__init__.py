@@ -6,13 +6,18 @@ yaml files of ``configs/`` into ``config/defaults.get_cfg()`` (a
 ``AnchorYoloConfig`` (``config/anchor_yolo.py``), SparseInst
 ``SparseInstConfig`` (``config/sparseinst.py``), DETR and AnchorDETR
 ``DetrConfig`` (``config/detr.py``), YOLOX-KPTS ``YoloxKptsConfig``
-(``config/yolox_kpts.py``). Only the dataclasses are
+(``config/yolox_kpts.py``), YOLOv6 and YOLOF ``Yolov6Config`` and
+``YolofConfig`` (``config/onestage.py``). Only the dataclasses are
 imported here, so that serving needs no PyYAML."""
 
 from yolov7_d2_tpu_torch.config.anchor_yolo import (  # noqa: F401
     AnchorYoloConfig,
 )
 from yolov7_d2_tpu_torch.config.detr import DetrConfig  # noqa: F401
+from yolov7_d2_tpu_torch.config.onestage import (  # noqa: F401
+    YolofConfig,
+    Yolov6Config,
+)
 from yolov7_d2_tpu_torch.config.sparseinst import (  # noqa: F401
     SparseInstConfig,
 )

@@ -1,7 +1,7 @@
 """High-level assembly of the training step (JAX ``engine.py``): config ->
 (model, state, train_step), for YOLOX (``build_yolox_system``) and, through
-``build_system``, for the anchor-based YOLO family, SparseInst, DETR,
-AnchorDETR and YOLOX-KPTS.
+``build_system``, for the anchor-based YOLO family (YOLOv5 among them),
+YOLOv6, YOLOF, SparseInst, DETR, AnchorDETR and YOLOX-KPTS.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from yolov7_d2_tpu_torch.config import (
     AnchorYoloConfig,
     DetrConfig,
     SparseInstConfig,
+    YolofConfig,
+    Yolov6Config,
     YoloxConfig,
     YoloxKptsConfig,
 )
@@ -22,6 +24,8 @@ from yolov7_d2_tpu_torch.config.detr import DETR_ARCHS
 from yolov7_d2_tpu_torch.models.build import build_model
 from yolov7_d2_tpu_torch.models.meta_arch.detr import detr_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.sparseinst import sparseinst_loss_fn
+from yolov7_d2_tpu_torch.models.meta_arch.yolof import yolof_loss_fn
+from yolov7_d2_tpu_torch.models.meta_arch.yolov6 import yolov6_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import anchor_yolo_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox_kpts import yolox_kpts_loss_fn
@@ -138,10 +142,10 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0):
 BATCH_FIELDS = ("image", "gt_boxes", "gt_classes", "gt_valid")
 MASK_FIELDS = ("image", "gt_masks", "gt_classes", "gt_valid")
 KPTS_FIELDS = BATCH_FIELDS + ("gt_keypoints",)
-ANCHOR_YOLO_ARCHS = ("YOLO", "YOLOV7", "YOLOV7P")
+ANCHOR_YOLO_ARCHS = ("YOLO", "YOLOV5", "YOLOV7", "YOLOV7P")
 # where each architecture the JAX build_system trains comes in the port
 _ROADMAP_ITEM = {
-    "YOLOV5": "A.8", "YOLOV6": "A.8", "YOLOF": "A.8", "SOLOv2": "A.8",
+    "SOLOv2": "A.8",
     "MaskRCNN": "A.8", "FasterRCNN": "A.8", "PanopticFPN": "A.8",
     "YOLOMask": "A.8", "DetrSegm": "A.8",
     "DetrD2go": "A.7c′", "SMCADetr": "A.7c′", "DABDetr": "A.7c′",
@@ -150,11 +154,14 @@ _ROADMAP_ITEM = {
 
 def make_anchor_yolo_loss(cfg: AnchorYoloConfig) -> Callable:
     """The training loss of ``cfg``'s architecture (JAX ``engine.py:
-    176-209``): the v7 decode (``variant`` for YOLO), the configured target
-    builder, the v4 or v7 box loss, the ``LAMBDA_*`` and an ignore
-    threshold of at least 0.5. The loss takes no L1 switch."""
-    variant = (cfg.variant if cfg.meta_architecture == "YOLO"
-               else "yolov7")
+    176-209``): the v7 decode (``variant`` for YOLO, the v5 decode and the
+    ratio target builder for YOLOV5 whatever the config says), the
+    configured target builder, the v4 or v7 box loss, the ``LAMBDA_*`` and
+    an ignore threshold of at least 0.5. The loss takes no L1 switch."""
+    arch = cfg.meta_architecture
+    variant = {"YOLO": cfg.variant, "YOLOV5": "yolov5"}.get(arch, "yolov7")
+    build_target_type = ("yolov5" if arch == "YOLOV5"
+                         else cfg.build_target_type)
     lambdas = dict(lambda_iou=cfg.lambda_iou, lambda_conf=cfg.lambda_conf,
                    lambda_cls=cfg.lambda_cls, lambda_xy=cfg.lambda_xy,
                    lambda_wh=cfg.lambda_wh)
@@ -163,7 +170,7 @@ def make_anchor_yolo_loss(cfg: AnchorYoloConfig) -> Callable:
     def loss_fn(head_out, batch, use_l1: bool) -> Dict[str, torch.Tensor]:
         return anchor_yolo_loss_fn(
             head_out, batch, cfg.anchors, cfg.num_classes, variant=variant,
-            build_target_type=cfg.build_target_type, iou_type=cfg.iou_type,
+            build_target_type=build_target_type, iou_type=cfg.iou_type,
             loss_type=loss_type,
             ignore_threshold=max(cfg.ignore_threshold, 0.5),
             lambdas=lambdas)
@@ -176,8 +183,12 @@ def build_system(cfg, device="cuda", seed: int = 0):
     architecture the port trains (JAX ``engine.py:155``). ``cfg`` is a
     merged ``CfgNode`` or a config dataclass (``YoloxConfig``,
     ``AnchorYoloConfig``, ``SparseInstConfig``, ``DetrConfig``,
-    ``YoloxKptsConfig``). YOLOX goes to :func:`build_yolox_system`; YOLO, YOLOV7 and YOLOV7P train the
-    anchor losses of :func:`make_anchor_yolo_loss` without an L1 switch;
+    ``YoloxKptsConfig``, ``Yolov6Config``, ``YolofConfig``). YOLOX goes to
+    :func:`build_yolox_system`; YOLO, YOLOV5, YOLOV7 and YOLOV7P train the
+    anchor losses of :func:`make_anchor_yolo_loss` without an L1 switch
+    (with PP-YOLO's PAN neck, the DropBlock masks of a step drawn from the
+    seed and the step, :func:`seed_dropout_by_step`); YOLOV6 trains
+    ``yolov6_losses`` and YOLOF ``yolof_losses`` on the box fields;
     SparseInst trains its mask losses (``sparseinst_loss_fn``) on the
     fields ``image`` (uint8 through the normalize kernel), ``gt_masks``,
     ``gt_classes`` and ``gt_valid``; Detr and AnchorDetr train the set
@@ -201,6 +212,10 @@ def build_system(cfg, device="cuda", seed: int = 0):
             cfg = DetrConfig.from_cfg(cfg)
         elif arch == "YOLOX_KPTS":
             cfg = YoloxKptsConfig.from_cfg(cfg)
+        elif arch == "YOLOV6":
+            cfg = Yolov6Config.from_cfg(cfg)
+        elif arch == "YOLOF":
+            cfg = YolofConfig.from_cfg(cfg)
     else:
         arch = cfg.meta_architecture
     if arch == "YOLOX":
@@ -214,6 +229,10 @@ def build_system(cfg, device="cuda", seed: int = 0):
         loss_fn, fields = detr_loss_fn(cfg), BATCH_FIELDS
     elif arch == "YOLOX_KPTS":
         loss_fn, fields = yolox_kpts_loss_fn(cfg), KPTS_FIELDS
+    elif arch == "YOLOV6":
+        loss_fn, fields = yolov6_loss_fn(cfg), BATCH_FIELDS
+    elif arch == "YOLOF":
+        loss_fn, fields = yolof_loss_fn(cfg), BATCH_FIELDS
     else:
         item = _ROADMAP_ITEM.get(arch, "A.8")
         raise NotImplementedError(
@@ -223,7 +242,7 @@ def build_system(cfg, device="cuda", seed: int = 0):
         loss_fn, build_lr_schedule(cfg),
         ema_decay=cfg.ema_decay if cfg.ema else 0.0,
         clip_cfg=cfg if cfg.clip_gradients else None)
-    if arch in DETR_ARCHS:
+    if getattr(state.model, "generator", None) is not None:
         train_step = seed_dropout_by_step(train_step, seed)
     return state.model, state, train_step, fields
 

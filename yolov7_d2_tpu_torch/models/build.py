@@ -16,11 +16,15 @@ def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     """Build ``cfg.meta_architecture`` on ``device``: a ``YoloxConfig``
     for YOLOX, an ``AnchorYoloConfig`` for YOLO, YOLOV7 and YOLOV7P, a
     ``SparseInstConfig`` for SparseInst, a ``DetrConfig`` for Detr and
-    AnchorDetr, a ``YoloxKptsConfig`` for YOLOX_KPTS."""
+    AnchorDetr, a ``YoloxKptsConfig`` for YOLOX_KPTS, a ``Yolov6Config``
+    for YOLOV6, a ``YolofConfig`` for YOLOF (YOLOV5 is of the anchor
+    family)."""
     from yolov7_d2_tpu_torch.models.meta_arch import (  # noqa: F401
         detr,
         detr_variants,
         sparseinst,
+        yolof,
+        yolov6,
         yolov7,
         yolox,
         yolox_kpts,
@@ -36,14 +40,17 @@ def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
 
 @torch.no_grad()
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
-    """Draw every convolution and linear kernel from N(0, 1/fan_in) (flax's
-    lecun-normal scale) and every relative position bias table (Swin) from
-    flax's truncated N(0, 0.02) with ``generator``; biases and BatchNorm
-    keep their identity initialisation (zero bias, unit scale, zero mean,
-    unit var)."""
+    """Draw every convolution (transposed too) and linear kernel from
+    N(0, 1/fan_in) (flax's lecun-normal scale) and every relative position
+    bias table (Swin) from flax's truncated N(0, 0.02) with ``generator``;
+    biases and BatchNorm keep their identity initialisation (zero bias,
+    unit scale, zero mean, unit var)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+            # a transposed convolution's weight is [I, O, kH, kW]
+            fan_in = (m.weight[:, 0].numel()
+                      if isinstance(m, nn.ConvTranspose2d)
+                      else m.weight[0].numel())
             m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                              generator=generator)
             if m.bias is not None:

@@ -20,7 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolov7_d2_tpu_torch.models.layers.blocks import BaseConv, conv_class
+from yolov7_d2_tpu_torch.models.layers.blocks import (
+    BaseConv,
+    at_least_f32,
+    conv_class,
+)
 from yolov7_d2_tpu_torch.ops.iou import iou_loss, pairwise_box_iou
 from yolov7_d2_tpu_torch.ops.losses import sigmoid_binary_cross_entropy
 from yolov7_d2_tpu_torch.parallel.dist import all_reduce_sum
@@ -109,8 +113,8 @@ def decode_outputs(
     outputs: torch.Tensor, grids: torch.Tensor, strides: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Raw outputs -> (boxes cxcywh [.., A, 4], obj logits [.., A], cls
-    logits [.., A, C]) in input pixels, f32."""
-    outputs = outputs.float()
+    logits [.., A, C]) in input pixels, f32 (f64 for a f64 input)."""
+    outputs = at_least_f32(outputs)
     xy = (outputs[..., 0:2] + grids) * strides[..., None]
     wh = torch.exp(outputs[..., 2:4].clamp(max=WH_LOGIT_MAX)) \
         * strides[..., None]

@@ -174,3 +174,57 @@ class Focus(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(space_to_depth(x))
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 where it is a 16-bit float, else as it is (a
+    float64 reference run stays float64)."""
+    return x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+
+
+class ConvBN(nn.Module):
+    """Conv2d without bias -> BatchNorm, no activation (a RepVGG branch,
+    the reference's ``conv_bn``: children ``conv`` and ``bn``). A strided
+    1x1 convolution runs at stride 1 on every ``stride``-th pixel, the same
+    products and sums: torch's CPU backward of a 1x1 stride-2 convolution
+    over a 3-channel channels_last input corrupts the heap (torch 2.13)."""
+
+    def __init__(self, in_channels: int, out_channels: int, ksize: int,
+                 stride: int = 1):
+        super().__init__()
+        self.subsample = stride if ksize == 1 else 1
+        self.conv = nn.Conv2d(in_channels, out_channels, ksize,
+                              stride // self.subsample, (ksize - 1) // 2,
+                              bias=False)
+        self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS,
+                                 momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The BatchNorm in float32, as the JAX block's (``dtype``
+        float32): its output stays float32."""
+        s = self.subsample
+        if s > 1:
+            x = x[..., ::s, ::s]
+        return self.bn(at_least_f32(self.conv(x)))
+
+
+class RepVGGBlock(nn.Module):
+    """YOLOv6's re-parameterizable block, unfused (JAX ``blocks.py:348``):
+    3x3 conv + BN (``rbr_dense``), 1x1 conv + BN (``rbr_1x1``) and, at
+    stride 1 with equal channels, a BN of the input (``rbr_identity``);
+    their sum, then ReLU. The three BatchNorms and the sum run in float32,
+    one rounding to the input's dtype at the end."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+        super().__init__()
+        self.rbr_dense = ConvBN(in_channels, out_channels, 3, stride)
+        self.rbr_1x1 = ConvBN(in_channels, out_channels, 1, stride)
+        self.rbr_identity = (
+            nn.BatchNorm2d(in_channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+            if stride == 1 and in_channels == out_channels else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.rbr_dense(x) + self.rbr_1x1(x)
+        if self.rbr_identity is not None:
+            out = out + self.rbr_identity(at_least_f32(x))
+        return F.relu(out).to(x.dtype)

@@ -25,10 +25,17 @@ from yolov7_d2_tpu_torch.kernels.nms import nms_batched
 from yolov7_d2_tpu_torch.kernels.preprocess import normalize_images
 from yolov7_d2_tpu_torch.models.backbones.darknet import Darknet53
 from yolov7_d2_tpu_torch.models.backbones.darknetx import CSPDarknetX
+from yolov7_d2_tpu_torch.models.backbones.efficientrep import (
+    build_efficientrep_backbone,
+    build_efficientrep_tiny_backbone,
+)
 from yolov7_d2_tpu_torch.models.backbones.pvt_v2 import build_pvt_v2_backbone
 from yolov7_d2_tpu_torch.models.backbones.resnet import ResNet
 from yolov7_d2_tpu_torch.models.backbones.swin import (
     build_swin_transformer_backbone,
+)
+from yolov7_d2_tpu_torch.models.backbones.yolov5 import (
+    build_yolov5_backbone,
 )
 from yolov7_d2_tpu_torch.models.build import (
     META_ARCH_REGISTRY,
@@ -43,6 +50,8 @@ from yolov7_d2_tpu_torch.models.heads.anchor_yolo_head import (
 from yolov7_d2_tpu_torch.models.necks.yolo_fpn import (
     OUT_CHANNELS as FPN_CHANNELS,
 )
+from yolov7_d2_tpu_torch.models.necks.bifpn import BiFPN
+from yolov7_d2_tpu_torch.models.necks.reppan import PPYOLOPAN
 from yolov7_d2_tpu_torch.models.necks.yolo_fpn import YOLOFPN
 from yolov7_d2_tpu_torch.models.necks.yolo_pafpn import YOLOPAFPN
 from yolov7_d2_tpu_torch.ops.nms import batched_nms_batched
@@ -57,7 +66,12 @@ class AnchorYOLO(nn.Module):
     """backbone -> neck -> anchor head; returns the flattened outputs
     (``flatten_anchor_outputs``) and ``level_hw``. ``dtype`` is the compute
     dtype: bfloat16 runs under autocast over float32 parameters. A built
-    ``backbone`` (with ``out_channels``) overrides ``backbone_type``."""
+    ``backbone`` (with ``out_channels``) overrides ``backbone_type``. The
+    neck is YOLOPAFPN (``pafpn``), BiFPN at its defaults (``bifpn``: 160
+    channels, the head on the first three of its five levels), PP-YOLO's
+    PAN (``pan`` / ``ppyolo_pan``, whose DropBlocks draw from
+    ``generator`` in train mode) or YOLOFPN (any other name), as the JAX
+    model chooses (JAX :104-122)."""
 
     def __init__(self, num_classes: int = 80,
                  anchors: Tuple = DEFAULT_ANCHORS,
@@ -91,15 +105,24 @@ class AnchorYOLO(nn.Module):
             self.neck = YOLOPAFPN(depth_mul, width_mul, act="silu",
                                   feat_channels=feat_channels)
             neck_channels = [int(c * width_mul) for c in (256, 512, 1024)]
-        elif neck_type == "yolov3":
+        elif neck_type == "bifpn":
+            # the head takes the stride-8/16/32 levels of the five
+            self.neck = BiFPN(feat_channels)
+            neck_channels = [self.neck.out_channels] * 3
+        elif neck_type in ("pan", "ppyolo_pan"):
+            self.neck = PPYOLOPAN(feat_channels, with_spp=with_spp)
+            neck_channels = list(self.neck.out_channels)
+        else:
             self.neck = YOLOFPN(feat_channels, with_spp=with_spp, act=act)
             neck_channels = list(FPN_CHANNELS)
-        else:
-            raise NotImplementedError(
-                f"neck {neck_type!r} is not ported yet (ROADMAP.md Queue A.8)")
         self.head = AnchorYOLOHead(neck_channels, num_classes,
                                    len(self.anchors[0]), act=act,
                                    direct_pred=head_style == "direct")
+
+    @property
+    def generator(self) -> Optional[torch.Generator]:
+        """The DropBlocks' generator (PP-YOLO's PAN), else None."""
+        return getattr(self.neck, "generator", None)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images: uint8 or float [B, H, W, 3] letterboxed batch."""
@@ -119,7 +142,7 @@ class AnchorYOLO(nn.Module):
                             enabled=self.dtype != torch.float32):
             feats = self.backbone(x)
             neck_out = self.neck([feats[f] for f in self.in_features])
-            level_outputs = self.head(neck_out)
+            level_outputs = self.head(neck_out[:3])
         flat = flatten_anchor_outputs(level_outputs, self.anchors,
                                       LEVEL_STRIDES)
         flat["level_hw"] = tuple((o.shape[2], o.shape[3])
@@ -223,6 +246,19 @@ _BACKBONE_NAME_MAP = {
     # the transformers (MODEL.SWIN, MODEL.PVT), features stage1..3
     "build_swin_transformer_backbone": "swin",
     "build_pvt_v2_backbone": "pvt_v2",
+    # the one-stage zoo's backbones, features erep3..5 / c3..c5
+    "build_efficientrep_backbone": "efficientrep",
+    "build_efficientrep_tiny_backbone": "efficientrep",
+    "build_yolov5_backbone": "yolov5",
+}
+
+# builders of a backbone that ``AnchorYOLO`` takes built, by config name
+_BACKBONE_BUILDERS = {
+    "build_swin_transformer_backbone": build_swin_transformer_backbone,
+    "build_pvt_v2_backbone": build_pvt_v2_backbone,
+    "build_efficientrep_backbone": build_efficientrep_backbone,
+    "build_efficientrep_tiny_backbone": build_efficientrep_tiny_backbone,
+    "build_yolov5_backbone": build_yolov5_backbone,
 }
 
 
@@ -236,23 +272,25 @@ def _backbone_type(cfg: AnchorYoloConfig) -> str:
 
 def _backbone(cfg: AnchorYoloConfig):
     """A built ResNet (``cfg.resnet``, from ``MODEL.RESNETS``), Swin
-    (``MODEL.SWIN``) or PVTv2 (``MODEL.PVT``) for those builders, else None
-    (``AnchorYOLO`` builds its darknet)."""
-    kind = _backbone_type(cfg)
-    if kind.startswith("resnet"):
+    (``MODEL.SWIN``), PVTv2 (``MODEL.PVT``), EfficientRep or the YOLOv5
+    backbone for those builders, as the JAX builder takes any registered
+    backbone, else None (``AnchorYOLO`` builds its darknet)."""
+    if _backbone_type(cfg).startswith("resnet"):
         return ResNet(cfg.resnet)
-    if kind == "swin":
-        return build_swin_transformer_backbone(cfg)
-    if kind == "pvt_v2":
-        return build_pvt_v2_backbone(cfg)
-    return None
+    builder = _BACKBONE_BUILDERS.get(cfg.backbone)
+    return None if builder is None else builder(cfg)
 
 
 def _finish(model: AnchorYOLO, device, seed: int) -> AnchorYOLO:
     """Weights from ``seed`` (drawn on the CPU, so that every device starts
-    from the same numbers), on ``device``, channels_last, eval mode."""
+    from the same numbers), on ``device``, channels_last, eval mode; with
+    PP-YOLO's PAN, its DropBlocks' generator on ``device`` seeded with
+    ``seed``."""
     init_weights_(model, torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last)
+    if isinstance(model.neck, PPYOLOPAN):
+        model.neck.generator = torch.Generator(
+            device=torch.device(device)).manual_seed(seed)
     return model.eval()
 
 
@@ -283,10 +321,18 @@ def build_yolo(cfg: AnchorYoloConfig, device="cuda",
 
 
 @META_ARCH_REGISTRY.register(name="YOLOV5")
-def build_yolov5(cfg: AnchorYoloConfig, device="cuda", seed: int = 0):
-    raise NotImplementedError(
-        "YOLOV5 needs its own backbone (backbones/yolov5.py), not ported "
-        "yet (ROADMAP.md Queue A.8)")
+def build_yolov5(cfg: AnchorYoloConfig, device="cuda",
+                 seed: int = 0) -> AnchorYOLO:
+    """YOLOV5 (JAX :261): the YOLOv5 backbone of ``width_mul``'s size,
+    YOLOPAFPN on c3/c4/c5, the 3x3-tower head, SiLU. It trains with the
+    ratio target builder and serves with the objectness gate
+    (``anchor_yolo_postprocess`` variant ``yolov5``)."""
+    dtype = _dtype(cfg)
+    return _finish(AnchorYOLO(
+        num_classes=cfg.num_classes, anchors=cfg.anchors,
+        backbone=build_yolov5_backbone(cfg), neck_type="pafpn",
+        in_features=("c3", "c4", "c5"), width_mul=cfg.width_mul,
+        depth_mul=cfg.depth_mul, act="silu", dtype=dtype), device, seed)
 
 
 @META_ARCH_REGISTRY.register(name="YOLOV7P")

@@ -24,8 +24,16 @@ maps) and YOLOX-KPTS (``map_yolox_kpts_torch_name``): a window attention's
 ``relative_position_bias_table`` takes flax's ``rel_pos_bias``, its
 ``relative_position_index`` (a buffer the model computes) stays as the
 template holds it, and a patch merging's norm and reduction go from flax's
-channel order into the reference's (``swin_merge_perm``). The flax tree is
-nested dicts of numpy arrays, so no JAX is needed here.
+channel order into the reference's (``swin_merge_perm``). YOLOv6
+(``map_yolov6_torch_name``: EfficientRep, RepPAN, EffiDeHead), YOLOF
+(``map_yolof_torch_name``), the YOLOv5 backbone and the BiFPN and PP-YOLO
+PAN necks (through ``map_anchor_yolo_torch_name``) take copies of the JAX
+maps; a transposed convolution's kernel (RepPAN's ``upsample_transpose``)
+goes from flax's ``[kH, kW, I, O]`` to torch's ``[I, O, kH, kW]`` flipped
+in both spatial axes (flax's ``ConvTranspose`` does not flip its kernel,
+torch's ``ConvTranspose2d`` computes with the flipped one), and a BiFPN
+node's ``edge_weights`` is the flax parameter ``cell{r}_fnode{i}_edge``.
+The flax tree is nested dicts of numpy arrays, so no JAX is needed here.
 """
 
 from __future__ import annotations
@@ -176,13 +184,18 @@ def map_anchor_yolo_torch_name(name: str,
     """Translate a key of the port's ``AnchorYOLO`` (``models/meta_arch/
     yolov7.py``) into the flax path of the JAX ``AnchorYOLO``, by prefix:
     ``backbone.`` through the map of ``backbone_type`` (``darknet53``,
-    ``cspdarknet53``, ``cspdarknetx``, ``resnet``, ``resnet_vd``, ``swin``
-    or ``pvt_v2``, whose names overlap, so the caller says which),
-    ``neck.`` through the YOLOFPN map or the YOLOX one (YOLOPAFPN),
+    ``cspdarknet53``, ``cspdarknetx``, ``resnet``, ``resnet_vd``, ``swin``,
+    ``pvt_v2``, ``yolov5`` or ``efficientrep``, whose names overlap, so
+    the caller says which), ``neck.`` through the BiFPN map, the YOLOFPN map or the YOLOX
+    one (YOLOPAFPN; PP-YOLO's PAN has the flax names),
     ``head.towers.{l}`` -> ``head/tower_{l}`` and ``head.preds.{l}`` ->
     ``head/pred_{l}``."""
     prefix, _, rest = name.partition(".")
     if prefix == "backbone":
+        if backbone_type == "yolov5":
+            return ("backbone",) + map_yolov5_torch_name(rest)
+        if backbone_type == "efficientrep":
+            return ("backbone",) + map_efficientrep_torch_name(rest)
         if backbone_type in TRANSFORMER_MAPS:
             return ("backbone",) + TRANSFORMER_MAPS[backbone_type](rest)
         if backbone_type in ("resnet", "resnet_vd"):
@@ -194,6 +207,8 @@ def map_anchor_yolo_torch_name(name: str,
                   else map_darknet_torch_name)
         return ("backbone",) + mapper(rest)
     if prefix == "neck":
+        if re.match(r"^(resample|cell)\.", rest):
+            return ("neck",) + map_bifpn_torch_name(rest)
         if re.match(r"^(out\d|spp)", rest):
             return ("neck",) + map_yolofpn_torch_name(rest)
         return map_yolox_torch_name(name)
@@ -417,6 +432,187 @@ def map_pvt_v2_torch_name(name: str) -> Tuple[str, ...]:
     return tuple(name.replace(".", "/").split("/"))
 
 
+def _rep_leaf(rest: str) -> str:
+    """A RepVGG block's inner name -> its flax module name
+    (``rbr_dense.conv`` -> ``rbr_dense_conv``, ``rbr_identity`` ->
+    ``rbr_identity_bn``)."""
+    if rest == "rbr_identity":
+        return "rbr_identity_bn"
+    return rest.replace(".", "_")
+
+
+def map_efficientrep_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference EfficientRep keys (``stem``, ``ERBlock_{i}.0`` the down
+    block, ``ERBlock_{i}.1`` the RepBlock's ``conv1`` / ``block.{j}``,
+    ``ERBlock_5.2.cv{1,2}`` the SimSPPF) -> the flax paths (``stem``,
+    ``down{i}``, ``stage{i}/rep_{j}``, ``sppf/conv{1,2}``); a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:120``."""
+    m = re.match(r"^stem\.(.*)$", name)
+    if m:
+        return ("stem", _rep_leaf(m.group(1)))
+    m = re.match(r"^ERBlock_(\d)\.0\.(.*)$", name)
+    if m:
+        return (f"down{m.group(1)}", _rep_leaf(m.group(2)))
+    m = re.match(r"^ERBlock_(\d)\.1\.conv1\.(.*)$", name)
+    if m:
+        return (f"stage{m.group(1)}", "rep_0", _rep_leaf(m.group(2)))
+    m = re.match(r"^ERBlock_(\d)\.1\.block\.(\d+)\.(.*)$", name)
+    if m:
+        lvl, j, rest = m.groups()
+        return (f"stage{lvl}", f"rep_{int(j) + 1}", _rep_leaf(rest))
+    m = re.match(r"^ERBlock_5\.2\.cv(\d)\.(conv|bn)$", name)
+    if m:
+        return ("sppf", f"conv{m.group(1)}", m.group(2))
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_reppan_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference RepPANNeck keys -> the flax paths (``reduce_layer{0,1}``
+    -> ``reduce{0,1}``, ``downsample{2,1}`` -> ``down{1,0}``,
+    ``upsample{i}.upsample_transpose`` -> ``upsample{i}``, ``Rep_{p4,...}``
+    -> ``rep_{p4,...}/rep_{j}``); a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:576``."""
+    simple = {
+        "reduce_layer0": "reduce0", "reduce_layer1": "reduce1",
+        "downsample2": "down1", "downsample1": "down0",
+    }
+    m = re.match(r"^(reduce_layer0|reduce_layer1|downsample2|downsample1)"
+                 r"\.(conv|bn)$", name)
+    if m:
+        return (simple[m.group(1)], m.group(2))
+    m = re.match(r"^upsample(\d)\.upsample_transpose$", name)
+    if m:
+        return (f"upsample{m.group(1)}",)
+    m = re.match(r"^Rep_([pn]\d)\.conv1\.(.*)$", name)
+    if m:
+        return (f"rep_{m.group(1)}", "rep_0", _rep_leaf(m.group(2)))
+    m = re.match(r"^Rep_([pn]\d)\.block\.(\d+)\.(.*)$", name)
+    if m:
+        return (f"rep_{m.group(1)}", f"rep_{int(m.group(2)) + 1}",
+                _rep_leaf(m.group(3)))
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_effidehead_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference EffiDeHead keys (``stems.{l}``, ``{cls,reg}_convs.{l}``,
+    ``{cls,reg,obj}_preds.{l}``) -> the flax paths (``stem_{l}``,
+    ``{cls,reg}_conv_{l}``, ``{cls,reg,obj}_pred_{l}``); a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:605``."""
+    m = re.match(r"^stems\.(\d)\.(conv|bn)$", name)
+    if m:
+        return (f"stem_{m.group(1)}", m.group(2))
+    m = re.match(r"^(cls|reg)_convs\.(\d)\.(conv|bn)$", name)
+    if m:
+        return (f"{m.group(1)}_conv_{m.group(2)}", m.group(3))
+    m = re.match(r"^(cls|reg|obj)_preds\.(\d)$", name)
+    if m:
+        return (f"{m.group(1)}_pred_{m.group(2)}",)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_yolov6_torch_name(name: str) -> Tuple[str, ...]:
+    """A key of the port's ``YOLOV6`` -> the flax path of the JAX model, by
+    prefix: ``backbone.`` through :func:`map_efficientrep_torch_name`,
+    ``neck.`` through :func:`map_reppan_torch_name`, ``head.`` through
+    :func:`map_effidehead_torch_name`."""
+    prefix, _, rest = name.partition(".")
+    sub = {"backbone": map_efficientrep_torch_name,
+           "neck": map_reppan_torch_name,
+           "head": map_effidehead_torch_name}.get(prefix)
+    if sub is None:
+        return tuple(name.split("."))
+    return (prefix,) + sub(rest)
+
+
+def map_yolov5_torch_name(name: str) -> Tuple[str, ...]:
+    """A key of the port's YOLOv5 backbone (the flax module names, YOLOX's
+    CSP inner names) -> the flax path: ``stage2_2.m.0.conv1.conv`` ->
+    ``stage2_2/m_0/conv1/conv``."""
+    part, _, rest = name.partition(".")
+    return tuple(f"{part}/{_csp_inner(rest)}".split("/")) if rest else (
+        part,)
+
+
+def map_bifpn_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference BiFPN keys -> the flax module names: ``resample.{L}.conv.
+    {conv,bn}`` (the extra levels), ``cell.{r}.fnode.{i}.combine.resample.
+    {off}.conv.{conv,bn}`` (an edge's resampling), ``cell.{r}.fnode.{i}.
+    after_combine.conv.{conv,bn,conv_dw,conv_pw}`` (a node's refinement);
+    a copy of ``yolov7_d2_tpu/utils/weight_port.py:1128``. The port adds
+    ``cell.{r}.fnode.{i}.combine`` -> ``cell{r}_fnode{i}_edge``, the flax
+    parameter its ``edge_weights`` is (the JAX ``port_bifpn_state_dict``
+    moves it by hand)."""
+    m = re.match(r"^resample\.(\d+)\.conv\.(conv|bn)$", name)
+    if m:
+        return (f"resample_{m.group(1)}_{m.group(2)}",)
+    m = re.match(r"^cell\.(\d+)\.fnode\.(\d+)\.combine\.resample\.(\d+)"
+                 r"\.conv\.(conv|bn)$", name)
+    if m:
+        r, i, off, leaf = m.groups()
+        return (f"cell{r}_fnode{i}_res{off}_{leaf}",)
+    m = re.match(r"^cell\.(\d+)\.fnode\.(\d+)\.after_combine\.conv"
+                 r"\.(conv_dw|conv_pw|conv|bn)$", name)
+    if m:
+        r, i, leaf = m.groups()
+        suffix = {"conv": "conv", "bn": "bn", "conv_dw": "dw",
+                  "conv_pw": "pw"}[leaf]
+        return (f"cell{r}_fnode{i}_conv_{suffix}",)
+    m = re.match(r"^cell\.(\d+)\.fnode\.(\d+)\.combine$", name)
+    if m:
+        return (f"cell{m.group(1)}_fnode{m.group(2)}_edge",)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_yolof_encoder_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference DilatedEncoder keys -> the flax paths (``lateral_conv`` /
+    ``lateral_norm`` -> ``lateral_conv`` / ``lateral_bn``,
+    ``dilated_encoder_blocks.{i}.conv{1,2,3}.{0 conv, 1 norm}`` ->
+    ``b{i}_{reduce,dilated,project}_{conv,bn}``); a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:1064``."""
+    table = {
+        "lateral_conv": ("lateral_conv",), "lateral_norm": ("lateral_bn",),
+        "fpn_conv": ("fpn_conv",), "fpn_norm": ("fpn_bn",),
+    }
+    if name in table:
+        return table[name]
+    m = re.match(r"^dilated_encoder_blocks\.(\d+)\.conv(\d)\.(\d)$", name)
+    if m:
+        i, k, j = m.groups()
+        part = {"1": "reduce", "2": "dilated", "3": "project"}[k]
+        leaf = {"0": "conv", "1": "bn"}[j]
+        return (f"b{i}_{part}_{leaf}",)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_yolof_decoder_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference Decoder keys -> the flax paths (``{cls,bbox}_subnet.{n}``
+    (conv, norm, act) triplets -> ``{cls,reg}_{n // 3}_{conv,bn}``; the
+    predictions keep their names); a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:1083``."""
+    m = re.match(r"^(cls|bbox)_subnet\.(\d+)$", name)
+    if m:
+        kind, idx = m.group(1), int(m.group(2))
+        i, j = idx // 3, idx % 3
+        pre = "cls" if kind == "cls" else "reg"
+        leaf = {0: "conv", 1: "bn"}[j]
+        return (f"{pre}_{i}_{leaf}",)
+    if name in ("cls_score", "bbox_pred", "object_pred"):
+        return (name,)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_yolof_torch_name(name: str) -> Tuple[str, ...]:
+    """A key of the port's ``YOLOF`` -> the flax path of the JAX model:
+    ``backbone.`` through :func:`map_resnet_torch_name`, ``encoder.`` and
+    ``decoder.`` through the two YOLOF maps."""
+    prefix, _, rest = name.partition(".")
+    if prefix == "encoder":
+        return ("encoder",) + map_yolof_encoder_torch_name(rest)
+    if prefix == "decoder":
+        return ("decoder",) + map_yolof_decoder_torch_name(rest)
+    return map_resnet_torch_name(name)
+
+
 # the transformer backbones' maps, by the models' ``backbone_type``
 TRANSFORMER_MAPS = {"swin": map_swin_torch_name,
                     "pvt_v2": map_pvt_v2_torch_name}
@@ -451,6 +647,15 @@ def map_yolox_kpts_torch_name(name: str,
 
 
 _QKV = ("query", "key", "value")
+# the transposed convolutions of the port (RepPAN's upsamples)
+_CONV_TRANSPOSE = re.compile(r"(^|\.)upsample_transpose$")
+
+
+def conv_transpose_from_flax(kernel: np.ndarray) -> np.ndarray:
+    """flax ``ConvTranspose`` kernel [kH, kW, I, O] -> the torch
+    ``ConvTranspose2d`` weight [I, O, kH, kW] that computes the same map:
+    flax applies the kernel as it is, torch its spatial flip."""
+    return np.transpose(np.asarray(kernel)[::-1, ::-1], (2, 3, 0, 1))
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], Any]:
@@ -520,7 +725,9 @@ def jax_to_torch_state_dict(
         elif leaf == "relative_position_bias_table":
             coll, candidates = "params", (path + ("rel_pos_bias",),)
         else:
-            coll, candidates = "params", (path + (leaf,),)
+            # a raw parameter: a leaf of its own name, or the flax leaf at
+            # the module's path (BiFPN's ``edge_weights``)
+            coll, candidates = "params", (path + (leaf,), path)
         found = [c for c in candidates if c in trees[coll]]
         if not found:
             raise KeyError(f"{key}: no flax leaf among "
@@ -532,6 +739,8 @@ def jax_to_torch_state_dict(
                 value = value.T
             elif value.ndim == 3:    # attention's out kernel [H, hd, E]
                 value = value.reshape(-1, value.shape[-1]).T
+            elif _CONV_TRANSPOSE.search(module):
+                value = conv_transpose_from_flax(value)
             else:
                 value = np.transpose(value, (3, 2, 0, 1))
         if _SWIN_MERGE.search(module):
