@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port's YOLOX-s serving path, training step,
 training CLI and multi-GPU training, of the anchor-YOLO family's serving
 and training, of SparseInst's and of DETR's and AnchorDETR's serving,
-training and CLI, of YOLOX-KPTS's serving, training and eval, and of the
-one-stage box detectors' (YOLOv5, YOLOv6, YOLOF, BiFPN and PAN necks)
-serving and training, on one CUDA card.
+training, CLI and multi-GPU training, of YOLOX-KPTS's serving, training
+and eval, of the one-stage box detectors' (YOLOv5, YOLOv6, YOLOF, BiFPN
+and PAN necks) and of YOLOV7 on Res2Net serving and training, and of the
+repeatability of a training step, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -142,8 +143,42 @@ set to 0 just before it and read just after:
   Its launches are added to the normalize, normalize_yolof, NMS and
   GridMask entries.
 
-``python3 chip_smoke.py --nccl`` runs (c) alone, on a machine of 2 or more
-cards.
+* C.14 (``c14_phase``): the bare float32 step of YOLOX-s 640, SparseInst
+  R-50 640 and DETR R-50 800 (dropout 0), 4 images, run twice from the same
+  weights and batch, every module-output and parameter gradient compared
+  in the backward's order: the first that differs is logged with the
+  module whose gradient came just before it; then twice more with cuDNN's
+  deterministic algorithms (and, for DETR, the math backend of
+  ``scaled_dot_product_attention``), where every gradient and the weights
+  after the step must be bitwise equal;
+* multi-GPU SparseInst and DETR (section 17): SparseInst R-50 at 640 and
+  DETR R-50 at 800 (dropout 0), full depth and width: (a) two gloo ranks
+  on one card (``parallel.dryrun.train_steps``, DDP, the global count in
+  the loss), the float32 step, 2 images a rank for 3 steps, against one
+  process on the same 4 images taking the ranks' weights and assignments
+  (the global ``num_inst`` / ``num_boxes`` equal, loss shares and gradient
+  norm within 1e-3, ranks bitwise equal, launches a rank step); (b)
+  ``train_inseg`` (blend mosaic, 16 images) and ``train_transformer`` (crop
+  branch, 8 images) for 6 steps inside an NCCL group of 1 against no
+  group (losses within 1e-3, both ms-a-step medians), ``train_inseg
+  --eval-only`` on rank 0; (c) ``--num-gpus N`` through each CLI where 2
+  or more cards are visible (logged as skipped on one card). (b)'s
+  normalize launches are added to the ``normalize_sparseinst`` and
+  ``normalize_detr`` entries;
+* YOLOV7 on Res2Net-50 (section 18, ``anchor_yolo_phase`` on
+  ``configs/coco/r2_50.yaml``, full depth and width, raw pixels through
+  the normalize kernel's identity form): serving at 1, 8 and 128 images
+  (normalize and NMS kernels, the kernel path's ``Detections`` equal to
+  the plain path's at 128), the f32 outputs on the card against the CPU at
+  128 px within 1e-4 of the max; 13 steps of 16 images in
+  ``make_packed_photo_step`` with mixup and GridMask on; one f32 step
+  against the CPU with the same foreground count; ``r2next_50.yaml``,
+  ``r2_50_l.yaml`` (768 px) and ``tl/res2net_bifpn.yaml`` one request and
+  one step each. Its launches are added to the normalize, NMS and
+  GridMask entries.
+
+``python3 chip_smoke.py --nccl`` runs (c) of sections 10 and 17 alone, on a
+machine of 2 or more cards.
 
 Output: progress lines, then the card's name and power limit, a JSON line
 of the kernels (times, launches on the path, bound, plain and library
@@ -858,6 +893,107 @@ def sync_phase(dev, card: str, cfg, world: int = 2,
     return batches, heads, [rec["outputs"] for rec in ranks]
 
 
+def backward_trace(state, train_step, batch) -> dict:
+    """One train step of ``state`` on ``batch`` with every module output's
+    gradient and every parameter's recorded in the order the backward
+    computes them (tensor hooks: a tensor's gradient is whole once every
+    consumer's backward has run): ``{"outputs": [(module name, grad)],
+    "params": [(name, grad)], "metrics": {...}, "weights": {name: value}}``,
+    the gradients cloned on the card."""
+    model = state.model
+    outputs, params, handles = [], [], []
+
+    def on_output(name):
+        def hook(module, args, out):
+            tensors = (out.values() if isinstance(out, dict) else
+                       out if isinstance(out, (tuple, list)) else (out,))
+            for j, t in enumerate(tensors):
+                if isinstance(t, torch.Tensor) and t.requires_grad:
+                    t.register_hook(lambda g, key=f"{name}[{j}]":
+                                    outputs.append((key, g.detach().clone())))
+        return hook
+
+    for name, module in model.named_modules():
+        handles.append(module.register_forward_hook(
+            on_output(name or "model")))
+    for name, p in model.named_parameters():
+        handles.append(p.register_post_accumulate_grad_hook(
+            lambda p, name=name: params.append((name, p.grad.detach()
+                                                .clone()))))
+    try:
+        _, metrics = train_step(state, batch)
+    finally:
+        for h in handles:
+            h.remove()
+    return {"outputs": outputs, "params": params,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "weights": {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}}
+
+
+def trace_gaps(a: dict, b: dict) -> dict:
+    """Where two :func:`backward_trace` runs of the same step part: the
+    first module-output gradient (in the backward's order) that is not
+    bitwise equal, the module whose gradient the backward computed just
+    before it, the first parameter gradient that differs, their largest
+    differences over their largest magnitude, and how many of each
+    differ."""
+    def first(xs, ys):
+        names = [n for n, _ in xs]
+        if names != [n for n, _ in ys]:
+            raise AssertionError("the two runs' backwards took other orders")
+        bad = [i for i, ((_, x), (_, y)) in enumerate(zip(xs, ys))
+               if not torch.equal(x, y)]
+        if not bad:
+            return None, None, 0.0, 0
+        i = bad[0]
+        x, y = xs[i][1].float(), ys[i][1].float()
+        rel = float((x - y).abs().max() / x.abs().max().clamp(min=1e-30))
+        return names[i], (names[i - 1] if i else None), rel, len(bad)
+
+    out_name, out_prev, out_rel, out_n = first(a["outputs"], b["outputs"])
+    par_name, _, par_rel, par_n = first(a["params"], b["params"])
+    weights_equal = all(torch.equal(v, b["weights"][k])
+                        for k, v in a["weights"].items())
+    return {"output": out_name, "before": out_prev, "output_gap": out_rel,
+            "outputs_differ": out_n, "outputs": len(a["outputs"]),
+            "param": par_name, "param_gap": par_rel, "params_differ": par_n,
+            "params": len(a["params"]), "weights_equal": weights_equal,
+            "metrics_equal": a["metrics"] == b["metrics"]}
+
+
+def repeat_phase(dev, card: str, what: str, build_fn, batch) -> dict:
+    """C.14: the same train step twice, each from a fresh
+    ``build_fn() -> (state, train_step)`` (the same seeded weights) on the
+    same ``batch``; logs and returns :func:`trace_gaps`: whether the
+    gradients and the weights after the step are bitwise equal, else the
+    first gradient that differs."""
+    runs = []
+    for _ in range(2):
+        state, train_step = build_fn()
+        runs.append(backward_trace(state, train_step, batch))
+        del state, train_step
+    gaps = trace_gaps(*runs)
+    del runs
+    torch.cuda.empty_cache()
+    if gaps["outputs_differ"] == 0 and gaps["params_differ"] == 0:
+        log(f"C.14 {what} on [{card}]: two runs of the step from the same "
+            f"weights and batch: all {gaps['outputs']} module-output and "
+            f"{gaps['params']} parameter gradients bitwise equal; weights "
+            f"after the step equal: {gaps['weights_equal']}")
+    else:
+        log(f"C.14 {what} on [{card}]: two runs of the step part at the "
+            f"gradient of {gaps['output']} ({gaps['output_gap']:.2e} of its "
+            f"max; the backward computed {gaps['before']} just before it, "
+            f"bitwise equal), {gaps['outputs_differ']} of "
+            f"{gaps['outputs']} module-output gradients differ; the first "
+            f"parameter gradient to differ is {gaps['param']} "
+            f"({gaps['param_gap']:.2e}), {gaps['params_differ']} of "
+            f"{gaps['params']}; metrics equal: {gaps['metrics_equal']}, "
+            f"weights equal: {gaps['weights_equal']}")
+    return gaps
+
+
 def sync_bn_phase(dev, card: str, world: int = 2,
                   backend: str = "gloo") -> None:
     """``SyncBatchNorm2d`` alone on CUDA tensors (its fused path), ``world``
@@ -1204,23 +1340,130 @@ def check_train_metrics(metrics, what: str) -> None:
             raise AssertionError(f"{what} step {i}: no foreground anchor")
 
 
+ANCHOR_OTHERS = (("YOLO", "darknet53.yaml", {}),
+                 ("YOLOV7P", "yolov7.yaml", {"meta_architecture": "YOLOV7P"}),
+                 ("YOLOV7P r50.yaml", "r50.yaml", {}))
+RES2NET_OTHERS = (("YOLOV7 r2next_50.yaml", "r2next_50.yaml", {}),
+                  ("YOLOV7 r2_50_l.yaml", "r2_50_l.yaml", {}),
+                  ("YOLOV7 tl/res2net_bifpn.yaml", "../tl/res2net_bifpn.yaml",
+                   {}))
+
+
+def photo_step(cfg, where, batch, draws, dtype=torch.float32):
+    """One train step of ``build_system(cfg)`` on ``where`` (weights of
+    ``SEED``, TF32 off on the card) on ``batch`` after
+    ``DevicePhotometric``'s ``draws``, its model in ``dtype``: (metrics as
+    floats, each parameter's gradient in float64 on the CPU). The
+    gradients are read just before the optimizer's update: on CUDA
+    tensors torch's SGD takes its foreach path, whose Nesterov momentum
+    adds into the gradients of the groups without weight decay in place
+    (x1.9 at the first step), where its CPU path leaves them."""
+    import warnings
+
+    from yolov7_d2_tpu_torch.data.device_aug import DevicePhotometric
+    from yolov7_d2_tpu_torch.engine import build_system
+
+    if dtype != torch.float32:
+        cfg = dataclasses.replace(cfg, ema=False)
+    _, state, step, _ = build_system(cfg, device=where, seed=SEED)
+    if dtype != torch.float32:
+        state.model.to(dtype)
+        state.model.dtype = dtype
+    grads = {}
+    state.optimizer.register_step_pre_hook(lambda *_: grads.update(
+        {n: p.grad.detach().double().cpu()
+         for n, p in state.model.named_parameters() if p.grad is not None}))
+    b = DevicePhotometric(cfg).apply(
+        {k: v.to(where) for k, v in batch.items()}, draws)
+    with warnings.catch_warnings():
+        # autocast has no float64 form and stands aside, with a warning
+        warnings.simplefilter("ignore")
+        _, m = step(state, b)
+    return {k: float(v) for k, v in m.items()}, grads
+
+
+def gradient_gaps(got: dict, want: dict) -> tuple:
+    """(the whole gradient's distance from ``want``'s over its norm, the
+    parameter farthest from ``want``'s relative to its own norm, that
+    relative distance)."""
+    if got.keys() != want.keys():
+        raise AssertionError("the two steps give gradients to other "
+                             f"parameters: {sorted(got.keys() ^ want.keys())}")
+    whole = math.sqrt(sum(float((got[n] - want[n]).pow(2).sum())
+                          for n in want))
+    norm = math.sqrt(sum(float(want[n].pow(2).sum()) for n in want))
+    rel, worst = max((float((got[n] - want[n]).norm())
+                      / max(float(want[n].norm()), 1e-30), n) for n in want)
+    return whole / norm, worst, rel
+
+
+def float64_step_check(dev, card: str, what: str, cfg, batch, draws,
+                       card_g: dict, cpu_g: dict, fmt) -> None:
+    """Section 18 (b): Res2Net's float32 step is ill-conditioned at 128
+    px (its train-mode BatchNorms, about 80 deep, amplify float32 rounding:
+    the CPU's own float32 gradient is some 5% from its float64 one in the
+    stem's convolutions, which hold most of the gradient norm), so no
+    float32 card-vs-CPU bound on the gradient can tell a fault from
+    rounding. The same step in float64 on the card (cuDNN's float64
+    convolutions) and on the CPU holds the backward of every module
+    instead: the loss terms and the gradient norm within 1e-6 relative,
+    every parameter's gradient within 1e-5 of its norm. Two float64 CPU
+    runs at other thread counts agree to 1.4e-9 a parameter, and 1e-7
+    noise on the head's output gradient (the loss stays float32) moves a
+    parameter's by at most 3.7e-7. Logs the float32 gradients' distances
+    from the float64 CPU one and the parameter that parts the float32
+    card and CPU most."""
+    ref_m, ref_g = photo_step(cfg, "cpu", batch, draws, torch.float64)
+    got_m, got_g = photo_step(cfg, dev, batch, draws, torch.float64)
+    log(f"{what} float64 train step, card vs CPU: " + ", ".join(
+        f"{k} {got_m[k]:.10g} / {ref_m[k]:.10g}" for k in fmt))
+    card32, _, _ = gradient_gaps(card_g, ref_g)
+    cpu32, _, _ = gradient_gaps(cpu_g, ref_g)
+    _, worst32, rel32 = gradient_gaps(card_g, cpu_g)
+    whole, worst, rel = gradient_gaps(got_g, ref_g)
+    log(f"{what} gradient against the float64 CPU step on [{card}]: "
+        f"float32 card {card32:.3e}, float32 CPU {cpu32:.3e} of its norm; "
+        f"float32 card vs CPU farthest at {worst32} ({rel32:.3e} of its "
+        f"norm); float64 card {whole:.3e} of the norm, farthest at {worst} "
+        f"({rel:.3e} of its norm)")
+    if got_m["num_fg"] != ref_m["num_fg"]:
+        raise AssertionError(f"{what} float64: fg count differs")
+    for k in ("total_loss", "loss_box", "loss_obj", "loss_cls",
+              "grad_norm"):
+        if abs(got_m[k] - ref_m[k]) > 1e-6 * abs(ref_m[k]):
+            raise AssertionError(f"{what} float64: {k} differs between the "
+                                 "card and the CPU")
+    if rel > 1e-5:
+        raise AssertionError(f"{what} float64: the gradient of {worst} is "
+                             f"{rel:.3e} of its norm from the CPU's")
+
+
 def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
                       requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
-                      size: int = SIZE, small: int = 128) -> None:
+                      size: int = SIZE, small: int = 128,
+                      yaml: str = "yolov7.yaml", label: str = "11",
+                      others=ANCHOR_OTHERS, f32_px=None, kernels=None,
+                      f64_step: bool = False) -> None:
     """Section 11: the anchor-YOLO family (``YOLOV7`` at 640 from
     ``configs/coco/yolov7.yaml``, full depth and width, bf16 compute over
     f32 weights from ``SEED``). (a) serving through ``build_model`` +
     ``anchor_yolo_postprocess`` (normalize and NMS kernels) at each request
     size, the kernel path against the plain one, the f32 card against the
-    CPU at bs 1; (b) ``build_system``'s step in ``make_packed_photo_step``
-    with GridMask (mode 1, prob 0.3) and mixup on, ``train_n`` images a step
-    for 13 steps, then one f32 step on the card against the CPU; (c) one
-    request and one train step each for ``YOLO`` (darknet53.yaml) and
-    ``YOLOV7P`` (CSP-Darknet53), and ``YOLOV7P`` on ResNet-50 from
-    ``configs/coco/r50.yaml`` (section 12 (f)). Each path's kernel launches
-    are counted from 0."""
+    CPU at bs 1 (at ``f32_px`` where given); (b) ``build_system``'s step in
+    ``make_packed_photo_step`` with GridMask (mode 1, prob 0.3) and mixup
+    on, ``train_n`` images a step for 13 steps, then one f32 step on the
+    card against the CPU; (c) one request and one train step each of
+    ``others`` (name, yaml under ``configs/coco``, fields replaced):
+    ``YOLO`` (darknet53.yaml) and ``YOLOV7P`` (CSP-Darknet53), and
+    ``YOLOV7P`` on ResNet-50 from ``configs/coco/r50.yaml`` (section 12
+    (f)). Section 18 runs the same on ``yaml`` ``r2_50.yaml`` (YOLOV7 on
+    Res2Net-50) with ``RES2NET_OTHERS``, and adds its launches to
+    ``kernels``'s normalize, NMS and GridMask entries. The f32 step's loss
+    terms are held within 1e-3 of the CPU's, and its gradient norm within
+    1e-3; with ``f64_step`` (section 18) the gradient is held in float64
+    instead (:func:`float64_step_check`). Each path's kernel launches are
+    counted from 0."""
     from yolov7_d2_tpu_torch.data.device_aug import (
-        DevicePhotometric,
         PhotoDraws,
         make_packed_photo_step,
     )
@@ -1229,10 +1472,11 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
     from yolov7_d2_tpu_torch.models.build import build_model
 
-    cfg = anchor_yolo_cfg("yolov7.yaml")
+    cfg = anchor_yolo_cfg(yaml)
+    name = f"YOLOV7 {yaml}" if yaml != "yolov7.yaml" else "YOLOV7"
     model = build_model(cfg, dev, SEED)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"(11a) YOLOV7 {size} from configs/coco/yolov7.yaml: "
+    log(f"({label}a) {name} {size} from configs/coco/{yaml}: "
         f"{n_params / 1e6:.3f} M parameters, {model.dtype}")
     batches = [letterboxed_batch(n, gen)[:, :size, :size].contiguous()
                for n in requests]
@@ -1240,15 +1484,17 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     build.reset_launches()
     for req in batches:
         _, dets = anchor_serve(model, cfg, req.to(dev))
-        log(f"(11a) request bs {req.shape[0]}: "
-            + check_detections(dets, req.shape[0], cfg, "YOLOV7 serving"))
+        log(f"({label}a) request bs {req.shape[0]}: "
+            + check_detections(dets, req.shape[0], cfg, f"{name} serving"))
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    log(f"(11a) YOLOV7 serving path launches: {launches}")
-    for name in ("normalize", "nms"):
-        if launches.get(name, 0) < len(requests):
-            raise AssertionError(f"the YOLOV7 serving path launched {name} "
-                                 f"{launches.get(name, 0)} times")
+    log(f"({label}a) {name} serving path launches: {launches}")
+    for kernel in ("normalize", "nms"):
+        if launches.get(kernel, 0) < len(requests):
+            raise AssertionError(f"the {name} serving path launched "
+                                 f"{kernel} {launches.get(kernel, 0)} times")
+        if kernels is not None:
+            kernels[kernel]["launches"] += launches[kernel]
 
     big = batches[-1].to(dev)
     head, with_kernel = anchor_serve(model, cfg, big)
@@ -1256,16 +1502,19 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     for field in ("valid", "classes", "boxes", "scores"):
         if not torch.equal(getattr(with_kernel, field),
                            getattr(with_plain, field)):
-            raise AssertionError(f"YOLOV7 bs {big.shape[0]}: Detections."
+            raise AssertionError(f"{name} bs {big.shape[0]}: Detections."
                                  f"{field} of the kernel path differ from "
                                  "the plain path")
-    log(f"(11a) bs {big.shape[0]}: kernel-path Detections equal the "
+    log(f"({label}a) bs {big.shape[0]}: kernel-path Detections equal the "
         f"plain-path ones ({int(with_kernel.valid.sum())} kept)")
 
     # f32 on the card against the CPU at bs 1 (same modules, layout and
     # normalize kernel as bf16; only the convolutions' sum order differs)
     f32 = dataclasses.replace(cfg, amp=False)
     one = batches[0]
+    if f32_px is not None:
+        f32 = dataclasses.replace(f32, input_size=(f32_px, f32_px))
+        one = one[:, :f32_px, :f32_px].contiguous()
     with torch.inference_mode():
         ref = build_model(f32, "cpu", SEED)(one)["outputs"]
         on_card = build_model(f32, dev, SEED)(one.to(dev))["outputs"].cpu()
@@ -1273,11 +1522,12 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     scale = float(ref.abs().max())
     err32 = float((on_card - ref).abs().max())
     err16 = float((bf16 - ref).abs().max())
-    log(f"(11a) bs 1 head outputs vs float32 on the CPU (max |ref| "
-        f"{scale:.4g}): float32 card max err {err32:.4g} "
-        f"({err32 / scale:.3g} of the max), bf16 {err16:.4g} on [{card}]")
+    log(f"({label}a) bs 1 head outputs at {one.shape[1]} px vs float32 on "
+        f"the CPU (max |ref| {scale:.4g}): float32 card max err "
+        f"{err32:.4g} ({err32 / scale:.3g} of the max), bf16 {err16:.4g} on "
+        f"[{card}]")
     if err32 > 1e-4 * scale or err16 > 5e-2 * scale:
-        raise AssertionError("YOLOV7 head outputs disagree with the CPU")
+        raise AssertionError(f"{name} head outputs disagree with the CPU")
 
     for req in batches:
         n = req.shape[0]
@@ -1287,7 +1537,7 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
             fwd = cuda_ms(lambda: model(x))
             head = model(x)
         tail = cuda_ms(lambda: anchor_tail(head, cfg))
-        log(f"YOLOV7 {size} bs {n} bf16 on [{card}]: e2e {e2e:.3f} ms = "
+        log(f"{name} {size} bs {n} bf16 on [{card}]: e2e {e2e:.3f} ms = "
             f"{n * 1000 / e2e:.1f} img/s; forward-only {fwd:.3f} ms; tail "
             f"{tail:.3f} ms")
     del model, batches, big, head, with_kernel, with_plain, x
@@ -1317,24 +1567,26 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     step_ms = (time.perf_counter() - t0) * 1e3 / ITERS
     launches = dict(build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"(11b) YOLOV7 training path launches: {launches}")
+    log(f"({label}b) {name} training path launches: {launches}")
     if launches.get("grid_mask", 0) < 1:
-        raise AssertionError("the YOLOV7 training path never launched "
+        raise AssertionError(f"the {name} training path never launched "
                              "grid_mask")
+    if kernels is not None:
+        kernels["grid_mask"]["launches"] += launches["grid_mask"]
     masked = sum(m["grid_masked"] for m in metrics)
     if masked < 1:
-        raise AssertionError("GridMask masked no image in YOLOV7 training")
-    check_train_metrics(metrics, "YOLOV7 train")
+        raise AssertionError(f"GridMask masked no image in {name} training")
+    check_train_metrics(metrics, f"{name} train")
     after = snapshot(state)
     for key in before:
         if all(torch.equal(a, b) for a, b in zip(before[key], after[key])):
-            raise AssertionError(f"YOLOV7 training moved no {key} tensor")
+            raise AssertionError(f"{name} training moved no {key} tensor")
     fmt = ("total_loss", "loss_box", "loss_obj", "loss_cls", "num_fg",
            "grad_norm")
     for i in (0, len(metrics) - 1):
-        log(f"(11b) YOLOV7 train step {i}: " + ", ".join(
+        log(f"({label}b) {name} train step {i}: " + ", ".join(
             f"{k} {float(metrics[i][k]):.4f}" for k in fmt))
-    log(f"(11b) YOLOV7 {size} train step bs {train_n} bf16 on [{card}]: "
+    log(f"({label}b) {name} {size} train step bs {train_n} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {train_n * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}); peak memory "
         f"{peak_gb:.3f} GB; {masked} of {train_n * len(metrics)} images "
@@ -1352,32 +1604,28 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
         grid_params=torch.tensor([[16, 8, 3, 5, 1], [12, 6, 2, 7, 0]],
                                  dtype=torch.int32),
         do_flip=torch.tensor([False, True]))
-    got = {}
-    for where in ("cpu", dev):
-        _, st, ts, _ = build_system(scfg, device=where, seed=SEED)
-        b = DevicePhotometric(scfg).apply(
-            {k: v.to(where) for k, v in sbatch.items()}, draws)
-        _, m = ts(st, b)
-        got[str(where)] = {k: float(v) for k, v in m.items()}
-    ref_m, card_m = got["cpu"], got[str(dev)]
-    log(f"(11b) YOLOV7 float32 train step at {small} px, card vs CPU: "
+    got = {where: photo_step(scfg, where, sbatch, draws)
+           for where in ("cpu", dev)}
+    (ref_m, ref_g), (card_m, card_g) = got["cpu"], got[dev]
+    log(f"({label}b) {name} float32 train step at {small} px, card vs CPU: "
         + ", ".join(f"{k} {card_m[k]:.6g} / {ref_m[k]:.6g}" for k in fmt))
     if card_m["num_fg"] != ref_m["num_fg"]:
-        raise AssertionError("YOLOV7 fg count differs between card and CPU")
-    for k in ("total_loss", "loss_box", "loss_obj", "loss_cls",
-              "grad_norm"):
+        raise AssertionError(f"{name} fg count differs between card and CPU")
+    for k in ("total_loss", "loss_box", "loss_obj", "loss_cls") + (
+            () if f64_step else ("grad_norm",)):
         if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
-            raise AssertionError(f"YOLOV7 {k} differs between the card and "
+            raise AssertionError(f"{name} {k} differs between the card and "
                                  "the CPU")
+    if f64_step:
+        float64_step_check(dev, card, f"({label}b) {name}", scfg, sbatch,
+                           draws, card_g, ref_g, fmt)
 
-    # ---- (c) the other two architectures: one request, one train step
-    for arch, ccfg in (
-            ("YOLO", anchor_yolo_cfg("darknet53.yaml")),
-            ("YOLOV7P", anchor_yolo_cfg(
-                "yolov7.yaml", meta_architecture="YOLOV7P")),
-            ("YOLOV7P r50.yaml", anchor_yolo_cfg("r50.yaml"))):
+    # ---- (c) the other configurations: one request, one train step
+    for arch, other, replace in others:
+        ccfg = anchor_yolo_cfg(other, **replace)
+        csize = ccfg.input_size[0]
         model = build_model(ccfg, dev, SEED)
-        req = letterboxed_batch(requests[1], gen)[:, :size, :size]
+        req = letterboxed_batch(requests[1], gen, csize)
         build.reset_launches()
         _, dets = anchor_serve(model, ccfg, req.contiguous().to(dev))
         torch.cuda.synchronize()
@@ -1389,7 +1637,7 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
         step = make_packed_photo_step(ccfg, train_step, seed=SEED)
         build.reset_launches()
         state, m = step(state, {k: v.to(dev) for k, v in train_batch(
-            train_n, gen, size).items()})
+            train_n, gen, csize).items()})
         torch.cuda.synchronize()
         train_launches = dict(build.LAUNCHES)
         check_train_metrics([m], arch)
@@ -1397,11 +1645,14 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
                                     ("normalize", "nms")),
                                    ("training", train_launches,
                                     ("grid_mask",))):
-            for name in names:
-                if got_l.get(name, 0) < 1:
+            for kernel in names:
+                if got_l.get(kernel, 0) < 1:
                     raise AssertionError(f"{arch} {path} never launched "
-                                         f"{name}")
-        log(f"(11c) {arch}: bs {req.shape[0]} {summary}, launches "
+                                         f"{kernel}")
+                if kernels is not None:
+                    kernels[kernel]["launches"] += got_l[kernel]
+        log(f"({label}c) {arch} at {csize}: bs {req.shape[0]} {summary}, "
+            "launches "
             f"{serve_launches}; one train step of {train_n}: total loss "
             f"{float(m['total_loss']):.4f}, num_fg {float(m['num_fg']):.0f},"
             f" launches {train_launches}")
@@ -2961,6 +3212,400 @@ def onestage_phase(dev, card: str, gen: torch.Generator, kernels: dict,
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def deterministic_library(sdpa_math: bool = False):
+    """Within the block, cuDNN takes deterministic algorithms
+    (``torch.backends.cudnn.deterministic``) and, with ``sdpa_math``,
+    ``scaled_dot_product_attention`` its math backend: the library
+    kernels that :func:`c14_phase` names."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        with (sdpa_kernel(SDPBackend.MATH) if sdpa_math
+              else contextlib.nullcontext()):
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def c14_families(dev, gen: torch.Generator, amp: bool = False) -> list:
+    """Section 16's three training steps, each ``(name, build_fn, batch,
+    sdpa)``: ``build_fn() -> (state, train_step)`` builds the step afresh
+    with the weights of ``SEED``; ``sdpa`` says that it attends through
+    ``scaled_dot_product_attention``. Float32, the bare step on 4 images:
+    YOLOX-s 640 (section 10 (a)), SparseInst R-50 640 and DETR R-50 800 at
+    dropout 0. With ``amp``, the bf16 recipe at its sections' batches
+    (``tools/step_repeat.py`` times them): YOLOX-s 16 images with GridMask
+    (``make_packed_photo_step``), SparseInst 16, DETR 8."""
+    from yolov7_d2_tpu_torch.config import YoloxConfig
+    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
+    from yolov7_d2_tpu_torch.engine import build_system, build_yolox_system
+
+    ycfg = dataclasses.replace(YoloxConfig(), amp=amp, grid_mask=amp)
+
+    def yolox():
+        _, state, step = build_yolox_system(ycfg, device=dev, seed=SEED)
+        return state, (make_packed_photo_step(ycfg, step, seed=SEED) if amp
+                       else step)
+
+    def system(cfg):
+        def build_fn():
+            _, state, step, _ = build_system(cfg, device=dev, seed=SEED)
+            return state, step
+        return build_fn
+
+    n = (16, 16, 8) if amp else (4, 4, 4)
+    return [
+        ("YOLOX-s 640", yolox,
+         {k: v.to(dev) for k, v in train_batch(n[0], gen).items()}, False),
+        ("SparseInst R-50 640", system(sparseinst_cfg(amp=amp)),
+         inseg_batch(n[1], gen, dev), False),
+        ("DETR R-50 800", system(detr_cfg(DETR_MODELS[0][1], amp=amp,
+                                          dropout=0.0)),
+         detr_batch(n[2], gen, dev), True)]
+
+
+def c14_phase(dev, card: str) -> None:
+    """Section 16 (ROADMAP.md C.14): is a training step on the card
+    bitwise repeatable? For the bare float32 YOLOX-s 640 step of section 10
+    (a) (4 images), SparseInst R-50 at 640 and DETR R-50 at 800 at dropout
+    0 (4 images each), full depth and width, two runs of the step from the
+    same weights and batch (:func:`repeat_phase`): logged, with the first
+    gradient that differs and the module whose gradient the backward
+    computed just before it. Then the same two runs with the library
+    kernels named deterministic (cuDNN's algorithms; for DETR also
+    ``scaled_dot_product_attention``'s math backend in place of its
+    memory-efficient backward): every gradient and the weights after the
+    step must be bitwise equal, which holds what the port owns (the
+    bilinear resizes' fixed-order backward, ``sparseinst._resize``) and
+    shows that what still parts the default runs is those library
+    kernels."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    for what, build_fn, batch, sdpa in c14_families(dev, gen):
+        repeat_phase(dev, card, f"{what} float32", build_fn, batch)
+        with deterministic_library(sdpa):
+            gaps = repeat_phase(
+                dev, card, f"{what} float32, cuDNN deterministic"
+                + (", SDPA math backend" if sdpa else ""), build_fn, batch)
+        if gaps["outputs_differ"] or gaps["params_differ"] or \
+                not gaps["weights_equal"]:
+            raise AssertionError(f"C.14 {what}: two runs part with the "
+                                 "library kernels deterministic, at "
+                                 f"{gaps['output']}")
+        del batch
+        torch.cuda.empty_cache()
+
+
+# the multi-GPU checks of SparseInst and DETR (section 17): name and the
+# loss's global count
+FAMILY_RANKS = (("SparseInst", "num_inst"), ("DETR", "num_boxes"))
+
+
+def family_cfg(family: str, **replace):
+    """SparseInst R-50 at 640 or DETR R-50 at 800 (dropout 0), full depth
+    and width, fields replaced."""
+    if family == "SparseInst":
+        return sparseinst_cfg(**replace)
+    return detr_cfg(DETR_MODELS[0][1], dropout=0.0, **replace)
+
+
+def family_batch(family: str, n: int, gen: torch.Generator, size=None):
+    """A training batch of ``n`` images on the CPU: SparseInst's masks at
+    640 or DETR's boxes at 800."""
+    if family == "SparseInst":
+        return inseg_batch(n, gen, "cpu", size or SIZE)
+    return detr_batch(n, gen, "cpu", size or DETR_SIZE)
+
+
+def assignments_apart(a, b) -> int:
+    """How many gts two ``(pred_of_gt, ok)`` assign apart."""
+    return int(((a[1] != b[1]) | (a[1] & (a[0] != b[0]))).sum())
+
+
+def family_sync_phase(dev, card: str, family: str, world: int = 2,
+                      backend: str = "gloo", steps: int = 3,
+                      size=None) -> None:
+    """Section 17 (a), or (c) over NCCL: ``world`` ranks of ``family``'s
+    bare float32 step (TF32 off, 2 images a rank, ``steps`` steps;
+    ``parallel.dryrun.train_steps``: DDP, the global count in the loss)
+    against the one-process step on the same images, each step from the
+    ranks' weights and with the ranks' assignments (``batch["match"]``,
+    their matches merged): the global count (SparseInst's ``num_inst``,
+    DETR's ``num_boxes``) equal on every rank and in the one process, the
+    summed loss shares and the gradient norm within 1e-3 relative, the
+    ranks' weights bitwise equal. Logs how many assignments the one
+    process's own matcher makes apart (its step under its own matcher,
+    not held) and the CUDA kernels a rank's step launches."""
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.parallel.dryrun import (
+        merge_matches,
+        train_steps,
+    )
+    from yolov7_d2_tpu_torch.parallel.launch import launch
+    from yolov7_d2_tpu_torch.utils.profiling import count_cuda_launches
+
+    label = "(17a)" if backend == "gloo" else "(17c)"
+    count = dict(FAMILY_RANKS)[family]
+    kw = {} if size is None else {"input_size": (size, size)}
+    cfg = family_cfg(family, amp=False, **kw)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    batches = [family_batch(family, 2 * world, gen, size)
+               for _ in range(steps)]
+    out = os.path.join(REPO, "build", "chip_smoke_family_ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    t0 = time.perf_counter()
+    try:
+        launch(train_steps, world, args=(
+            out, cfg, batches, str(dev) if backend == "gloo" else dev.type,
+            SEED, None, 1 if dev.type == "cuda" else None, False, True),
+            backend=backend)
+    finally:
+        del os.environ["NVIDIA_TF32_OVERRIDE"]
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
+             for r in range(world)]
+    shutil.rmtree(out, ignore_errors=True)
+
+    _, state, step, _ = build_system(cfg, device=dev, seed=SEED)
+    launches_one = None
+    for i, batch in enumerate(batches):
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        # DETR stacks its decoder levels: rows of levels x 2 images a rank
+        levels = ranks[0]["matches"][i][0].shape[0] // 2
+        merged = merge_matches([rec["matches"][i] for rec in ranks], levels)
+        state.model.load_state_dict(ranks[0]["weights"][i])
+        state.step = i
+        _, m_own = step(state, batch)
+        apart = assignments_apart(tuple(t.cpu() for t in state.match),
+                                  merged)
+        state.model.load_state_dict(ranks[0]["weights"][i])
+        state.step = i
+        batch["match"] = tuple(t.to(dev) for t in merged)
+        if i == 1 and dev.type == "cuda":
+            (state, m), launches_one = count_cuda_launches(
+                lambda: step(state, batch))
+        else:
+            state, m = step(state, batch)
+        ms = [rec["metrics"][i] for rec in ranks]
+        loss = sum(r["total_loss"] for r in ms)
+        gaps = {"total_loss": relative_gap(loss, float(m["total_loss"])),
+                "grad_norm": relative_gap(ms[0]["grad_norm"],
+                                          float(m["grad_norm"]))}
+        log(f"{label} {family} step {i}: {world} ranks / one process: "
+            f"total_loss {loss:.6g} / {float(m['total_loss']):.6g} "
+            f"({gaps['total_loss']:.2e}), grad_norm {ms[0]['grad_norm']:.6g}"
+            f" / {float(m['grad_norm']):.6g} ({gaps['grad_norm']:.2e}), "
+            f"{count} {ms[0][count]:.0f} / {float(m[count]):.0f}; auction "
+            f"rounds by rank {[int(r['match_iters']) for r in ms]}; the one "
+            f"process's own matcher makes {apart} of the ranks' "
+            f"{int(merged[1].sum())} matches otherwise (its loss "
+            f"{relative_gap(loss, float(m_own['total_loss'])):.2e} from the "
+            "ranks', not held)")
+        if any(r[count] != float(m[count]) for r in ms):
+            raise AssertionError(f"{label} {family} step {i}: the global "
+                                 f"{count} differs")
+        if len({r["grad_norm"] for r in ms}) != 1:
+            raise AssertionError(f"{label} {family} step {i}: the ranks' "
+                                 "gradient norms differ")
+        for key, gap in gaps.items():
+            if gap > 1e-3:
+                raise AssertionError(f"{label} {family} step {i}: {key} off "
+                                     f"by {gap:.2e} relative, above 1e-3")
+    for rec in ranks[1:]:
+        for name, v in ranks[0]["model"].items():
+            if not torch.equal(v, rec["model"][name]):
+                raise AssertionError(f"{label} {family}: the ranks differ "
+                                     f"in {name}")
+    if any(rec["step"] != steps for rec in ranks):
+        raise AssertionError(f"{label} {family}: the ranks took other than "
+                             f"{steps} steps")
+    where = ("on one card, host-paced over gloo and not a multi-GPU rate"
+             if backend == "gloo" else "over NCCL, one card each")
+    log(f"{label} {family} {world} {backend} ranks [{card}]: weights bitwise "
+        f"equal across the ranks after {steps} steps; CUDA kernel launches "
+        f"in step 1: one process {launches_one} ({2 * world} images), a "
+        f"rank {ranks[0]['metrics'][1].get('launches')} (2 images, DDP); "
+        f"{wall:.2f} s for the spawn, {steps} steps and the ranks' start-up, "
+        f"{where}")
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def family_cli_data(family: str, images: int):
+    """A synthetic mini-COCO (polygons for SparseInst) registered as the
+    family's dataset: (work dir, dataset name, the CLI module, its
+    yaml)."""
+    from yolov7_d2_tpu_torch import train_inseg, train_transformer
+    from yolov7_d2_tpu_torch.data.catalog import register_coco_instances
+
+    name = f"chip_smoke_ranks_{family.lower()}"
+    work = os.path.join(REPO, "build", name)
+    shutil.rmtree(work, ignore_errors=True)
+    js, img_dir = write_mini_coco(work, n=images,
+                                  segm=family == "SparseInst")
+    register_coco_instances(name, {}, js, img_dir)
+    if family == "SparseInst":
+        return work, name, train_inseg, SPARSEINST_YAML
+    return work, name, train_transformer, os.path.join(
+        DETR_DIR, DETR_MODELS[0][1])
+
+
+def family_cli_args(yaml: str, out: str, name: str, *flags, **opts):
+    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
+
+    argv = ["--config-file", yaml, *flags, "OUTPUT_DIR", out,
+            "DATASETS.TRAIN", f"('{name}',)", "DATASETS.TEST",
+            f"('{name}',)", "SEED", str(SEED)]
+    for k, v in opts.items():
+        argv += [k.replace("__", "."), v if isinstance(v, str) else repr(v)]
+    return default_argument_parser().parse_args(argv)
+
+
+def family_cli_phase(dev, card: str, family: str, kernels: dict,
+                     images: int = CLI_IMAGES, **opts) -> None:
+    """Section 17 (b): ``train_inseg`` (the blend mosaic) or
+    ``train_transformer`` (the crop branch) on a synthetic mini-COCO, 6
+    steps of the section's batch (16 images at 640, or 8 at 800; one mapper
+    thread), inside an NCCL group of 1 (DDP) and without a group: the
+    losses at step 6 within
+    1e-3 relative and both ms-a-step medians logged; ``train_inseg
+    --eval-only`` in the group, on rank 0 (``COCOMaskEvaluator``'s keys).
+    The group run's normalize launches are added to the family's entry of
+    ``kernels``."""
+    import torch.distributed as dist
+
+    from yolov7_d2_tpu_torch.data.catalog import DatasetCatalog
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.parallel.dist import init_distributed
+    from yolov7_d2_tpu_torch.parallel.launch import local_dist_url
+
+    steps = 6
+    work, name, cli, yaml = family_cli_data(family, images)
+    entry = ("normalize_sparseinst" if family == "SparseInst"
+             else "normalize_detr")
+    # one mapper thread: the mappers' threads share one generator, so that
+    # with more the two runs would draw other augmentations
+    opts = dict({"SOLVER.MAX_ITER": steps, "SOLVER.CHECKPOINT_PERIOD": steps,
+                 "DATALOADER.NUM_WORKERS": 1,
+                 "SOLVER.IMS_PER_BATCH": (TRAIN_BATCH if family ==
+                                          "SparseInst" else DETR_TRAIN_BATCH),
+                 **({"INPUT.MOSAIC.ENABLED": True} if family == "SparseInst"
+                    else {"INPUT.CROP.ENABLED": True})}, **opts)
+    runs = {}
+    try:
+        for group in (True, False):
+            out = os.path.join(work, "group" if group else "plain")
+            if group:
+                init_distributed("nccl", local_dist_url(), 1, 0)
+            try:
+                torch.cuda.synchronize()
+                build.reset_launches()
+                t0 = time.perf_counter()
+                trainer = cli.main(family_cli_args(yaml, out, name, **opts))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(build.LAUNCHES)
+                if (trainer.state.ddp is not None) != group:
+                    raise AssertionError(f"(17b) {family}: DDP built where "
+                                         "it should not, or not where it "
+                                         "should")
+                if group:
+                    if launches.get("normalize", 0) != steps:
+                        raise AssertionError(f"(17b) {family} launches "
+                                             f"{launches}")
+                    kernels[entry]["launches"] += launches["normalize"]
+                    if family == "SparseInst":
+                        t1 = time.perf_counter()
+                        results = cli.main(family_cli_args(
+                            yaml, out, name, "--eval-only", **opts))
+                        eval_s = time.perf_counter() - t1
+                        if "AP" not in results or "AR100" not in results:
+                            raise AssertionError(f"(17b) train_inseg "
+                                                 f"--eval-only: {results}")
+                        log(f"(17b) train_inseg --eval-only in the NCCL "
+                            f"group of 1, rank 0: {images} images in "
+                            f"{eval_s:.2f} s, AP {results['AP']:.4f}")
+            finally:
+                if group:
+                    dist.destroy_process_group()
+            latest = trainer.storage.latest()
+            if not all(math.isfinite(latest[k]) for k in latest):
+                raise AssertionError(f"(17b) {family}: {latest}")
+            runs[group] = (latest, trainer.storage.median("time_per_iter"),
+                           wall, launches)
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        DatasetCatalog.remove(name)
+        shutil.rmtree(work, ignore_errors=True)
+    (d, md, wd, ld), (p, mp, wp, _) = runs[True], runs[False]
+    keys = [k for k in d if "loss" in k and not k.startswith("aux")]
+    log(f"(17b) {cli.__name__.rsplit('.', 1)[-1]} step {steps}, NCCL world "
+        "1 / no group: " + ", ".join(f"{k} {d[k]:.6g} / {p[k]:.6g}"
+                                     for k in keys)
+        + f"; launches in the group {ld}")
+    for k in keys:
+        if relative_gap(d[k], p[k]) > 1e-3:
+            raise AssertionError(f"(17b) {family}: {k} differs from the run "
+                                 "without a group")
+    log(f"(17b) {family} CLI on [{card}], {opts['SOLVER.IMS_PER_BATCH']} "
+        f"images a step: time_per_iter median {md * 1e3:.3f} ms in an NCCL "
+        f"group of 1 (DDP) against {mp * 1e3:.3f} ms without a group: ratio "
+        f"{md / mp:.4f}; {steps} steps in {wd:.2f} s and {wp:.2f} s (builds "
+        "included)")
+
+
+def family_nccl_phase(dev, card: str, family: str,
+                      images: int = CLI_IMAGES, size=None, **opts) -> None:
+    """Section 17 (c): where two or more cards are visible, N of them (up to
+    4) over NCCL, one a rank: :func:`family_sync_phase`'s bare step against
+    one process, then ``--num-gpus N`` through the family's CLI, the
+    section's batch a rank, 6 steps; rank 0's metrics.json (one line, the
+    global count) and checkpoint checked (``size`` and ``opts``, config
+    keys with ``__`` for ``.``, override the section's). Logged as skipped
+    on one card."""
+    from yolov7_d2_tpu_torch.data.catalog import DatasetCatalog
+    from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        log(f"(17c) {family} on NCCL ranks: skipped, {n} CUDA card visible "
+            "(needs 2)")
+        return
+    family_sync_phase(dev, card, family, world=n, backend="nccl", size=size)
+    work, name, cli, yaml = family_cli_data(family, images)
+    count = dict(FAMILY_RANKS)[family]
+    per_rank = TRAIN_BATCH if family == "SparseInst" else DETR_TRAIN_BATCH
+    out = os.path.join(work, "nccl")
+    try:
+        t0 = time.perf_counter()
+        cli.main(family_cli_args(
+            yaml, out, name, "--num-gpus", str(n), **dict(dict(
+                SOLVER__MAX_ITER=6, SOLVER__CHECKPOINT_PERIOD=6,
+                SOLVER__IMS_PER_BATCH=n * per_rank), **opts)))
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out, "metrics.json")) as f:
+            lines = [json.loads(line) for line in f]
+        last = lines[-1]
+        if [r["iteration"] for r in lines] != [6] or not math.isfinite(
+                last["total_loss"]) or not last[count] >= 1:
+            raise AssertionError(f"(17c) {family}: rank 0's metrics.json: "
+                                 f"{lines}")
+        if Checkpointer(os.path.join(out, "ckpt")).steps() != [6]:
+            raise AssertionError(f"(17c) {family}: no checkpoint at step 6")
+    finally:
+        DatasetCatalog.remove(name)
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"(17c) {family} {n} NCCL ranks on [{card}] x{n}: the CLI, 6 steps "
+        f"of {per_rank} images a rank in {wall:.2f} s (start-up included); "
+        f"step 6: total_loss {last['total_loss']:.6g}, {count} "
+        f"{last[count]:.0f} (global), time_per_iter "
+        f"{last['time_per_iter'] * 1e3:.3f} ms on rank 0")
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -3380,7 +4025,26 @@ def main() -> int:
     # YOLOV7 R-50 with the bifpn and pan necks (onestage_phase)
     onestage_phase(dev, card, gen, kernels)
 
-    # ---- 16. times
+    # ---- 16. C.14: is the training step bitwise repeatable, and which
+    # kernel parts two runs (c14_phase)
+    c14_phase(dev, card)
+
+    # ---- 17. multi-GPU SparseInst and DETR: (a) two gloo ranks on one
+    # card against one process, (b) the CLIs in an NCCL group of 1, (c)
+    # NCCL ranks where two or more cards are visible
+    for family, _ in FAMILY_RANKS:
+        family_sync_phase(dev, card, family)
+        family_cli_phase(dev, card, family, kernels)
+        family_nccl_phase(dev, card, family)
+
+    # ---- 18. YOLOV7 on Res2Net-50 (configs/coco/r2_50.yaml): serving,
+    # card against CPU, training; r2next_50, r2_50_l and tl/res2net_bifpn
+    # one request and one step each (anchor_yolo_phase)
+    anchor_yolo_phase(dev, card, gen, yaml="r2_50.yaml", label="18",
+                      others=RES2NET_OTHERS, f32_px=128, kernels=kernels,
+                      f64_step=True)
+
+    # ---- 19. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "
@@ -3406,10 +4070,10 @@ def main() -> int:
 
 
 def nccl_main() -> int:
-    """``python3 chip_smoke.py --nccl``: section 10 (c) alone, on every
-    visible card up to 4 (the path that exists only across cards, for a
-    machine of several); the kernels are built first, so that the ranks
-    only load them."""
+    """``python3 chip_smoke.py --nccl``: sections 10 (c) and 17 (c) alone,
+    on every visible card up to 4 (the paths that exist only across cards,
+    for a machine of several); the kernels are built first, so that the
+    ranks only load them."""
     if torch.cuda.device_count() < 2:
         raise RuntimeError("chip_smoke --nccl: needs 2 or more CUDA cards")
     sys.path.insert(0, REPO)
@@ -3426,6 +4090,8 @@ def nccl_main() -> int:
     nccl_ranks_phase(torch.device("cuda", 0), card, YoloxConfig(), data)
     DatasetCatalog.remove(CLI_DATASET)
     shutil.rmtree(data.work, ignore_errors=True)
+    for family, _ in FAMILY_RANKS:
+        family_nccl_phase(torch.device("cuda", 0), card, family)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

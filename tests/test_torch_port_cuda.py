@@ -832,3 +832,74 @@ def test_uniform_match_on_card_matches_cpu(dev):
     for k, v in want.items():
         assert torch.equal(got[k].cpu(), v), k
     assert not bool(want["winner"][want["occ_valid"]].all())
+
+
+@pytest.mark.cuda
+def test_yolov7_res2net_serving_on_card_matches_cpu(dev, monkeypatch):
+    """YOLOV7 on Res2Net-50 v1b (``configs/coco/r2_50.yaml``'s model:
+    YOLOFPN, 80 classes, raw pixels through the normalize kernel's identity
+    form) at 128 px, float32 (TF32 off): the outputs agree with the CPU's
+    within 1e-4 of their max, one normalize launch a request, and the tail
+    launches the NMS kernel once and gives the plain tail's
+    ``Detections``."""
+    from yolov7_d2_tpu_torch.config import AnchorYoloConfig
+    from yolov7_d2_tpu_torch.models.backbones.res2net import Res2Net
+    from yolov7_d2_tpu_torch.models.build import build_model
+    from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import (
+        anchor_yolo_postprocess,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = AnchorYoloConfig(backbone="build_res2net_backbone",
+                           r2type="res2net50_v1b", neck_type="fpn",
+                           in_features=("res3", "res4", "res5"), amp=False,
+                           input_size=(128, 128))
+    images = torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    before = dict(build.LAUNCHES)
+    with torch.inference_mode():
+        model = build_model(cfg, dev)
+        on_card = model(images.to(dev))
+        ref = build_model(cfg, "cpu")(images)
+    torch.cuda.synchronize()
+    assert isinstance(model.backbone, Res2Net)
+    assert build.LAUNCHES["normalize"] == before.get("normalize", 0) + 1
+    scale = float(ref["outputs"].abs().max())
+    assert float((on_card["outputs"].cpu() - ref["outputs"]).abs().max()) \
+        <= 1e-4 * max(scale, 1.0)
+    got = anchor_yolo_postprocess(on_card, "yolov7", 0.001, 0.65)
+    plain = anchor_yolo_postprocess(on_card, "yolov7", 0.001, 0.65,
+                                    nms=nms_batched_plain)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["nms"] == before.get("nms", 0) + 1
+    assert int(got.valid.sum()) > 0
+    for f in ("boxes", "scores", "classes", "valid"):
+        assert torch.equal(getattr(got, f), getattr(plain, f)), f
+
+
+@pytest.mark.cuda
+def test_bilinear_resize_backward_repeats_on_card(dev):
+    """SparseInst's bilinear resize (``_resize``) on the card: its backward
+    (two products with the interpolation matrices) is bitwise the same in
+    two runs, where CUDA's own adds with atomics, and agrees with the
+    CPU's and with ``F.interpolate``'s own CUDA backward (the form it
+    replaces) within 1e-5 of its max."""
+    from yolov7_d2_tpu_torch.models.meta_arch.sparseinst import _resize
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((16, 100, 80, 80), generator=gen)
+    g = torch.randn((16, 100, 160, 160), generator=gen)
+    grads = []
+    for where in (dev, dev, "cpu"):
+        xi = x.to(where).requires_grad_(True)
+        _resize(xi, (160, 160)).backward(g.to(where))
+        grads.append(xi.grad.cpu())
+    xi = x.detach().to(dev).requires_grad_(True)
+    torch.nn.functional.interpolate(
+        xi, size=(160, 160), mode="bilinear",
+        align_corners=False).backward(g.to(dev))
+    assert torch.equal(grads[0], grads[1])
+    scale = float(grads[2].abs().max())
+    for want in (grads[2], xi.grad.cpu()):
+        assert float((grads[0] - want).abs().max()) <= 1e-5 * scale

@@ -299,13 +299,14 @@ def test_losses_match_jax(use_focal):
                          {k: torch.from_numpy(v) for k, v in gt.items()},
                          3, (SIZE, SIZE), use_focal=use_focal)
     assert set(want) | {"match_iters", "num_matched", "aux0_num_matched",
-                        "aux1_num_matched"} == set(got)
+                        "aux1_num_matched", "num_boxes", "match"} == set(got)
     assert len(want) == 13
     for k in want:
         np.testing.assert_allclose(float(got[k]), float(want[k]),
                                    rtol=LOSS_RTOL, err_msg=k)
     for p in ("", "aux0_", "aux1_"):
         assert float(got[p + "num_matched"]) == gt["gt_valid"].sum()
+    assert float(got["num_boxes"]) == gt["gt_valid"].sum()
 
 
 def test_mask_loss_raises():

@@ -214,6 +214,8 @@ def test_cut_slots_give_the_same_losses_and_assignments():
     assert torch.equal(res["full"][0], res["cut"][0])
     assert torch.equal(res["full"][1], res["cut"][1])
     for k, v in res["full"][2].items():
+        if k == "match":  # the assignments, held above
+            continue
         np.testing.assert_allclose(float(res["cut"][2][k]), float(v),
                                    rtol=1e-6, err_msg=k)
     with pytest.raises(ValueError, match="integers"):
@@ -247,11 +249,13 @@ def test_coco_mask_evaluator_matches_jax():
     assert got["AP"] > 0
 
 
-def test_train_inseg_on_the_cpu(mini, tmp_path):
+def test_train_inseg_on_the_cpu(mini, tmp_path, monkeypatch):
     """``train_inseg`` on the mini-COCO at 64 px (full-width ResNet-50 and
     decoders): 2 steps with checkpoints at 1 and 2, the blend mosaic on,
     finite losses; ``--resume`` to 3; ``--eval-only`` gives the segm keys;
-    ``--num-gpus 2`` and a detector's config raise."""
+    ``--num-gpus 2`` on the cards with fewer than 2 visible and a
+    detector's config raise (the gloo ranks on the CPU are
+    ``tests/test_torch_port_dist_families.py``'s)."""
     from yolov7_d2_tpu_torch import train_inseg
     from yolov7_d2_tpu_torch.data.catalog import (
         DatasetCatalog,
@@ -287,8 +291,10 @@ def test_train_inseg_on_the_cpu(mini, tmp_path):
         res = train_inseg.main(args("--eval-only"))
         assert {"AP", "AP50", "AP75", "APs", "APm", "APl", "AR100"} <= \
             set(res)
-        with pytest.raises(NotImplementedError, match="A.6c"):
-            train_inseg.main(args("--num-gpus", "2"))
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="--num-gpus 2"):
+            train_inseg.main(args("--num-gpus", "2",
+                                  **{"MODEL.DEVICE": "cuda"}))
         det = default_argument_parser().parse_args(
             ["--config-file", str(REPO / "configs" / "coco" /
                                   "yolox_s.yaml"), "MODEL.DEVICE", "cpu"])

@@ -456,6 +456,43 @@ def test_upsample_masks_two_stage_matches_jax(orig_hw):
     assert differ <= 0.005 * want.size
 
 
+@pytest.mark.parametrize("in_hw,out_hw", [
+    ((1, 1), (20, 20)), ((2, 2), (20, 20)), ((3, 3), (20, 20)),
+    ((6, 6), (20, 20)), ((40, 40), (80, 80)), ((20, 20), (80, 80)),
+    ((80, 80), (160, 160))])
+def test_bilinear_resize_backward_matches_interpolate_and_jax(in_hw, out_hw):
+    """``_resize``'s fixed-order backward (``_BilinearResize``) at every
+    shape SparseInst R-50 at 640 takes it through: the PPM's 1, 2, 3 and 6
+    up to 20, the encoder's 40 and 20 up to 80 and the mask logits' 2x (80
+    up to 160). Its forward is ``F.interpolate``'s, bitwise; its input
+    gradient is held against ``F.interpolate``'s own autograd (the form it
+    replaces) and against ``jax.vjp`` of ``jax.image.resize``, within 1e-6
+    of the gradient's largest magnitude (the same float32 sums of at most
+    ``(out / in + 1)^2`` terms, in another order)."""
+    rng = np.random.default_rng(in_hw[0] * 1000 + out_hw[0])
+    x = rng.normal(size=(2, 3) + in_hw).astype(np.float32)
+    g = rng.normal(size=(2, 3) + out_hw).astype(np.float32)
+    ours = torch.from_numpy(x).requires_grad_(True)
+    y = tsi._resize(ours, out_hw)
+    assert type(y.grad_fn).__name__ == "_BilinearResizeBackward"
+    y.backward(torch.from_numpy(g))
+    plain = torch.from_numpy(x).requires_grad_(True)
+    y_plain = torch.nn.functional.interpolate(
+        plain, size=out_hw, mode="bilinear", align_corners=False)
+    y_plain.backward(torch.from_numpy(g))
+    assert torch.equal(y.detach(), y_plain.detach())
+    y_jax, vjp = jax.vjp(lambda a: jax.image.resize(
+        a, (2, 3) + out_hw, "bilinear", antialias=False), jnp.asarray(x))
+    _close(y.detach(), y_jax, tol=1e-6, what="forward")
+    scale = float(plain.grad.abs().max())
+    for want, what in ((plain.grad, "F.interpolate"),
+                       (vjp(jnp.asarray(g))[0], "jax")):
+        err = float(np.abs(ours.grad.numpy() - np.asarray(want)).max())
+        print(f"{in_hw} -> {out_hw}: gradient against {what} {err:.2e} "
+              f"of {scale:.3g}")
+        assert err <= 1e-6 * scale, (what, err, scale)
+
+
 # ---------------------------------------------------------------------------
 # AdamW, builders
 # ---------------------------------------------------------------------------

@@ -142,7 +142,7 @@ def test_unported_parts_raise():
     cfg = dataclasses.replace(AnchorYoloConfig(), amp=False)
     for replace, item in (
             (dict(backbone="build_swin_backbone"), "A.8"),
-            (dict(backbone="build_res2net_backbone"), "A.8"),
+            (dict(backbone="build_regnet_backbone"), "A.8"),
             (dict(meta_architecture="YOLOMask"), "Queue A")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(dataclasses.replace(cfg, **replace), "cpu")

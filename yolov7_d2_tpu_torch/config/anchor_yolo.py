@@ -65,6 +65,7 @@ class AnchorYoloConfig(YoloxConfig):
     pixel_mean: Tuple[float, float, float] = (103.53, 116.28, 123.675)
     pixel_std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     resnet: ResNetSpec = ResNetSpec()  # MODEL.RESNETS, for a ResNet trunk
+    r2type: str = "res2net50_v1d"      # MODEL.RESNETS.R2TYPE, for Res2Net
     # MODEL.SWIN and MODEL.PVT, for a transformer trunk
     swin_type: str = "tiny"
     swin_patch: int = 4
@@ -104,6 +105,7 @@ class AnchorYoloConfig(YoloxConfig):
             resnet=ResNetSpec.from_cfg(
                 cfg, vd_builder=(cfg.MODEL.BACKBONE.NAME
                                  == "build_resnet_vd_backbone")),
+            r2type=str(cfg.MODEL.RESNETS.R2TYPE),
             swin_type=str(cfg.MODEL.SWIN.TYPE),
             swin_patch=int(cfg.MODEL.SWIN.PATCH),
             swin_window=int(cfg.MODEL.SWIN.WINDOW),

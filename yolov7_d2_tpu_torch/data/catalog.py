@@ -5,7 +5,7 @@ the JAX package's ``train_custom_datasets.py``)."""
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Tuple
 
 
 class _DatasetCatalog:
@@ -77,6 +77,17 @@ def register_coco_instances(
         json_file=json_file, image_root=image_root, evaluator_type="coco",
         **metadata,
     )
+
+
+def coco_registrations() -> List[Tuple[str, str, str]]:
+    """``(name, json_file, image_root)`` of every dataset of the catalog
+    registered by :func:`register_coco_instances`: what a ``spawn``-ed rank,
+    whose catalog starts empty, registers again (``train_det.launch_main``)."""
+    return [(name, meta.json_file, meta.image_root)
+            for name in DatasetCatalog.list()
+            for meta in (MetadataCatalog.get(name),)
+            if meta.get("evaluator_type") == "coco"
+            and meta.get("json_file") is not None]
 
 
 def register_custom_datasets(extra=()):

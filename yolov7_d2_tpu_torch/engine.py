@@ -29,7 +29,7 @@ from yolov7_d2_tpu_torch.models.meta_arch.yolov6 import yolov6_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import anchor_yolo_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox_kpts import yolox_kpts_loss_fn
-from yolov7_d2_tpu_torch.parallel.dist import is_initialized
+from yolov7_d2_tpu_torch.parallel.dist import get_rank, is_initialized
 from yolov7_d2_tpu_torch.parallel.norm_sync import convert_sync_batchnorm
 from yolov7_d2_tpu_torch.train.optimizer import build_optimizer
 from yolov7_d2_tpu_torch.train.schedules import build_lr_schedule
@@ -249,14 +249,20 @@ def build_system(cfg, device="cuda", seed: int = 0):
 
 def seed_dropout_by_step(train_step: Callable, seed: int) -> Callable:
     """Reseed the model's dropout generator (``model.generator``) before
-    each step from ``seed`` and the step, as the JAX step folds the step
-    into its seed's key: a step's masks do not depend on the steps before
-    it, so a resumed run draws what an unbroken one would."""
+    each step from ``seed``, the step and the rank in a process group, as
+    the JAX step folds the step into its seed's key: a step's masks do not
+    depend on the steps before it, so a resumed run draws what an unbroken
+    one would, and each rank draws its own masks (as it draws its own
+    MixUp pairs)."""
 
     def step(state, batch):
         gen = state.model.generator
         if gen is not None:
-            gen.manual_seed(seed * 1_000_003 + state.step)
+            # the rank's offset is a multiple of the golden-ratio constant:
+            # far apart from every other rank's modulo 2**32 too, where a
+            # CPU generator cuts its seed
+            gen.manual_seed(seed * 1_000_003 + state.step
+                            + get_rank() * 0x9E3779B1)
         return train_step(state, batch)
 
     return step

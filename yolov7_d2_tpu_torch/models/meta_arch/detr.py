@@ -54,6 +54,7 @@ from yolov7_d2_tpu_torch.ops.losses import (
     weighted_softmax_cross_entropy,
 )
 from yolov7_d2_tpu_torch.ops.matchers import hungarian_match
+from yolov7_d2_tpu_torch.parallel.dist import all_reduce_sum
 from yolov7_d2_tpu_torch.structures.boxes import cxcywh_to_xyxy
 from yolov7_d2_tpu_torch.structures.instances import Detections
 
@@ -177,51 +178,56 @@ def detr_match(
     return raw.clamp(min=0), (raw >= 0) & valid, iters
 
 
+def set_targets(pred_of_gt: torch.Tensor, ok: torch.Tensor,
+                gt_classes: torch.Tensor, q: int,
+                num_classes: int) -> torch.Tensor:
+    """Each query's class target [B, Q]: "no object" (``num_classes``)
+    unless matched; an unmatched gt scatters to the spare slot ``q``,
+    which is cut (the JAX scatter's mode="drop")."""
+    b = pred_of_gt.shape[0]
+    tgt = torch.full((b, q + 1), num_classes, dtype=torch.long,
+                     device=pred_of_gt.device)
+    tgt.scatter_(1, torch.where(ok, pred_of_gt, q), gt_classes.long())
+    return tgt[:, :q]
+
+
 def detr_set_criterion(
     pred_logits: torch.Tensor,
     pred_boxes: torch.Tensor,
     gt_boxes_norm: torch.Tensor,
-    gt_classes: torch.Tensor,
     gt_valid: torch.Tensor,
     num_classes: int,
-    eos_coef: float = 0.1,
+    match: Tuple[torch.Tensor, torch.Tensor],
+    targets: torch.Tensor,
+    weights: torch.Tensor,
+    normalizers: torch.Tensor,
     use_focal: bool = False,
     prefix: str = "",
-    match: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
-    """One decoder level's losses (JAX :168): the class term (weighted CE
-    with ``eos_coef`` on "no object", divided by the weights of the
-    targets; or the sigmoid focal loss over the first ``num_classes``
-    logits, divided by the matched count), 5 x L1 and 2 x (1 - gIoU) of
-    the matched boxes over the matched count (of the batch, at least 1),
-    and the cardinality error, without gradient and outside the total.
-    ``match`` is ``(pred_of_gt, ok)`` where the caller matched already.
-    Adds ``num_matched``, the level's matched count, to the JAX dict."""
-    b, q, _ = pred_logits.shape
-    dev = pred_logits.device
-    if match is None:
-        match = detr_match(pred_logits.detach(), pred_boxes.detach(),
-                           gt_boxes_norm, gt_classes, gt_valid,
-                           use_focal=use_focal)[:2]
+    """One decoder level's losses (JAX :168) on its assignment ``match``
+    (``(pred_of_gt, ok)`` [B, G]) and class ``targets`` [B, Q]
+    (:func:`set_targets`): the class term (CE weighted by ``weights``,
+    ``eos_coef`` on "no object", divided by the weights of the targets; or
+    the sigmoid focal loss over the first ``num_classes`` logits, divided
+    by the matched count), 5 x L1 and 2 x (1 - gIoU) of the matched boxes
+    over the matched count (at least 1), and the cardinality error,
+    without gradient and outside the total. ``normalizers`` [2] is the
+    matched count and the targets' weight sum of the global batch (summed
+    over the ranks of a process group by :func:`detr_losses`, as the JAX
+    sums over a data mesh). Adds ``num_matched``, the level's matched
+    count on this rank, to the JAX dict."""
     pred_of_gt, ok = match
     okf = ok.float()
-    num_boxes = okf.sum().clamp(min=1.0)
-
-    # "no object" unless matched; an unmatched gt scatters to the spare
-    # slot q, which is cut (the JAX scatter's mode="drop")
-    tgt = torch.full((b, q + 1), num_classes, dtype=torch.long, device=dev)
-    tgt.scatter_(1, torch.where(ok, pred_of_gt, q), gt_classes.long())
-    tgt = tgt[:, :q]
+    num_boxes = normalizers[0].clamp(min=1.0)
     logits = pred_logits.float()
     if use_focal:
-        onehot = F.one_hot(tgt, num_classes + 1)[..., :num_classes].float()
+        onehot = F.one_hot(targets,
+                           num_classes + 1)[..., :num_classes].float()
         loss_ce = sigmoid_focal_loss(logits[..., :num_classes],
                                      onehot).sum() / num_boxes
     else:
-        weights = torch.ones(num_classes + 1, device=dev)
-        weights[num_classes] = eos_coef
-        ce = weighted_softmax_cross_entropy(logits, tgt, weights)
-        loss_ce = ce.sum() / weights[tgt].sum()
+        ce = weighted_softmax_cross_entropy(logits, targets, weights)
+        loss_ce = ce.sum() / normalizers[1]
 
     gt = gt_boxes_norm.float()
     matched = pred_boxes.float().gather(
@@ -259,13 +265,21 @@ def detr_losses(
     deep_supervision: bool = True,
     eos_coef: float = 0.1,
     use_focal: bool = False,
+    match: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """The criterion of every decoder level (JAX :237): the last level's
     terms, and with ``deep_supervision`` the others' under ``aux{i}_``;
     ``total_loss`` sums every term but the cardinality errors. All levels
     are matched in one auction ([levels x B, G, Q]); ``match_iters`` is its
-    rounds (the slowest row). The mask term of ``DetrSegm`` is not ported
-    (ROADMAP.md Queue A.8): asking for it raises."""
+    rounds (the slowest row). ``match`` is ``(pred_of_gt, ok)`` [levels x
+    B, G], the last level first, where the caller matched already
+    (``match_iters`` is then 0); the dict's ``match`` is the assignment
+    the terms used, in that form (not a metric: the train step keeps it as
+    ``TrainState.match``). The normalizers of every level go over
+    the ranks of a process group in one all-reduce; ``num_boxes`` is the
+    last level's, the global batch's matched count. The mask term of
+    ``DetrSegm`` is not ported (ROADMAP.md Queue A.8): asking for it
+    raises."""
     if "pred_masks" in out or "gt_masks" in batch:
         raise NotImplementedError(
             "the DETR mask loss (DetrSegm) is not ported yet (ROADMAP.md "
@@ -281,18 +295,32 @@ def detr_losses(
     def rep(t):
         return t.repeat(n, *([1] * (t.dim() - 1)))
 
-    pred_of_gt, ok, iters = detr_match(
-        torch.cat([lg.detach() for lg, _, _ in levels]),
-        torch.cat([bx.detach() for _, bx, _ in levels]),
-        rep(gt), rep(cls), rep(valid), use_focal=use_focal)
+    if match is None:
+        pred_of_gt, ok, iters = detr_match(
+            torch.cat([lg.detach() for lg, _, _ in levels]),
+            torch.cat([bx.detach() for _, bx, _ in levels]),
+            rep(gt), rep(cls), rep(valid), use_focal=use_focal)
+    else:
+        (pred_of_gt, ok), iters = match, torch.zeros(1, device=gt.device)
+    q = levels[0][0].shape[1]
+    targets = set_targets(pred_of_gt, ok, rep(cls), q, num_classes)
+    weights = torch.ones(num_classes + 1, device=gt.device)
+    weights[num_classes] = eos_coef
+    # each level's matched count and the CE term's weight sum of its
+    # targets (the focal loss reads the count only), one all-reduce
+    count = ok.float().reshape(n, -1).sum(1)
+    den = count if use_focal else weights[targets].reshape(n, -1).sum(1)
+    norms = all_reduce_sum(torch.stack([count, den], 1).detach())
     losses: Dict[str, torch.Tensor] = {}
     for i, (lg, bx, prefix) in enumerate(levels):
         rows = slice(i * b, (i + 1) * b)
         losses.update(detr_set_criterion(
-            lg, bx, gt, cls, valid, num_classes, eos_coef, use_focal,
-            prefix, match=(pred_of_gt[rows], ok[rows])))
+            lg, bx, gt, valid, num_classes, (pred_of_gt[rows], ok[rows]),
+            targets[rows], weights, norms[i], use_focal, prefix))
     losses["total_loss"] = sum(v for k, v in losses.items() if "loss" in k)
+    losses["num_boxes"] = norms[0, 0]
     losses["match_iters"] = iters.max().float()
+    losses["match"] = (pred_of_gt, ok)
     return losses
 
 
@@ -396,12 +424,13 @@ def detr_loss_fn(cfg: DetrConfig):
     """The training loss of ``cfg`` (JAX ``engine.py:263-279``) in the
     train step's form ``loss_fn(out, batch, use_l1)``: focal for AnchorDETR
     or ``USE_FOCAL_LOSS``, deep supervision and the no-object weight from
-    the config."""
+    the config; a batch may hold ``match``, the stacked levels' assignment
+    to take in place of the matcher's."""
 
     def loss_fn(out, batch, use_l1: bool) -> Dict[str, torch.Tensor]:
         return detr_losses(out, batch, cfg.num_classes, cfg.input_size,
                            deep_supervision=cfg.deep_supervision,
                            eos_coef=cfg.no_object_weight,
-                           use_focal=cfg.use_focal)
+                           use_focal=cfg.use_focal, match=batch.get("match"))
 
     return loss_fn

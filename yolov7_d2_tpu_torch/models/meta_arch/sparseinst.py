@@ -28,7 +28,7 @@ descending sort, so that equal scores keep ``jax.lax.top_k``'s order.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +53,7 @@ from yolov7_d2_tpu_torch.ops.losses import (
     sigmoid_focal_loss,
 )
 from yolov7_d2_tpu_torch.ops.matchers import hungarian_match
+from yolov7_d2_tpu_torch.parallel.dist import all_reduce_sum
 from yolov7_d2_tpu_torch.structures.instances import Detections
 
 # sparseinst.py:255-256 of the JAX package (ImageNet statistics, BGR)
@@ -67,9 +68,53 @@ def _float32(device: torch.device):
 
 def _resize(x: torch.Tensor, size, antialias: bool = False) -> torch.Tensor:
     """``jax.image.resize(..., "bilinear")`` on NCHW: half-pixel centres
-    (``align_corners=False``)."""
+    (``align_corners=False``). Where ``x`` takes a gradient the backward is
+    :class:`_BilinearResize`'s, in a fixed order."""
+    if x.requires_grad and not antialias and torch.is_grad_enabled():
+        return _BilinearResize.apply(x, tuple(size))
     return F.interpolate(x, size=tuple(size), mode="bilinear",
                          align_corners=False, antialias=antialias)
+
+
+def bilinear_matrix(n_out: int, n_in: int, device) -> torch.Tensor:
+    """[n_out, n_in] float32: row i holds the two weights with which
+    ``F.interpolate(mode="bilinear", align_corners=False)`` mixes the
+    input along one axis into output i (source ``(i + 0.5) * n_in / n_out
+    - 0.5``, clamped at 0; the upper neighbour clamped at the edge)."""
+    scale = torch.tensor(n_in, dtype=torch.float32) / n_out
+    src = ((torch.arange(n_out, dtype=torch.float32) + 0.5) * scale
+           - 0.5).clamp(min=0.0)
+    i0 = src.long()
+    lam = src - i0
+    i1 = (i0 + 1).clamp(max=n_in - 1)
+    rows = torch.arange(n_out)
+    m = torch.zeros(n_out, n_in)
+    m.index_put_((rows, i0), 1.0 - lam)
+    m.index_put_((rows, i1), lam, accumulate=True)
+    return m.to(device)
+
+
+class _BilinearResize(torch.autograd.Function):
+    """``F.interpolate`` bilinear forward (the same values); the backward
+    as two products with the axes' interpolation matrices
+    (:func:`bilinear_matrix`), in float32: every input's gradient summed in
+    a fixed order.
+    CUDA's own bilinear backward adds into each input with atomics, in
+    whatever order the threads run, so two runs of a step part there
+    (ROADMAP.md C.14)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, size) -> torch.Tensor:
+        ctx.in_hw = x.shape[-2:]
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (h, w), (ho, wo) = ctx.in_hw, grad.shape[-2:]
+        mh = bilinear_matrix(ho, h, grad.device)
+        mw = bilinear_matrix(wo, w, grad.device)
+        return (mh.t() @ grad.float() @ mw).to(grad.dtype), None
 
 
 class CeilAvgPool(nn.Module):
@@ -318,21 +363,31 @@ def sparseinst_losses(
     mask_pixel_weight: float = 5.0,
     mask_dice_weight: float = 2.0,
     objectness_weight: float = 1.0,
+    match: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """SparseInstCriterion (JAX :330): the gt masks resized bilinear (no
     antialias) to the logits' size as float32 soft targets; focal loss over
     every proposal, dice, pixel BCE and the IoU-aware objectness on the
-    matched pairs; each divided by the matched count of the batch. Adds
-    ``match_iters``, the auction's rounds for the batch (its slowest
-    image), to the JAX dict."""
+    matched pairs; each divided by the matched count of the global batch
+    (summed over the ranks of a process group, as the JAX count over a
+    data mesh). ``match`` is ``(pred_of_gt, match_ok)`` [B, G] where the
+    caller matched already (the one-process reference of the data-parallel
+    checks takes the ranks'). Adds ``match_iters``, the auction's rounds
+    for the batch (its slowest image; 0 with ``match``), and ``match``,
+    the assignment the terms used (not a metric: the train step keeps it
+    as ``TrainState.match``), to the JAX dict."""
     mask_logits = out["mask_logits"]
     b, n, hm, wm = mask_logits.shape
     g = gt_masks_full.shape[1]
     gt_small = _resize(gt_masks_full.float(), (hm, wm))        # [B, G, Hm, Wm]
-    pred_of_gt, match_ok, iters = sparseinst_match(
-        out, gt_small, gt_classes, gt_valid)
+    if match is None:
+        pred_of_gt, match_ok, iters = sparseinst_match(
+            out, gt_small, gt_classes, gt_valid)
+    else:
+        (pred_of_gt, match_ok) = match
+        iters = torch.zeros(1, device=mask_logits.device)
     ok = match_ok.float()
-    num_inst = ok.sum().clamp(min=1.0)
+    num_inst = all_reduce_sum(ok.sum()).clamp(min=1.0)
 
     onehot = F.one_hot(gt_classes.long().clamp(min=0),
                        num_classes).float() * ok[..., None]
@@ -375,6 +430,7 @@ def sparseinst_losses(
                             + losses["loss_mask"]
                             + losses["loss_objectness"])
     losses["match_iters"] = iters.max().float()
+    losses["match"] = (pred_of_gt, match_ok)
     return losses
 
 
@@ -480,7 +536,8 @@ def sparseinst_eval_masks(dets: Detections, input_hw, image_hw, orig_hw,
 def sparseinst_loss_fn(cfg: SparseInstConfig):
     """The training loss of ``cfg`` (JAX ``engine.py:221``), in the train
     step's form ``loss_fn(out, batch, use_l1)``; the batch holds
-    ``gt_masks``, ``gt_classes`` and ``gt_valid``."""
+    ``gt_masks``, ``gt_classes`` and ``gt_valid``, and may hold ``match``,
+    the assignment to take in place of the matcher's."""
 
     def loss_fn(out, batch, use_l1: bool) -> Dict[str, torch.Tensor]:
         return sparseinst_losses(
@@ -488,6 +545,7 @@ def sparseinst_loss_fn(cfg: SparseInstConfig):
             num_classes=cfg.num_classes, class_weight=cfg.class_weight,
             mask_pixel_weight=cfg.mask_pixel_weight,
             mask_dice_weight=cfg.mask_dice_weight,
-            objectness_weight=cfg.objectness_weight)
+            objectness_weight=cfg.objectness_weight,
+            match=batch.get("match"))
 
     return loss_fn

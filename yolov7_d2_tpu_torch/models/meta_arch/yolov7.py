@@ -30,6 +30,9 @@ from yolov7_d2_tpu_torch.models.backbones.efficientrep import (
     build_efficientrep_tiny_backbone,
 )
 from yolov7_d2_tpu_torch.models.backbones.pvt_v2 import build_pvt_v2_backbone
+from yolov7_d2_tpu_torch.models.backbones.res2net import (
+    build_res2net_backbone,
+)
 from yolov7_d2_tpu_torch.models.backbones.resnet import ResNet
 from yolov7_d2_tpu_torch.models.backbones.swin import (
     build_swin_transformer_backbone,
@@ -243,6 +246,8 @@ _BACKBONE_NAME_MAP = {
     # the registry's ResNets (JAX BACKBONE_REGISTRY), 512/1024/2048 channels
     "build_resnet_backbone": "resnet",
     "build_resnet_vd_backbone": "resnet_vd",
+    # Res2Net / Res2NeXt (MODEL.RESNETS.R2TYPE), 512/1024/2048 channels
+    "build_res2net_backbone": "res2net",
     # the transformers (MODEL.SWIN, MODEL.PVT), features stage1..3
     "build_swin_transformer_backbone": "swin",
     "build_pvt_v2_backbone": "pvt_v2",
@@ -259,6 +264,7 @@ _BACKBONE_BUILDERS = {
     "build_efficientrep_backbone": build_efficientrep_backbone,
     "build_efficientrep_tiny_backbone": build_efficientrep_tiny_backbone,
     "build_yolov5_backbone": build_yolov5_backbone,
+    "build_res2net_backbone": build_res2net_backbone,
 }
 
 
@@ -271,8 +277,9 @@ def _backbone_type(cfg: AnchorYoloConfig) -> str:
 
 
 def _backbone(cfg: AnchorYoloConfig):
-    """A built ResNet (``cfg.resnet``, from ``MODEL.RESNETS``), Swin
-    (``MODEL.SWIN``), PVTv2 (``MODEL.PVT``), EfficientRep or the YOLOv5
+    """A built ResNet (``cfg.resnet``, from ``MODEL.RESNETS``), Res2Net
+    (``cfg.r2type``), Swin (``MODEL.SWIN``), PVTv2 (``MODEL.PVT``),
+    EfficientRep or the YOLOv5
     backbone for those builders, as the JAX builder takes any registered
     backbone, else None (``AnchorYOLO`` builds its darknet)."""
     if _backbone_type(cfg).startswith("resnet"):

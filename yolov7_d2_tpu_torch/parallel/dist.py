@@ -92,10 +92,10 @@ def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
 
 
 def all_reduce_scalars(
-        scalars: Dict[str, Union[torch.Tensor, float, int]]
-) -> Dict[str, float]:
-    """``{name: sum over ranks}`` as floats, for logged metrics: one
-    all_reduce of every value, in float64, and one fetch."""
+        scalars: Dict[str, Union[torch.Tensor, float, int]],
+        op: dist.ReduceOp = dist.ReduceOp.SUM) -> Dict[str, float]:
+    """``{name: sum (or ``op``) over ranks}`` as floats, for logged
+    metrics: one all_reduce of every value, in float64, and one fetch."""
     if not scalars:
         return {}
     keys = sorted(scalars)  # every rank reduces in the same order
@@ -105,5 +105,5 @@ def all_reduce_scalars(
     values = torch.stack([torch.as_tensor(scalars[k]).to(device,
                                                          torch.float64)
                           for k in keys])
-    dist.all_reduce(values)
+    dist.all_reduce(values, op=op)
     return dict(zip(keys, values.tolist()))

@@ -1,16 +1,17 @@
-"""Data-parallel runs of the bare YOLOX train step on several processes:
-the port's counterpart of ``__graft_entry__._dryrun_multichip_impl``
-(:func:`dryrun_multigpu`), and the rank function behind it
-(:func:`train_steps`), which the tests and ``chip_smoke.py`` also use to
-hold N processes against one. Both live in the package because ``spawn``
-imports a rank's function by its module's name.
+"""Data-parallel runs of the bare train step on several processes: the
+port's counterpart of ``__graft_entry__._dryrun_multichip_impl``
+(:func:`dryrun_multigpu`, YOLOX), and the rank function behind it
+(:func:`train_steps`, any configuration ``engine.build_system`` takes),
+which the tests and ``chip_smoke.py`` also use to hold N processes against
+one. Both live in the package because ``spawn`` imports a rank's function
+by its module's name.
 """
 
 from __future__ import annotations
 
 import os
 import tempfile
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +37,17 @@ def rank_device(device: str = "cuda") -> torch.device:
     return device
 
 
+def merge_matches(per_rank: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                  levels: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ranks' assignments of one step (``(pred_of_gt, ok)`` [levels x
+    b, G] each, level-major as DETR stacks them) as one process's on the
+    global batch [levels x B, G], in rank order within each level: the
+    ``match`` a one-process step takes to use the ranks' assignments."""
+    return tuple(
+        torch.cat([t.reshape(levels, -1, t.shape[-1]) for t in ts], 1)
+        .flatten(0, 1) for ts in zip(*per_rank))
+
+
 def train_steps(out_dir: str, cfg,
                 batches: Sequence[Dict[str, torch.Tensor]],
                 device: str = "cuda", seed: int = 0,
@@ -43,35 +55,40 @@ def train_steps(out_dir: str, cfg,
                 count_launches_at: Optional[int] = None,
                 keep_outputs: bool = False,
                 keep_weights: bool = False) -> None:
-    """One rank: ``build_yolox_system(cfg)`` on ``device`` (inside the
-    group: synchronized BatchNorm and DDP) with the weights of ``seed``,
-    or ``state_dict`` where given (the EMA then starts from it), then one
-    step on this rank's share of each global batch (host tensors). Writes
-    ``out_dir/rank<r>.pt``: each step's metrics as floats, and the final
-    state dict, EMA and step count on the CPU. With ``count_launches_at``
-    (a CUDA device), the metrics of that step gain ``launches``, the CUDA
-    kernels it launched. With ``keep_outputs``, ``outputs`` holds each
-    step's raw head outputs [b, A, 5 + C] (float32, on the CPU), from which
-    the caller can recompute the step's SimOTA assignment; with
-    ``keep_weights``, rank 0's ``weights`` holds the state dict before
-    each step (on the CPU), so that one process can take each step from
+    """One rank: ``engine.build_system(cfg)`` (a ``YoloxConfig``,
+    ``SparseInstConfig``, ``DetrConfig`` or any other config it takes) on
+    ``device`` (inside the group: synchronized BatchNorm and DDP) with the
+    weights of ``seed``, or ``state_dict`` where given (the EMA then starts
+    from it), then one step on this rank's share of each global batch
+    (host tensors). Writes ``out_dir/rank<r>.pt``: each step's metrics as
+    floats, the assignment its loss used (``matches``: each step's
+    ``state.match``, for SparseInst and DETR; :func:`merge_matches` makes
+    the global batch's), and the final state dict, EMA and step count on
+    the CPU. With ``count_launches_at`` (a CUDA device), the metrics of
+    that step gain ``launches``, the CUDA kernels it launched. With
+    ``keep_outputs``, ``outputs`` holds each step's raw head outputs [b,
+    A, 5 + C] (float32, on the CPU), from which the caller can recompute
+    the step's SimOTA assignment; with ``keep_weights``, rank 0's
+    ``weights`` holds the state dict before each step (on the CPU), so
+    that one process can take each step from
     the ranks' weights."""
-    from yolov7_d2_tpu_torch.engine import build_yolox_system
+    from yolov7_d2_tpu_torch.engine import build_system
 
     device = rank_device(device)
-    _, state, step = build_yolox_system(cfg, device=device, seed=seed)
+    _, state, step, _ = build_system(cfg, device=device, seed=seed)
     if state_dict is not None:
         state.model.load_state_dict(state_dict)
         if state.ema_params is not None:
             state.ema_params = {n: p.detach().clone()
                                 for n, p in state.model.named_parameters()}
-    outputs: List[torch.Tensor] = []
+    outputs: List = []
     if keep_outputs:
         state.model.register_forward_hook(
             lambda module, args, out: outputs.append(
                 out["outputs"].detach().float().cpu()))
     history: List[Dict[str, float]] = []
     weights: List[Dict[str, torch.Tensor]] = []
+    matches: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for i, batch in enumerate(batches):
         if keep_weights and get_rank() == 0:
             weights.append({k: v.cpu().clone()
@@ -85,6 +102,8 @@ def train_steps(out_dir: str, cfg,
         history.append({k: float(v) for k, v in metrics.items()})
         if i == count_launches_at:
             history[-1]["launches"] = launches
+        if state.match is not None:
+            matches.append(tuple(t.cpu() for t in state.match))
     torch.save({
         "metrics": history,
         "step": state.step,
@@ -93,6 +112,7 @@ def train_steps(out_dir: str, cfg,
                 if state.ema_params is not None else None),
         "outputs": outputs,
         "weights": weights,
+        "matches": matches,
     }, os.path.join(out_dir, f"rank{get_rank()}.pt"))
 
 
@@ -194,4 +214,16 @@ def norm_sync_ranks(out_dir: str, bn_params: Dict[str, torch.Tensor],
     out["precise_mean"], out["precise_var"] = (pbn.running_mean,
                                                pbn.running_var)
     torch.save({k: v.detach().cpu() for k, v in out.items()},
+               os.path.join(out_dir, f"rank{get_rank()}.pt"))
+
+
+def reduce_metrics_ranks(out_dir: str,
+                         per_rank: Sequence[Dict[str, float]]) -> None:
+    """One rank of the check of the trainer's reduction of a step's metrics
+    (``train_state.reduce_metrics``) on ``per_rank[rank]``; writes the
+    reduced values to ``out_dir/rank<r>.pt``."""
+    from yolov7_d2_tpu_torch.train.train_state import reduce_metrics
+
+    metrics = {k: torch.tensor(v) for k, v in per_rank[get_rank()].items()}
+    torch.save(reduce_metrics(metrics),
                os.path.join(out_dir, f"rank{get_rank()}.pt"))

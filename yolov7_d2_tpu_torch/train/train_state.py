@@ -19,19 +19,56 @@ read the reduced gradients, so every rank takes the same update.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import re
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from yolov7_d2_tpu_torch.parallel.dist import get_world_size
+from yolov7_d2_tpu_torch.parallel.dist import (
+    all_reduce_scalars,
+    get_world_size,
+)
 from yolov7_d2_tpu_torch.train.optimizer import clip_gradients_, global_norm
 
 
-# the step's metrics that are global already, equal on every rank of a
-# group (the foreground count is reduced in the loss, the gradient norm read
-# from reduced gradients); every other metric is the rank's share
-GLOBAL_METRICS = ("num_fg", "grad_norm")
+# How each metric of a step goes over the ranks of a group, by its name
+# without a decoder level's ``aux{i}_`` prefix:
+# * "global": equal on every rank already (the foreground, instance and
+#   box counts are all-reduced in the losses, the gradient norm is read
+#   from reduced gradients);
+# * "max": the global batch's value is the slowest rank's (the auction's
+#   rounds are its slowest image's);
+# * "mean": a mean over the rank's images, so the global one is the mean
+#   over the ranks (DETR's cardinality error);
+# * any other metric is the rank's share of a global sum (the losses, the
+#   matched counts): summed.
+METRIC_KINDS = {"num_fg": "global", "num_inst": "global",
+                "num_boxes": "global", "grad_norm": "global",
+                "match_iters": "max",
+                "cardinality_error": "mean"}
+
+
+def metric_kind(name: str) -> str:
+    return METRIC_KINDS.get(re.sub(r"^aux\d+_", "", name), "share")
+
+
+def reduce_metrics(metrics: Mapping[str, torch.Tensor]) -> Dict[str, float]:
+    """The global value of each metric of a step (:data:`METRIC_KINDS`),
+    as floats: one all-reduce of the sums and one of the maxima over the
+    ranks of a group; without a group, each value as it is."""
+    kinds = {k: metric_kind(k) for k in metrics}
+    sums = all_reduce_scalars({k: v for k, v in metrics.items()
+                               if kinds[k] in ("share", "mean")})
+    maxima = all_reduce_scalars({k: v for k, v in metrics.items()
+                                 if kinds[k] == "max"},
+                                op=dist.ReduceOp.MAX)
+    world = get_world_size()
+    return {k: (float(v) if kinds[k] == "global" else maxima[k]
+                if kinds[k] == "max" else sums[k] / world
+                if kinds[k] == "mean" else sums[k])
+            for k, v in metrics.items()}
 
 
 @dataclasses.dataclass
@@ -44,6 +81,9 @@ class TrainState:
     # group, else None; ``model`` stays the bare module, so that names, the
     # EMA, the optimizer's groups and checkpoints have no ``module.`` prefix
     ddp: Optional[nn.Module] = None
+    # the assignment the last step's loss used, ``(pred_of_gt, ok)``, where
+    # the loss returns one (SparseInst, DETR: its ``match``), else None
+    match: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def make_train_step(
@@ -53,8 +93,9 @@ def make_train_step(
     use_l1_after: Optional[int] = None,
     clip_cfg=None,
 ) -> Callable:
-    """``loss_fn(head_out, batch, use_l1) -> dict with "total_loss"``.
-    ``use_l1`` is ``state.step >= use_l1_after`` (the reference's L1
+    """``loss_fn(head_out, batch, use_l1) -> dict with "total_loss"``
+    (its ``match``, where it has one, goes to ``state.match`` and not into
+    the metrics). ``use_l1`` is ``state.step >= use_l1_after`` (the reference's L1
     switch). ``clip_cfg``: a config whose ``clip_gradients`` is on, else
     None. The EMA covers the parameters only, not the BatchNorm buffers:
     ``ema = ema * decay + param * (1 - decay)`` after each update."""
@@ -65,6 +106,7 @@ def make_train_step(
         model.train()
         forward = model if state.ddp is None else state.ddp
         losses = loss_fn(forward(batch["image"]), batch, use_l1)
+        state.match = losses.pop("match", None)
         opt.zero_grad(set_to_none=True)
         if state.ddp is None:
             losses["total_loss"].backward()

@@ -8,9 +8,12 @@ steps and at the last step, where they are fetched into the
 host's launches, so no hook reads a device value on the other steps.
 
 In a process group (``parallel/``) every rank runs the loop on its share of
-the batch. At a fetch the ranks' shares of the loss are summed (the global
-loss); checkpoints are written and the eval run by rank 0, while the other
-ranks wait at a barrier; the entry point gives the writers to rank 0 only.
+the batch. At a fetch each metric is reduced over the ranks by its kind
+(``train_state.METRIC_KINDS``: the shares of the loss summed into the
+global loss, the global counts taken as they are, the auction's rounds as
+their maximum, a per-image mean as the mean); checkpoints are written and
+the eval run by rank 0, while the other ranks wait at a barrier; the entry
+point gives the writers to rank 0 only.
 """
 
 from __future__ import annotations
@@ -21,13 +24,9 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
-from yolov7_d2_tpu_torch.parallel.dist import (
-    all_reduce_scalars,
-    is_main_process,
-    synchronize,
-)
+from yolov7_d2_tpu_torch.parallel.dist import is_main_process, synchronize
 from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
-from yolov7_d2_tpu_torch.train.train_state import GLOBAL_METRICS, TrainState
+from yolov7_d2_tpu_torch.train.train_state import TrainState, reduce_metrics
 from yolov7_d2_tpu_torch.utils.events import (
     CommonMetricPrinter,
     EventStorage,
@@ -179,13 +178,8 @@ class Trainer:
                 self.storage.iter % self.metrics_period == 0
                 or self.storage.iter >= self.max_iter
             ):
-                values = all_reduce_scalars(
-                    {k: v for k, v in metrics.items()
-                     if k not in GLOBAL_METRICS})
-                values.update({k: float(v) for k, v in metrics.items()
-                               if k in GLOBAL_METRICS})
-                for k in metrics:
-                    self.storage.put_scalar(k, values[k])
+                for k, v in reduce_metrics(metrics).items():
+                    self.storage.put_scalar(k, v)
             for h in self.hooks:
                 h.after_step(self)
         for h in self.hooks:

@@ -113,14 +113,67 @@ def build_eval_fn(cfg, eval_records):
 def launch_main(main_fn, args):
     """``main_fn(args)`` on ``args.num_gpus`` processes of this machine
     (``parallel.launch``): over NCCL, or gloo where the config's
-    ``MODEL.DEVICE`` is the CPU. Returns its result in a world of 1."""
+    ``MODEL.DEVICE`` is the CPU. A ``spawn``-ed rank starts with an empty
+    dataset catalog, so each first registers the calling process's COCO
+    datasets (``coco_registrations``). Returns the result in a world of
+    1."""
+    from yolov7_d2_tpu_torch.data.catalog import coco_registrations
     from yolov7_d2_tpu_torch.parallel.launch import launch
     from yolov7_d2_tpu_torch.utils.args import setup_cfg
 
     cpu = torch.device(setup_cfg(args).MODEL.DEVICE).type == "cpu"
-    return launch(main_fn, args.num_gpus, args.num_machines,
-                  args.machine_rank, args.dist_url, args=(args,),
+    return launch(_registered_main, args.num_gpus, args.num_machines,
+                  args.machine_rank, args.dist_url,
+                  args=(main_fn, coco_registrations(), args),
                   backend="gloo" if cpu else "nccl")
+
+
+def _registered_main(main_fn, datasets, args):
+    """One rank of :func:`launch_main`: ``datasets`` (``(name, json,
+    image_root)``) into this process's catalog where missing, then
+    ``main_fn(args)``."""
+    from yolov7_d2_tpu_torch.data.catalog import (
+        DatasetCatalog,
+        register_coco_instances,
+    )
+
+    for name, js, root in datasets:
+        if name not in DatasetCatalog:
+            register_coco_instances(name, {}, js, root)
+    return main_fn(args)
+
+
+def rank_setup(args, scale=None):
+    """A training CLI's start in one process of ``launch_main``: logging
+    for a spawned rank (rank 0 logs progress), the config (``scale(cfg,
+    world)`` applied where given: ``train_det``'s ``auto_scale_config``),
+    the device (a CUDA rank takes the card of its local rank) and, on rank
+    0, ``OUTPUT_DIR/config.yaml``. Returns ``(cfg, device)``."""
+    from yolov7_d2_tpu_torch.engine import resolve_device
+    from yolov7_d2_tpu_torch.parallel.dist import (
+        get_local_rank,
+        get_world_size,
+        is_main_process,
+    )
+    from yolov7_d2_tpu_torch.utils.args import setup_cfg
+
+    if get_world_size() > 1:
+        # a spawned rank starts with no logging set up
+        logging.basicConfig(level=logging.INFO if is_main_process()
+                            else logging.WARNING)
+    cfg = setup_cfg(args)
+    if scale is not None:
+        cfg.defrost()
+        scale(cfg, get_world_size())
+        cfg.freeze()
+    device = resolve_device(cfg.MODEL.DEVICE)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", get_local_rank())
+    if is_main_process():
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
+    return cfg, device
 
 
 def main(args):
@@ -140,11 +193,9 @@ def run(args):
         CudaPrefetcher,
         build_detection_train_loader,
     )
-    from yolov7_d2_tpu_torch.engine import build_yolox_system, resolve_device
+    from yolov7_d2_tpu_torch.engine import build_yolox_system
     from yolov7_d2_tpu_torch.parallel.dist import (
-        get_local_rank,
         get_rank,
-        get_world_size,
         is_main_process,
         local_batch_size,
         synchronize,
@@ -159,19 +210,8 @@ def run(args):
         PeriodicWriter,
         Trainer,
     )
-    from yolov7_d2_tpu_torch.utils.args import setup_cfg
 
-    if get_world_size() > 1:
-        # a spawned rank starts with no logging set up; rank 0 logs progress
-        logging.basicConfig(level=logging.INFO if is_main_process()
-                            else logging.WARNING)
-    cfg = setup_cfg(args)
-    cfg.defrost()
-    auto_scale_config(cfg, get_world_size())
-    cfg.freeze()
-    device = resolve_device(cfg.MODEL.DEVICE)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", get_local_rank())
+    cfg, device = rank_setup(args, scale=auto_scale_config)
     rank = get_rank()
     batch_size = local_batch_size(cfg.SOLVER.IMS_PER_BATCH)
     packed_dir = str(cfg.DATALOADER.PACKED_CACHE_DIR)
@@ -180,10 +220,6 @@ def run(args):
             "INPUT.MOSAIC_AND_MIXUP.DEVICE (the fused device geometry path, "
             "DeviceAug) is not ported (ROADMAP.md, 'Do not port'): use the "
             "host mosaic feed or DATALOADER.PACKED_CACHE_DIR")
-    if is_main_process():
-        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-            f.write(cfg.dump())
 
     records = []
     for name in cfg.DATASETS.TRAIN:

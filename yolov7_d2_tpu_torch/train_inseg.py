@@ -3,7 +3,7 @@
 
     python -m yolov7_d2_tpu_torch.train_inseg \
         --config-file configs/coco/sparseinst/sparse_inst_r50_base.yaml \
-        [--resume] [--eval-only] [KEY VALUE ...]
+        [--resume] [--eval-only] [--num-gpus N] [KEY VALUE ...]
 
 Config -> COCO records with polygon segmentations (``DATASETS.TRAIN`` from
 the catalog) -> ``DarknetMosaicDatasetMapper`` with masks (the Darknet
@@ -17,8 +17,14 @@ normalize kernel, the model, the auction matcher and mask losses, AdamW)
 ``MODEL.DEVICE`` (``cuda`` by default, ``MODEL.DEVICE cpu`` on the CPU)
 and never falls back to the CPU. ``--eval-only`` evaluates the masks of
 the (resumed) model on ``DATASETS.TEST`` with ``COCOMaskEvaluator``
-(:func:`build_mask_eval_fn`). One process: ``--num-gpus`` above 1 raises
-(multi-GPU SparseInst is ROADMAP.md Queue A.6c).
+(:func:`build_mask_eval_fn`) on rank 0. ``--num-gpus N`` (``--num-machines``,
+``--machine-rank``, ``--dist-url`` as in ``train_det``) runs N processes a
+machine, one card each over NCCL (gloo on the CPU with ``MODEL.DEVICE
+cpu``); ``SOLVER.IMS_PER_BATCH`` stays the global batch, of which each
+rank takes its share, and the step is that of the global batch (the
+matched count summed over the ranks, DDP's summed gradient). Each rank
+maps and shuffles with its own seed; rank 0 writes the config, the
+metrics and the checkpoints.
 """
 
 from __future__ import annotations
@@ -115,19 +121,18 @@ def build_mask_eval_fn(cfg, eval_records):
 
 
 def main(args):
-    """Train (or with ``--eval-only`` evaluate) in this process; returns
-    the ``Trainer`` (its ``storage`` holds the last scalars) or the eval
-    dict. More than one process raises: multi-GPU SparseInst (the matched
-    count all-reduced, ``--num-gpus``) is ROADMAP.md Queue A.6c."""
-    if args.num_gpus * args.num_machines > 1:
-        raise NotImplementedError(
-            "train_inseg runs one process: multi-GPU SparseInst training "
-            "(num_inst all-reduced, --num-gpus) is not ported yet "
-            "(ROADMAP.md Queue A.6c)")
-    return run(args)
+    """Train (or with ``--eval-only`` evaluate) on ``args.num_gpus *
+    args.num_machines`` processes. In one process, return the ``Trainer``
+    (its ``storage`` holds the last scalars) or the eval dict; None with
+    more processes."""
+    from yolov7_d2_tpu_torch.train_det import launch_main
+
+    return launch_main(run, args)
 
 
 def run(args):
+    """The training of one process; returns its ``Trainer`` (with
+    ``--eval-only``, the eval dict on rank 0 and None on the others)."""
     from yolov7_d2_tpu_torch.config import SparseInstConfig
     from yolov7_d2_tpu_torch.data.catalog import DatasetCatalog
     from yolov7_d2_tpu_torch.data.loader import (
@@ -136,7 +141,13 @@ def run(args):
         stack_mask_batch,
     )
     from yolov7_d2_tpu_torch.data.mappers import DarknetMosaicDatasetMapper
-    from yolov7_d2_tpu_torch.engine import build_system, resolve_device
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.parallel.dist import (
+        get_rank,
+        is_main_process,
+        local_batch_size,
+        synchronize,
+    )
     from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
     from yolov7_d2_tpu_torch.train.trainer import (
         IterationTimer,
@@ -144,17 +155,17 @@ def run(args):
         PeriodicWriter,
         Trainer,
     )
+    from yolov7_d2_tpu_torch.train_det import rank_setup
     from yolov7_d2_tpu_torch.utils.args import setup_cfg
 
-    cfg = setup_cfg(args)
-    if cfg.MODEL.META_ARCHITECTURE != "SparseInst":
+    arch = setup_cfg(args).MODEL.META_ARCHITECTURE
+    if arch != "SparseInst":
         raise NotImplementedError(
-            f"train_inseg trains SparseInst, not "
-            f"{cfg.MODEL.META_ARCHITECTURE!r} (the JAX script's family)")
-    device = resolve_device(cfg.MODEL.DEVICE)
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+            f"train_inseg trains SparseInst, not {arch!r} (the JAX script's "
+            "family)")
+    cfg, device = rank_setup(args)
+    rank = get_rank()
+    batch_size = local_batch_size(cfg.SOLVER.IMS_PER_BATCH)
 
     records = []
     for name in cfg.DATASETS.TRAIN:
@@ -165,25 +176,32 @@ def run(args):
     checkpointer = Checkpointer(os.path.join(cfg.OUTPUT_DIR, "ckpt"))
     state, start_iter = checkpointer.resume_or_load(state, resume=args.resume)
     if args.eval_only:
-        eval_records = []
-        for name in cfg.DATASETS.TEST:
-            eval_records.extend(DatasetCatalog.get(name))
-        results = build_mask_eval_fn(cfg, eval_records)(
-            types.SimpleNamespace(state=state))
-        print(results)
+        results = None
+        if is_main_process():
+            eval_records = []
+            for name in cfg.DATASETS.TEST:
+                eval_records.extend(DatasetCatalog.get(name))
+            results = build_mask_eval_fn(cfg, eval_records)(
+                types.SimpleNamespace(state=state))
+            print(results)
+        synchronize()
         return results
 
     # the reference inseg path trains through the blend mosaic
-    # (INPUT.MOSAIC.ENABLED), else the config's plain chain
-    mapper = DarknetMosaicDatasetMapper(cfg, is_train=True, with_masks=True)
-    loader = build_detection_train_loader(cfg, records, mapper,
+    # (INPUT.MOSAIC.ENABLED), else the config's plain chain; each rank
+    # draws its own mosaics and shuffles with its own seed
+    mapper = DarknetMosaicDatasetMapper(cfg, is_train=True, with_masks=True,
+                                        seed=rank)
+    loader = build_detection_train_loader(cfg, records, mapper, seed=rank,
+                                          batch_size=batch_size,
                                           collate=stack_mask_batch)
     hooks = [
         IterationTimer(),
         PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD),
-        PeriodicWriter(Trainer.default_writers(cfg.OUTPUT_DIR,
-                                               cfg.SOLVER.MAX_ITER)),
     ]
+    if is_main_process():
+        hooks.append(PeriodicWriter(Trainer.default_writers(
+            cfg.OUTPUT_DIR, cfg.SOLVER.MAX_ITER)))
     trainer = Trainer(train_step, state,
                       CudaPrefetcher(loader, device, fields),
                       cfg.SOLVER.MAX_ITER, hooks=hooks, start_iter=start_iter)

@@ -3,7 +3,7 @@
 
     python -m yolov7_d2_tpu_torch.train_transformer \
         --config-file configs/coco/detr/detr_256_6_6_r50.yaml \
-        [--resume] [KEY VALUE ...]
+        [--resume] [--num-gpus N] [KEY VALUE ...]
 
 Config -> COCO records (``DATASETS.TRAIN`` from the catalog) ->
 ``DetrDatasetMapper`` where "detr" is in the architecture's name (flip,
@@ -16,9 +16,14 @@ auction, AdamW with ``BACKBONE_MULTIPLIER``) -> the trainer with the JAX
 script's hooks: timer, periodic checkpoint (``OUTPUT_DIR/ckpt``), writers
 (``OUTPUT_DIR/metrics.json``). No evaluation, as the JAX script runs none.
 It runs on ``MODEL.DEVICE`` (``cuda`` by default, ``MODEL.DEVICE cpu`` on
-the CPU) and never falls back to the CPU. One process: ``--num-gpus``
-above 1 raises (multi-GPU DETR, the matched count all-reduced, is
-ROADMAP.md Queue A.6d).
+the CPU) and never falls back to the CPU. ``--num-gpus N`` (with
+``--num-machines``, ``--machine-rank``, ``--dist-url`` as in ``train_det``)
+runs N processes a machine, one card each over NCCL (gloo on the CPU with
+``MODEL.DEVICE cpu``); ``SOLVER.IMS_PER_BATCH`` stays the global batch, of
+which each rank takes its share, and the step is that of the global batch
+(the set criterion's normalizers summed over the ranks, DDP's summed
+gradient). Each rank maps, shuffles and drops out with its own seed; rank
+0 writes the config, the metrics and the checkpoints.
 """
 
 from __future__ import annotations
@@ -30,17 +35,16 @@ logger = logging.getLogger("yolov7_d2_tpu_torch")
 
 
 def main(args):
-    """Train in this process; returns the ``Trainer`` (its ``storage``
-    holds the last scalars). More than one process raises."""
-    if args.num_gpus * args.num_machines > 1:
-        raise NotImplementedError(
-            "train_transformer runs one process: multi-GPU DETR training "
-            "(num_boxes all-reduced over the ranks, --num-gpus) is not "
-            "ported yet (ROADMAP.md Queue A.6d)")
-    return run(args)
+    """Train on ``args.num_gpus * args.num_machines`` processes. In one
+    process, return the ``Trainer`` (its ``storage`` holds the last
+    scalars); None with more processes."""
+    from yolov7_d2_tpu_torch.train_det import launch_main
+
+    return launch_main(run, args)
 
 
 def run(args):
+    """The training of one process; returns its ``Trainer``."""
     from yolov7_d2_tpu_torch.data.catalog import DatasetCatalog
     from yolov7_d2_tpu_torch.data.loader import (
         CudaPrefetcher,
@@ -51,7 +55,12 @@ def run(args):
         DetrDatasetMapper,
         SimpleDatasetMapper,
     )
-    from yolov7_d2_tpu_torch.engine import build_system, resolve_device
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.parallel.dist import (
+        get_rank,
+        is_main_process,
+        local_batch_size,
+    )
     from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
     from yolov7_d2_tpu_torch.train.trainer import (
         IterationTimer,
@@ -59,13 +68,11 @@ def run(args):
         PeriodicWriter,
         Trainer,
     )
-    from yolov7_d2_tpu_torch.utils.args import setup_cfg
+    from yolov7_d2_tpu_torch.train_det import rank_setup
 
-    cfg = setup_cfg(args)
-    device = resolve_device(cfg.MODEL.DEVICE)
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    cfg, device = rank_setup(args)
+    rank = get_rank()
+    batch_size = local_batch_size(cfg.SOLVER.IMS_PER_BATCH)
 
     records = []
     for name in cfg.DATASETS.TRAIN:
@@ -76,19 +83,21 @@ def run(args):
     checkpointer = Checkpointer(os.path.join(cfg.OUTPUT_DIR, "ckpt"))
     state, start_iter = checkpointer.resume_or_load(state, resume=args.resume)
 
-    # the reference selects the DETR mapper by the architecture's name
+    # the reference selects the DETR mapper by the architecture's name;
+    # each rank draws its own crops and shuffles with its own seed
     mapper_cls = (DetrDatasetMapper
                   if "detr" in cfg.MODEL.META_ARCHITECTURE.lower()
                   else SimpleDatasetMapper)
-    loader = build_detection_train_loader(cfg, records,
-                                          mapper_cls(cfg, is_train=True),
-                                          collate=stack_uint8_batch)
+    loader = build_detection_train_loader(
+        cfg, records, mapper_cls(cfg, is_train=True, seed=rank), seed=rank,
+        batch_size=batch_size, collate=stack_uint8_batch)
     hooks = [
         IterationTimer(),
         PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD),
-        PeriodicWriter(Trainer.default_writers(cfg.OUTPUT_DIR,
-                                               cfg.SOLVER.MAX_ITER)),
     ]
+    if is_main_process():
+        hooks.append(PeriodicWriter(Trainer.default_writers(
+            cfg.OUTPUT_DIR, cfg.SOLVER.MAX_ITER)))
     trainer = Trainer(train_step, state,
                       CudaPrefetcher(loader, device, fields),
                       cfg.SOLVER.MAX_ITER, hooks=hooks, start_iter=start_iter)

@@ -27,9 +27,10 @@ template holds it, and a patch merging's norm and reduction go from flax's
 channel order into the reference's (``swin_merge_perm``). YOLOv6
 (``map_yolov6_torch_name``: EfficientRep, RepPAN, EffiDeHead), YOLOF
 (``map_yolof_torch_name``), the YOLOv5 backbone and the BiFPN and PP-YOLO
-PAN necks (through ``map_anchor_yolo_torch_name``) take copies of the JAX
-maps; a transposed convolution's kernel (RepPAN's ``upsample_transpose``)
-goes from flax's ``[kH, kW, I, O]`` to torch's ``[I, O, kH, kW]`` flipped
+PAN necks and Res2Net / Res2NeXt (through ``map_anchor_yolo_torch_name``)
+take copies of the JAX maps; a transposed convolution's kernel (RepPAN's
+``upsample_transpose``) goes from flax's ``[kH, kW, I, O]`` to torch's
+``[I, O, kH, kW]`` flipped
 in both spatial axes (flax's ``ConvTranspose`` does not flip its kernel,
 torch's ``ConvTranspose2d`` computes with the flipped one), and a BiFPN
 node's ``edge_weights`` is the flax parameter ``cell{r}_fnode{i}_edge``.
@@ -184,7 +185,8 @@ def map_anchor_yolo_torch_name(name: str,
     """Translate a key of the port's ``AnchorYOLO`` (``models/meta_arch/
     yolov7.py``) into the flax path of the JAX ``AnchorYOLO``, by prefix:
     ``backbone.`` through the map of ``backbone_type`` (``darknet53``,
-    ``cspdarknet53``, ``cspdarknetx``, ``resnet``, ``resnet_vd``, ``swin``,
+    ``cspdarknet53``, ``cspdarknetx``, ``resnet``, ``resnet_vd``,
+    ``res2net`` (v1b / v1d), ``res2next``, ``swin``,
     ``pvt_v2``, ``yolov5`` or ``efficientrep``, whose names overlap, so
     the caller says which), ``neck.`` through the BiFPN map, the YOLOFPN map or the YOLOX
     one (YOLOPAFPN; PP-YOLO's PAN has the flax names),
@@ -200,6 +202,10 @@ def map_anchor_yolo_torch_name(name: str,
             return ("backbone",) + TRANSFORMER_MAPS[backbone_type](rest)
         if backbone_type in ("resnet", "resnet_vd"):
             return map_resnet_torch_name(name, backbone_type == "resnet_vd")
+        if backbone_type == "res2net":
+            return ("backbone",) + map_res2net_torch_name(rest)
+        if backbone_type == "res2next":
+            return ("backbone",) + map_res2next_torch_name(rest)
         if backbone_type == "cspdarknetx":
             return map_yolox_torch_name(name)
         mapper = (map_cspdarknet_torch_name
@@ -251,6 +257,55 @@ def map_resnet_torch_name(name: str, vd: bool = False) -> Tuple[str, ...]:
         return ("backbone", f"stem{m.group(1)}",
                 "bn" if m.group(2) else "conv")
     return map_d2_resnet_name(name)
+
+
+def map_res2net_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference Res2Net-v1b keys (the port's ``models/backbones/
+    res2net.py``) -> the JAX Res2Net's flax paths: the deep stem
+    ``conv1.{0,1,3,4,6}`` and the outer ``bn1`` -> ``stem{1,2,3}``; blocks
+    ``layerL.i.{conv1,bn1,convs.j,bns.j,conv3,bn3,downsample.{1,2}}`` ->
+    ``res{L+1}_{i}/{conv1,conv2_j,conv3,shortcut}/{conv,bn}``; a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:488``."""
+    m = re.match(r"^conv1\.(\d)$", name)
+    if m:
+        return {0: ("stem1", "conv"), 1: ("stem1", "bn"),
+                3: ("stem2", "conv"), 4: ("stem2", "bn"),
+                6: ("stem3", "conv")}[int(m.group(1))]
+    if name == "bn1":
+        return ("stem3", "bn")
+    m = re.match(r"^layer(\d)\.(\d+)\.(conv|bn)(\d)$", name)
+    if m:
+        lvl, i, kind, k = m.groups()
+        return (f"res{int(lvl) + 1}_{i}", f"conv{k}",
+                "conv" if kind == "conv" else "bn")
+    m = re.match(r"^layer(\d)\.(\d+)\.(convs|bns)\.(\d+)$", name)
+    if m:
+        lvl, i, kind, j = m.groups()
+        return (f"res{int(lvl) + 1}_{i}", f"conv2_{j}",
+                "conv" if kind == "convs" else "bn")
+    m = re.match(r"^layer(\d)\.(\d+)\.downsample\.(\d)$", name)
+    if m:
+        lvl, i, j = m.groups()
+        leaf = {1: "conv", 2: "bn"}[int(j)]
+        return (f"res{int(lvl) + 1}_{i}", "shortcut", leaf)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_res2next_torch_name(name: str) -> Tuple[str, ...]:
+    """Res2NeXt-50 keys: the plain 7x7 stem (``conv1`` / ``bn1`` ->
+    ``stem``) and the 1x1 shortcut without a pool (``downsample.{0,1}``);
+    the blocks as :func:`map_res2net_torch_name`; a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:517``."""
+    if name == "conv1":
+        return ("stem", "conv")
+    if name == "bn1":
+        return ("stem", "bn")
+    m = re.match(r"^layer(\d)\.(\d+)\.downsample\.(\d)$", name)
+    if m:
+        lvl, i, j = m.groups()
+        leaf = {0: "conv", 1: "bn"}[int(j)]
+        return (f"res{int(lvl) + 1}_{i}", "shortcut", leaf)
+    return map_res2net_torch_name(name)
 
 
 def map_sparseinst_encoder_torch_name(name: str) -> Tuple[str, ...]:
