@@ -4,8 +4,10 @@ training CLI and multi-GPU training, of the anchor-YOLO family's serving
 and training, of SparseInst's and of DETR's and AnchorDETR's serving,
 training, CLI and multi-GPU training, of YOLOX-KPTS's serving, training
 and eval, of the one-stage box detectors' (YOLOv5, YOLOv6, YOLOF, BiFPN
-and PAN necks) and of YOLOV7 on Res2Net serving and training, and of the
-repeatability of a training step, on one CUDA card.
+and PAN necks), of YOLOV7 on Res2Net, of the backbone zoo (RegNet,
+ConvNeXt, EfficientNet, FBNet) and of SMCA-DETR, DAB-DETR and the d2go
+DETR serving and training, and of the repeatability of a training step,
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -175,7 +177,30 @@ set to 0 just before it and read just after:
   against the CPU with the same foreground count; ``r2next_50.yaml``,
   ``r2_50_l.yaml`` (768 px) and ``tl/res2net_bifpn.yaml`` one request and
   one step each. Its launches are added to the normalize, NMS and
-  GridMask entries.
+  GridMask entries;
+* the backbone zoo and the other DETR variants (section 19,
+  ``zoo_phase``): (a) the normalize kernel in its identity form on
+  [128,800,800,3] and the GridMask kernel on float32 [16,800,800,3],
+  bit-exact (the ``normalize_800`` and ``grid_mask_800`` entries, whose
+  launches are (a)'s), YOLOX on ConvNeXt-T at 800
+  (``configs/coco/yolox/yolox_convnext.yaml``) through ``Predictor`` at
+  1, 8 and 128 images (normalize kernel in its identity form and NMS
+  kernel, the kernel path's ``Detections`` equal to the plain path's at
+  128, f32 on the card against the CPU at 128 px within 1e-4 of the max,
+  times and the device's busy share), 13 steps of 16 images in
+  ``make_packed_photo_step`` with mixup and GridMask, one f32 step at
+  drop path 0 against the CPU, the drop path's kept share at rate 0.2 in
+  float32 steps on the card (within 3 standard deviations), and
+  ``train_det`` for 4 steps with the COCO eval on a mini-COCO; (b)
+  SMCA-DETR R-50 at 800 (``smca_detr_r50.yaml``) as section 13 does DETR,
+  and ``train_transformer`` for 4 steps; (c) one request and one step
+  each of YOLOX on RegNetX-400MF and ConvNeXt-T at 640, YOLOV7 on
+  RegNetX-400MF, -200MF (320 px) and EfficientNet-b2 (taps at b2's stage
+  ends, ROADMAP.md C.31), and of every other yaml of SMCA-DETR, DAB-DETR
+  and the d2go DETR (on ResNet-50, CSPDarknet-X, FBNetV3-A; the focal
+  head through its sigmoid tail). Its launches are added to the
+  normalize, normalize_800, normalize_detr, NMS, GridMask and
+  grid_mask_800 entries; it logs its seconds.
 
 ``python3 chip_smoke.py --nccl`` runs (c) of sections 10 and 17 alone, on a
 machine of 2 or more cards.
@@ -349,14 +374,14 @@ def crowd_nms_inputs(dev, gen, b=BATCH, k=1024):
     return boxes.to(dev), scores.to(dev)
 
 
-def grid_mask_inputs(dev, gen):
+def grid_mask_inputs(dev, gen, size: int = SIZE):
     """Parameters for TRAIN_BATCH images drawn as the training path draws
     them, every other one made an identity (keep 0 in mode 0 where d > 1),
-    and the uint8 and float32 images of [TRAIN_BATCH, 640, 640, 3]."""
+    and the uint8 and float32 images of [TRAIN_BATCH, size, size, 3]."""
     from yolov7_d2_tpu_torch.data.device_aug import sample_grid_mask_params
-    params = sample_grid_mask_params(gen, TRAIN_BATCH, SIZE, SIZE, 0.75)
+    params = sample_grid_mask_params(gen, TRAIN_BATCH, size, size, 0.75)
     params[::2, 4] = torch.where(params[::2, 0] > 1, 0, params[::2, 4])
-    shape = (TRAIN_BATCH, SIZE, SIZE, 3)
+    shape = (TRAIN_BATCH, size, size, 3)
     u8 = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
     f32 = torch.rand(shape, generator=gen) * 255
     return params.to(dev), u8.to(dev), f32.to(dev)
@@ -437,8 +462,8 @@ def write_mini_coco(root: str, n: int = CLI_IMAGES, seed: int = SEED,
     return js, img_dir
 
 
-def cli_argv(out: str, *flags, **opts) -> list:
-    """``train_det``'s command line for ``configs/coco/yolox_s.yaml`` on the
+def cli_argv(out: str, *flags, config: str = "yolox_s.yaml", **opts) -> list:
+    """``train_det``'s command line for ``configs/coco/<config>`` on the
     mini-COCO: 16 images a step, 12 steps, a checkpoint every 6, the COCO
     eval at 12; ``opts`` (keys with ``__`` for ``.``) override."""
     base = {"DATASETS.TRAIN": (CLI_DATASET,), "DATASETS.TEST": (CLI_DATASET,),
@@ -446,8 +471,8 @@ def cli_argv(out: str, *flags, **opts) -> list:
             "SOLVER.IMS_PER_BATCH": TRAIN_BATCH, "SOLVER.MAX_ITER": 12,
             "SOLVER.CHECKPOINT_PERIOD": 6, "TEST.EVAL_PERIOD": 12}
     base.update({k.replace("__", "."): v for k, v in opts.items()})
-    argv = ["--config-file",
-            os.path.join(REPO, "configs", "coco", "yolox_s.yaml"), *flags]
+    argv = ["--config-file", os.path.join(REPO, "configs", "coco", config),
+            *flags]
     for k, v in base.items():
         argv += [k, v if isinstance(v, str) else repr(v)]
     return argv
@@ -1278,16 +1303,14 @@ def nccl_ranks_phase(dev, card: str, cfg, data: CliData, **opts) -> None:
         f"time_per_iter {last['time_per_iter'] * 1e3:.3f} ms on rank 0")
 
 
-def anchor_yolo_cfg(yaml: str, **replace):
-    """An ``AnchorYoloConfig`` from ``configs/coco/<yaml>`` (merged into the
-    port's ``get_cfg``, as a user's config is), with dataclass fields
-    replaced."""
-    from yolov7_d2_tpu_torch.config import AnchorYoloConfig
-    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+def coco_cfg(yaml: str, **replace):
+    """The config dataclass of ``configs/coco/<yaml>``'s architecture
+    (``engine.config_from_yaml``: merged into the port's ``get_cfg``, as a
+    user's config is), with dataclass fields replaced."""
+    from yolov7_d2_tpu_torch.engine import config_from_yaml
 
-    cfg = get_cfg()
-    cfg.merge_from_file(os.path.join(REPO, "configs", "coco", yaml))
-    return dataclasses.replace(AnchorYoloConfig.from_cfg(cfg), **replace)
+    return config_from_yaml(os.path.join(REPO, "configs", "coco", yaml),
+                            **replace)
 
 
 def anchor_tail(head, cfg, nms=None):
@@ -1472,7 +1495,7 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
     from yolov7_d2_tpu_torch.models.build import build_model
 
-    cfg = anchor_yolo_cfg(yaml)
+    cfg = coco_cfg(yaml)
     name = f"YOLOV7 {yaml}" if yaml != "yolov7.yaml" else "YOLOV7"
     model = build_model(cfg, dev, SEED)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1621,19 +1644,35 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
                            draws, card_g, ref_g, fmt)
 
     # ---- (c) the other configurations: one request, one train step
+    anchor_others_phase(dev, gen, others, label, requests[1], train_n,
+                        kernels)
+
+
+def anchor_others_phase(dev, gen: torch.Generator, others, label: str,
+                        bs: int = 8, train_n: int = TRAIN_BATCH,
+                        kernels=None) -> None:
+    """One request of ``bs`` images and one train step of ``train_n`` each
+    of ``others`` (name, yaml under ``configs/coco``, fields replaced) of
+    the anchor-YOLO family, at each config's size, one model built for
+    both (``build_system``'s, in eval mode to serve): the normalize and
+    NMS kernels launched serving, GridMask in ``make_packed_photo_step``'s
+    step (EMA on), launches counted from 0 and added to ``kernels``."""
+    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+
     for arch, other, replace in others:
-        ccfg = anchor_yolo_cfg(other, **replace)
+        ccfg = dataclasses.replace(coco_cfg(other, **replace),
+                                   grid_mask=True, ema=True)
         csize = ccfg.input_size[0]
-        model = build_model(ccfg, dev, SEED)
-        req = letterboxed_batch(requests[1], gen, csize)
+        model, state, train_step, _ = build_system(ccfg, device=dev,
+                                                   seed=SEED)
+        req = letterboxed_batch(bs, gen, csize)
         build.reset_launches()
-        _, dets = anchor_serve(model, ccfg, req.contiguous().to(dev))
+        _, dets = anchor_serve(model.eval(), ccfg, req.contiguous().to(dev))
         torch.cuda.synchronize()
         serve_launches = dict(build.LAUNCHES)
         summary = check_detections(dets, req.shape[0], ccfg, arch)
-        del model
-        ccfg = dataclasses.replace(ccfg, grid_mask=True, ema=True)
-        _, state, train_step, _ = build_system(ccfg, device=dev, seed=SEED)
         step = make_packed_photo_step(ccfg, train_step, seed=SEED)
         build.reset_launches()
         state, m = step(state, {k: v.to(dev) for k, v in train_batch(
@@ -1656,7 +1695,7 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
             f"{serve_launches}; one train step of {train_n}: total loss "
             f"{float(m['total_loss']):.4f}, num_fg {float(m['num_fg']):.0f},"
             f" launches {train_launches}")
-        del state, train_step, step
+        del model, state, train_step, step
         torch.cuda.empty_cache()
 
 
@@ -1670,12 +1709,9 @@ SPARSEINST_YAML = os.path.join(REPO, "configs", "coco", "sparseinst",
 def sparseinst_cfg(**replace):
     """A ``SparseInstConfig`` from ``sparse_inst_r50_base.yaml`` (merged
     into the port's ``get_cfg``), with dataclass fields replaced."""
-    from yolov7_d2_tpu_torch.config import SparseInstConfig
-    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+    from yolov7_d2_tpu_torch.engine import config_from_yaml
 
-    cfg = get_cfg()
-    cfg.merge_from_file(SPARSEINST_YAML)
-    return dataclasses.replace(SparseInstConfig.from_cfg(cfg), **replace)
+    return config_from_yaml(SPARSEINST_YAML, **replace)
 
 
 def inseg_batch(n: int, gen: torch.Generator, dev, size: int = SIZE,
@@ -2045,25 +2081,18 @@ DETR_MODELS = (("DETR", "detr_256_6_6_r50.yaml"),
 def detr_cfg(yaml: str, **replace):
     """A ``DetrConfig`` from ``configs/coco/detr/<yaml>`` (merged into the
     port's ``get_cfg``), with dataclass fields replaced."""
-    from yolov7_d2_tpu_torch.config import DetrConfig
-    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+    from yolov7_d2_tpu_torch.engine import config_from_yaml
 
-    cfg = get_cfg()
-    cfg.merge_from_file(os.path.join(DETR_DIR, yaml))
-    return dataclasses.replace(DetrConfig.from_cfg(cfg), **replace)
+    return config_from_yaml(os.path.join(DETR_DIR, yaml), **replace)
 
 
 def detr_tail(out, cfg):
-    """The family's tail: ``detr_postprocess`` or
-    ``anchor_detr_postprocess`` -> ``Detections`` of
-    ``cfg.max_detections``."""
-    from yolov7_d2_tpu_torch.models.meta_arch.detr import detr_postprocess
-    from yolov7_d2_tpu_torch.models.meta_arch.detr_variants import (
-        anchor_detr_postprocess,
-    )
+    """The family's tail (``detr_variants.detr_tail``: ``detr_postprocess``
+    for C + 1 logits, ``anchor_detr_postprocess`` for the focal heads' C)
+    -> ``Detections`` of ``cfg.max_detections``."""
+    from yolov7_d2_tpu_torch.models.meta_arch import detr_variants
 
-    tail = (detr_postprocess if cfg.meta_architecture == "Detr"
-            else anchor_detr_postprocess)
+    tail = detr_variants.detr_tail(cfg)
     with torch.inference_mode():
         return tail(out, cfg.input_size, cfg.max_detections)
 
@@ -2159,24 +2188,13 @@ def detr_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     (d) ``train_transformer`` on a synthetic mini-COCO of ``cli_images``
     JPEGs, the crop branch on: 12 steps with checkpoints at 6 and 12,
     ``--resume`` to 14 (``cli_opts`` override its config keys, ``__`` for
-    ``.``). Each path's launches are counted from 0."""
-    from yolov7_d2_tpu_torch import train_transformer
-    from yolov7_d2_tpu_torch.data.catalog import (
-        DatasetCatalog,
-        register_coco_instances,
-    )
-    from yolov7_d2_tpu_torch.engine import build_system
-    from yolov7_d2_tpu_torch.kernels import build
+    ``.``). Each path's launches are counted from 0
+    (:func:`detr_model_paths`, :func:`detr_cli_run`)."""
     from yolov7_d2_tpu_torch.kernels.preprocess import (
         normalize_images,
         normalize_images_plain,
     )
-    from yolov7_d2_tpu_torch.models.backbones.resnet import (
-        frozen_bn_buffers,
-    )
-    from yolov7_d2_tpu_torch.models.build import build_model
     from yolov7_d2_tpu_torch.models.meta_arch import detr as dm
-    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
 
     # ---- (a) the normalize kernel at DETR's statistics
     images = torch.randint(0, 256, (requests[-1], size, size, 3),
@@ -2209,192 +2227,239 @@ def detr_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     batches = [letterboxed_batch(n, gen, size) for n in requests]
 
     for name, yaml in DETR_MODELS:
-        cfg = detr_cfg(yaml)
-        if cfg.input_size != (size, size):
-            cfg = dataclasses.replace(cfg, input_size=(size, size))
-        model = build_model(cfg, dev, SEED)
-        n_params = sum(p.numel() for p in model.parameters())
-        log(f"(13a) {name} R-50 {size} from {yaml}: {n_params / 1e6:.3f} M "
-            f"parameters, {model.dtype}, {cfg.enc_layers} + "
-            f"{cfg.dec_layers} layers, "
-            + (f"{cfg.num_queries} queries" if name == "DETR" else
-               f"{cfg.num_query_position} x {cfg.num_query_pattern} "
-               f"queries, {cfg.attention_type}"))
-        torch.cuda.synchronize()
-        build.reset_launches()
-        for req in batches:
-            _, dets = detr_serve(model, cfg, req.to(dev))
-            log(f"(13a) {name} request bs {req.shape[0]}: " +
-                check_detections(dets, req.shape[0], cfg, f"{name} serving"))
-        torch.cuda.synchronize()
-        serve_launches = dict(build.LAUNCHES)
-        if serve_launches.get("normalize", 0) != len(requests):
-            raise AssertionError(f"the {name} serving path launched "
-                                 f"normalize {serve_launches} times")
-        kernels["normalize_detr"]["launches"] += serve_launches["normalize"]
-        for req in batches:
-            n = req.shape[0]
-            x = req.to(dev)
-            e2e = cuda_ms(lambda: detr_serve(model, cfg, x))
-            with torch.inference_mode():
-                fwd = cuda_ms(lambda: model(x))
-                out = model(x)
-            tail = cuda_ms(lambda: detr_tail(out, cfg))
-            extra = ""
-            if n == requests[-1]:
-                busy, window = device_busy_ms(
-                    lambda: detr_serve(model, cfg, x))
-                extra = (f"; device busy {busy:.3f} ms a call = "
-                         f"{100 * busy / e2e:.1f}% of the untraced call "
-                         f"(traced {window:.3f} ms)")
-            log(f"{name} R-50 {size} bs {n} bf16 on [{card}]: e2e "
-                f"{e2e:.3f} ms = {n * 1000 / e2e:.1f} img/s; forward-only "
-                f"{fwd:.3f} ms = {n * 1000 / fwd:.1f} img/s; tail "
-                f"{tail:.3f} ms{extra}")
-            del out
-        # the kernel path against the plain path (float input, the plain
-        # normalize): the same Detections
-        x = batches[1].to(dev)
-        _, dets = detr_serve(model, cfg, x)
-        _, plain = detr_serve(model, cfg, x.float())
-        for f in ("boxes", "scores", "classes", "valid"):
-            if not torch.equal(getattr(dets, f), getattr(plain, f)):
-                raise AssertionError(f"{name}: the kernel path's {f} differ "
-                                     "from the plain path's")
-        log(f"(13a) {name} bs {x.shape[0]}: the kernel path's Detections "
-            "equal the plain path's")
+        detr_model_paths(dev, card, gen, kernels, name, yaml, "13", batches,
+                         train_n, size, small, steps)
+    detr_cli_run(dev, card, kernels, "13d", "DETR", DETR_MODELS[0][1],
+                 train_n, size, cli_images, **cli_opts)
 
-        # ---- (b) f32 card against CPU, full width, small px
-        f32 = dataclasses.replace(cfg, amp=False, input_size=(small, small))
-        one = letterboxed_batch(2, gen, small)
+
+def detr_model_paths(dev, card: str, gen: torch.Generator, kernels: dict,
+                     name: str, yaml: str, label: str, batches,
+                     train_n: int = DETR_TRAIN_BATCH, size: int = DETR_SIZE,
+                     small: int = 128, steps: int = WARMUP + ITERS) -> None:
+    """The paths of one model of the DETR family from ``configs/coco/detr/
+    <yaml>`` at ``size`` (sections 13 and 19): serving ``batches`` (uint8
+    -> normalize kernel -> forward -> the tail, one launch a request, times
+    by CUDA events, the device's busy share at the largest, the kernel
+    path's ``Detections`` against the plain path's at the second), the f32
+    card against the CPU at ``small`` px, ``steps`` training steps of
+    ``train_n`` images through ``build_system`` and one f32 step at dropout
+    0 on the card against the CPU. The normalize launches are added to
+    ``kernels``'s ``normalize_detr`` entry."""
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.models.backbones.resnet import (
+        frozen_bn_buffers,
+    )
+    from yolov7_d2_tpu_torch.models.build import build_model
+
+    requests = [b.shape[0] for b in batches]
+    cfg = detr_cfg(yaml)
+    if cfg.input_size != (size, size):
+        cfg = dataclasses.replace(cfg, input_size=(size, size))
+    model = build_model(cfg, dev, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"({label}a) {name} R-50 {size} from {yaml}: {n_params / 1e6:.3f} M "
+        f"parameters, {model.dtype}, {cfg.enc_layers} + "
+        f"{cfg.dec_layers} layers, "
+        + (f"{cfg.num_query_position} x {cfg.num_query_pattern} "
+           f"queries, {cfg.attention_type}"
+           if cfg.meta_architecture == "AnchorDetr" else
+           f"{cfg.num_queries} queries"))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for req in batches:
+        _, dets = detr_serve(model, cfg, req.to(dev))
+        log(f"({label}a) {name} request bs {req.shape[0]}: " +
+            check_detections(dets, req.shape[0], cfg, f"{name} serving"))
+    torch.cuda.synchronize()
+    serve_launches = dict(build.LAUNCHES)
+    if serve_launches.get("normalize", 0) != len(requests):
+        raise AssertionError(f"the {name} serving path launched "
+                             f"normalize {serve_launches} times")
+    kernels["normalize_detr"]["launches"] += serve_launches["normalize"]
+    for req in batches:
+        n = req.shape[0]
+        x = req.to(dev)
+        e2e = cuda_ms(lambda: detr_serve(model, cfg, x))
         with torch.inference_mode():
-            ref = build_model(f32, "cpu", SEED)(one)
-            on_card = build_model(f32, dev, SEED)(one.to(dev))
-            bf16 = model(one.to(dev))
-        gaps = []
-        for k in ("pred_logits", "pred_boxes", "aux_logits", "aux_boxes"):
-            scale = float(ref[k].abs().max())
-            err = float((on_card[k].cpu() - ref[k]).abs().max())
-            err16 = float((bf16[k].float().cpu() - ref[k]).abs().max())
-            gaps.append(f"{k} {err / scale:.3g} (bf16 {err16 / scale:.3g})")
-            if err > 1e-4 * scale or err16 > 5e-2 * scale:
-                raise AssertionError(f"{name} {k} on the card differs from "
-                                     f"the CPU by {err} (bf16 {err16}) of "
-                                     f"{scale}")
-        log(f"(13b) {name} f32 forward at {small} px, card against CPU, "
-            "error over each output's max: " + ", ".join(gaps))
-        del model, ref, on_card, bf16
-        torch.cuda.empty_cache()
+            fwd = cuda_ms(lambda: model(x))
+            out = model(x)
+        tail = cuda_ms(lambda: detr_tail(out, cfg))
+        extra = ""
+        if n == requests[-1]:
+            busy, window = device_busy_ms(
+                lambda: detr_serve(model, cfg, x))
+            extra = (f"; device busy {busy:.3f} ms a call = "
+                     f"{100 * busy / e2e:.1f}% of the untraced call "
+                     f"(traced {window:.3f} ms)")
+        log(f"{name} R-50 {size} bs {n} bf16 on [{card}]: e2e "
+            f"{e2e:.3f} ms = {n * 1000 / e2e:.1f} img/s; forward-only "
+            f"{fwd:.3f} ms = {n * 1000 / fwd:.1f} img/s; tail "
+            f"{tail:.3f} ms{extra}")
+        del out
+    # the kernel path against the plain path (float input, the plain
+    # normalize): the same Detections
+    x = batches[1].to(dev)
+    _, dets = detr_serve(model, cfg, x)
+    _, plain = detr_serve(model, cfg, x.float())
+    for f in ("boxes", "scores", "classes", "valid"):
+        if not torch.equal(getattr(dets, f), getattr(plain, f)):
+            raise AssertionError(f"{name}: the kernel path's {f} differ "
+                                 "from the plain path's")
+    log(f"({label}a) {name} bs {x.shape[0]}: the kernel path's Detections "
+        "equal the plain path's")
 
-        # ---- (c) training: build_system, AdamW, train_n images at size
-        _, state, train_step, _ = build_system(cfg, device=dev, seed=SEED)
-        frozen = [b.clone() for b in frozen_bn_buffers(state.model)]
-        before = [p.detach().clone() for p in state.model.parameters()]
-        tbatches = [detr_batch(train_n, gen, dev, size) for _ in range(4)]
-        metrics = []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        build.reset_launches()
-        warm = min(WARMUP, steps - 1)
-        for i in range(steps):
-            if i == warm:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            state, m = train_step(state, tbatches[i % 4])
-            metrics.append(m)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / (steps - warm)
-        train_launches = dict(build.LAUNCHES)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if train_launches.get("normalize", 0) != steps:
-            raise AssertionError(f"the {name} training path launched "
-                                 f"normalize {train_launches} times")
-        kernels["normalize_detr"]["launches"] += train_launches["normalize"]
-        prefixes = [""] + [f"aux{i}_" for i in range(cfg.dec_layers - 1)]
-        for i, m in enumerate(metrics):
-            valid = int(tbatches[i % 4]["gt_valid"].sum())
-            for p in prefixes:
-                for key in ("loss_ce", "loss_bbox", "loss_giou"):
-                    if not bool(torch.isfinite(m[p + key])):
-                        raise AssertionError(f"{name} step {i}: {p}{key} = "
-                                             f"{float(m[p + key])}")
-                if int(m[p + "num_matched"]) != valid:
-                    raise AssertionError(
-                        f"{name} step {i}: {p}num_matched "
-                        f"{int(m[p + 'num_matched'])}, {valid} valid gts")
-            for key in ("total_loss", "grad_norm"):
-                if not bool(torch.isfinite(m[key])):
-                    raise AssertionError(f"{name} step {i}: {key} = "
-                                         f"{float(m[key])}")
-        if all(torch.equal(a, b.detach())
-               for a, b in zip(before, state.model.parameters())):
-            raise AssertionError(f"{name} training moved no parameter")
-        if not all(torch.equal(a, b)
-                   for a, b in zip(frozen, frozen_bn_buffers(state.model))):
-            raise AssertionError(f"{name} training moved FrozenBN "
-                                 "statistics")
-        fmt = ("total_loss", "loss_ce", "loss_bbox", "loss_giou",
-               "aux0_loss_ce", "num_matched", "grad_norm")
-        for i in (0, len(metrics) - 1):
-            log(f"(13c) {name} train step {i}: " + ", ".join(
-                f"{k} {float(metrics[i][k]):.4f}" for k in fmt))
-        rounds = [int(m["match_iters"]) for m in metrics]
-        log(f"(13c) {name} R-50 {size} train step bs {train_n} bf16 on "
-            f"[{card}]: {step_ms:.3f} ms a step = "
-            f"{train_n * 1000 / step_ms:.1f} img/s (host clock over "
-            f"{steps - warm} steps after {warm}, batches on the card, 100 "
-            f"box slots an image, 1-20 valid, {len(prefixes)} levels "
-            f"matched in one auction); peak memory {peak_gb:.3f} GB; "
-            f"auction rounds a step {rounds}; launches {train_launches}; "
-            "every level's matched count = the valid gts; parameters moved, "
-            "FrozenBN statistics did not")
-        del state, train_step, tbatches, metrics, before, frozen
-        torch.cuda.empty_cache()
+    # ---- (b) f32 card against CPU, full width, small px
+    f32 = dataclasses.replace(cfg, amp=False, input_size=(small, small))
+    one = letterboxed_batch(2, gen, small)
+    with torch.inference_mode():
+        ref = build_model(f32, "cpu", SEED)(one)
+        on_card = build_model(f32, dev, SEED)(one.to(dev))
+        bf16 = model(one.to(dev))
+    gaps = []
+    for k in ("pred_logits", "pred_boxes", "aux_logits", "aux_boxes"):
+        scale = float(ref[k].abs().max())
+        err = float((on_card[k].cpu() - ref[k]).abs().max())
+        err16 = float((bf16[k].float().cpu() - ref[k]).abs().max())
+        gaps.append(f"{k} {err / scale:.3g} (bf16 {err16 / scale:.3g})")
+        if err > 1e-4 * scale or err16 > 5e-2 * scale:
+            raise AssertionError(f"{name} {k} on the card differs from "
+                                 f"the CPU by {err} (bf16 {err16}) of "
+                                 f"{scale}")
+    log(f"({label}b) {name} f32 forward at {small} px, card against CPU, "
+        "error over each output's max: " + ", ".join(gaps))
+    del model, ref, on_card, bf16
+    torch.cuda.empty_cache()
 
-        # one f32 step at dropout 0, card against CPU, from the same
-        # weights and batch: every level's assignments, the losses, the
-        # gradient norm
-        scfg = dataclasses.replace(cfg, input_size=(small, small), amp=False,
-                                   warmup_iters=0, dropout=0.0)
-        sbatch = detr_batch(2, gen, "cpu", small, slots=8, max_boxes=6)
-        got = {}
-        for where in ("cpu", dev):
-            model, st, ts, _ = build_system(scfg, device=where, seed=SEED)
-            b = {k: v.to(where) for k, v in sbatch.items()}
-            with torch.no_grad():
-                pred, ok = level_assignments(model(b["image"]), b, scfg)
-            _, m = ts(st, b)
-            got[str(where)] = ({k: float(v) for k, v in m.items()},
-                               pred.cpu(), ok.cpu())
-        (ref_m, ref_p, ref_ok), (card_m, card_p, card_ok) = (
-            got["cpu"], got[str(dev)])
-        keys = ("total_loss", "loss_ce", "loss_bbox", "loss_giou",
-                "aux4_loss_ce", "grad_norm")
-        log(f"(13c) {name} f32 train step at {small} px, card vs CPU: "
-            + ", ".join(f"{k} {card_m[k]:.6g} / {ref_m[k]:.6g}"
-                        for k in keys)
-            + f"; matched {int(card_ok.sum())} over {len(prefixes)} levels")
-        if not (torch.equal(card_p, ref_p) and torch.equal(card_ok, ref_ok)):
-            raise AssertionError(f"{name} assignments differ between the "
-                                 "card and the CPU")
-        for k in ref_m:
-            if "loss" in k or k == "grad_norm":
-                if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
-                    raise AssertionError(f"{name} {k} differs between the "
-                                         "card and the CPU")
-        del model, st, ts
-        torch.cuda.empty_cache()
+    # ---- (c) training: build_system, AdamW, train_n images at size
+    _, state, train_step, _ = build_system(cfg, device=dev, seed=SEED)
+    frozen = [b.clone() for b in frozen_bn_buffers(state.model)]
+    before = [p.detach().clone() for p in state.model.parameters()]
+    tbatches = [detr_batch(train_n, gen, dev, size) for _ in range(4)]
+    metrics = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    warm = min(WARMUP, steps - 1)
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = train_step(state, tbatches[i % 4])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - warm)
+    train_launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if train_launches.get("normalize", 0) != steps:
+        raise AssertionError(f"the {name} training path launched "
+                             f"normalize {train_launches} times")
+    kernels["normalize_detr"]["launches"] += train_launches["normalize"]
+    prefixes = [""] + [f"aux{i}_" for i in range(cfg.dec_layers - 1)]
+    for i, m in enumerate(metrics):
+        valid = int(tbatches[i % 4]["gt_valid"].sum())
+        for p in prefixes:
+            for key in ("loss_ce", "loss_bbox", "loss_giou"):
+                if not bool(torch.isfinite(m[p + key])):
+                    raise AssertionError(f"{name} step {i}: {p}{key} = "
+                                         f"{float(m[p + key])}")
+            if int(m[p + "num_matched"]) != valid:
+                raise AssertionError(
+                    f"{name} step {i}: {p}num_matched "
+                    f"{int(m[p + 'num_matched'])}, {valid} valid gts")
+        for key in ("total_loss", "grad_norm"):
+            if not bool(torch.isfinite(m[key])):
+                raise AssertionError(f"{name} step {i}: {key} = "
+                                     f"{float(m[key])}")
+    if all(torch.equal(a, b.detach())
+           for a, b in zip(before, state.model.parameters())):
+        raise AssertionError(f"{name} training moved no parameter")
+    if not all(torch.equal(a, b)
+               for a, b in zip(frozen, frozen_bn_buffers(state.model))):
+        raise AssertionError(f"{name} training moved FrozenBN "
+                             "statistics")
+    fmt = ("total_loss", "loss_ce", "loss_bbox", "loss_giou",
+           "aux0_loss_ce", "num_matched", "grad_norm")
+    for i in (0, len(metrics) - 1):
+        log(f"({label}c) {name} train step {i}: " + ", ".join(
+            f"{k} {float(metrics[i][k]):.4f}" for k in fmt))
+    rounds = [int(m["match_iters"]) for m in metrics]
+    log(f"({label}c) {name} R-50 {size} train step bs {train_n} bf16 on "
+        f"[{card}]: {step_ms:.3f} ms a step = "
+        f"{train_n * 1000 / step_ms:.1f} img/s (host clock over "
+        f"{steps - warm} steps after {warm}, batches on the card, 100 "
+        f"box slots an image, 1-20 valid, {len(prefixes)} levels "
+        f"matched in one auction); peak memory {peak_gb:.3f} GB; "
+        f"auction rounds a step {rounds}; launches {train_launches}; "
+        "every level's matched count = the valid gts; parameters moved, "
+        "FrozenBN statistics did not")
+    del state, train_step, tbatches, metrics, before, frozen
+    torch.cuda.empty_cache()
 
-    # ---- (d) the CLI: train_transformer on a mini-COCO, the crop branch
+    # one f32 step at dropout 0, card against CPU, from the same
+    # weights and batch: every level's assignments, the losses, the
+    # gradient norm
+    scfg = dataclasses.replace(cfg, input_size=(small, small), amp=False,
+                               warmup_iters=0, dropout=0.0)
+    sbatch = detr_batch(2, gen, "cpu", small, slots=8, max_boxes=6)
+    got = {}
+    for where in ("cpu", dev):
+        model, st, ts, _ = build_system(scfg, device=where, seed=SEED)
+        b = {k: v.to(where) for k, v in sbatch.items()}
+        with torch.no_grad():
+            pred, ok = level_assignments(model(b["image"]), b, scfg)
+        _, m = ts(st, b)
+        got[str(where)] = ({k: float(v) for k, v in m.items()},
+                           pred.cpu(), ok.cpu())
+    (ref_m, ref_p, ref_ok), (card_m, card_p, card_ok) = (
+        got["cpu"], got[str(dev)])
+    keys = ("total_loss", "loss_ce", "loss_bbox", "loss_giou",
+            "aux4_loss_ce", "grad_norm")
+    log(f"({label}c) {name} f32 train step at {small} px, card vs CPU: "
+        + ", ".join(f"{k} {card_m[k]:.6g} / {ref_m[k]:.6g}"
+                    for k in keys)
+        + f"; matched {int(card_ok.sum())} over {len(prefixes)} levels")
+    if not (torch.equal(card_p, ref_p) and torch.equal(card_ok, ref_ok)):
+        raise AssertionError(f"{name} assignments differ between the "
+                             "card and the CPU")
+    for k in ref_m:
+        if "loss" in k or k == "grad_norm":
+            if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
+                raise AssertionError(f"{name} {k} differs between the "
+                                     "card and the CPU")
+    del model, st, ts
+    torch.cuda.empty_cache()
+
+
+def detr_cli_run(dev, card: str, kernels: dict, label: str, name: str,
+                 yaml: str, train_n: int = DETR_TRAIN_BATCH,
+                 size: int = DETR_SIZE, cli_images: int = CLI_IMAGES,
+                 steps: int = 12, resume: bool = True, **cli_opts) -> None:
+    """``train_transformer`` on ``configs/coco/detr/<yaml>`` and a
+    synthetic mini-COCO of ``cli_images`` JPEGs, the crop branch on:
+    ``steps`` steps with checkpoints at half and at the end, finite losses
+    at the last level and the first auxiliary one, one normalize launch a
+    step (added to ``kernels``'s ``normalize_detr`` entry), and with
+    ``resume`` ``--resume`` to ``steps`` + 2 (``cli_opts`` override its
+    config keys, ``__`` for ``.``)."""
+    from yolov7_d2_tpu_torch import train_transformer
+    from yolov7_d2_tpu_torch.data.catalog import (
+        DatasetCatalog,
+        register_coco_instances,
+    )
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
+
     work = os.path.join(REPO, "build", "chip_smoke_detr")
     shutil.rmtree(work, ignore_errors=True)
     js, img_dir = write_mini_coco(work, n=cli_images)
     register_coco_instances(DETR_DATASET, {}, js, img_dir)
     out_dir = os.path.join(work, "out")
-    yaml = os.path.join(DETR_DIR, DETR_MODELS[0][1])
+    yaml = os.path.join(DETR_DIR, yaml)
     opts = {"DATASETS.TRAIN": (DETR_DATASET,), "OUTPUT_DIR": out_dir,
             "SEED": SEED, "SOLVER.IMS_PER_BATCH": train_n,
-            "SOLVER.MAX_ITER": 12, "SOLVER.CHECKPOINT_PERIOD": 6,
+            "SOLVER.MAX_ITER": steps, "SOLVER.CHECKPOINT_PERIOD": steps // 2,
             "INPUT.CROP.ENABLED": True, "INPUT.INPUT_SIZE": [size, size],
             **{k.replace("__", "."): v for k, v in cli_opts.items()}}
 
@@ -2419,25 +2484,30 @@ def detr_phase(dev, card: str, gen: torch.Generator, kernels: dict,
             if not math.isfinite(latest.get(key, float("nan"))):
                 raise AssertionError(f"train_transformer: {key} = "
                                      f"{latest.get(key)}")
-        if launches.get("normalize", 0) != 12:
+        if launches.get("normalize", 0) != steps:
             raise AssertionError(f"train_transformer launches {launches}")
+        kernels["normalize_detr"]["launches"] += launches["normalize"]
         ckpts = sorted(os.listdir(os.path.join(out_dir, "ckpt")))
         if len(ckpts) != 2:
             raise AssertionError(f"train_transformer checkpoints {ckpts}")
         median = run.storage.median("time_per_iter")
         del run
-        resumed = train_transformer.main(cli("--resume",
-                                             SOLVER__MAX_ITER=14))
-        if resumed.start_iter != 12 or resumed.storage.iter != 14:
-            raise AssertionError(f"train_transformer --resume ran "
-                                 f"{resumed.start_iter} -> "
-                                 f"{resumed.storage.iter}, not 12 -> 14")
-        del resumed
-        log(f"(13d) train_transformer DETR on [{card}], {train_n} images a "
-            f"step, the crop branch on: time_per_iter median "
-            f"{median * 1e3:.3f} ms = {train_n / median:.1f} img/s; 12 steps "
-            f"and checkpoints {ckpts} in {wall:.2f} s (build included); "
-            f"launches {launches}; --resume 12 -> 14")
+        if resume:
+            resumed = train_transformer.main(cli(
+                "--resume", SOLVER__MAX_ITER=steps + 2))
+            if resumed.start_iter != steps or \
+                    resumed.storage.iter != steps + 2:
+                raise AssertionError(f"train_transformer --resume ran "
+                                     f"{resumed.start_iter} -> "
+                                     f"{resumed.storage.iter}, not {steps}"
+                                     f" -> {steps + 2}")
+            del resumed
+        log(f"({label}) train_transformer {name} on [{card}], {train_n} "
+            f"images a step, the crop branch on: time_per_iter median "
+            f"{median * 1e3:.3f} ms = {train_n / median:.1f} img/s; {steps} "
+            f"steps and checkpoints {ckpts} in {wall:.2f} s (build "
+            f"included); launches {launches}"
+            + (f"; --resume {steps} -> {steps + 2}" if resume else ""))
     finally:
         DatasetCatalog.remove(DETR_DATASET)
         shutil.rmtree(work, ignore_errors=True)
@@ -2450,17 +2520,6 @@ KPTS_MODELS = (("Swin-T", "yolox_kpts_swin.yaml", {}),
                 {"backbone": "build_pvt_v2_backbone"}))
 KPTS_YOLOV7 = ("swin_t.yaml", "pvt_v2_b0.yaml")
 BOX_KEYS = ("AP", "AP50", "AP75", "AR100")
-
-
-def kpts_cfg(yaml: str, **replace):
-    """A ``YoloxKptsConfig`` from ``configs/coco/<yaml>`` (merged into the
-    port's ``get_cfg``), with dataclass fields replaced."""
-    from yolov7_d2_tpu_torch.config import YoloxKptsConfig
-    from yolov7_d2_tpu_torch.config.defaults import get_cfg
-
-    cfg = get_cfg()
-    cfg.merge_from_file(os.path.join(REPO, "configs", "coco", yaml))
-    return dataclasses.replace(YoloxKptsConfig.from_cfg(cfg), **replace)
 
 
 def kpts_tail(head, cfg, nms=None):
@@ -2558,7 +2617,7 @@ def yolox_kpts_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     batches = [letterboxed_batch(n, gen, size) for n in requests]
     for name, yaml, replace in KPTS_MODELS:
         # ---- (a) serving
-        cfg = kpts_cfg(yaml, **replace)
+        cfg = coco_cfg(yaml, **replace)
         model = build_model(cfg, dev, SEED)
         n_params = sum(p.numel() for p in model.parameters())
         log(f"(14a) YOLOX-KPTS {name} {size} from {yaml}: "
@@ -2637,7 +2696,7 @@ def yolox_kpts_phase(dev, card: str, gen: torch.Generator, kernels: dict,
         torch.cuda.empty_cache()
 
     # ---- (c) training on the Swin config: build_system, train_n images
-    cfg = kpts_cfg(KPTS_MODELS[0][1])
+    cfg = coco_cfg(KPTS_MODELS[0][1])
     _, state, train_step, fields = build_system(cfg, device=dev, seed=SEED)
     if fields != KPTS_FIELDS:
         raise AssertionError(f"YOLOX-KPTS batch fields {fields}")
@@ -2772,7 +2831,7 @@ def yolox_kpts_phase(dev, card: str, gen: torch.Generator, kernels: dict,
 
     # ---- (e) YOLOV7 on Swin-T and PVTv2-b0: one request, one train step
     for yaml in KPTS_YOLOV7:
-        ccfg = anchor_yolo_cfg(yaml)
+        ccfg = coco_cfg(yaml)
         model = build_model(ccfg, dev, SEED)
         req = batches[1]
         build.reset_launches()
@@ -2815,24 +2874,6 @@ ONESTAGE_EXTRA = (("YOLOv6-tiny", "yolov6/yolov6_tiny.yaml", {}),
                    {"meta_architecture": "YOLOV7"}),
                   ("YOLOV7 R-50 pan", "../wearmask/r50_pan.yaml",
                    {"meta_architecture": "YOLOV7"}))
-
-
-def onestage_cfg(yaml: str, **replace):
-    """The config dataclass of ``configs/coco/<yaml>``'s architecture
-    (``AnchorYoloConfig`` for YOLOV5 and YOLOV7, ``Yolov6Config``,
-    ``YolofConfig``), fields replaced."""
-    from yolov7_d2_tpu_torch.config import (
-        AnchorYoloConfig,
-        YolofConfig,
-        Yolov6Config,
-    )
-    from yolov7_d2_tpu_torch.config.defaults import get_cfg
-
-    cfg = get_cfg()
-    cfg.merge_from_file(os.path.join(REPO, "configs", "coco", yaml))
-    cls = {"YOLOV6": Yolov6Config, "YOLOF": YolofConfig}.get(
-        cfg.MODEL.META_ARCHITECTURE, AnchorYoloConfig)
-    return dataclasses.replace(cls.from_cfg(cfg), **replace)
 
 
 def onestage_tail(out, cfg, nms=None):
@@ -2983,7 +3024,7 @@ def onestage_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     del images, got, want, args
 
     for name, yaml in ONESTAGE_MODELS:
-        cfg = onestage_cfg(yaml)
+        cfg = coco_cfg(yaml)
         size = cfg.input_size[0]
         is_yolof = cfg.meta_architecture == "YOLOF"
         norm_key = "normalize_yolof" if is_yolof else "normalize"
@@ -3168,7 +3209,7 @@ def onestage_phase(dev, card: str, gen: torch.Generator, kernels: dict,
 
     # ---- (e) the other configurations: one request, one train step
     for name, yaml, replace in ONESTAGE_EXTRA:
-        ccfg = onestage_cfg(yaml, **replace)
+        ccfg = coco_cfg(yaml, **replace)
         size = ccfg.input_size[0]
         model = build_model(ccfg, dev, SEED)
         req = letterboxed_batch(requests[1], gen, size)
@@ -3604,6 +3645,523 @@ def family_nccl_phase(dev, card: str, family: str,
         f"step 6: total_loss {last['total_loss']:.6g}, {count} "
         f"{last[count]:.0f} (global), time_per_iter "
         f"{last['time_per_iter'] * 1e3:.3f} ms on rank 0")
+
+
+# ---------------------------------------------------------------------------
+# section 19: the backbone zoo and the other DETR variants
+# ---------------------------------------------------------------------------
+
+ZOO_DATASET = "chip_smoke_mini_coco_zoo"
+ZOO_YOLOX_YAML = "yolox/yolox_convnext.yaml"  # under configs/coco; 800 px
+ZOO_SMCA_YAML = "smca_detr_r50.yaml"  # under configs/coco/detr; 800 px
+ZOO_YOLOX_OTHERS = ("yolox_regnetx_s.yaml", "yolox_convnext.yaml")
+ZOO_ANCHOR_OTHERS = (
+    ("YOLOV7 regnetx_0.4g.yaml", "regnetx_0.4g.yaml", {}),
+    ("YOLOV7 canaries/regnetx_0.2g.yaml", "../canaries/regnetx_0.2g.yaml",
+     {}))
+# wearmask/efficient_b2.yaml taps b0's block indices on b2, at strides 4,
+# 16 and 16, which YOLOFPN cannot join in either package (ROADMAP.md C.31):
+# it runs with the taps at b2's stage ends
+EFFICIENT_B2_TAPS = (4, 7, 15, 22)
+ZOO_DETR_OTHERS = ("smcadetr_origin.yaml", "d2go/smca_bs16.yaml",
+                   "d2go/smca_bs64.yaml", "d2go/smca_regnetx_0.4g.yaml",
+                   "dab_detr_r50.yaml", "d2go/detr_bs16.yaml",
+                   "d2go/detr_fbv3_bs16.yaml", "d2go/smca_fbv3.yaml")
+
+
+def check_yolox_metrics(metrics, what: str) -> None:
+    for i, m in enumerate(metrics):
+        for key in ("loss_iou", "loss_obj", "loss_cls", "total_loss",
+                    "grad_norm"):
+            if not bool(torch.isfinite(m[key])):
+                raise AssertionError(f"{what} step {i}: {key} = "
+                                     f"{float(m[key])}")
+        if not float(m["num_fg"]) > 1.0:
+            raise AssertionError(f"{what} step {i}: no foreground anchor")
+
+
+def drop_path_share(dev, card: str, gen: torch.Generator, cfg,
+                    train_n: int, steps: int, size: int) -> None:
+    """(19a) ConvNeXt's drop path on the card, in the training step of
+    ``build_yolox_system``: ``steps`` float32 steps of ``train_n`` images
+    at ``size`` px, the masks drawn from the model's CUDA generator,
+    reseeded by the step. A hook on the last block (rate
+    ``DROP_PATH_RATE``) reads which samples kept their branch (a dropped
+    one leaves the block's input as it is; in float32 a kept one moves it,
+    layer scale 1e-6 and all), and the kept share must lie within 3
+    standard deviations of 1 - rate."""
+    from yolov7_d2_tpu_torch.engine import build_yolox_system
+
+    f32 = dataclasses.replace(cfg, amp=False, input_size=(size, size),
+                              warmup_iters=0)
+    _, state, step = build_yolox_system(f32, device=dev, seed=SEED)
+    block = state.model.backbone.stages[-1][-1]
+    if block.drop_path != cfg.zoo.convnext_drop_path_rate:
+        raise AssertionError(f"the last block's drop path is "
+                             f"{block.drop_path}")
+    kept = []
+    handle = block.register_forward_hook(lambda mod, args, out: kept.append(
+        (out - args[0]).flatten(1).abs().amax(1) > 0))
+    try:
+        for i in range(steps):
+            state, m = step(state, {k: v.to(dev) for k, v in train_batch(
+                train_n, gen, size).items()})
+            check_yolox_metrics([m], f"drop path step {i}")
+    finally:
+        handle.remove()
+    kept = torch.cat(kept).float()
+    p = 1.0 - block.drop_path
+    sigma = math.sqrt(p * (1.0 - p) / kept.numel())
+    share = float(kept.mean())
+    log(f"(19a) ConvNeXt drop path on [{card}]: the last block (rate "
+        f"{block.drop_path}) kept {int(kept.sum())} of {kept.numel()} "
+        f"samples over {steps} float32 steps of {train_n} at {size} px = "
+        f"{share:.4f}, expected {p:.4f} +- {3 * sigma:.4f} (3 sigma)")
+    if abs(share - p) > 3 * sigma:
+        raise AssertionError("the drop path's kept share is off its rate")
+
+
+def zoo_kernel_entries(dev, gen: torch.Generator, kernels: dict,
+                       images: torch.Tensor, train_n: int) -> None:
+    """(19a) The normalize kernel in its identity form on ``images`` (the
+    largest YOLOX ConvNeXt-T request, uint8 [128, 800, 800, 3] -> bf16
+    channels_last) and the GridMask kernel on float32 [``train_n``, 800,
+    800, 3] with drawn parameters, each bit-exact against its plain
+    version: the ``normalize_800`` and ``grid_mask_800`` entries of
+    ``kernels``, whose launches are those of YOLOX on ConvNeXt-T at 800."""
+    from yolov7_d2_tpu_torch.kernels.grid_mask import (
+        grid_mask,
+        grid_mask_plain,
+    )
+    from yolov7_d2_tpu_torch.kernels.preprocess import (
+        normalize_images,
+        normalize_images_plain,
+    )
+
+    size = images.shape[1]
+    args = (images, (0.0,) * 3, (1.0,) * 3, torch.bfloat16)
+    got, want = normalize_images(*args), normalize_images_plain(*args)
+    torch.cuda.synchronize()
+    if got.stride() != want.stride() or not torch.equal(got, want):
+        raise AssertionError(f"normalize kernel differs from its plain "
+                             f"version in its identity form at {size} px")
+    kernels["normalize_800"] = {
+        "name": "normalize_800", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/preprocess.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:34",
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": kernel_ms(lambda: normalize_images(*args)),
+        "plain_ms": kernel_ms(lambda: normalize_images_plain(*args),
+                              host_ok="normalize_800 plain"),
+        # the identity case as one PyTorch call: cast into channels_last
+        "library_ms": kernel_ms(lambda: images.permute(0, 3, 1, 2).to(
+            torch.bfloat16, memory_format=torch.channels_last),
+            host_ok="normalize_800 library"),
+        # u8 read once, bf16 written once; a subtract and a divide each
+        **bound(images.numel() * 3, images.numel() * 2),
+        "launches": 0,
+    }
+    del got, want
+    gparams, _, f32 = grid_mask_inputs(dev, gen, size)
+    got, want = grid_mask(f32, gparams), grid_mask_plain(f32, gparams)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"GridMask kernel differs from its plain "
+                             f"version on float32 at {size} px")
+    kernels["grid_mask_800"] = {
+        "name": "grid_mask_800", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/grid_mask.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:83",
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": kernel_ms(lambda: grid_mask(f32, gparams)),
+        "plain_ms": kernel_ms(lambda: grid_mask_plain(f32, gparams),
+                              host_ok="grid_mask_800 plain"),
+        "library_ms": None,  # no single PyTorch call computes GridMask
+        # read once, written once; one select an element
+        **bound(f32.numel() * 4 * 2, f32.numel()),
+        "launches": 0,
+    }
+    zeroed = [round(float(z), 3)
+              for z in (got == 0).all(-1).flatten(1).float().mean(1)]
+    log(f"(19a) normalize (identity, bf16) on {tuple(images.shape)} and "
+        f"grid_mask on {tuple(f32.shape)} float32: bit-exact against their "
+        f"plain versions; share zeroed an image {zeroed}")
+    del got, want, f32, gparams
+    torch.cuda.empty_cache()
+
+
+def yolox_zoo_paths(dev, card: str, gen: torch.Generator, kernels: dict,
+                    requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+                    small: int = 128, steps: int = WARMUP + ITERS,
+                    drop_px: int = 256) -> None:
+    """(19a) YOLOX on ConvNeXt-T (``configs/coco/yolox/yolox_convnext.yaml``,
+    800 px, YOLOPAFPN and the head at 0.33 / 0.50 on ConvNeXt's 192 / 384 /
+    768 channels, drop path 0.2, bf16 over f32 weights from ``SEED``):
+    the kernels at its shapes (:func:`zoo_kernel_entries`); ``Predictor``
+    serving at each request size (normalize kernel in its
+    identity form, NMS kernel; launches counted from 0), the kernel path's
+    ``Detections`` equal to the plain NMS path's at the largest, the f32
+    head outputs on the card against the CPU at ``small`` px within 1e-4
+    of the max (bf16 within 5e-2), times by CUDA events and the device's
+    busy share at the largest; ``steps`` training steps of ``train_n``
+    images in ``make_packed_photo_step`` with GridMask and mixup on; one
+    float32 step at ``small`` px and drop path 0 on the card against the
+    CPU (their generators draw other masks); the drop path's kept share
+    (:func:`drop_path_share`)."""
+    from yolov7_d2_tpu_torch.data.device_aug import (
+        DevicePhotometric,
+        PhotoDraws,
+        make_packed_photo_step,
+    )
+    from yolov7_d2_tpu_torch.engine import build_yolox_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
+    from yolov7_d2_tpu_torch.predictor import Predictor
+
+    cfg = coco_cfg(ZOO_YOLOX_YAML)
+    size = cfg.input_size[0]
+    name = "YOLOX ConvNeXt-T"
+    predictor = Predictor(cfg, device=dev, seed=SEED)
+    model = predictor.model
+    log(f"(19a) {name} {size} from configs/coco/{ZOO_YOLOX_YAML}: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f} M "
+        f"parameters, {model.dtype}, neck on "
+        f"{list(model.backbone.out_channels.values())} channels, drop path "
+        f"{cfg.zoo.convnext_drop_path_rate}")
+    batches = [letterboxed_batch(n, gen, size) for n in requests]
+    big = batches[-1].to(dev)
+    zoo_kernel_entries(dev, gen, kernels, big, train_n)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for req in batches:
+        dets = predictor.predict_batch(req.to(dev))
+        log(f"(19a) {name} request bs {req.shape[0]}: "
+            + check_detections(dets, req.shape[0], cfg, f"{name} serving"))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    for kernel, key in (("normalize", "normalize_800"), ("nms", "nms")):
+        if launches.get(kernel, 0) != len(requests):
+            raise AssertionError(f"the {name} serving path launched "
+                                 f"{kernel} {launches.get(kernel, 0)} times")
+        kernels[key]["launches"] += launches[kernel]
+    head = predictor.forward(big)
+    with_kernel = predictor.postprocess(head)
+    with_plain = predictor.postprocess(head, nms=nms_batched_plain)
+    for field in ("valid", "classes", "boxes", "scores"):
+        if not torch.equal(getattr(with_kernel, field),
+                           getattr(with_plain, field)):
+            raise AssertionError(f"{name} bs {big.shape[0]}: Detections."
+                                 f"{field} of the kernel path differ from "
+                                 "the plain path")
+    log(f"(19a) {name} bs {big.shape[0]}: kernel-path Detections equal the "
+        f"plain-path ones ({int(with_kernel.valid.sum())} kept)")
+    del head, with_kernel, with_plain
+
+    f32 = dataclasses.replace(cfg, amp=False, input_size=(small, small))
+    one = letterboxed_batch(2, gen, small)
+    ref = Predictor(f32, device="cpu", seed=SEED).forward(one)["outputs"]
+    on_card = Predictor(f32, device=dev, seed=SEED).forward(one)[
+        "outputs"].cpu()
+    bf16 = predictor.forward(one)["outputs"].float().cpu()
+    scale = float(ref.abs().max())
+    err32 = float((on_card - ref).abs().max())
+    err16 = float((bf16 - ref).abs().max())
+    log(f"(19a) {name} head outputs at {small} px vs float32 on the CPU (max "
+        f"|ref| {scale:.4g}): float32 card {err32 / scale:.3g} of the max, "
+        f"bf16 {err16 / scale:.3g} on [{card}]")
+    if err32 > 1e-4 * scale or err16 > 5e-2 * scale:
+        raise AssertionError(f"{name} head outputs disagree with the CPU")
+
+    for req in batches:
+        n = req.shape[0]
+        x = req.to(dev)
+        e2e = cuda_ms(lambda: predictor.predict_batch(x))
+        fwd = cuda_ms(lambda: predictor.forward(x))
+        head = predictor.forward(x)
+        tail = cuda_ms(lambda: predictor.postprocess(head))
+        extra = ""
+        if n == requests[-1]:
+            busy, window = device_busy_ms(lambda: predictor.predict_batch(x))
+            extra = (f"; device busy {busy:.3f} ms a call = "
+                     f"{100 * busy / e2e:.1f}% of the untraced call "
+                     f"(traced {window:.3f} ms)")
+        log(f"{name} {size} bs {n} bf16 on [{card}]: e2e {e2e:.3f} ms = "
+            f"{n * 1000 / e2e:.1f} img/s; forward-only {fwd:.3f} ms = "
+            f"{n * 1000 / fwd:.1f} img/s; tail {tail:.3f} ms{extra}")
+    del predictor, model, batches, big, head, x
+    torch.cuda.empty_cache()
+
+    # training: mixup and GridMask on, EMA on, drop path from the step
+    tcfg = dataclasses.replace(cfg, grid_mask=True)
+    _, state, train_step = build_yolox_system(tcfg, device=dev, seed=SEED)
+    step = make_packed_photo_step(tcfg, train_step, seed=SEED)
+    tbatches = [{k: v.to(dev) for k, v in train_batch(
+        train_n, gen, size).items()} for _ in range(4)]
+    before = snapshot(state)
+    metrics = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    warm = min(WARMUP, steps - 1)
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = step(state, tbatches[i % 4])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - warm)
+    launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches.get("grid_mask", 0) < 1:
+        raise AssertionError(f"the {name} training path never launched "
+                             "grid_mask")
+    kernels["grid_mask_800"]["launches"] += launches["grid_mask"]
+    check_yolox_metrics(metrics, f"{name} train")
+    after = snapshot(state)
+    for key in before:
+        if all(torch.equal(a, b) for a, b in zip(before[key], after[key])):
+            raise AssertionError(f"{name} training moved no {key} tensor")
+    fmt = ("total_loss", "loss_iou", "loss_obj", "loss_cls", "num_fg",
+           "grad_norm")
+    for i in (0, len(metrics) - 1):
+        log(f"(19a) {name} train step {i}: " + ", ".join(
+            f"{k} {float(metrics[i][k]):.4f}" for k in fmt))
+    log(f"(19a) {name} {size} train step bs {train_n} bf16 on [{card}]: "
+        f"{step_ms:.3f} ms a step = {train_n * 1000 / step_ms:.1f} img/s "
+        f"(host clock over {steps - warm} steps after {warm}, batches on the "
+        f"card); peak memory {peak_gb:.3f} GB; launches {launches}; "
+        f"{sum(m['grid_masked'] for m in metrics)} of "
+        f"{train_n * len(metrics)} images GridMask-ed; parameters, EMA and "
+        "BN statistics moved")
+    del state, train_step, step, tbatches, before, after, metrics
+    torch.cuda.empty_cache()
+
+    # one f32 step, card against CPU, from the same weights, batch and
+    # draws; drop path 0, since the two generators draw other masks
+    scfg = dataclasses.replace(
+        tcfg, zoo=dataclasses.replace(cfg.zoo, convnext_drop_path_rate=0.0),
+        input_size=(small, small), amp=False, warmup_iters=0)
+    sbatch = train_batch(2, gen, small)
+    draws = PhotoDraws(
+        perm=torch.tensor([1, 0]), do_mix=torch.tensor([True, False]),
+        grid_params=torch.tensor([[16, 8, 3, 5, 1], [12, 6, 2, 7, 0]],
+                                 dtype=torch.int32),
+        do_flip=torch.tensor([False, True]))
+    got = {}
+    for where in ("cpu", dev):
+        _, st, ts = build_yolox_system(scfg, device=where, seed=SEED)
+        b = DevicePhotometric(scfg).apply(
+            {k: v.to(where) for k, v in sbatch.items()}, draws)
+        _, m = ts(st, b)
+        got[str(where)] = {k: float(v) for k, v in m.items()}
+    ref_m, card_m = got["cpu"], got[str(dev)]
+    log(f"(19a) {name} float32 train step at {small} px, card vs CPU: "
+        + ", ".join(f"{k} {card_m[k]:.6g} / {ref_m[k]:.6g}" for k in fmt))
+    if card_m["num_fg"] != ref_m["num_fg"]:
+        raise AssertionError(f"{name} fg count differs between card and CPU")
+    for k in ("total_loss", "loss_iou", "loss_obj", "loss_cls", "grad_norm"):
+        if abs(card_m[k] - ref_m[k]) > 1e-3 * abs(ref_m[k]):
+            raise AssertionError(f"{name} {k} differs between the card and "
+                                 "the CPU")
+    del st, ts
+    torch.cuda.empty_cache()
+    drop_path_share(dev, card, gen, cfg, train_n, steps, drop_px)
+
+
+def zoo_train_det_run(dev, card: str, kernels: dict,
+                      train_n: int = TRAIN_BATCH,
+                      cli_images: int = CLI_IMAGES, steps: int = 4,
+                      **cli_opts) -> None:
+    """(19a) ``train_det`` on ``configs/coco/yolox/yolox_convnext.yaml`` and
+    a synthetic mini-COCO of ``cli_images`` JPEGs: ``steps`` steps on the
+    host mosaic feed, checkpoints at half and at the end, the COCO eval at
+    the end (normalize and NMS kernels, their launches added to
+    ``kernels``); finite losses, weights and EMA moved (``cli_opts``
+    override config keys, ``__`` for ``.``)."""
+    from yolov7_d2_tpu_torch import train_det
+    from yolov7_d2_tpu_torch.data.catalog import (
+        DatasetCatalog,
+        register_coco_instances,
+    )
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
+
+    work = os.path.join(REPO, "build", "chip_smoke_zoo")
+    shutil.rmtree(work, ignore_errors=True)
+    js, img_dir = write_mini_coco(work, n=cli_images)
+    register_coco_instances(ZOO_DATASET, {}, js, img_dir)
+    out = os.path.join(work, "out")
+    opts = dict(DATASETS__TRAIN=(ZOO_DATASET,), DATASETS__TEST=(ZOO_DATASET,),
+                SOLVER__IMS_PER_BATCH=train_n, SOLVER__MAX_ITER=steps,
+                SOLVER__CHECKPOINT_PERIOD=steps // 2,
+                TEST__EVAL_PERIOD=steps, **cli_opts)
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_det.main(default_argument_parser().parse_args(
+            cli_argv(out, config=ZOO_YOLOX_YAML, **opts)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        latest = cli_checks(trainer, out, "train_det ConvNeXt-T")
+        for kernel, key in (("normalize", "normalize_800"), ("nms", "nms")):
+            if launches.get(kernel, 0) < 1:
+                raise AssertionError(f"train_det ConvNeXt-T never launched "
+                                     f"{kernel}")
+            kernels[key]["launches"] += launches[kernel]
+        evals = {k: round(v, 4) for k, v in latest.items()
+                 if k.startswith("eval/")}
+        log(f"(19a) train_det {ZOO_YOLOX_YAML} on [{card}], {train_n} images "
+            f"a step: {steps} steps and the COCO eval in {wall:.2f} s (build "
+            f"included); total_loss {latest['total_loss']:.4f}, "
+            f"time_per_iter median "
+            f"{trainer.storage.median('time_per_iter') * 1e3:.3f} ms; eval "
+            f"{evals}; launches {launches}")
+        del trainer
+    finally:
+        DatasetCatalog.remove(ZOO_DATASET)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def zoo_yolox_others(dev, gen: torch.Generator, kernels: dict, bs: int = 8,
+                     train_n: int = TRAIN_BATCH) -> None:
+    """(19c) One ``Predictor`` request of ``bs`` images and one step of
+    ``build_yolox_system`` in ``make_packed_photo_step`` (GridMask on) of
+    ``train_n`` images each of ``ZOO_YOLOX_OTHERS`` at its size, one model
+    built for both; launches counted from 0 and added to ``kernels``."""
+    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
+    from yolov7_d2_tpu_torch.engine import build_yolox_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.predictor import Predictor
+
+    for yaml in ZOO_YOLOX_OTHERS:
+        cfg = coco_cfg(yaml, grid_mask=True)
+        size = cfg.input_size[0]
+        model, state, train_step = build_yolox_system(cfg, device=dev,
+                                                      seed=SEED)
+        predictor = Predictor(cfg, device=dev, model=model.eval())
+        req = letterboxed_batch(bs, gen, size).to(dev)
+        build.reset_launches()
+        summary = check_detections(predictor.predict_batch(req), bs, cfg,
+                                   yaml)
+        torch.cuda.synchronize()
+        serve = dict(build.LAUNCHES)
+        del predictor
+        step = make_packed_photo_step(cfg, train_step, seed=SEED)
+        build.reset_launches()
+        state, m = step(state, {k: v.to(dev) for k, v in train_batch(
+            train_n, gen, size).items()})
+        torch.cuda.synchronize()
+        train = dict(build.LAUNCHES)
+        check_yolox_metrics([m], yaml)
+        for path, got_l, names in (("serving", serve, ("normalize", "nms")),
+                                   ("training", train, ("grid_mask",))):
+            for kernel in names:
+                if got_l.get(kernel, 0) < 1:
+                    raise AssertionError(f"{yaml} {path} never launched "
+                                         f"{kernel}")
+                kernels[kernel]["launches"] += got_l[kernel]
+        log(f"(19c) YOLOX {yaml} ({cfg.backbone}) at {size}: bs {bs} "
+            f"{summary}, launches {serve}; one train step of {train_n}: "
+            f"total loss {float(m['total_loss']):.4f}, num_fg "
+            f"{float(m['num_fg']):.0f}, launches {train}")
+        del model, state, train_step, step
+        torch.cuda.empty_cache()
+
+
+def zoo_detr_others(dev, gen: torch.Generator, kernels: dict, bs: int = 8,
+                    train_n: int = DETR_TRAIN_BATCH, size: int = DETR_SIZE
+                    ) -> None:
+    """(19c) One request of ``bs`` images (the family's tail, ``detr_tail``)
+    and one ``build_system`` step of ``train_n`` images each of
+    ``ZOO_DETR_OTHERS`` at ``size``, one model built for both: finite
+    losses, every level's matched count the valid gts; the normalize
+    launches (one a request, one a step) added to ``kernels``'s
+    ``normalize_detr`` entry."""
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+
+    for yaml in ZOO_DETR_OTHERS:
+        cfg = detr_cfg(yaml, input_size=(size, size))
+        model, state, train_step, _ = build_system(cfg, device=dev,
+                                                   seed=SEED)
+        req = letterboxed_batch(bs, gen, size).to(dev)
+        build.reset_launches()
+        _, dets = detr_serve(model.eval(), cfg, req)
+        summary = check_detections(dets, bs, cfg, yaml)
+        torch.cuda.synchronize()
+        serve = dict(build.LAUNCHES)
+        what = (f"{type(model).__name__} on {type(model.backbone).__name__}"
+                f", {model.class_embed.out_features} logits")
+        batch = detr_batch(train_n, gen, dev, size)
+        build.reset_launches()
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        train = dict(build.LAUNCHES)
+        for key in ("total_loss", "loss_ce", "loss_bbox", "loss_giou",
+                    "grad_norm"):
+            if not bool(torch.isfinite(m[key])):
+                raise AssertionError(f"{yaml}: {key} = {float(m[key])}")
+        if int(m["num_matched"]) != int(batch["gt_valid"].sum()):
+            raise AssertionError(f"{yaml}: matched {int(m['num_matched'])}")
+        for path, got_l in (("serving", serve), ("training", train)):
+            if got_l.get("normalize", 0) != 1:
+                raise AssertionError(f"{yaml} {path} launches {got_l}")
+            kernels["normalize_detr"]["launches"] += 1
+        log(f"(19c) {yaml} ({what}) at {size}: bs {bs} {summary}; one "
+            f"train step of {train_n} ({cfg.optimizer}"
+            + (f", clip {cfg.clip_type} {cfg.clip_value}"
+               if cfg.clip_gradients else "")
+            + f"): total loss {float(m['total_loss']):.4f}, matched "
+            f"{int(m['num_matched'])}, launches {serve} / {train}")
+        del model, state, train_step, batch
+        torch.cuda.empty_cache()
+
+
+def zoo_phase(dev, card: str, gen: torch.Generator, kernels: dict,
+              requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+              detr_train_n: int = DETR_TRAIN_BATCH, small: int = 128,
+              steps: int = WARMUP + ITERS, cli_images: int = CLI_IMAGES,
+              cli_steps: int = 4, drop_px: int = 256,
+              detr_size: int = DETR_SIZE, **cli_opts) -> None:
+    """Section 19: the backbone zoo (RegNet, ConvNeXt, EfficientNet, FBNet)
+    and the other DETR variants (SMCA-DETR, DAB-DETR, the d2go DETR), full
+    depth and width, bf16 over f32 weights from ``SEED``. (a) YOLOX on
+    ConvNeXt-T at 800 (:func:`yolox_zoo_paths`) and ``train_det`` on it
+    (:func:`zoo_train_det_run`); (b) SMCA-DETR R-50 at 800
+    (``configs/coco/detr/smca_detr_r50.yaml``) through
+    :func:`detr_model_paths` (serving at each request size, card against
+    CPU, ``steps`` steps of ``detr_train_n``, one f32 step against the
+    CPU) and ``train_transformer`` for ``cli_steps`` steps; (c) one request
+    and one step each of the other yamls the slice unlocks: YOLOX on
+    RegNetX-400MF and ConvNeXt-T at 640, YOLOV7 on RegNetX-400MF, -200MF
+    and EfficientNet-b2 (taps ``EFFICIENT_B2_TAPS``), and the DETR variants
+    of ``ZOO_DETR_OTHERS``. Each path's launches are counted from 0 and
+    added to ``kernels``. Logs the section's seconds."""
+    t0 = time.perf_counter()
+    yolox_zoo_paths(dev, card, gen, kernels, requests, train_n, small,
+                    steps, drop_px)
+    zoo_train_det_run(dev, card, kernels, train_n, cli_images, cli_steps,
+                      **cli_opts)
+    batches = [letterboxed_batch(n, gen, detr_size) for n in requests]
+    detr_model_paths(dev, card, gen, kernels, "SMCA-DETR", ZOO_SMCA_YAML,
+                     "19b", batches, detr_train_n, detr_size, small, steps)
+    del batches
+    detr_cli_run(dev, card, kernels, "19b", "SMCA-DETR", ZOO_SMCA_YAML,
+                 detr_train_n, detr_size, cli_images, cli_steps,
+                 resume=False, **cli_opts)
+    zoo_yolox_others(dev, gen, kernels, requests[1], train_n)
+    b2 = coco_cfg("../wearmask/efficient_b2.yaml").zoo
+    anchor_others_phase(dev, gen, ZOO_ANCHOR_OTHERS + ((
+        "YOLOV7 wearmask/efficient_b2.yaml", "../wearmask/efficient_b2.yaml",
+        {"zoo": dataclasses.replace(
+            b2, efficientnet_feature_indices=EFFICIENT_B2_TAPS)}),), "19",
+        requests[1], train_n, kernels)
+    zoo_detr_others(dev, gen, kernels, requests[1], detr_train_n, detr_size)
+    log(f"(19) section 19 in {time.perf_counter() - t0:.1f} s on [{card}]")
 
 
 def snapshot(state) -> dict:
@@ -4044,7 +4602,13 @@ def main() -> int:
                       others=RES2NET_OTHERS, f32_px=128, kernels=kernels,
                       f64_step=True)
 
-    # ---- 19. times
+    # ---- 19. the backbone zoo and the other DETR variants: YOLOX on
+    # ConvNeXt-T and SMCA-DETR R-50 at 800 (serving, card against CPU,
+    # training, the CLIs), every other yaml they unlock one request and one
+    # step (zoo_phase)
+    zoo_phase(dev, card, gen, kernels)
+
+    # ---- 20. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "

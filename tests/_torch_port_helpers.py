@@ -596,3 +596,32 @@ def check_detr_gradients(kind, jgrads, jlosses, monkeypatch,
         assert err <= grad_tol * floor, (name, err)
         checked += float(np.abs(want_g).max()) > 0
     assert checked > 150
+
+
+def assert_leaves_match_jax(model, jax_model, mapper, size=128):
+    """Every key of ``model.state_dict()`` takes one leaf of the JAX
+    model's init (shapes by ``jax.eval_shape``) and no leaf is left
+    over (``jax_to_torch_state_dict`` raises otherwise); the parameter
+    and BatchNorm-statistic counts are the JAX model's."""
+    import jax
+    import jax.numpy as jnp
+
+    from yolov7_d2_tpu_torch.utils.weight_port import (
+        jax_to_torch_state_dict as to_torch,
+    )
+
+    shapes = jax.eval_shape(
+        lambda x: jax_model.init(jax.random.PRNGKey(0), x),
+        jnp.zeros((1, size, size, 3), jnp.float32))
+    zeros = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    leaves = to_torch(zeros, model.state_dict(), mapper)
+    assert sorted(leaves) == sorted(model.state_dict())
+    count = {coll: sum(int(np.prod(s.shape))
+                       for s in jax.tree_util.tree_leaves(shapes.get(coll,
+                                                                     {})))
+             for coll in ("params", "batch_stats")}
+    stats = sum(v.numel() for k, v in model.state_dict().items()
+                if k.endswith(("running_mean", "running_var")))
+    assert sum(p.numel() for p in model.parameters()) == count["params"]
+    assert stats == count["batch_stats"]
+    return count

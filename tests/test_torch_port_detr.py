@@ -522,9 +522,7 @@ def test_build_system_reads_the_yaml(yaml, arch, queries, focal):
         assert torch.equal(a, b), k
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("SMCADetr", "A.7c′"), ("DABDetr", "A.7c′"), ("DetrD2go", "A.7c′"),
-    ("DetrSegm", "A.8")])
+@pytest.mark.parametrize("arch,item", [("DetrSegm", "A.8")])
 def test_unported_detr_variants_raise(arch, item):
     cfg = _merged(get_cfg, "detr_256_6_6_r50.yaml",
                   **{"MODEL.META_ARCHITECTURE": arch})
@@ -537,7 +535,8 @@ def test_unported_detr_variants_raise(arch, item):
 def test_detr_defaults_to_the_card():
     import inspect
 
-    for fn in (td.build_detr, tdv.build_anchor_detr, build_system):
+    for fn in (td.build_detr, tdv.build_anchor_detr, tdv.build_smca_detr,
+               tdv.build_dab_detr, tdv.build_detr_d2go, build_system):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     with pytest.raises(NotImplementedError, match="DetrConfig"):
         td.build_detr(get_cfg(), "cpu")

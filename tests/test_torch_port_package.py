@@ -58,7 +58,8 @@ def _imported_modules(path: Path):
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in PKG.rglob("*.py"))
     + ["chip_smoke.py", "tools/kernel_times.py",
-       "tools/profile_torch_port.py", "tools/profile_torch_feed.py"])
+       "tools/profile_torch_port.py", "tools/profile_torch_feed.py",
+       "tools/config_sweep_torch_port.py"])
 def test_port_module_imports_no_jax(path):
     # no allow-list: the port keeps its own copies of what it needs from
     # the JAX package, even of modules there that import no JAX
@@ -83,6 +84,38 @@ def test_from_cfg_reads_overrides():
     got = YoloxConfig.from_cfg(cfg)
     assert (got.num_classes, got.amp, got.input_size) == (8, False,
                                                           (320, 416))
+
+
+@pytest.mark.parametrize("yaml, arch, cls", [
+    ("coco/yolox/yolox_convnext.yaml", "YOLOX", "YoloxConfig"),
+    ("coco/regnetx_0.4g.yaml", "YOLOV7", "AnchorYoloConfig"),
+    ("coco/detr/smca_detr_r50.yaml", "SMCADetr", "DetrConfig"),
+])
+def test_config_from_yaml_gives_the_architectures_dataclass(yaml, arch, cls):
+    """``engine.config_from_yaml``: the yaml merged into the port's
+    ``get_cfg`` -> the dataclass of its architecture, fields replaced."""
+    from yolov7_d2_tpu_torch import config as tconfig
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg as port_get_cfg
+    from yolov7_d2_tpu_torch.engine import config_from_yaml
+
+    cfg = port_get_cfg()
+    cfg.merge_from_file(str(REPO / "configs" / yaml))
+    assert cfg.MODEL.META_ARCHITECTURE == arch
+    want = getattr(tconfig, cls).from_cfg(cfg)
+    assert config_from_yaml(REPO / "configs" / yaml) == want
+    got = config_from_yaml(str(REPO / "configs" / yaml), amp=False)
+    assert type(got) is type(want) and got.amp is False
+    assert got.num_classes == want.num_classes
+
+
+def test_config_from_yaml_names_the_roadmap_item_of_an_unported_arch():
+    from yolov7_d2_tpu_torch.engine import config_from_yaml
+
+    with pytest.raises(NotImplementedError,
+                       match="'SOLOv2' is not ported yet .ROADMAP.md Queue "
+                             "A.8c"):
+        config_from_yaml(REPO / "configs" / "coco" / "solov2" /
+                         "solov2_r50.yaml")
 
 
 def _run_smoke(cwd: Path):

@@ -142,7 +142,7 @@ def test_unported_parts_raise():
     cfg = dataclasses.replace(AnchorYoloConfig(), amp=False)
     for replace, item in (
             (dict(backbone="build_swin_backbone"), "A.8"),
-            (dict(backbone="build_regnet_backbone"), "A.8"),
+            (dict(backbone="build_dla_backbone"), "A.8"),
             (dict(meta_architecture="YOLOMask"), "Queue A")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(dataclasses.replace(cfg, **replace), "cpu")
@@ -155,8 +155,7 @@ def test_unported_parts_raise():
 @pytest.mark.parametrize("arch,item", [
     ("FasterRCNN", "A.8"), ("DetrSegm", "A.8"),
     ("SOLOv2", "A.8"), ("MaskRCNN", "A.8"), ("PanopticFPN", "A.8"),
-    ("YOLOMask", "A.8"), ("SMCADetr", "A.7c"),
-    ("DABDetr", "A.7c"), ("DetrD2go", "A.7c")])
+    ("YOLOMask", "A.8")])
 def test_build_system_raises_for_unported_architectures(arch, item):
     cfg, _ = _cfg("yolov7.yaml", **{"MODEL.META_ARCHITECTURE": arch})
     with pytest.raises(NotImplementedError, match=f"Queue {item}"):

@@ -262,7 +262,7 @@ def test_build_model_registry():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(YoloxConfig(meta_architecture="SOLOv2"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(YoloxConfig(backbone="build_regnet_backbone"))
+        build_model(YoloxConfig(backbone="build_dla_backbone"))
 
 
 def test_decode_outputs_matches_jax():

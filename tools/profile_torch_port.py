@@ -4,7 +4,9 @@ training step, goes on one CUDA card; with ``--yolov7``, YOLOV7's; with
 ``--sparseinst``, SparseInst R-50's; with ``--detr`` / ``--anchordetr``,
 DETR R-50's / AnchorDETR R-50's; with ``--yolox-kpts``, YOLOX-KPTS on
 Swin-T's; with ``--yolov5`` / ``--yolov6`` / ``--yolof``, YOLOv5-s's,
-YOLOv6-s's or YOLOF R-50's.
+YOLOv6-s's or YOLOF R-50's; with ``--yolox-convnext``, YOLOX on
+ConvNeXt-T's; with ``--smca``, SMCA-DETR R-50's; with ``--res2net``,
+YOLOV7 on Res2Net-50's.
 
     python3 tools/profile_torch_port.py            # serving
     python3 tools/profile_torch_port.py --train    # training step
@@ -13,6 +15,7 @@ YOLOv6-s's or YOLOF R-50's.
     python3 tools/profile_torch_port.py --detr | --anchordetr [--train]
     python3 tools/profile_torch_port.py --yolox-kpts [--train]
     python3 tools/profile_torch_port.py --yolov5 | --yolov6 | --yolof [--train]
+    python3 tools/profile_torch_port.py --yolox-convnext | --smca | --res2net [--train]
 
 Full-width YOLOX-s (or YOLOV7 from ``configs/coco/yolov7.yaml``'s
 defaults) at 640, bf16, random weights from seed 0, uint8 batches already
@@ -48,8 +51,12 @@ at 800: serving through ``build_model`` and the family's tail
 on 16 images, YOLOv5 and YOLOv6 in ``make_packed_photo_step`` with GridMask
 on, YOLOF on the uint8 batch, and the loss's assignment alone on the step's
 outputs (SimOTA over all anchors for YOLOv6, the uniform matcher for
-YOLOF). Every line carries the card's name and power limit. Imports no
-JAX.
+YOLOF). YOLOX on ConvNeXt-T (``configs/coco/yolox/yolox_convnext.yaml``)
+at 800: serving through ``Predictor``, the step as YOLOX-s's (16 images,
+GridMask on, drop path from the step). SMCA-DETR R-50
+(``configs/coco/detr/smca_detr_r50.yaml``) at 800: as DETR. YOLOV7 on
+Res2Net-50 v1b (``configs/coco/r2_50.yaml``) at 640: as YOLOV7. Every
+line carries the card's name and power limit. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -65,8 +72,8 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                ".."))
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, REPO)
 
 from yolov7_d2_tpu_torch.config import (  # noqa: E402
     AnchorYoloConfig,
@@ -79,6 +86,7 @@ from yolov7_d2_tpu_torch.data.device_aug import (  # noqa: E402
 from yolov7_d2_tpu_torch.engine import (  # noqa: E402
     build_system,
     build_yolox_system,
+    config_from_yaml,
 )
 from yolov7_d2_tpu_torch.models.build import build_model  # noqa: E402
 from yolov7_d2_tpu_torch.models.meta_arch import (  # noqa: E402
@@ -199,11 +207,20 @@ def trace(fn, card: str, label: str) -> None:
 
 
 DETR_YAMLS = {"DETR": "detr_256_6_6_r50.yaml",
-              "AnchorDETR": "anchordetr_r50.yaml"}
+              "AnchorDETR": "anchordetr_r50.yaml",
+              "SMCA-DETR": "smca_detr_r50.yaml"}
+# YOLOX on a zoo backbone, YOLOV7 on Res2Net (under configs/coco)
+ZOO_YOLOX_YAML = "yolox/yolox_convnext.yaml"
+RES2NET_YAML = "r2_50.yaml"
 ONESTAGE_YAMLS = {"YOLOv5-s": "yolov5_s.yaml", "YOLOv6-s": "yolov6_s.yaml",
                   "YOLOF R-50": "yolof/yolof_R_50_DC5_1x.yaml"}
 DETR_TRAIN_BATCH = 8
 KPTS_YAML = "yolox_kpts_swin.yaml"
+
+
+def coco_cfg(yaml: str):
+    """The config dataclass of ``configs/coco/<yaml>``'s architecture."""
+    return config_from_yaml(os.path.join(REPO, "configs", "coco", yaml))
 
 
 def serving(dev, model_name: str):
@@ -211,9 +228,9 @@ def serving(dev, model_name: str):
     SparseInst, of DETR, of AnchorDETR or of YOLOX-KPTS (its model as
     ``forward.model``)."""
     if model_name in ONESTAGE_YAMLS:
-        from chip_smoke import onestage_cfg, onestage_tail
+        from chip_smoke import onestage_tail
 
-        ocfg = onestage_cfg(ONESTAGE_YAMLS[model_name])
+        ocfg = coco_cfg(ONESTAGE_YAMLS[model_name])
         omodel = build_model(ocfg, dev, 0)
 
         @torch.inference_mode()
@@ -222,9 +239,9 @@ def serving(dev, model_name: str):
 
         return onestage_forward, lambda out: onestage_tail(out, ocfg)
     if model_name == "YOLOX-KPTS":
-        from chip_smoke import kpts_cfg, kpts_tail
+        from chip_smoke import kpts_tail
 
-        kcfg = kpts_cfg(KPTS_YAML)
+        kcfg = coco_cfg(KPTS_YAML)
         kmodel = build_model(kcfg, dev, 0)
 
         @torch.inference_mode()
@@ -259,10 +276,14 @@ def serving(dev, model_name: str):
                 scfg.max_detections)
 
         return si_forward, si_postprocess
-    if model_name == "YOLOX-s":
-        predictor = Predictor(YoloxConfig(), device=dev, seed=0)
+    if model_name in ("YOLOX-s", "YOLOX ConvNeXt-T"):
+        predictor = Predictor(
+            YoloxConfig() if model_name == "YOLOX-s"
+            else coco_cfg(ZOO_YOLOX_YAML), device=dev, seed=0)
         return predictor.forward, predictor.postprocess
     cfg = AnchorYoloConfig()
+    if model_name == "YOLOV7 Res2Net-50":
+        cfg = coco_cfg(RES2NET_YAML)
     model = build_model(cfg, dev, 0)
 
     @torch.inference_mode()
@@ -386,14 +407,14 @@ def profile_train_kpts(card: str, dev, gen) -> None:
     """YOLOX-KPTS's (Swin-T) step through ``build_system`` on 16 images;
     then SimOTA alone on the step's outputs (CUDA events over 10 calls
     after 3)."""
-    from chip_smoke import kpts_batch, kpts_cfg
+    from chip_smoke import kpts_batch
 
     from yolov7_d2_tpu_torch.models.heads.yolox_head import (
         decode_outputs,
         simota_assign,
     )
 
-    _, state, train_step, _ = build_system(kpts_cfg(KPTS_YAML), device=dev,
+    _, state, train_step, _ = build_system(coco_cfg(KPTS_YAML), device=dev,
                                            seed=0)
     batch = kpts_batch(TRAIN_BATCH, gen, dev)
 
@@ -425,9 +446,9 @@ def profile_train_onestage(card: str, dev, gen, model_name: str) -> None:
     """The step of YOLOv5-s, YOLOv6-s or YOLOF R-50 through
     ``build_system`` (EMA on) on 16 images of 100 box slots (1-100 valid);
     then the loss's assignment alone on the step's outputs."""
-    from chip_smoke import onestage_assignment, onestage_cfg, train_batch
+    from chip_smoke import onestage_assignment, train_batch
 
-    cfg = dataclasses.replace(onestage_cfg(ONESTAGE_YAMLS[model_name]),
+    cfg = dataclasses.replace(coco_cfg(ONESTAGE_YAMLS[model_name]),
                               ema=True)
     is_yolof = cfg.meta_architecture == "YOLOF"
     if not is_yolof:
@@ -454,23 +475,29 @@ def profile_train_onestage(card: str, dev, gen, model_name: str) -> None:
           f"which the forward {fwd:.3f} ms ({TRAIN_BATCH} images) [{card}]")
 
 
-def profile_train(card: str, dev, gen, yolov7: bool) -> None:
-    if yolov7:
-        cfg = dataclasses.replace(AnchorYoloConfig(), grid_mask=True,
-                                  ema=True)
+def profile_train(card: str, dev, gen, name: str) -> None:
+    """The step of 16 images with GridMask on of YOLOX-s, YOLOX on
+    ConvNeXt-T (``build_yolox_system``), YOLOV7 or YOLOV7 on Res2Net-50
+    (``build_system``, EMA on), in ``make_packed_photo_step``."""
+    if name.startswith("YOLOV7"):
+        cfg = (AnchorYoloConfig() if name == "YOLOV7"
+               else coco_cfg(RES2NET_YAML))
+        cfg = dataclasses.replace(cfg, grid_mask=True, ema=True)
         _, state, train_step, _ = build_system(cfg, device=dev, seed=0)
     else:
-        cfg = dataclasses.replace(YoloxConfig(), grid_mask=True)
+        cfg = (YoloxConfig() if name == "YOLOX-s"
+               else coco_cfg(ZOO_YOLOX_YAML))
+        cfg = dataclasses.replace(cfg, grid_mask=True)
         _, state, train_step = build_yolox_system(cfg, device=dev, seed=0)
     step = make_packed_photo_step(cfg, train_step, seed=0)
-    n, g = TRAIN_BATCH, cfg.max_boxes
-    xy = torch.rand((n, g, 2), generator=gen) * 632
+    n, g, size = TRAIN_BATCH, cfg.max_boxes, cfg.input_size[0]
+    xy = torch.rand((n, g, 2), generator=gen) * (size - 8)
     boxes = torch.cat([xy, (xy + 8 + torch.rand((n, g, 2), generator=gen)
-                            * 312).clamp(max=640)], -1)
+                            * (size // 2 - 8)).clamp(max=size)], -1)
     valid = torch.arange(g)[None] < torch.randint(1, g + 1, (n, 1),
                                                   generator=gen)
     batch = {k: v.to(dev) for k, v in {
-        "image": torch.randint(0, 256, (n, 640, 640, 3), generator=gen,
+        "image": torch.randint(0, 256, (n, size, size, 3), generator=gen,
                                dtype=torch.uint8),
         "gt_boxes": boxes * valid[..., None],
         "gt_classes": torch.randint(0, 80, (n, g), generator=gen,
@@ -504,6 +531,13 @@ def main() -> int:
                         help="YOLOv6-s (yolov6_s.yaml)")
     parser.add_argument("--yolof", action="store_true",
                         help="YOLOF R-50 (yolof_R_50_DC5_1x.yaml) at 800")
+    parser.add_argument("--yolox-convnext", action="store_true",
+                        help="YOLOX on ConvNeXt-T (yolox/yolox_convnext.yaml)"
+                        " at 800")
+    parser.add_argument("--smca", action="store_true",
+                        help="SMCA-DETR R-50 (smca_detr_r50.yaml) at 800")
+    parser.add_argument("--res2net", action="store_true",
+                        help="YOLOV7 on Res2Net-50 (r2_50.yaml)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_port: no CUDA device")
@@ -516,8 +550,12 @@ def main() -> int:
             "AnchorDETR" if args.anchordetr else
             "YOLOX-KPTS" if args.yolox_kpts else
             "YOLOv5-s" if args.yolov5 else "YOLOv6-s" if args.yolov6 else
-            "YOLOF R-50" if args.yolof else "YOLOX-s")
-    size = 800 if name in DETR_YAMLS or name == "YOLOF R-50" else 640
+            "YOLOF R-50" if args.yolof else
+            "YOLOX ConvNeXt-T" if args.yolox_convnext else
+            "SMCA-DETR" if args.smca else
+            "YOLOV7 Res2Net-50" if args.res2net else "YOLOX-s")
+    size = 800 if name in DETR_YAMLS or name in (
+        "YOLOF R-50", "YOLOX ConvNeXt-T") else 640
     print(f"model: {name} {size} bf16", flush=True)
     if args.train and name in ONESTAGE_YAMLS:
         profile_train_onestage(card, dev, gen, name)
@@ -532,7 +570,7 @@ def main() -> int:
         profile_train_sparseinst(card, dev, gen)
         return 0
     if args.train:
-        profile_train(card, dev, gen, args.yolov7)
+        profile_train(card, dev, gen, name)
         return 0
     forward, postprocess = serving(dev, name)
 

@@ -1,15 +1,18 @@
-"""The configuration of DETR and AnchorDETR (``MODEL.DETR``,
-``MODEL.RESNETS.DEPTH``).
+"""The configuration of DETR and its variants (``MODEL.DETR``,
+``MODEL.RESNETS.DEPTH``): DETR, AnchorDETR, SMCA-DETR, DAB-DETR and the
+d2go DETR.
 
 ``DetrConfig`` subclasses ``YoloxConfig``, so that the optimizer (AdamW
 with ``BACKBONE_MULTIPLIER``), the schedule and the trainer read the shared
 fields unchanged. Its defaults are ``configs/coco/detr/
 detr_256_6_6_r50.yaml`` merged into the default tree. ``from_cfg`` reads
-what the JAX ``build_detr`` / ``build_anchor_detr``
-(``models/meta_arch/detr.py:335``, ``detr_variants.py:505``) and
-``engine.build_system`` (:263-279) read: the ResNet is always FrozenBN with
-the stride on the 3x3, whatever ``MODEL.RESNETS`` says besides its depth;
-an ``ATTENTION_TYPE`` other than ``nn.MultiheadAttention`` is RCDA.
+what the JAX builders (``models/meta_arch/detr.py:335``,
+``detr_variants.py:505-704``) and ``engine.build_system`` (:263-279)
+read: the ResNet is always FrozenBN with the stride on the 3x3, whatever
+``MODEL.RESNETS`` says besides its depth; AnchorDETR reads an
+``ATTENTION_TYPE`` other than ``nn.MultiheadAttention`` as RCDA, the d2go
+DETR one other than ``SMCA`` as DETR (``d2go_attention``); the d2go
+DETR's zoo backbone reads ``zoo``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Tuple
 
 from yolov7_d2_tpu_torch.config.yolox import YoloxConfig
 
-DETR_ARCHS = ("Detr", "AnchorDetr")
+DETR_ARCHS = ("Detr", "AnchorDetr", "SMCADetr", "DABDetr", "DetrD2go")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +49,9 @@ class DetrConfig(YoloxConfig):
     num_query_pattern: int = 3
     spatial_prior: str = "learned"     # learned | grid
     attention_type: str = "RCDA"       # RCDA | nn.MultiheadAttention
+    # the d2go DETR: its reading of ATTENTION_TYPE, the centred embedding
+    d2go_attention: str = "DETR"       # SMCA | DETR
+    centered_pe: bool = False
     # the criterion
     use_focal_loss: bool = False
     deep_supervision: bool = True
@@ -88,6 +94,8 @@ class DetrConfig(YoloxConfig):
             attention_type=("nn.MultiheadAttention"
                             if d.ATTENTION_TYPE == "nn.MultiheadAttention"
                             else "RCDA"),
+            d2go_attention="SMCA" if d.ATTENTION_TYPE == "SMCA" else "DETR",
+            centered_pe=bool(d.CENTERED_POSITION_ENCODIND),
             use_focal_loss=bool(d.USE_FOCAL_LOSS),
             deep_supervision=bool(d.DEEP_SUPERVISION),
             no_object_weight=float(d.NO_OBJECT_WEIGHT),

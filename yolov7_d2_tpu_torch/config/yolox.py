@@ -16,6 +16,48 @@ from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class ZooSpec:
+    """What the backbone zoo's builders read (``models/backbones/zoo.py``):
+    ``MODEL.REGNETS``, ``MODEL.CONVNEXT`` (``LAYER_SCALE_INIT_VALUE`` is
+    read by no JAX builder), ``MODEL.EFFICIENTNET`` and ``MODEL.FBNET_V2``
+    (``ARCH_DEF`` a tuple of the yaml's dicts)."""
+
+    regnet_type: str = "x"
+    regnet_out_features: Tuple[str, ...] = ("s2", "s3", "s4")
+    convnext_type: str = "tiny"
+    convnext_drop_path_rate: float = 0.2
+    convnext_out_features: Tuple[int, ...] = (1, 2, 3)
+    efficientnet_name: str = "efficientnet_b0"
+    efficientnet_out_features: Tuple[str, ...] = (
+        "stride4", "stride8", "stride16", "stride32")
+    efficientnet_feature_indices: Tuple[int, ...] = (1, 4, 10, 15)
+    fbnet_arch: str = "default"
+    fbnet_arch_def: Tuple[dict, ...] = ()
+    fbnet_out_features: Tuple[str, ...] = ("trunk3",)
+    fbnet_scale_factor: float = 1.0
+
+    @classmethod
+    def from_cfg(cls, cfg) -> "ZooSpec":
+        m = cfg.MODEL
+        return cls(
+            regnet_type=str(m.REGNETS.TYPE),
+            regnet_out_features=tuple(m.REGNETS.OUT_FEATURES),
+            convnext_type=str(m.CONVNEXT.TYPE),
+            convnext_drop_path_rate=float(m.CONVNEXT.DROP_PATH_RATE),
+            convnext_out_features=tuple(int(s)
+                                        for s in m.CONVNEXT.OUT_FEATURES),
+            efficientnet_name=str(m.EFFICIENTNET.NAME),
+            efficientnet_out_features=tuple(m.EFFICIENTNET.OUT_FEATURES),
+            efficientnet_feature_indices=tuple(
+                int(i) for i in m.EFFICIENTNET.FEATURE_INDICES),
+            fbnet_arch=str(m.FBNET_V2.ARCH),
+            fbnet_arch_def=tuple(dict(d) for d in m.FBNET_V2.ARCH_DEF),
+            fbnet_out_features=tuple(m.FBNET_V2.OUT_FEATURES),
+            fbnet_scale_factor=float(m.FBNET_V2.SCALE_FACTOR),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class YoloxConfig:
     """Defaults are YOLOX-s at 640 (configs/coco/yolox_s.yaml)."""
 
@@ -25,6 +67,7 @@ class YoloxConfig:
     depth_mul: float = 0.33
     width_mul: float = 0.50
     in_features: Tuple[str, ...] = ("dark3", "dark4", "dark5")
+    zoo: ZooSpec = ZooSpec()  # the zoo backbones' options
     depthwise: bool = False
     normalize_input: bool = False
     input_size: Tuple[int, int] = (640, 640)  # (h, w)
@@ -94,6 +137,7 @@ class YoloxConfig:
             depth_mul=float(yolo.DEPTH_MUL),
             width_mul=float(yolo.WIDTH_MUL),
             in_features=tuple(yolo.IN_FEATURES),
+            zoo=ZooSpec.from_cfg(cfg),
             depthwise=bool(cfg.MODEL.DARKNET.DEPTH_WISE),
             normalize_input=bool(yolo.NORMALIZE_INPUT),
             input_size=tuple(int(s) for s in cfg.INPUT.INPUT_SIZE),

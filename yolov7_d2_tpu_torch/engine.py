@@ -1,11 +1,13 @@
 """High-level assembly of the training step (JAX ``engine.py``): config ->
 (model, state, train_step), for YOLOX (``build_yolox_system``) and, through
 ``build_system``, for the anchor-based YOLO family (YOLOv5 among them),
-YOLOv6, YOLOF, SparseInst, DETR, AnchorDETR and YOLOX-KPTS.
+YOLOv6, YOLOF, SparseInst, the DETR family (DETR, AnchorDETR, SMCA-DETR,
+DAB-DETR, the d2go DETR) and YOLOX-KPTS.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -20,6 +22,7 @@ from yolov7_d2_tpu_torch.config import (
     YoloxConfig,
     YoloxKptsConfig,
 )
+from yolov7_d2_tpu_torch.config.defaults import get_cfg
 from yolov7_d2_tpu_torch.config.detr import DETR_ARCHS
 from yolov7_d2_tpu_torch.models.build import build_model
 from yolov7_d2_tpu_torch.models.meta_arch.detr import detr_loss_fn
@@ -126,7 +129,9 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0):
     ``aug_disable_at_iter`` (the reference turns L1 on when the strong
     augmentation turns off). The JAX builder's sample batch only traces
     the flax init, so no batch size is needed here. Inside a process group,
-    SyncBatchNorm and DDP (:func:`_train_state`)."""
+    SyncBatchNorm and DDP (:func:`_train_state`). On ConvNeXt the drop-path
+    masks of a step come from the seed and the step
+    (:func:`seed_dropout_by_step`)."""
     state = _train_state(cfg, build_model(cfg, device, seed), device)
     train_step = make_train_step(
         make_yolox_loss_adapter(cfg.num_classes,
@@ -136,6 +141,8 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0):
         use_l1_after=cfg.aug_disable_at_iter,
         clip_cfg=cfg if cfg.clip_gradients else None,
     )
+    if state.model.generator is not None:
+        train_step = seed_dropout_by_step(train_step, seed)
     return state.model, state, train_step
 
 
@@ -145,11 +152,39 @@ KPTS_FIELDS = BATCH_FIELDS + ("gt_keypoints",)
 ANCHOR_YOLO_ARCHS = ("YOLO", "YOLOV5", "YOLOV7", "YOLOV7P")
 # where each architecture the JAX build_system trains comes in the port
 _ROADMAP_ITEM = {
-    "SOLOv2": "A.8",
-    "MaskRCNN": "A.8", "FasterRCNN": "A.8", "PanopticFPN": "A.8",
-    "YOLOMask": "A.8", "DetrSegm": "A.8",
-    "DetrD2go": "A.7c′", "SMCADetr": "A.7c′", "DABDetr": "A.7c′",
+    "SOLOv2": "A.8c", "YOLOMask": "A.8c", "DetrSegm": "A.8c",
+    "MaskRCNN": "A.8d", "FasterRCNN": "A.8d", "PanopticFPN": "A.8d",
 }
+
+
+# the config dataclass each architecture the port builds reads
+CONFIG_OF = {
+    "YOLOX": YoloxConfig, "SparseInst": SparseInstConfig,
+    "YOLOX_KPTS": YoloxKptsConfig, "YOLOV6": Yolov6Config,
+    "YOLOF": YolofConfig,
+    **{arch: AnchorYoloConfig for arch in ANCHOR_YOLO_ARCHS},
+    **{arch: DetrConfig for arch in DETR_ARCHS},
+}
+
+
+def config_from_cfg(cfg):
+    """A merged ``CfgNode`` -> the config dataclass its architecture reads
+    (:data:`CONFIG_OF`); an architecture the port does not build raises,
+    naming the ROADMAP.md item that brings it."""
+    arch = cfg.MODEL.META_ARCHITECTURE
+    if arch not in CONFIG_OF:
+        item = _ROADMAP_ITEM.get(arch, "A.8")
+        raise NotImplementedError(
+            f"{arch!r} is not ported yet (ROADMAP.md Queue {item})")
+    return CONFIG_OF[arch].from_cfg(cfg)
+
+
+def config_from_yaml(path, **replace):
+    """A yaml file merged into ``get_cfg`` as the entry points merge it ->
+    its :func:`config_from_cfg` dataclass, with fields replaced."""
+    cfg = get_cfg()
+    cfg.merge_from_file(str(path))
+    return dataclasses.replace(config_from_cfg(cfg), **replace)
 
 
 def make_anchor_yolo_loss(cfg: AnchorYoloConfig) -> Callable:
@@ -191,31 +226,19 @@ def build_system(cfg, device="cuda", seed: int = 0):
     ``yolov6_losses`` and YOLOF ``yolof_losses`` on the box fields;
     SparseInst trains its mask losses (``sparseinst_loss_fn``) on the
     fields ``image`` (uint8 through the normalize kernel), ``gt_masks``,
-    ``gt_classes`` and ``gt_valid``; Detr and AnchorDetr train the set
-    criterion (``detr_loss_fn``: focal for AnchorDetr or
-    ``USE_FOCAL_LOSS``) on ``image`` (uint8 through the normalize
-    kernel), ``gt_boxes``, ``gt_classes`` and ``gt_valid``, with the
-    dropout masks of a step drawn from the seed and the step
-    (:func:`seed_dropout_by_step`); YOLOX_KPTS trains
+    ``gt_classes`` and ``gt_valid``; Detr, AnchorDetr, SMCADetr, DABDetr
+    and DetrD2go train the set criterion (``detr_loss_fn``: focal for
+    AnchorDetr or ``USE_FOCAL_LOSS``) on ``image`` (uint8 through the
+    normalize kernel), ``gt_boxes``, ``gt_classes`` and ``gt_valid``, with
+    the dropout (and drop-path) masks of a step drawn from the seed and the
+    step (:func:`seed_dropout_by_step`); YOLOX_KPTS trains
     ``yolox_kpts_losses`` on the box fields and ``gt_keypoints`` [B, G,
     P, 3] (``image`` uint8 through the normalize kernel); any other
     architecture raises, naming the ROADMAP.md item that brings it."""
     if hasattr(cfg, "MODEL"):
         arch = cfg.MODEL.META_ARCHITECTURE
-        if arch == "YOLOX":
-            cfg = YoloxConfig.from_cfg(cfg)
-        elif arch in ANCHOR_YOLO_ARCHS:
-            cfg = AnchorYoloConfig.from_cfg(cfg)
-        elif arch == "SparseInst":
-            cfg = SparseInstConfig.from_cfg(cfg)
-        elif arch in DETR_ARCHS:
-            cfg = DetrConfig.from_cfg(cfg)
-        elif arch == "YOLOX_KPTS":
-            cfg = YoloxKptsConfig.from_cfg(cfg)
-        elif arch == "YOLOV6":
-            cfg = Yolov6Config.from_cfg(cfg)
-        elif arch == "YOLOF":
-            cfg = YolofConfig.from_cfg(cfg)
+        if arch in CONFIG_OF:
+            cfg = config_from_cfg(cfg)
     else:
         arch = cfg.meta_architecture
     if arch == "YOLOX":

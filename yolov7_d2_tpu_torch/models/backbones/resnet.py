@@ -171,7 +171,7 @@ class ResNet(nn.Module):
             raise NotImplementedError(
                 "ResNet with deformable convolutions (MODEL.RESNETS."
                 "DEFORM_ON_PER_STAGE) is not ported yet (ROADMAP.md Queue "
-                "A.8: DCN)")
+                "A.8b: DCN)")
         self.out_features = tuple(spec.out_features)
         self.out_channels: Dict[str, int] = dict(RESNET_CHANNELS)
         self.stem = Stem(spec.vd, spec.frozen_bn)

@@ -366,8 +366,9 @@ def init_detr_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """:func:`init_weights_` for the convolutions and linears, then with the
     same ``generator``: attention in-projections N(0, 1/E), query
     embeddings N(0, 1) (flax ``normal(1.0)``) and the raw parameters of
-    AnchorDETR (anchor points U[0, 2), patterns N(0, 1)); LayerNorm and
-    FrozenBN keep their identity initialisation."""
+    AnchorDETR (anchor points U[0, 2), patterns N(0, 1)) and DAB-DETR
+    (reference boxes U[0, 2)); LayerNorm and FrozenBN keep their identity
+    initialisation."""
     init_weights_(model, generator)
     for m in model.modules():
         if isinstance(m, MultiheadAttention):
@@ -380,6 +381,8 @@ def init_detr_weights_(model: nn.Module, generator: torch.Generator) -> None:
         model.anchor_points.uniform_(0.0, 2.0, generator=generator)
     if isinstance(getattr(model, "pattern_embed", None), nn.Parameter):
         model.pattern_embed.normal_(0.0, 1.0, generator=generator)
+    if isinstance(getattr(model, "ref_boxes", None), nn.Parameter):
+        model.ref_boxes.uniform_(0.0, 2.0, generator=generator)
 
 
 def finish_build(model: nn.Module, device, seed: int) -> nn.Module:

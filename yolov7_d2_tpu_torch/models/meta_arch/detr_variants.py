@@ -1,34 +1,59 @@
-"""AnchorDETR (the AnchorDETR part of JAX ``models/meta_arch/
-detr_variants.py``): anchor points times patterns as queries, the RCDA
-encoder (or DETR's dense encoder) and the RCDA decoder, one class head and
-one box head shared by every level, the boxes' xy refined around each
-query's anchor. It trains with the sigmoid-focal criterion of
-``meta_arch/detr.py``; the tail ranks all (query, class) pairs.
+"""The DETR variants of JAX ``models/meta_arch/detr_variants.py``:
+AnchorDETR, SMCA-DETR, DAB-DETR and the d2go DETR.
 
-Module names follow the flax ones under ``transformer.encoder.layers.N``
-and ``transformer.decoder.layers.N`` (``utils/weight_port.py``
-``map_anchor_detr_torch_name``); the anchor points and patterns are the
-raw parameters ``anchor_points`` and ``pattern_embed``. The RCDA layers
-have no dropout, as in the JAX package.
+* AnchorDETR: anchor points times patterns as queries, the RCDA encoder
+  (or DETR's dense encoder) and the RCDA decoder, one class head and one
+  box head shared by every level, the boxes' xy refined around each
+  query's anchor. It trains with the sigmoid-focal criterion of
+  ``meta_arch/detr.py``; the tail ranks all (query, class) pairs.
+* SMCA-DETR: DETR's encoder, then decoder layers whose cross-attention
+  adds a Gaussian prior around centres and scales that ``cs_head``
+  predicts from the query embeddings (``models/layers/smca.py``).
+* DAB-DETR: a reference box [Q, 4] a query, ``sigmoid(ref_boxes)``, whose
+  centre's sine embedding (``ref_pos_proj``) is the query position of
+  every DETR decoder layer; each level refines the boxes through
+  ``inverse_sigmoid`` and the next takes them without gradient.
+* DetrD2go: DETR or SMCA decoding (``MODEL.DETR.ATTENTION_TYPE`` "SMCA",
+  else DETR), the centred sine embedding where
+  ``CENTERED_POSITION_ENCODIND``, a LayerNorm a level on the DETR path,
+  C logits under the focal criterion (``USE_FOCAL_LOSS``) and C + 1
+  otherwise, on the registered backbone ``MODEL.BACKBONE.NAME`` names
+  unless the name holds "resnet" (JAX :693-699).
 
-SMCA-DETR, DAB-DETR and the d2go DETR are not ported (ROADMAP.md Queue
-A.7c′).
+SMCA-DETR and DAB-DETR build ResNet(``MODEL.RESNETS.DEPTH``) whatever
+``MODEL.BACKBONE.NAME`` says, as the JAX builders do (ROADMAP.md C.28).
+The encoders and decoders have no dropout, as in the JAX package. Module
+names follow the flax ones under ``transformer.encoder.layers.N`` and
+``transformer.decoder.layers.N`` (``utils/weight_port.py``
+``map_anchor_detr_torch_name`` and ``map_detr_variant_torch_name``); the
+raw parameters ``anchor_points``, ``pattern_embed`` and ``ref_boxes`` keep
+their flax names.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from yolov7_d2_tpu_torch.config.detr import DetrConfig
+from yolov7_d2_tpu_torch.models.backbones.darknetx import CSPDarknetX
 from yolov7_d2_tpu_torch.models.backbones.resnet import RESNET_CHANNELS
+from yolov7_d2_tpu_torch.models.backbones.zoo import (
+    build_zoo_backbone,
+    zoo_backbone_type,
+)
 from yolov7_d2_tpu_torch.models.build import META_ARCH_REGISTRY
 from yolov7_d2_tpu_torch.models.layers.rcda import RCDAttention, pos2posemb2d
+from yolov7_d2_tpu_torch.models.layers.smca import (
+    SMCADecoderLayer,
+    smca_prior,
+)
 from yolov7_d2_tpu_torch.models.layers.transformer import (
     MLP,
+    DecoderLayer,
     EncoderLayer,
     LayerNorm,
     LayerStack,
@@ -39,6 +64,7 @@ from yolov7_d2_tpu_torch.models.meta_arch.detr import (
     boxes_to_pixels,
     check_detr_config,
     detr_backbone,
+    detr_postprocess,
     finish_build,
     float32_region,
     normalized_input,
@@ -256,3 +282,253 @@ def build_anchor_detr(cfg: DetrConfig, device="cuda",
         resnet_depth=cfg.resnet_depth, spatial_prior=cfg.spatial_prior,
         attention_type=cfg.attention_type,
         dtype=torch.bfloat16 if cfg.amp else torch.float32), device, seed)
+
+
+class _DenseEncoderDETR(nn.Module):
+    """normalize -> backbone (its ``res5``, else its last output) ->
+    ``input_proj`` -> DETR's dense encoder (no dropout) over the sine
+    embedding (centred with ``centered_pe``), then the decoder of the
+    subclass (``decode``) and the class and box heads on every level in
+    float32. Returns the keys of :class:`DETR`'s output."""
+
+    def __init__(self, backbone: nn.Module, feat_channels: int,
+                 num_logits: int, hidden_dim: int, nheads: int,
+                 enc_layers: int, dim_feedforward: int,
+                 centered_pe: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.nheads = nheads
+        self.centered_pe = centered_pe
+        self.generator: Optional[torch.Generator] = None
+        self.backbone = backbone
+        self.input_proj = nn.Conv2d(feat_channels, hidden_dim, 1)
+        self.transformer = nn.Module()
+        self.transformer.encoder = LayerStack(
+            [EncoderLayer(hidden_dim, nheads, dim_feedforward, 0.0, False,
+                          dtype) for _ in range(enc_layers)])
+        self.class_embed = nn.Linear(hidden_dim, num_logits)
+        self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
+
+    def encode(self, x: torch.Tensor):
+        """-> memory and position [B, HW, C] and the memory's (h, w)."""
+        feats = self.backbone(x)
+        f = feats["res5"] if "res5" in feats else list(feats.values())[-1]
+        src = self.input_proj(f)
+        b, c, h, w = src.shape
+        pos = sine_position_embedding(h, w, c // 2, centered=self.centered_pe,
+                                      device=src.device)
+        pos = pos.to(self.dtype).reshape(1, h * w, c).expand(b, -1, -1)
+        mem = src.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        for layer in self.transformer.encoder.layers:
+            mem = layer(mem, pos)
+        return mem, pos, (h, w)
+
+    def heads(self, tgt: torch.Tensor, logits: List[torch.Tensor],
+              boxes: List[torch.Tensor]) -> None:
+        """One level's class logits and sigmoid boxes, in float32."""
+        with float32_region(tgt.device):
+            o = tgt.float()
+            logits.append(self.class_embed(o))
+            boxes.append(torch.sigmoid(self.bbox_embed(o)))
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images: uint8 or float [B, H, W, 3] letterboxed batch."""
+        x = normalized_input(images, self.dtype)
+        dt = self.dtype
+        with torch.autocast(x.device.type, dtype=dt,
+                            enabled=dt == torch.bfloat16):
+            logits, boxes = self.decode(*self.encode(x))
+        logits, boxes = torch.stack(logits), torch.stack(boxes)
+        return {"pred_logits": logits[-1], "pred_boxes": boxes[-1],
+                "aux_logits": logits[:-1], "aux_boxes": boxes[:-1]}
+
+
+class DABDETR(_DenseEncoderDETR):
+    """DAB-DETR (JAX :404): reference boxes ``sigmoid(ref_boxes)`` [Q, 4];
+    each DETR decoder layer (no dropout) takes ``ref_pos_proj`` of the sine
+    embedding of its boxes' centres (float32) as the query position; its
+    level's boxes are ``sigmoid(bbox_embed + inverse_sigmoid(ref))``, which
+    the next level takes detached (the JAX ``stop_gradient``). C + 1
+    logits."""
+
+    def __init__(self, num_classes: int = 80, hidden_dim: int = 256,
+                 num_queries: int = 100, nheads: int = 8,
+                 enc_layers: int = 6, dec_layers: int = 6,
+                 dim_feedforward: int = 2048, resnet_depth: int = 50,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(detr_backbone(resnet_depth),
+                         RESNET_CHANNELS["res5"], num_classes + 1,
+                         hidden_dim, nheads, enc_layers, dim_feedforward,
+                         dtype=dtype)
+        self.ref_boxes = nn.Parameter(torch.empty(num_queries, 4))
+        self.ref_pos_proj = nn.Linear(hidden_dim, hidden_dim)
+        self.transformer.decoder = LayerStack(
+            [DecoderLayer(hidden_dim, nheads, dim_feedforward, 0.0, False,
+                          dtype) for _ in range(dec_layers)])
+
+    def decode(self, mem, pos, hw):
+        b, _, c = mem.shape
+        dev = mem.device
+        ref = torch.sigmoid(self.ref_boxes.float())[None].expand(b, -1, -1)
+        tgt = torch.zeros(b, ref.shape[1], c, dtype=self.dtype, device=dev)
+        logits, boxes = [], []
+        for layer in self.transformer.decoder.layers:
+            with float32_region(dev):
+                query_pos = self.ref_pos_proj(
+                    pos2posemb2d(ref[..., :2], c // 2)).to(self.dtype)
+            tgt = layer(tgt, mem, query_pos, pos)
+            with float32_region(dev):
+                o = tgt.float()
+                new_ref = torch.sigmoid(self.bbox_embed(o)
+                                        + inverse_sigmoid(ref))
+                boxes.append(new_ref)
+                logits.append(self.class_embed(o))
+            ref = new_ref.detach()
+        return logits, boxes
+
+
+class DetrD2go(_DenseEncoderDETR):
+    """The d2go DETR (JAX ``DetrD2goModule`` :562), and SMCA-DETR (JAX
+    :327) as its "SMCA" case on the family's ResNet with C + 1 logits and
+    the plain sine embedding: ``attention_type`` "SMCA" decodes with
+    ``cs_head`` (2 layers) and :class:`SMCADecoderLayer` s
+    (``smca_decode``); "DETR" with DETR decoder layers
+    (no dropout), each level through its own float32 LayerNorm
+    (``dec_norms.N``) before the heads. ``use_focal`` gives C logits, else
+    C + 1. ``backbone`` is a built registered backbone (its last output
+    feeds ``input_proj``), else the family's ResNet."""
+
+    def __init__(self, num_classes: int = 80, hidden_dim: int = 256,
+                 num_queries: int = 100, nheads: int = 8,
+                 enc_layers: int = 6, dec_layers: int = 6,
+                 dim_feedforward: int = 2048, attention_type: str = "DETR",
+                 centered_pe: bool = False, use_focal: bool = False,
+                 backbone: Optional[nn.Module] = None,
+                 resnet_depth: int = 50,
+                 dtype: torch.dtype = torch.float32):
+        if backbone is None:
+            backbone, feat = (detr_backbone(resnet_depth),
+                              RESNET_CHANNELS["res5"])
+        else:
+            feat = list(backbone.out_channels.values())[-1]
+        super().__init__(backbone, feat, num_classes + (not use_focal),
+                         hidden_dim, nheads, enc_layers, dim_feedforward,
+                         centered_pe, dtype)
+        self.attention_type = attention_type
+        self.query_embed = nn.Embedding(num_queries, hidden_dim)
+        if attention_type == "SMCA":
+            self.cs_head = MLP(hidden_dim, hidden_dim, nheads * 4, 2)
+            layers = [SMCADecoderLayer(hidden_dim, nheads, dim_feedforward,
+                                       dtype) for _ in range(dec_layers)]
+        else:
+            layers = [DecoderLayer(hidden_dim, nheads, dim_feedforward, 0.0,
+                                   False, dtype) for _ in range(dec_layers)]
+            self.dec_norms = nn.ModuleList(
+                LayerNorm(hidden_dim, eps=1e-5) for _ in range(dec_layers))
+        self.transformer.decoder = LayerStack(layers)
+
+    def query_pos(self, b: int) -> torch.Tensor:
+        """The query embeddings (``query_embed``) [b, Q, C] in the compute
+        dtype."""
+        q = self.query_embed.weight
+        return q[None].expand(b, *q.shape).to(self.dtype)
+
+    def smca_decode(self, mem, pos, hw):
+        """SMCA's decoder (JAX :376-393): the queries as positions over a
+        zero target, ``cs_head`` (float32) on them for each head's centre
+        (sigmoid) and log-scales, one prior for every
+        :class:`SMCADecoderLayer` (the JAX loop recomputes the same values
+        a layer, for every image: ROADMAP.md C.32)."""
+        query_pos = self.query_pos(mem.shape[0])
+        nq = query_pos.shape[1]
+        with float32_region(mem.device):
+            cs = self.cs_head(query_pos[:1].float()).reshape(
+                1, nq, self.nheads, 4)
+            cs = torch.cat([torch.sigmoid(cs[..., 0:2]), cs[..., 2:]], -1)
+            prior = smca_prior(cs, *hw, self.dtype)
+        tgt = torch.zeros_like(query_pos)
+        logits, boxes = [], []
+        for layer in self.transformer.decoder.layers:
+            tgt = layer(tgt, mem, query_pos, pos, prior)
+            self.heads(tgt, logits, boxes)
+        return logits, boxes
+
+    def decode(self, mem, pos, hw):
+        if self.attention_type == "SMCA":
+            return self.smca_decode(mem, pos, hw)
+        query_pos = self.query_pos(mem.shape[0])
+        tgt = torch.zeros_like(query_pos)
+        logits, boxes = [], []
+        for layer, norm in zip(self.transformer.decoder.layers,
+                               self.dec_norms):
+            tgt = layer(tgt, mem, query_pos, pos)
+            self.heads(norm(tgt), logits, boxes)
+        return logits, boxes
+
+
+def detr_tail(cfg: DetrConfig):
+    """The serving tail of ``cfg``'s logits: the sigmoid top-k over (query,
+    class) pairs (:func:`anchor_detr_postprocess`) for C-logit heads
+    (AnchorDETR, and the d2go DETR under the focal criterion, whose C
+    logits have no "no object"; JAX wires no tail for it, ROADMAP.md
+    C.29), else DETR's softmax tail (``detr_postprocess``)."""
+    return anchor_detr_postprocess if cfg.use_focal else detr_postprocess
+
+
+def _dims(cfg: DetrConfig) -> dict:
+    return dict(num_classes=cfg.num_classes, hidden_dim=cfg.hidden_dim,
+                num_queries=cfg.num_queries, nheads=cfg.nheads,
+                enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
+                dim_feedforward=cfg.dim_feedforward,
+                resnet_depth=cfg.resnet_depth,
+                dtype=torch.bfloat16 if cfg.amp else torch.float32)
+
+
+@META_ARCH_REGISTRY.register(name="SMCADetr")
+def build_smca_detr(cfg: DetrConfig, device="cuda",
+                    seed: int = 0) -> DetrD2go:
+    """SMCA-DETR from a ``DetrConfig`` (JAX :529), the "SMCA" case of
+    :class:`DetrD2go`, on ResNet (``resnet_depth``) whatever
+    ``cfg.backbone`` says, with weights from ``seed``, on ``device``,
+    channels_last, eval mode."""
+    check_detr_config(cfg, "SMCADetr")
+    return finish_build(DetrD2go(attention_type="SMCA", **_dims(cfg)),
+                        device, seed)
+
+
+@META_ARCH_REGISTRY.register(name="DABDetr")
+def build_dab_detr(cfg: DetrConfig, device="cuda", seed: int = 0) -> DABDETR:
+    """DAB-DETR from a ``DetrConfig`` (JAX :546), as
+    :func:`build_smca_detr`."""
+    check_detr_config(cfg, "DABDetr")
+    return finish_build(DABDETR(**_dims(cfg)), device, seed)
+
+
+@META_ARCH_REGISTRY.register(name="DetrD2go")
+def build_detr_d2go(cfg: DetrConfig, device="cuda",
+                    seed: int = 0) -> DetrD2go:
+    """The d2go DETR from a ``DetrConfig`` (JAX :677): the registered
+    backbone ``cfg.backbone`` names where the name lacks "resnet" (a zoo
+    backbone, or CSPDarknet-X at ``MODEL.YOLO``'s multipliers, which is
+    what the default name gives ``detr/d2go/detr_bs16.yaml``, ROADMAP.md
+    C.30; another raises, naming its ROADMAP.md item), else the family's
+    ResNet; ConvNeXt's drop path draws from the model's generator."""
+    check_detr_config(cfg, "DetrD2go")
+    backbone = None
+    if cfg.backbone == "build_cspdarknetx_backbone":
+        backbone = CSPDarknetX(cfg.depth_mul, cfg.width_mul,
+                               cfg.in_features, cfg.depthwise)
+    elif cfg.backbone and "resnet" not in cfg.backbone.lower():
+        if zoo_backbone_type(cfg.backbone) is None:
+            raise NotImplementedError(
+                f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md "
+                "Queue A.8b)")
+        backbone = build_zoo_backbone(cfg)
+    model = finish_build(DetrD2go(
+        attention_type=cfg.d2go_attention, centered_pe=cfg.centered_pe,
+        use_focal=cfg.use_focal_loss, backbone=backbone, **_dims(cfg)),
+        device, seed)
+    if hasattr(model.backbone, "generator"):
+        model.backbone.generator = model.generator
+    return model

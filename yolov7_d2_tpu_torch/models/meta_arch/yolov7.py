@@ -40,6 +40,10 @@ from yolov7_d2_tpu_torch.models.backbones.swin import (
 from yolov7_d2_tpu_torch.models.backbones.yolov5 import (
     build_yolov5_backbone,
 )
+from yolov7_d2_tpu_torch.models.backbones.zoo import (
+    ZOO_BACKBONES,
+    build_zoo_backbone,
+)
 from yolov7_d2_tpu_torch.models.build import (
     META_ARCH_REGISTRY,
     init_weights_,
@@ -124,8 +128,10 @@ class AnchorYOLO(nn.Module):
 
     @property
     def generator(self) -> Optional[torch.Generator]:
-        """The DropBlocks' generator (PP-YOLO's PAN), else None."""
-        return getattr(self.neck, "generator", None)
+        """The generator of PP-YOLO's DropBlocks or ConvNeXt's drop path
+        (one, :func:`_finish`), else None."""
+        return (getattr(self.neck, "generator", None)
+                or getattr(self.backbone, "generator", None))
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images: uint8 or float [B, H, W, 3] letterboxed batch."""
@@ -255,6 +261,9 @@ _BACKBONE_NAME_MAP = {
     "build_efficientrep_backbone": "efficientrep",
     "build_efficientrep_tiny_backbone": "efficientrep",
     "build_yolov5_backbone": "yolov5",
+    # the backbone zoo (models/backbones/zoo.py): RegNet (s2..s4),
+    # ConvNeXt (stage1..3), EfficientNet (stride8..32), FBNet (trunk{i})
+    **{name: kind for name, (kind, _) in ZOO_BACKBONES.items()},
 }
 
 # builders of a backbone that ``AnchorYOLO`` takes built, by config name
@@ -265,6 +274,7 @@ _BACKBONE_BUILDERS = {
     "build_efficientrep_tiny_backbone": build_efficientrep_tiny_backbone,
     "build_yolov5_backbone": build_yolov5_backbone,
     "build_res2net_backbone": build_res2net_backbone,
+    **{name: build_zoo_backbone for name in ZOO_BACKBONES},
 }
 
 
@@ -279,9 +289,9 @@ def _backbone_type(cfg: AnchorYoloConfig) -> str:
 def _backbone(cfg: AnchorYoloConfig):
     """A built ResNet (``cfg.resnet``, from ``MODEL.RESNETS``), Res2Net
     (``cfg.r2type``), Swin (``MODEL.SWIN``), PVTv2 (``MODEL.PVT``),
-    EfficientRep or the YOLOv5
-    backbone for those builders, as the JAX builder takes any registered
-    backbone, else None (``AnchorYOLO`` builds its darknet)."""
+    EfficientRep, the YOLOv5 backbone or one of the zoo (``cfg.zoo``) for
+    those builders, as the JAX builder takes any registered backbone, else
+    None (``AnchorYOLO`` builds its darknet)."""
     if _backbone_type(cfg).startswith("resnet"):
         return ResNet(cfg.resnet)
     builder = _BACKBONE_BUILDERS.get(cfg.backbone)
@@ -291,13 +301,15 @@ def _backbone(cfg: AnchorYoloConfig):
 def _finish(model: AnchorYOLO, device, seed: int) -> AnchorYOLO:
     """Weights from ``seed`` (drawn on the CPU, so that every device starts
     from the same numbers), on ``device``, channels_last, eval mode; with
-    PP-YOLO's PAN, its DropBlocks' generator on ``device`` seeded with
-    ``seed``."""
+    PP-YOLO's PAN (DropBlock) or ConvNeXt (drop path), one generator for
+    their masks on ``device`` seeded with ``seed``."""
     init_weights_(model, torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last)
+    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
     if isinstance(model.neck, PPYOLOPAN):
-        model.neck.generator = torch.Generator(
-            device=torch.device(device)).manual_seed(seed)
+        model.neck.generator = gen
+    if hasattr(model.backbone, "generator"):
+        model.backbone.generator = gen
     return model.eval()
 
 

@@ -20,6 +20,10 @@ from yolov7_d2_tpu_torch.config import YoloxConfig
 from yolov7_d2_tpu_torch.kernels.nms import nms_batched
 from yolov7_d2_tpu_torch.kernels.preprocess import normalize_images
 from yolov7_d2_tpu_torch.models.backbones.darknetx import CSPDarknetX
+from yolov7_d2_tpu_torch.models.backbones.zoo import (
+    build_zoo_backbone,
+    zoo_backbone_type,
+)
 from yolov7_d2_tpu_torch.models.build import (
     META_ARCH_REGISTRY,
     init_weights_,
@@ -39,13 +43,16 @@ class YOLOX(nn.Module):
     """backbone -> neck -> head; returns the raw head outputs with their
     grids and strides. ``dtype`` is the compute dtype: bfloat16 runs the
     convolutions under autocast over float32 parameters (the JAX
-    ``dtype``/``param_dtype`` pair)."""
+    ``dtype``/``param_dtype`` pair). A built ``backbone`` (with
+    ``out_channels``; the zoo of ``models/backbones/zoo.py``) replaces
+    CSPDarknet-X, and the neck takes its widths, which flax infers."""
 
     def __init__(self, num_classes: int = 80, depth_mul: float = 0.33,
                  width_mul: float = 0.50,
                  in_features: Sequence[str] = ("dark3", "dark4", "dark5"),
                  depthwise: bool = False, act: str = "silu",
                  normalize_input: bool = False,
+                 backbone: Optional[nn.Module] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_features = tuple(in_features)
@@ -53,12 +60,23 @@ class YOLOX(nn.Module):
         # NORMALIZE_INPUT divides by 255 (JAX yolox.py:58); otherwise the
         # normalize kernel is the cast to the compute dtype
         self.input_std = (255.0,) * 3 if normalize_input else (1.0,) * 3
-        self.backbone = CSPDarknetX(depth_mul, width_mul, in_features,
-                                    depthwise, act)
+        feat_channels = None
+        if backbone is None:
+            backbone = CSPDarknetX(depth_mul, width_mul, in_features,
+                                   depthwise, act)
+        else:
+            feat_channels = [backbone.out_channels[f]
+                             for f in self.in_features]
+        self.backbone = backbone
         self.neck = YOLOPAFPN(depth_mul, width_mul, depthwise=depthwise,
-                              act=act)
+                              act=act, feat_channels=feat_channels)
         self.head = YOLOXHead(num_classes, width_mul, depthwise=depthwise,
                               act=act)
+
+    @property
+    def generator(self) -> Optional[torch.Generator]:
+        """The backbone's drop-path generator (ConvNeXt), else None."""
+        return getattr(self.backbone, "generator", None)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images: uint8 or float [B, H, W, 3] letterboxed batch."""
@@ -141,17 +159,27 @@ def yolox_postprocess(
 @META_ARCH_REGISTRY.register(name="YOLOX")
 def build_yolox(cfg: YoloxConfig, device="cuda", seed: int = 0) -> YOLOX:
     """YOLOX in eval mode on ``device``, weights drawn from ``seed`` (on
-    the CPU, so that every device starts from the same numbers)."""
+    the CPU, so that every device starts from the same numbers). A zoo
+    backbone's name (JAX :183-188 resolves any registered one) builds it
+    from ``cfg.zoo``; ConvNeXt's drop-path generator goes on ``device``,
+    seeded with ``seed``."""
+    backbone = None
     if cfg.backbone != "build_cspdarknetx_backbone":
-        raise NotImplementedError(
-            f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md "
-            "Queue A.7-A.8)")
+        if zoo_backbone_type(cfg.backbone) is None:
+            raise NotImplementedError(
+                f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md "
+                "Queue A.8b)")
+        backbone = build_zoo_backbone(cfg)
     model = YOLOX(
         num_classes=cfg.num_classes, depth_mul=cfg.depth_mul,
         width_mul=cfg.width_mul, in_features=cfg.in_features,
         depthwise=cfg.depthwise, normalize_input=cfg.normalize_input,
+        backbone=backbone,
         dtype=torch.bfloat16 if cfg.amp else torch.float32,
     )
     init_weights_(model, torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last)
+    if hasattr(model.backbone, "generator"):
+        model.backbone.generator = torch.Generator(
+            device=torch.device(device)).manual_seed(seed)
     return model.eval()

@@ -34,6 +34,14 @@ take copies of the JAX maps; a transposed convolution's kernel (RepPAN's
 in both spatial axes (flax's ``ConvTranspose`` does not flip its kernel,
 torch's ``ConvTranspose2d`` computes with the flipped one), and a BiFPN
 node's ``edge_weights`` is the flax parameter ``cell{r}_fnode{i}_edge``.
+The backbone zoo under the ported heads (``BACKBONE_MAPS``, by the models'
+``backbone_type``): ConvNeXt and EfficientNet keep the reference's names
+(``map_convnext_torch_name``, ``map_efficientnet_torch_name``, copies of
+the JAX maps; ConvNeXt's layer scale ``gamma`` is the flax parameter of the
+block's path), RegNet and FBNet the flax ones (``map_flax_named_torch_name``).
+SMCA-DETR, DAB-DETR and the d2go DETR (``map_detr_variant_torch_name``)
+take their backbone's map and the flax names of their transformers, heads,
+``cs_head`` and per-level ``dec_norm_{i}``.
 The flax tree is nested dicts of numpy arrays, so no JAX is needed here.
 """
 
@@ -198,8 +206,8 @@ def map_anchor_yolo_torch_name(name: str,
             return ("backbone",) + map_yolov5_torch_name(rest)
         if backbone_type == "efficientrep":
             return ("backbone",) + map_efficientrep_torch_name(rest)
-        if backbone_type in TRANSFORMER_MAPS:
-            return ("backbone",) + TRANSFORMER_MAPS[backbone_type](rest)
+        if backbone_type in BACKBONE_MAPS:
+            return ("backbone",) + BACKBONE_MAPS[backbone_type](rest)
         if backbone_type in ("resnet", "resnet_vd"):
             return map_resnet_torch_name(name, backbone_type == "resnet_vd")
         if backbone_type == "res2net":
@@ -423,6 +431,43 @@ def map_anchor_detr_torch_name(name: str,
     m = re.match(r"^bbox_embed\.layers\.(\d+)$", name)
     if m:
         return ("bbox_embed", f"layer_{m.group(1)}")
+    return tuple(name.split(".")) if name else ()
+
+
+def map_detr_variant_torch_name(name: str, backbone_type: str = "resnet"
+                                ) -> Tuple[str, ...]:
+    """A key of the port's ``DABDETR`` or ``DetrD2go`` (SMCA-DETR among
+    them) -> the flax path of the JAX model: ``backbone.`` through
+    :func:`map_d2_resnet_name` (``backbone_type`` "resnet"), the YOLOX map
+    ("cspdarknetx") or the zoo's map in :data:`BACKBONE_MAPS`;
+    ``transformer.encoder.layers.N`` -> ``enc_N``,
+    ``transformer.decoder.layers.N`` -> ``dec_N`` (flax attention:
+    ``multihead_attn`` -> ``cross_attn``, ``out_proj`` -> ``out``; SMCA's
+    ``ca_*`` are plain), ``bbox_embed`` / ``cs_head.layers.N`` ->
+    ``.../layer_N``, ``dec_norms.N`` -> ``dec_norm_N``."""
+    prefix, _, rest = name.partition(".")
+    if prefix == "backbone":
+        if backbone_type == "resnet":
+            return map_d2_resnet_name(name)
+        if backbone_type == "cspdarknetx":
+            return map_yolox_torch_name(name)
+        return ("backbone",) + BACKBONE_MAPS[backbone_type](rest)
+    m = re.match(r"^transformer\.(encoder|decoder)\.layers\.(\d+)\.(.*)$",
+                 name)
+    if m:
+        kind, i, rest = m.groups()
+        parts = (f"{kind[:3]}_{i}",) + tuple(
+            "cross_attn" if p == "multihead_attn" else p
+            for p in rest.split("."))
+        if parts[1] in ("self_attn", "cross_attn"):
+            parts = _attention_out(parts)
+        return parts
+    m = re.match(r"^(bbox_embed|cs_head)\.layers\.(\d+)$", name)
+    if m:
+        return (m.group(1), f"layer_{m.group(2)}")
+    m = re.match(r"^dec_norms\.(\d+)$", name)
+    if m:
+        return (f"dec_norm_{m.group(1)}",)
     return tuple(name.split(".")) if name else ()
 
 
@@ -668,9 +713,74 @@ def map_yolof_torch_name(name: str) -> Tuple[str, ...]:
     return map_resnet_torch_name(name)
 
 
-# the transformer backbones' maps, by the models' ``backbone_type``
-TRANSFORMER_MAPS = {"swin": map_swin_torch_name,
-                    "pvt_v2": map_pvt_v2_torch_name}
+def map_convnext_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference ConvNeXt keys (the port's ``models/backbones/
+    convnext.py``) -> the flax paths: ``downsample_layers.0.{0,1}`` ->
+    ``stem_conv`` / ``stem_norm``, ``downsample_layers.{s}.{0,1}`` ->
+    ``down_norm_{s}`` / ``down_conv_{s}``, ``stages.{s}.{i}[.part]`` ->
+    ``stage{s}_block{i}[/part]`` (the block owns ``gamma``), ``norm{s}`` ->
+    ``out_norm_{s}``; a copy of ``yolov7_d2_tpu/utils/weight_port.py:
+    659``."""
+    m = re.match(r"^downsample_layers\.0\.(\d)$", name)
+    if m:
+        return ("stem_conv",) if m.group(1) == "0" else ("stem_norm",)
+    m = re.match(r"^downsample_layers\.(\d)\.(\d)$", name)
+    if m:
+        s, j = m.groups()
+        return (f"down_norm_{s}",) if j == "0" else (f"down_conv_{s}",)
+    m = re.match(r"^stages\.(\d)\.(\d+)\.(dwconv|norm|pwconv1|pwconv2)$",
+                 name)
+    if m:
+        s, i, leafmod = m.groups()
+        return (f"stage{s}_block{i}", leafmod)
+    m = re.match(r"^stages\.(\d)\.(\d+)$", name)  # layer-scale gamma owner
+    if m:
+        return (f"stage{m.group(1)}_block{m.group(2)}",)
+    m = re.match(r"^norm(\d)$", name)
+    if m:
+        return (f"out_norm_{m.group(1)}",)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_efficientnet_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference EfficientNet keys (``_conv_stem`` / ``_bn0``,
+    ``_blocks.{i}._expand_conv`` / ``_bn0`` / ``_depthwise_conv`` /
+    ``_bn1`` / ``_se_reduce`` / ``_se_expand`` / ``_project_conv`` /
+    ``_bn2``) -> the flax paths (``stem_conv``, ``block{i}/expand_conv``
+    ...); a copy of ``yolov7_d2_tpu/utils/weight_port.py:994``."""
+    if name == "_conv_stem":
+        return ("stem_conv",)
+    if name == "_bn0":
+        return ("stem_bn",)
+    m = re.match(r"^_blocks\.(\d+)\.(.*)$", name)
+    if m:
+        i, rest = m.groups()
+        table = {
+            "_expand_conv": ("expand_conv",), "_bn0": ("expand_bn",),
+            "_depthwise_conv": ("dw_conv",), "_bn1": ("dw_bn",),
+            "_se_reduce": ("se_reduce",), "_se_expand": ("se_expand",),
+            "_project_conv": ("project_conv",), "_bn2": ("project_bn",),
+        }
+        if rest in table:
+            return (f"block{i}",) + table[rest]
+        return (f"block{i}",) + tuple(rest.split("."))
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_flax_named_torch_name(name: str) -> Tuple[str, ...]:
+    """A module of the flax name (RegNet, FBNet: the JAX package has no
+    reference map for them) -> its path: dots to path parts."""
+    return tuple(name.split(".")) if name else ()
+
+
+# every backbone whose map the models take by ``backbone_type``: the
+# transformers and the zoo (``models/backbones/zoo.py``)
+BACKBONE_MAPS = {"swin": map_swin_torch_name,
+                 "pvt_v2": map_pvt_v2_torch_name,
+                 "convnext": map_convnext_torch_name,
+                 "efficientnet": map_efficientnet_torch_name,
+                 "regnet": map_flax_named_torch_name,
+                 "fbnet": map_flax_named_torch_name}
 
 # Swin's PatchMerging: the reference concatenates the 2x2 neighbours as
 # [x0; x1; x2; x3] with x1 = (row + 1, col), x2 = (row, col + 1); the flax
@@ -689,15 +799,15 @@ def swin_merge_perm(c4: int) -> np.ndarray:
 
 def map_yolox_kpts_torch_name(name: str,
                              backbone_type: str = "swin") -> Tuple[str, ...]:
-    """A key of the port's ``YOLOXKPTS`` -> the flax path of the JAX model:
-    ``backbone.`` through :func:`map_swin_torch_name`,
-    :func:`map_pvt_v2_torch_name` or the YOLOX map (CSPDarknet-X), as
-    ``backbone_type`` says; the neck and head through
-    :func:`map_yolox_torch_name` (which maps ``head.kpt_convs`` /
-    ``kpt_preds`` too)."""
+    """A key of the port's ``YOLOXKPTS``, or of ``YOLOX`` on another
+    backbone than CSPDarknet-X, -> the flax path of the JAX model:
+    ``backbone.`` through the map of ``backbone_type`` in
+    :data:`BACKBONE_MAPS` (Swin, PVTv2, the zoo) or the YOLOX map
+    (CSPDarknet-X); the neck and head through :func:`map_yolox_torch_name`
+    (which maps ``head.kpt_convs`` / ``kpt_preds`` too)."""
     prefix, _, rest = name.partition(".")
-    if prefix == "backbone" and backbone_type in TRANSFORMER_MAPS:
-        return ("backbone",) + TRANSFORMER_MAPS[backbone_type](rest)
+    if prefix == "backbone" and backbone_type in BACKBONE_MAPS:
+        return ("backbone",) + BACKBONE_MAPS[backbone_type](rest)
     return map_yolox_torch_name(name)
 
 
