@@ -6,8 +6,9 @@ training, CLI and multi-GPU training, of YOLOX-KPTS's serving, training
 and eval, of the one-stage box detectors' (YOLOv5, YOLOv6, YOLOF, BiFPN
 and PAN necks), of YOLOV7 on Res2Net, of the backbone zoo (RegNet,
 ConvNeXt, EfficientNet, FBNet) and of SMCA-DETR, DAB-DETR and the d2go
-DETR serving and training, and of the repeatability of a training step,
-on one CUDA card.
+DETR serving and training, of SparseInst R-50-DCN, YOLOX on DLA, SOLOv2,
+YOLOMask and DetrSegm serving and training, and of the repeatability of a
+training step, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -200,7 +201,28 @@ set to 0 just before it and read just after:
   and the d2go DETR (on ResNet-50, CSPDarknet-X, FBNetV3-A; the focal
   head through its sigmoid tail). Its launches are added to the
   normalize, normalize_800, normalize_detr, NMS, GridMask and
-  grid_mask_800 entries; it logs its seconds.
+  grid_mask_800 entries; it logs its seconds;
+* deformable convolution and the last mask families (section 20,
+  ``mask_phase``): (a) the normalize kernel at SparseInst's statistics on
+  [128,608,608,3], bit-exact (the ``normalize_608`` entry, whose launches
+  are (a)'s), SparseInst R-50-DCN GIAM at 608
+  (``sparseinst/sparse_inst_r50_dcn_giam_aug.yaml``, DCNv2 in res4 and
+  res5) served at 1, 8 and 128 images (masks at 1/4, times, the busy
+  share), f32 against the CPU at 128 px, 6 AdamW steps of 16 (offsets off
+  zero, FrozenBN statistics unmoved) and ``train_inseg`` for 4 steps with
+  the blend mosaic; (b) SOLOv2 R-50 at 640 served at 1, 8 and 128 images
+  (the matrix-NMS tail at the JAX defaults; once more at threshold 0 and
+  ``solov2_upsample_masks`` at 1 and 8), f32 against the CPU, 6 steps of
+  16 with masks and boxes; (c) one request and one step each of the vd
+  DCN yamls, ``solov2_lite.yaml`` (448), YOLOX on DLA-34
+  (``dla34_yolox.yaml``, ``Predictor``, the step with GridMask), the four
+  YOLOMask yamls (640 and 320: the NMS kernel, the mask recovery on one
+  field, the step with GridMask on the uint8 images) and DetrSegm at 800
+  (the box and mask tails, a step with ``gt_masks``, ``train_transformer``
+  2 steps), the kernel path's ``Detections`` equal to the plain path's on
+  each. Its launches are added to the normalize, normalize_608,
+  normalize_sparseinst, normalize_detr, NMS, GridMask and grid_mask_u8
+  entries; it logs its seconds.
 
 ``python3 chip_smoke.py --nccl`` runs (c) of sections 10 and 17 alone, on a
 machine of 2 or more cards.
@@ -4164,6 +4186,673 @@ def zoo_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     log(f"(19) section 19 in {time.perf_counter() - t0:.1f} s on [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# section 20: deformable convolution and the last mask families
+# ---------------------------------------------------------------------------
+
+DCN_YAML = "sparseinst/sparse_inst_r50_dcn_giam_aug.yaml"  # configs/coco
+DCN_OTHERS = ("sparseinst/sparse_inst_r50vd_dcn_giam.yaml",
+              "sparseinst/sparse_inst_r50vd_dcn_giam_aug.yaml")
+SOLOV2_YAML = "solov2/solov2_r50.yaml"
+SOLOV2_LITE_YAML = "../coco-instance/solov2_lite.yaml"
+DLA_YAML = "dla34_yolox.yaml"
+YOLOMASK_YAMLS = ("../coco-instance/yolomask.yaml",
+                  "../coco-instance/yolomask_8gpu.yaml",
+                  "../canaries/yolomask_2gpu.yaml",
+                  "../canaries/yolomask_m_8gpu.yaml")
+DETR_SEGM_YAML = "detr_256_6_6_torchvision_mask.yaml"  # configs/coco/detr
+MASK_STEPS = 6  # the (a) and (b) steps of 16: 3 warm-up, 3 timed
+
+
+def mask_batch(n: int, gen: torch.Generator, dev, size: int = SIZE,
+               slots: int = 100, max_inst: int = 20) -> dict:
+    """:func:`inseg_batch` with each mask's box (``gt_boxes``, xyxy
+    pixels, ``solov2.mask_boxes``): the batch of SOLOv2 and YOLOMask."""
+    from yolov7_d2_tpu_torch.models.meta_arch.solov2 import mask_boxes
+
+    batch = inseg_batch(n, gen, dev, size, slots, max_inst)
+    batch["gt_boxes"] = mask_boxes(batch["gt_masks"].bool(),
+                                   plus_one=True)[0]
+    return batch
+
+
+def solov2_serve(model, cfg, images, **tail):
+    """uint8 batch -> the normalize kernel and the model ->
+    ``solov2_postprocess`` (the JAX defaults unless ``tail`` says)."""
+    from yolov7_d2_tpu_torch.models.meta_arch.solov2 import (
+        solov2_postprocess,
+    )
+
+    with torch.inference_mode():
+        out = model(images)
+        return out, solov2_postprocess(out, **tail)
+
+
+def check_mask_detections(dets, n: int, hm: int, what: str,
+                          need: bool = True) -> str:
+    """Masks [n, 100, hm, hm] and boxes, finite; with ``need``, an
+    instance in every image."""
+    if dets.masks.shape != (n, 100, hm, hm) or dets.boxes.shape != (n, 100,
+                                                                   4):
+        raise AssertionError(f"{what}: Detections shapes "
+                             f"{tuple(dets.masks.shape)}")
+    counts = dets.num_valid()
+    if need and int(counts.min()) < 1:
+        raise AssertionError(f"{what}: an image with no instance")
+    if not torch.isfinite(dets.scores).all() or \
+            not torch.isfinite(dets.masks).all():
+        raise AssertionError(f"{what}: non-finite scores or masks")
+    return f"instances per image {int(counts.min())}-{int(counts.max())}"
+
+
+def equal_detections(a, b, what: str, fields=("valid", "classes", "boxes",
+                                              "scores", "masks")) -> None:
+    for field in fields:
+        x, y = getattr(a, field), getattr(b, field)
+        if x is None and y is None:
+            continue
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: Detections.{field} of the kernel "
+                                 "path differ from the plain path")
+
+
+def serving_times(card: str, name: str, size: int, batches, serve_fn,
+                  forward_fn, tail_fn, dev) -> None:
+    """e2e, forward and tail ms by CUDA events at each request size, and
+    the device's busy share of the largest."""
+    for req in batches:
+        n = req.shape[0]
+        x = req.to(dev)
+        e2e = cuda_ms(lambda: serve_fn(x))
+        with torch.inference_mode():
+            fwd = cuda_ms(lambda: forward_fn(x))
+            out = forward_fn(x)
+        tail = cuda_ms(lambda: tail_fn(out))
+        extra = ""
+        if n == batches[-1].shape[0]:
+            busy, window = device_busy_ms(lambda: serve_fn(x))
+            extra = (f"; device busy {busy:.3f} ms a call = "
+                     f"{100 * busy / e2e:.1f}% of the untraced call "
+                     f"(traced {window:.3f} ms)")
+        log(f"{name} {size} bs {n} bf16 on [{card}]: e2e {e2e:.3f} ms = "
+            f"{n * 1000 / e2e:.1f} img/s; forward-only {fwd:.3f} ms = "
+            f"{n * 1000 / fwd:.1f} img/s; tail {tail:.3f} ms{extra}")
+        del out, x
+
+
+def timed_steps(state, train_step, batches, steps: int) -> tuple:
+    """``steps`` steps over ``batches`` in turn: (state, metrics, ms a step
+    over the steps after the first half, peak GB)."""
+    metrics = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = steps // 2
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = train_step(state, batches[i % len(batches)])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - warm)
+    return (state, metrics, step_ms,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def check_finite(metrics, keys, what: str) -> None:
+    for i, m in enumerate(metrics):
+        for key in keys:
+            if not bool(torch.isfinite(torch.as_tensor(m[key]))):
+                raise AssertionError(f"{what} step {i}: {key} = "
+                                     f"{float(m[key])}")
+
+
+def f32_outputs_gap(dev, cfg, images, keys, what: str) -> str:
+    """The float32 model of ``cfg`` on the card against the CPU, the same
+    weights and uint8 ``images``: each output key's largest error within
+    1e-4 of its largest magnitude (lists: each level)."""
+    from yolov7_d2_tpu_torch.models.build import build_model
+
+    f32 = dataclasses.replace(cfg, amp=False,
+                              input_size=tuple(images.shape[1:3]))
+    with torch.inference_mode():
+        ref = build_model(f32, "cpu", SEED)(images)
+        card = build_model(f32, dev, SEED)(images.to(dev))
+    gaps = []
+    for k in keys:
+        pairs = (list(zip(ref[k], card[k])) if isinstance(ref[k], list)
+                 else [(ref[k], card[k])])
+        worst = 0.0
+        for r, c in pairs:
+            scale = float(r.abs().max())
+            err = float((c.float().cpu() - r).abs().max())
+            if err > 1e-4 * max(scale, 1e-6):
+                raise AssertionError(f"{what} {k} on the card differs from "
+                                     f"the CPU by {err} of {scale}")
+            worst = max(worst, err / max(scale, 1e-6))
+        gaps.append(f"{k} {worst:.3g}")
+    return f"f32 card against CPU at {images.shape[1]} px: " + ", ".join(
+        gaps) + " of the max"
+
+
+def normalize_608_entry(kernels: dict, images: torch.Tensor) -> None:
+    """The normalize kernel at SparseInst's mean and std on u8 [128, 608,
+    608, 3] against its plain version, bit-exact (``torch.equal``): the
+    ``normalize_608`` entry, whose launches are (a)'s."""
+    from yolov7_d2_tpu_torch.kernels.preprocess import (
+        normalize_images,
+        normalize_images_plain,
+    )
+    from yolov7_d2_tpu_torch.models.meta_arch import sparseinst as si
+
+    args = (images, si.PIXEL_MEAN, si.PIXEL_STD, torch.bfloat16)
+    got, want = normalize_images(*args), normalize_images_plain(*args)
+    torch.cuda.synchronize()
+    if got.stride() != want.stride() or not torch.equal(got, want):
+        raise AssertionError("normalize kernel differs from its plain "
+                             "version at SparseInst's statistics, 608 px")
+    kernels["normalize_608"] = {
+        "name": "normalize_608", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/preprocess.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:34",
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": kernel_ms(lambda: normalize_images(*args)),
+        "plain_ms": kernel_ms(lambda: normalize_images_plain(*args),
+                              host_ok="normalize_608 plain"),
+        # no one PyTorch call takes uint8 NHWC to (x - mean) / std in
+        # channels_last
+        "library_ms": None,
+        # u8 read once, bf16 written once; a subtract and a divide each
+        **bound(images.numel() * 3, images.numel() * 2),
+        "launches": 0,
+    }
+    log(f"(20a) normalize at SparseInst's statistics on "
+        f"{tuple(images.shape)}: bit-exact against its plain version")
+
+
+def dcn_paths(dev, card: str, gen: torch.Generator, kernels: dict,
+              requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+              small: int = 128, steps: int = MASK_STEPS,
+              cli_images: int = CLI_IMAGES, cli_steps: int = 4,
+              **cli_opts) -> None:
+    """(20a) SparseInst R-50-DCN GIAM at 608
+    (``sparseinst/sparse_inst_r50_dcn_giam_aug.yaml``: DCNv2 in res4 and
+    res5, ``GroupIAMDecoder``): the ``normalize_608`` entry; serving through
+    ``build_model`` + ``sparseinst_postprocess`` at each request size
+    (masks at 1/4), times and the busy share; f32 card against CPU at
+    ``small`` px; ``steps`` steps of ``train_n`` through ``build_system``
+    (AdamW); ``train_inseg`` for ``cli_steps`` steps on a mini-COCO with
+    polygons, the blend mosaic on. Launches counted from 0 a path, added
+    to ``normalize_608``."""
+    from yolov7_d2_tpu_torch import train_inseg
+    from yolov7_d2_tpu_torch.data.catalog import (
+        DatasetCatalog,
+        register_coco_instances,
+    )
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.models.backbones.resnet import (
+        frozen_bn_buffers,
+    )
+    from yolov7_d2_tpu_torch.models.build import build_model
+    from yolov7_d2_tpu_torch.models.meta_arch import sparseinst as si
+    from yolov7_d2_tpu_torch.ops.deform_conv import DeformConv
+    from yolov7_d2_tpu_torch.utils.args import default_argument_parser
+
+    cfg = coco_cfg(DCN_YAML)
+    size = cfg.input_size[0]
+    big = torch.randint(0, 256, (requests[-1], size, size, 3),
+                        generator=gen, dtype=torch.uint8).to(dev)
+    normalize_608_entry(kernels, big)
+    del big
+    model = build_model(cfg, dev, SEED)
+    dcn = [n for n, m in model.named_modules() if isinstance(m, DeformConv)]
+    log(f"(20a) SparseInst R-50-DCN {size} from {DCN_YAML}: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f} M "
+        f"parameters, {model.dtype}, {len(dcn)} DCNv2 layers "
+        f"({dcn[0]} .. {dcn[-1]}), groups {cfg.groups}")
+    batches = [letterboxed_batch(n, gen, size) for n in requests]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for req in batches:
+        _, dets = sparseinst_serve(model, cfg, req.to(dev))
+        log(f"(20a) request bs {req.shape[0]}: " + check_inst_detections(
+            dets, req.shape[0], cfg, size, "SparseInst-DCN serving"))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if launches.get("normalize", 0) != len(requests):
+        raise AssertionError(f"SparseInst-DCN serving launches {launches}")
+    kernels["normalize_608"]["launches"] += launches["normalize"]
+    serving_times(
+        card, "SparseInst R-50-DCN", size, batches,
+        lambda x: sparseinst_serve(model, cfg, x), model,
+        lambda out: si.sparseinst_postprocess(
+            out, cfg.cls_threshold, cfg.mask_threshold, cfg.max_detections),
+        dev)
+    del model, batches, dets
+    torch.cuda.empty_cache()
+    one = letterboxed_batch(2, gen, small)
+    log("(20a) SparseInst-DCN " + f32_outputs_gap(
+        dev, cfg, one, ("cls_logits", "obj_logits", "mask_logits"),
+        "SparseInst-DCN"))
+
+    _, state, train_step, _ = build_system(cfg, device=dev, seed=SEED)
+    frozen = [b.clone() for b in frozen_bn_buffers(state.model)]
+    before = [p.detach().clone() for p in state.model.parameters()]
+    tbatches = [inseg_batch(train_n, gen, dev, size) for _ in range(2)]
+    build.reset_launches()
+    state, metrics, step_ms, peak = timed_steps(state, train_step, tbatches,
+                                                steps)
+    launches = dict(build.LAUNCHES)
+    if launches.get("normalize", 0) != steps:
+        raise AssertionError(f"SparseInst-DCN training launches {launches}")
+    kernels["normalize_608"]["launches"] += launches["normalize"]
+    check_finite(metrics, ("loss_ce", "loss_dice", "loss_mask",
+                           "loss_objectness", "total_loss", "grad_norm"),
+                 "SparseInst-DCN")
+    if all(torch.equal(a, b.detach())
+           for a, b in zip(before, state.model.parameters())):
+        raise AssertionError("SparseInst-DCN training moved no parameter")
+    if not all(torch.equal(a, b)
+               for a, b in zip(frozen, frozen_bn_buffers(state.model))):
+        raise AssertionError("SparseInst-DCN training moved FrozenBN "
+                             "statistics")
+    offsets = [m.offset_conv.weight for m in state.model.modules()
+               if isinstance(m, DeformConv)]
+    if not all(float(w.detach().abs().max()) > 0 for w in offsets):
+        raise AssertionError("an offset convolution stayed at zero")
+    log(f"(20a) SparseInst R-50-DCN {size} train step bs {train_n} bf16 on "
+        f"[{card}]: {step_ms:.3f} ms a step = "
+        f"{train_n * 1000 / step_ms:.1f} img/s (host clock over "
+        f"{steps - steps // 2} steps after {steps // 2}, batches on the "
+        f"card); peak memory {peak:.3f} GB; total loss "
+        f"{float(metrics[0]['total_loss']):.4f} -> "
+        f"{float(metrics[-1]['total_loss']):.4f}; every offset convolution "
+        "moved off zero, FrozenBN statistics did not")
+    del state, train_step, tbatches, metrics, before, frozen, offsets
+    torch.cuda.empty_cache()
+
+    work = os.path.join(REPO, "build", "chip_smoke_dcn")
+    shutil.rmtree(work, ignore_errors=True)
+    js, img_dir = write_mini_coco(work, n=cli_images, segm=True)
+    register_coco_instances(INSEG_DATASET, {}, js, img_dir)
+    opts = {"DATASETS.TRAIN": (INSEG_DATASET,),
+            "DATASETS.TEST": (INSEG_DATASET,),
+            "OUTPUT_DIR": os.path.join(work, "out"), "SEED": SEED,
+            "SOLVER.IMS_PER_BATCH": train_n, "SOLVER.MAX_ITER": cli_steps,
+            "SOLVER.CHECKPOINT_PERIOD": cli_steps,
+            "INPUT.MOSAIC.ENABLED": True,
+            "INPUT.MOSAIC.MOSAIC_HEIGHT": size,
+            "INPUT.MOSAIC.MOSAIC_WIDTH": size,
+            **{k.replace("__", "."): v for k, v in cli_opts.items()}}
+    argv = ["--config-file", os.path.join(REPO, "configs", "coco", DCN_YAML)]
+    for k, v in opts.items():
+        argv += [k, v if isinstance(v, str) else repr(v)]
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        run = train_inseg.main(default_argument_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        latest = run.storage.latest()
+        for key in ("total_loss", "loss_ce", "loss_dice", "loss_mask",
+                    "loss_objectness", "grad_norm"):
+            if not math.isfinite(latest.get(key, float("nan"))):
+                raise AssertionError(f"train_inseg DCN: {key} = "
+                                     f"{latest.get(key)}")
+        if launches.get("normalize", 0) != cli_steps:
+            raise AssertionError(f"train_inseg DCN launches {launches}")
+        kernels["normalize_608"]["launches"] += launches["normalize"]
+        log(f"(20a) train_inseg {DCN_YAML} on [{card}], {train_n} images a "
+            f"step, blend mosaic on: time_per_iter median "
+            f"{run.storage.median('time_per_iter') * 1e3:.3f} ms; "
+            f"{cli_steps} steps in {wall:.2f} s (build included); total "
+            f"loss {latest['total_loss']:.4f}; launches {launches}")
+        del run
+    finally:
+        DatasetCatalog.remove(INSEG_DATASET)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def solov2_paths(dev, card: str, gen: torch.Generator, kernels: dict,
+                 requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+                 small: int = 128, steps: int = MASK_STEPS) -> None:
+    """(20b) SOLOv2 R-50 at 640 (``solov2/solov2_r50.yaml``): serving
+    through ``build_model`` + ``solov2_postprocess`` (the JAX defaults;
+    masks at 1/4) at each request size, the normalize kernel at SOLOv2's
+    statistics (SparseInst's: its launches go to ``normalize_sparseinst``),
+    times and the busy share; the tail once more at bs 8 with score
+    threshold 0, which the random weights need for candidates, and
+    ``solov2_upsample_masks`` of bs 1 and 8 on it; f32 card against CPU at
+    ``small`` px; ``steps`` steps of ``train_n`` through ``build_system``
+    with masks and boxes (SGD). (The tail's run at threshold 0 also keeps
+    every non-empty mask, update threshold 0.)"""
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.models.build import build_model
+    from yolov7_d2_tpu_torch.models.meta_arch import solov2 as sv
+
+    cfg = coco_cfg(SOLOV2_YAML)
+    size = cfg.input_size[0]
+    hm = size // 4
+    model = build_model(cfg, dev, SEED)
+    log(f"(20b) SOLOv2 R-50 {size} from {SOLOV2_YAML}: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f} M "
+        f"parameters, {model.dtype}, grids {cfg.num_grids}")
+    batches = [letterboxed_batch(n, gen, size) for n in requests]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for req in batches:
+        _, dets = solov2_serve(model, cfg, req.to(dev))
+        log(f"(20b) request bs {req.shape[0]}: " + check_mask_detections(
+            dets, req.shape[0], hm, "SOLOv2 serving", need=False))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if launches.get("normalize", 0) != len(requests):
+        raise AssertionError(f"SOLOv2 serving launches {launches}")
+    kernels["normalize_sparseinst"]["launches"] += launches["normalize"]
+    serving_times(card, "SOLOv2 R-50", size, batches,
+                  lambda x: solov2_serve(model, cfg, x), model,
+                  sv.solov2_postprocess, dev)
+    x = batches[1].to(dev)
+    _, dets = solov2_serve(model, cfg, x, score_thr=0.0, update_thr=0.0)
+    summary = check_mask_detections(dets, x.shape[0], hm,
+                                    "SOLOv2 tail at score 0")
+    kept = []
+    t0 = time.perf_counter()
+    for n in (1, x.shape[0]):
+        for i in range(n):
+            filled = (batches[1][i] != 114).any(-1)
+            vh = int(filled.any(1).nonzero().max()) + 1
+            vw = int(filled.any(0).nonzero().max()) + 1
+            bm, boxes = sv.solov2_upsample_masks(
+                dets.masks[i][dets.valid[i]], (size, size), (vh, vw))
+            if bm.shape[1:] != (vh, vw) or boxes.shape[-1] != 4:
+                raise AssertionError(f"solov2_upsample_masks gave "
+                                     f"{tuple(bm.shape)}")
+            kept.append(int(bm.any((1, 2)).sum()))
+    torch.cuda.synchronize()
+    log(f"(20b) the tail at score threshold 0, bs {x.shape[0]}: {summary};"
+        f" solov2_upsample_masks of bs 1 and {x.shape[0]}: non-empty masks "
+        f"{kept} ({(time.perf_counter() - t0) * 1e3:.1f} ms host clock)")
+    del model, batches, dets, x
+    torch.cuda.empty_cache()
+    one = letterboxed_batch(2, gen, small)
+    log("(20b) SOLOv2 " + f32_outputs_gap(
+        dev, cfg, one, ("cate_preds", "kernel_preds", "mask_feats"),
+        "SOLOv2"))
+
+    _, state, train_step, fields = build_system(cfg, device=dev, seed=SEED)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    tbatches = [{k: v for k, v in mask_batch(train_n, gen, dev, size).items()
+                 if k in fields} for _ in range(2)]
+    build.reset_launches()
+    state, metrics, step_ms, peak = timed_steps(state, train_step, tbatches,
+                                                steps)
+    launches = dict(build.LAUNCHES)
+    if launches.get("normalize", 0) != steps:
+        raise AssertionError(f"SOLOv2 training launches {launches}")
+    kernels["normalize_sparseinst"]["launches"] += launches["normalize"]
+    check_finite(metrics, ("loss_cate", "loss_mask", "total_loss",
+                           "grad_norm"), "SOLOv2")
+    if not all(float(m["num_pos"]) > 0 for m in metrics):
+        raise AssertionError("SOLOv2: a step with no positive cell")
+    if all(torch.equal(a, b.detach())
+           for a, b in zip(before, state.model.parameters())):
+        raise AssertionError("SOLOv2 training moved no parameter")
+    log(f"(20b) SOLOv2 R-50 {size} train step bs {train_n} bf16 on "
+        f"[{card}]: {step_ms:.3f} ms a step = "
+        f"{train_n * 1000 / step_ms:.1f} img/s (host clock over "
+        f"{steps - steps // 2} steps after {steps // 2}); peak memory "
+        f"{peak:.3f} GB; fields {fields}; positive cells a step "
+        f"{[int(m['num_pos']) for m in metrics]}; total loss "
+        f"{float(metrics[0]['total_loss']):.4f} -> "
+        f"{float(metrics[-1]['total_loss']):.4f}")
+    del state, train_step, tbatches, metrics, before
+    torch.cuda.empty_cache()
+
+
+def mask_others(dev, card: str, gen: torch.Generator, kernels: dict,
+                bs: int = 8,
+                train_n: int = TRAIN_BATCH,
+                detr_train_n: int = DETR_TRAIN_BATCH,
+                detr_size: int = DETR_SIZE, **cli_opts) -> None:
+    """(20c) One request of ``bs`` images and one step each of the other
+    yamls this section unlocks, at full width and depth and each yaml's
+    size: the kernel path's ``Detections`` equal to the plain path's (the
+    same pixels as float32 through the normalize kernel's plain version,
+    and the plain NMS); the launches counted from 0 a path and added to
+    the entries of the same constants (new shapes noted in the log)."""
+    from yolov7_d2_tpu_torch.data.device_aug import (
+        DevicePhotometric,
+        make_packed_photo_step,
+    )
+    from yolov7_d2_tpu_torch.engine import build_system, build_yolox_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.kernels.grid_mask import grid_mask
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
+    from yolov7_d2_tpu_torch.models.meta_arch import detr_seg
+    from yolov7_d2_tpu_torch.models.meta_arch import sparseinst as si
+    from yolov7_d2_tpu_torch.models.meta_arch import yolomask
+    from yolov7_d2_tpu_torch.predictor import Predictor
+
+    def count(what, got, want, entry):
+        for kernel, n in want.items():
+            if got.get(kernel, 0) != n:
+                raise AssertionError(f"{what} launches {got}")
+            kernels[entry[kernel]]["launches"] += n
+
+    # the vd DCN SparseInst yamls at 608 and SOLOv2-lite at 448
+    for yaml, entry in ((DCN_OTHERS[0], "normalize_608"),
+                        (DCN_OTHERS[1], "normalize_608"),
+                        (SOLOV2_LITE_YAML, "normalize_sparseinst")):
+        cfg = coco_cfg(yaml)
+        size = cfg.input_size[0]
+        model, state, train_step, fields = build_system(cfg, device=dev,
+                                                        seed=SEED)
+        model.eval()
+        req = letterboxed_batch(bs, gen, size).to(dev)
+        sparse = cfg.meta_architecture == "SparseInst"
+        serve = ((lambda x: sparseinst_serve(model, cfg, x)) if sparse
+                 else (lambda x: solov2_serve(model, cfg, x)))
+        build.reset_launches()
+        _, dets = serve(req)
+        torch.cuda.synchronize()
+        serve_l = dict(build.LAUNCHES)
+        _, plain = serve(req.float())
+        equal_detections(dets, plain, yaml)
+        summary = (check_inst_detections(dets, bs, cfg, size, yaml) if sparse
+                   else check_mask_detections(dets, bs, size // 4, yaml,
+                                              need=False))
+        model.train()
+        batch = (inseg_batch(train_n, gen, dev, size) if sparse
+                 else {k: v for k, v in mask_batch(train_n, gen, dev,
+                                                   size).items()
+                       if k in fields})
+        build.reset_launches()
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        train_l = dict(build.LAUNCHES)
+        check_finite([m], ("total_loss", "grad_norm"), yaml)
+        count(yaml, serve_l, {"normalize": 1}, {"normalize": entry})
+        count(yaml, train_l, {"normalize": 1}, {"normalize": entry})
+        log(f"(20c) {yaml} ({cfg.meta_architecture}"
+            + (f", vd {cfg.resnet.vd}, DCN {cfg.resnet.deform_on_per_stage}"
+               if sparse else f", grids {cfg.num_grids}")
+            + f") at {size}: bs {bs} {summary}, the kernel path's "
+            f"Detections equal the plain path's; one step of {train_n}: total"
+            f" loss {float(m['total_loss']):.4f}; launches {serve_l} / "
+            f"{train_l} (into {entry}"
+            + (", a 448 px shape" if size == 448 else "") + ")")
+        del model, state, train_step, dets, plain, batch
+        torch.cuda.empty_cache()
+
+    # YOLOX on DLA-34 through the Predictor, its step with GridMask on
+    cfg = coco_cfg(DLA_YAML, grid_mask=True)
+    size = cfg.input_size[0]
+    model, state, train_step = build_yolox_system(cfg, device=dev,
+                                                  seed=SEED)
+    predictor = Predictor(cfg, device=dev, model=model.eval())
+    req = letterboxed_batch(bs, gen, size).to(dev)
+    build.reset_launches()
+    dets = predictor.predict_batch(req)
+    torch.cuda.synchronize()
+    serve_l = dict(build.LAUNCHES)
+    with torch.inference_mode():
+        plain = predictor.postprocess(model(req.float()),
+                                      nms=nms_batched_plain)
+    equal_detections(dets, plain, DLA_YAML)
+    summary = check_detections(dets, bs, cfg, DLA_YAML)
+    model.train()
+    step = make_packed_photo_step(cfg, train_step, seed=SEED)
+    build.reset_launches()
+    state, m = step(state, {k: v.to(dev) for k, v in train_batch(
+        train_n, gen, size).items()})
+    torch.cuda.synchronize()
+    train_l = dict(build.LAUNCHES)
+    check_yolox_metrics([m], DLA_YAML)
+    count(DLA_YAML, serve_l, {"normalize": 1, "nms": 1},
+          {"normalize": "normalize", "nms": "nms"})
+    count(DLA_YAML, train_l, {"grid_mask": 1}, {"grid_mask": "grid_mask"})
+    log(f"(20c) YOLOX on DLA-34 ({DLA_YAML}, neck on "
+        f"{list(model.backbone.out_channels.values())}) at {size}: bs {bs} "
+        f"{summary}, the kernel path's Detections equal the plain path's; "
+        f"one step of {train_n} with GridMask ({m['grid_masked']} masked): "
+        f"total loss {float(m['total_loss']):.4f}, num_fg "
+        f"{float(m['num_fg']):.0f}; launches {serve_l} / {train_l}")
+    del model, state, train_step, predictor, step, dets, plain
+    torch.cuda.empty_cache()
+
+    # YOLOMask: boxes through anchor_yolo_postprocess, the field's mask
+    # recovery as the JAX tests drive it, a step with GridMask on the images
+    for yaml in YOLOMASK_YAMLS:
+        cfg = coco_cfg(yaml, grid_mask=True)
+        size = cfg.input_size[0]
+        model, state, train_step, fields = build_system(cfg, device=dev,
+                                                        seed=SEED)
+        model.eval()
+        req = letterboxed_batch(bs, gen, size).to(dev)
+        build.reset_launches()
+        out, dets = anchor_serve(model, cfg, req)
+        torch.cuda.synchronize()
+        serve_l = dict(build.LAUNCHES)
+        with torch.inference_mode():
+            plain = anchor_tail(model(req.float()), cfg,
+                                nms=nms_batched_plain)
+            # one field of the L x na (ROADMAP.md C.36)
+            masks = yolomask.yolomask_recover_masks(
+                dets, out["orien"][:, :, :, 0, 0])
+        equal_detections(dets, plain, yaml)
+        summary = check_detections(dets, bs, cfg, yaml)
+        if masks.shape != (bs, cfg.max_detections, size // 4, size // 4):
+            raise AssertionError(f"{yaml}: recovered masks "
+                                 f"{tuple(masks.shape)}")
+        model.train()
+        batch = {k: v for k, v in mask_batch(train_n, gen, dev,
+                                             size).items() if k in fields}
+        draws = DevicePhotometric(cfg).draw(
+            torch.Generator().manual_seed(SEED), train_n, size, size)
+        build.reset_launches()
+        batch["image"] = grid_mask(batch["image"].contiguous(),
+                                   draws.grid_params.to(dev).contiguous())
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        train_l = dict(build.LAUNCHES)
+        check_finite([m], ("loss_box", "loss_obj_pos", "loss_obj_neg",
+                           "loss_cls", "loss_orien_pos", "loss_orien_neg",
+                           "total_loss", "grad_norm"), yaml)
+        count(yaml, serve_l, {"normalize": 1, "nms": 1},
+              {"normalize": "normalize", "nms": "nms"})
+        count(yaml, train_l, {"grid_mask": 1, "normalize": 1},
+              {"grid_mask": "grid_mask_u8", "normalize": "normalize"})
+        log(f"(20c) {yaml} (YOLOMask) at {size}: bs {bs} {summary}, the "
+            f"kernel path's Detections equal the plain path's, recovered "
+            f"masks {tuple(masks.shape)} ({float(masks.mean()):.4f} set); "
+            f"one step of {train_n} with GridMask on the uint8 images "
+            f"({int((draws.grid_params[:, 0] > 1).sum())} masked): total "
+            f"loss {float(m['total_loss']):.4f}, orientation "
+            f"{float(m['loss_orien_pos']):.4f} / "
+            f"{float(m['loss_orien_neg']):.4f}; launches {serve_l} / "
+            f"{train_l}" + (" (320 px shapes)" if size == 320 else ""))
+        del model, state, train_step, out, dets, plain, masks, batch
+        torch.cuda.empty_cache()
+
+    # DetrSegm at 800: the box and mask tails, a step with gt_masks, and
+    # train_transformer (no masks in its feed, as in the JAX script)
+    cfg = detr_cfg(DETR_SEGM_YAML, input_size=(detr_size, detr_size))
+    model, state, train_step, fields = build_system(cfg, device=dev,
+                                                    seed=SEED)
+    model.eval()
+    req = letterboxed_batch(bs, gen, detr_size).to(dev)
+    build.reset_launches()
+    out, dets = detr_serve(model, cfg, req)
+    torch.cuda.synchronize()
+    serve_l = dict(build.LAUNCHES)
+    with torch.inference_mode():
+        segm = detr_seg.postprocess_segm(out)
+        pout = model(req.float())
+        plain = detr_tail(pout, cfg)
+    equal_detections(dets, plain, DETR_SEGM_YAML)
+    if not torch.equal(segm, detr_seg.postprocess_segm(pout)):
+        raise AssertionError("DetrSegm masks of the kernel path differ from "
+                             "the plain path's")
+    summary = check_detections(dets, bs, cfg, DETR_SEGM_YAML)
+    model.train()
+    batch = detr_batch(detr_train_n, gen, dev, detr_size)
+    boxes = batch["gt_boxes"].round().long()
+    ys = torch.arange(detr_size, device=dev)
+    inside_y = (ys >= boxes[..., 1, None]) & (ys < boxes[..., 3, None])
+    inside_x = (ys >= boxes[..., 0, None]) & (ys < boxes[..., 2, None])
+    batch["gt_masks"] = (inside_y[..., :, None] & inside_x[..., None, :]
+                         & batch["gt_valid"][..., None, None]).to(
+        torch.uint8)
+    build.reset_launches()
+    state, m = train_step(state, {k: batch[k] for k in fields})
+    torch.cuda.synchronize()
+    train_l = dict(build.LAUNCHES)
+    check_finite([m], ("loss_ce", "loss_bbox", "loss_giou", "loss_mask_dice",
+                       "loss_mask_focal", "total_loss", "grad_norm"),
+                 DETR_SEGM_YAML)
+    count(DETR_SEGM_YAML, serve_l, {"normalize": 1},
+          {"normalize": "normalize_detr"})
+    count(DETR_SEGM_YAML, train_l, {"normalize": 1},
+          {"normalize": "normalize_detr"})
+    log(f"(20c) {DETR_SEGM_YAML} (DetrSegm) at {detr_size}: bs {bs} "
+        f"{summary}, masks {tuple(segm.shape)}; the kernel path's "
+        f"Detections and masks equal the plain path's; one step of "
+        f"{detr_train_n} with gt_masks: loss_mask_dice "
+        f"{float(m['loss_mask_dice']):.4f}, loss_mask_focal "
+        f"{float(m['loss_mask_focal']):.4f}, total loss "
+        f"{float(m['total_loss']):.4f}; launches {serve_l} / {train_l}")
+    del model, state, train_step, out, dets, plain, pout, segm, batch
+    torch.cuda.empty_cache()
+    detr_cli_run(dev, card, kernels, "20c", "DetrSegm", DETR_SEGM_YAML,
+                 detr_train_n, detr_size, 16, 2, resume=False, **cli_opts)
+
+
+def mask_phase(dev, card: str, gen: torch.Generator, kernels: dict,
+               requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+               small: int = 128, steps: int = MASK_STEPS,
+               cli_images: int = CLI_IMAGES, cli_steps: int = 4,
+               others_bs: int = 8, detr_train_n: int = DETR_TRAIN_BATCH,
+               detr_size: int = DETR_SIZE, **cli_opts) -> None:
+    """Section 20: deformable convolution and the last mask families, full
+    depth and width, bf16 over f32 weights from ``SEED``: (a) SparseInst
+    R-50-DCN GIAM at 608 (:func:`dcn_paths`), (b) SOLOv2 R-50 at 640
+    (:func:`solov2_paths`), (c) the other yamls they unlock
+    (:func:`mask_others`). Logs the section's seconds."""
+    t0 = time.perf_counter()
+    dcn_paths(dev, card, gen, kernels, requests, train_n, small, steps,
+              cli_images, cli_steps, **cli_opts)
+    solov2_paths(dev, card, gen, kernels, requests, train_n, small, steps)
+    mask_others(dev, card, gen, kernels, others_bs, train_n, detr_train_n,
+                detr_size, **cli_opts)
+    log(f"(20) section 20 in {time.perf_counter() - t0:.1f} s on [{card}]")
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -4608,7 +5297,13 @@ def main() -> int:
     # step (zoo_phase)
     zoo_phase(dev, card, gen, kernels)
 
-    # ---- 20. times
+    # ---- 20. deformable convolution and the last mask families:
+    # SparseInst R-50-DCN at 608 and SOLOv2 R-50 at 640 (serving, card
+    # against CPU, training; train_inseg on the DCN config), every other
+    # yaml they unlock one request and one step (mask_phase)
+    mask_phase(dev, card, gen, kernels)
+
+    # ---- 21. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "

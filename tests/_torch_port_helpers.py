@@ -598,6 +598,30 @@ def check_detr_gradients(kind, jgrads, jlosses, monkeypatch,
     assert checked > 150
 
 
+def jit_o0(fn):
+    """``jax.jit(fn)`` compiled at XLA's backend optimization level 0, for
+    a JAX reference that a test runs once or twice: on the CPU, LLVM's
+    optimization of a whole model's step costs more than it saves (a
+    YOLOMask step: 26 s to compile and 1 s to run at the default level,
+    12 s and 3 s at level 0; the results agree within 1e-6 relative).
+    Positional arguments only."""
+    import jax
+
+    jitted = jax.jit(fn)
+    compiled = {}
+
+    def call(*args):
+        key = jax.tree_util.tree_structure(args), tuple(
+            (getattr(a, "shape", None), str(getattr(a, "dtype", type(a))))
+            for a in jax.tree_util.tree_leaves(args))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(
+                compiler_options={"xla_backend_optimization_level": 0})
+        return compiled[key](*args)
+
+    return call
+
+
 def assert_leaves_match_jax(model, jax_model, mapper, size=128):
     """Every key of ``model.state_dict()`` takes one leaf of the JAX
     model's init (shapes by ``jax.eval_shape``) and no leaf is left

@@ -310,13 +310,18 @@ def test_losses_match_jax(use_focal):
 
 
 def test_mask_loss_raises():
+    """The mask term needs both ``pred_masks`` and ``gt_masks``, as in the
+    JAX criterion: DETR's outputs with a batch's masks give the box terms
+    alone (the mask term is ``test_torch_port_detr_segm.py``'s)."""
     out = {k: torch.from_numpy(v) for k, v in _random_out(
         np.random.default_rng(0)).items()}
     batch = {k: torch.from_numpy(v) for k, v in _gt(
         np.random.default_rng(0)).items()}
-    batch["gt_masks"] = torch.zeros(2, 6, SIZE, SIZE)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        td.detr_losses(out, batch, 3, (SIZE, SIZE))
+    plain = td.detr_losses(out, batch, 3, (SIZE, SIZE))
+    batch["gt_masks"] = torch.zeros(2, 6, SIZE, SIZE, dtype=torch.uint8)
+    got = td.detr_losses(out, batch, 3, (SIZE, SIZE))
+    assert "loss_mask_dice" not in got and set(got) == set(plain)
+    assert torch.equal(got["total_loss"], plain["total_loss"])
 
 
 def test_anchor_detr_gradients_match_jax(monkeypatch):
@@ -522,7 +527,8 @@ def test_build_system_reads_the_yaml(yaml, arch, queries, focal):
         assert torch.equal(a, b), k
 
 
-@pytest.mark.parametrize("arch,item", [("DetrSegm", "A.8")])
+@pytest.mark.parametrize("arch,item", [
+    ("MaskRCNN", "A.8d"), ("FasterRCNN", "A.8d"), ("PanopticFPN", "A.8d")])
 def test_unported_detr_variants_raise(arch, item):
     cfg = _merged(get_cfg, "detr_256_6_6_r50.yaml",
                   **{"MODEL.META_ARCHITECTURE": arch})

@@ -109,13 +109,20 @@ def test_config_from_yaml_gives_the_architectures_dataclass(yaml, arch, cls):
 
 
 def test_config_from_yaml_names_the_roadmap_item_of_an_unported_arch():
-    from yolov7_d2_tpu_torch.engine import config_from_yaml
+    """Every yaml builds since the mask families came (109 of 109); an
+    architecture of the JAX package that the port does not build yet,
+    merged over a yaml, names its ROADMAP.md item."""
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg as port_get_cfg
+    from yolov7_d2_tpu_torch.engine import config_from_cfg
 
+    cfg = port_get_cfg()
+    cfg.merge_from_file(str(REPO / "configs" / "coco" / "solov2" /
+                            "solov2_r50.yaml"))
+    cfg.MODEL.META_ARCHITECTURE = "MaskRCNN"
     with pytest.raises(NotImplementedError,
-                       match="'SOLOv2' is not ported yet .ROADMAP.md Queue "
-                             "A.8c"):
-        config_from_yaml(REPO / "configs" / "coco" / "solov2" /
-                         "solov2_r50.yaml")
+                       match="'MaskRCNN' is not ported yet .ROADMAP.md Queue "
+                             "A.8d"):
+        config_from_cfg(cfg)
 
 
 def _run_smoke(cwd: Path):

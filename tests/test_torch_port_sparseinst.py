@@ -632,11 +632,20 @@ def test_build_system_and_model_for_sparseinst(yaml, groups):
 
 
 def test_sparseinst_defaults_to_the_card_and_refuses_dcn():
+    """The builders default to the card; the DCN configs, which this test
+    held to raise before DCN came, build DCNv2 in res4 and res5
+    (``tests/test_torch_port_dcn.py`` holds them against JAX)."""
+    from yolov7_d2_tpu_torch.ops.deform_conv import DeformConv
+
     for fn in (tsi.build_sparseinst, build_system):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert SparseInstConfig().resnet == ResNetSpec()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        build_system(_cfg("sparse_inst_r50_dcn_giam_aug.yaml"), device="cpu")
+    model, _, _, _ = build_system(_cfg("sparse_inst_r50_dcn_giam_aug.yaml"),
+                                  device="cpu")
+    dcn = [n for n, m in model.named_modules() if isinstance(m, DeformConv)]
+    assert len(dcn) == 7 and all(n.startswith(("backbone.res4.",
+                                               "backbone.res5."))
+                                 for n in dcn)
     with pytest.raises(NotImplementedError, match="SparseInstConfig"):
         tsi.build_sparseinst(dataclasses.replace(
             __import__("yolov7_d2_tpu_torch.config", fromlist=["x"])

@@ -142,8 +142,8 @@ def test_unported_parts_raise():
     cfg = dataclasses.replace(AnchorYoloConfig(), amp=False)
     for replace, item in (
             (dict(backbone="build_swin_backbone"), "A.8"),
-            (dict(backbone="build_dla_backbone"), "A.8"),
-            (dict(meta_architecture="YOLOMask"), "Queue A")):
+            (dict(backbone="build_mobilevit_backbone"), "A.8"),
+            (dict(meta_architecture="MaskRCNN"), "Queue A")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(dataclasses.replace(cfg, **replace), "cpu")
     # a YoloxConfig (what the CLIs read) cannot build this family
@@ -153,10 +153,12 @@ def test_unported_parts_raise():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("FasterRCNN", "A.8"), ("DetrSegm", "A.8"),
-    ("SOLOv2", "A.8"), ("MaskRCNN", "A.8"), ("PanopticFPN", "A.8"),
-    ("YOLOMask", "A.8")])
+    ("FasterRCNN", "A.8d"), ("MaskRCNN", "A.8d"), ("PanopticFPN", "A.8d"),
+    ("RetinaNet", "A.8"), ("CenterNet", "A.8"), ("MaskFormer", "A.8")])
 def test_build_system_raises_for_unported_architectures(arch, item):
+    """The JAX package's architectures that the port does not build yet
+    name their ROADMAP.md item; a name neither package builds names Queue
+    A.8."""
     cfg, _ = _cfg("yolov7.yaml", **{"MODEL.META_ARCHITECTURE": arch})
     with pytest.raises(NotImplementedError, match=f"Queue {item}"):
         build_system(cfg, device="cpu")

@@ -260,9 +260,9 @@ def test_build_model_registry():
                          again.state_dict().values()):
         assert torch.equal(a, b), k
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(YoloxConfig(meta_architecture="SOLOv2"))
+        build_model(YoloxConfig(meta_architecture="MaskRCNN"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(YoloxConfig(backbone="build_dla_backbone"))
+        build_model(YoloxConfig(backbone="build_mobilevit_backbone"))
 
 
 def test_decode_outputs_matches_jax():

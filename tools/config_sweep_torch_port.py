@@ -12,8 +12,10 @@ counts; else the ``NotImplementedError`` naming its ROADMAP.md item) and
 the totals. Any other exception is a fault and ends the run with a
 non-zero code. Runs no forward, needs no card and imports no JAX (the
 counts against the JAX models are held by ``tests/
-test_torch_port_backbone_zoo.py``, ``test_torch_port_detr_variants.py``
-and the earlier families' tests).
+test_torch_port_backbone_zoo.py``, ``test_torch_port_detr_variants.py``,
+``test_torch_port_dcn.py``, ``test_torch_port_dla.py``,
+``test_torch_port_solov2.py``, ``test_torch_port_yolomask.py``,
+``test_torch_port_detr_segm.py`` and the earlier families' tests).
 """
 
 from __future__ import annotations

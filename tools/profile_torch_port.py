@@ -6,7 +6,8 @@ DETR R-50's / AnchorDETR R-50's; with ``--yolox-kpts``, YOLOX-KPTS on
 Swin-T's; with ``--yolov5`` / ``--yolov6`` / ``--yolof``, YOLOv5-s's,
 YOLOv6-s's or YOLOF R-50's; with ``--yolox-convnext``, YOLOX on
 ConvNeXt-T's; with ``--smca``, SMCA-DETR R-50's; with ``--res2net``,
-YOLOV7 on Res2Net-50's.
+YOLOV7 on Res2Net-50's; with ``--sparseinst-dcn``, SparseInst
+R-50-DCN's; with ``--solov2``, SOLOv2 R-50's.
 
     python3 tools/profile_torch_port.py            # serving
     python3 tools/profile_torch_port.py --train    # training step
@@ -15,7 +16,9 @@ YOLOV7 on Res2Net-50's.
     python3 tools/profile_torch_port.py --detr | --anchordetr [--train]
     python3 tools/profile_torch_port.py --yolox-kpts [--train]
     python3 tools/profile_torch_port.py --yolov5 | --yolov6 | --yolof [--train]
-    python3 tools/profile_torch_port.py --yolox-convnext | --smca | --res2net [--train]
+    python3 tools/profile_torch_port.py --yolox-convnext | --smca | \
+        --res2net [--train]
+    python3 tools/profile_torch_port.py --sparseinst-dcn | --solov2 [--train]
 
 Full-width YOLOX-s (or YOLOV7 from ``configs/coco/yolov7.yaml``'s
 defaults) at 640, bf16, random weights from seed 0, uint8 batches already
@@ -55,8 +58,15 @@ YOLOF). YOLOX on ConvNeXt-T (``configs/coco/yolox/yolox_convnext.yaml``)
 at 800: serving through ``Predictor``, the step as YOLOX-s's (16 images,
 GridMask on, drop path from the step). SMCA-DETR R-50
 (``configs/coco/detr/smca_detr_r50.yaml``) at 800: as DETR. YOLOV7 on
-Res2Net-50 v1b (``configs/coco/r2_50.yaml``) at 640: as YOLOV7. Every
-line carries the card's name and power limit. Imports no JAX.
+Res2Net-50 v1b (``configs/coco/r2_50.yaml``) at 640: as YOLOV7.
+SparseInst R-50-DCN (``sparseinst/sparse_inst_r50_dcn_giam_aug.yaml``) at
+608: as SparseInst, and after the serving trace each DCNv2 layer alone at
+bs 128 on the input it took in one forward (CUDA events): their sum and
+its share of the traced busy time. SOLOv2 R-50 (``solov2/solov2_r50.yaml``)
+at 640: serving through ``build_model`` and ``solov2_postprocess``;
+training through ``build_system`` on 16 images with 100 mask slots and
+their boxes (1-20 valid). Every line carries the card's name and power
+limit. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -120,6 +130,7 @@ GROUPS = (
     ("GELU", r"gelu|GeluCUDA"),
     ("roll", r"roll"),
     ("sort / top-k", r"[Ss]ort|[Tt]op[Kk]|radix|bitonic"),
+    ("deformable sampling (grid_sample)", r"grid_sampler"),
     # cuDNN runs the 1x1 convolutions as cuBLAS GEMMs (nvjet kernels), so
     # the linear layers' and einsums' GEMMs count here too
     ("convolution and GEMM", r"conv|xmma|implicit_gemm|fprop|cudnn|sm90_|cutlass|"
@@ -158,14 +169,14 @@ def group_of(kernel: str) -> str:
     return "other elementwise and reductions"
 
 
-def trace(fn, card: str, label: str) -> None:
+def trace(fn, card: str, label: str) -> float:
     """Time ``fn`` untraced, then trace TRACED_CALLS calls and print the
     report. The profiler slows the host, so the busy share is given of
     both the traced window and the untraced call. The kernels the device
     trace holds are counted against the host's launch calls: on the H100
     machine used so far the trace of a training step held about 1240 of
     its 1955 launches (no SiLU or cast kernel), so its busy time is then a
-    lower bound."""
+    lower bound. Returns the device's busy ms a call."""
     untraced = cuda_ms(fn)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -204,6 +215,7 @@ def trace(fn, card: str, label: str) -> None:
     print("top kernels (ms a call, launches, name):")
     for ms, n, key in sorted(rows, key=lambda r: -r[0])[:25]:
         print(f"  {ms:9.3f}  {n:5d}  {key[:110]}")
+    return busy
 
 
 DETR_YAMLS = {"DETR": "detr_256_6_6_r50.yaml",
@@ -216,6 +228,10 @@ ONESTAGE_YAMLS = {"YOLOv5-s": "yolov5_s.yaml", "YOLOv6-s": "yolov6_s.yaml",
                   "YOLOF R-50": "yolof/yolof_R_50_DC5_1x.yaml"}
 DETR_TRAIN_BATCH = 8
 KPTS_YAML = "yolox_kpts_swin.yaml"
+
+
+DCN_YAML = "sparseinst/sparse_inst_r50_dcn_giam_aug.yaml"
+SOLOV2_YAML = "solov2/solov2_r50.yaml"
 
 
 def coco_cfg(yaml: str):
@@ -261,8 +277,26 @@ def serving(dev, model_name: str):
             return dmodel(x)
 
         return detr_forward, lambda out: detr_tail(out, dcfg)
-    if model_name == "SparseInst":
-        scfg = SparseInstConfig()
+    if model_name == "SOLOv2":
+        vcfg = coco_cfg(SOLOV2_YAML)
+        vmodel = build_model(vcfg, dev, 0)
+
+        @torch.inference_mode()
+        def solov2_forward(x):
+            return vmodel(x)
+
+        @torch.inference_mode()
+        def solov2_postprocess(out):
+            from yolov7_d2_tpu_torch.models.meta_arch.solov2 import (
+                solov2_postprocess as tail,
+            )
+
+            return tail(out)
+
+        return solov2_forward, solov2_postprocess
+    if model_name in ("SparseInst", "SparseInst-DCN"):
+        scfg = (SparseInstConfig() if model_name == "SparseInst"
+                else coco_cfg(DCN_YAML))
         smodel = build_model(scfg, dev, 0)
 
         @torch.inference_mode()
@@ -275,6 +309,7 @@ def serving(dev, model_name: str):
                 out, scfg.cls_threshold, scfg.mask_threshold,
                 scfg.max_detections)
 
+        si_forward.model = smodel
         return si_forward, si_postprocess
     if model_name in ("YOLOX-s", "YOLOX ConvNeXt-T"):
         predictor = Predictor(
@@ -299,14 +334,40 @@ def serving(dev, model_name: str):
     return forward, postprocess
 
 
-def profile_train_sparseinst(card: str, dev, gen) -> None:
-    """SparseInst's step through ``build_system``; then the matcher alone
-    on the outputs of that batch (CUDA events over 10 calls after 3)."""
+def dcn_alone(card: str, forward, x, busy_ms: float) -> None:
+    """Each DCNv2 layer of ``forward.model`` alone on the input it took in
+    one forward of ``x`` (CUDA events, 10 calls after 3), and their sum
+    against ``busy_ms``, the device's busy time of a call."""
+    from yolov7_d2_tpu_torch.ops.deform_conv import DeformConv
+
+    inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: inputs.append((mod, args[0])))
+        for m in forward.model.modules() if isinstance(m, DeformConv)]
+    forward(x)
+    for h in hooks:
+        h.remove()
+    total = 0.0
+    with torch.inference_mode():
+        for mod, inp in inputs:
+            ms = cuda_ms(lambda: mod(inp))
+            total += ms
+            print(f"  DCNv2 on {tuple(inp.shape)} {inp.dtype}: {ms:.3f} ms")
+    print(f"DCNv2 layers alone: {len(inputs)} layers, {total:.3f} ms a "
+          f"forward = {100 * total / busy_ms:.1f}% of the traced busy "
+          f"{busy_ms:.3f} ms [{card}]")
+
+
+def profile_train_sparseinst(card: str, dev, gen, cfg=None,
+                             size: int = 640) -> None:
+    """SparseInst's step through ``build_system`` (``cfg``: R-50 by
+    default); then the matcher alone on the outputs of that batch (CUDA
+    events over 10 calls after 3)."""
     from chip_smoke import inseg_batch
 
-    _, state, train_step, _ = build_system(SparseInstConfig(), device=dev,
-                                           seed=0)
-    batch = inseg_batch(TRAIN_BATCH, gen, dev)
+    _, state, train_step, _ = build_system(cfg or SparseInstConfig(),
+                                           device=dev, seed=0)
+    batch = inseg_batch(TRAIN_BATCH, gen, dev, size)
 
     def one_step():
         nonlocal state
@@ -325,6 +386,24 @@ def profile_train_sparseinst(card: str, dev, gen) -> None:
                                       batch["gt_valid"])
     print(f"auction matcher alone: {ms:.3f} ms a call, rounds an image "
           f"{iters.tolist()} (the first step's batch: {rounds}) [{card}]")
+
+
+def profile_train_solov2(card: str, dev, gen) -> None:
+    """SOLOv2's step through ``build_system`` on 16 images with masks and
+    boxes."""
+    from chip_smoke import mask_batch
+
+    _, state, train_step, fields = build_system(coco_cfg(SOLOV2_YAML),
+                                                device=dev, seed=0)
+    batch = {k: v for k, v in mask_batch(TRAIN_BATCH, gen, dev).items()
+             if k in fields}
+
+    def one_step():
+        nonlocal state
+        state, metrics = train_step(state, batch)
+        return metrics
+
+    trace(one_step, card, f"SOLOv2 train step bs {TRAIN_BATCH}")
 
 
 def profile_train_detr(card: str, dev, gen, model_name: str) -> None:
@@ -538,6 +617,11 @@ def main() -> int:
                         help="SMCA-DETR R-50 (smca_detr_r50.yaml) at 800")
     parser.add_argument("--res2net", action="store_true",
                         help="YOLOV7 on Res2Net-50 (r2_50.yaml)")
+    parser.add_argument("--sparseinst-dcn", action="store_true",
+                        help="SparseInst R-50-DCN "
+                        "(sparse_inst_r50_dcn_giam_aug.yaml) at 608")
+    parser.add_argument("--solov2", action="store_true",
+                        help="SOLOv2 R-50 (solov2_r50.yaml)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_port: no CUDA device")
@@ -553,9 +637,12 @@ def main() -> int:
             "YOLOF R-50" if args.yolof else
             "YOLOX ConvNeXt-T" if args.yolox_convnext else
             "SMCA-DETR" if args.smca else
-            "YOLOV7 Res2Net-50" if args.res2net else "YOLOX-s")
+            "YOLOV7 Res2Net-50" if args.res2net else
+            "SparseInst-DCN" if args.sparseinst_dcn else
+            "SOLOv2" if args.solov2 else "YOLOX-s")
     size = 800 if name in DETR_YAMLS or name in (
-        "YOLOF R-50", "YOLOX ConvNeXt-T") else 640
+        "YOLOF R-50", "YOLOX ConvNeXt-T") else (
+        608 if name == "SparseInst-DCN" else 640)
     print(f"model: {name} {size} bf16", flush=True)
     if args.train and name in ONESTAGE_YAMLS:
         profile_train_onestage(card, dev, gen, name)
@@ -568,6 +655,12 @@ def main() -> int:
         return 0
     if args.train and args.sparseinst:
         profile_train_sparseinst(card, dev, gen)
+        return 0
+    if args.train and args.sparseinst_dcn:
+        profile_train_sparseinst(card, dev, gen, coco_cfg(DCN_YAML), size)
+        return 0
+    if args.train and args.solov2:
+        profile_train_solov2(card, dev, gen)
         return 0
     if args.train:
         profile_train(card, dev, gen, name)
@@ -588,7 +681,9 @@ def main() -> int:
     bs = max(BATCHES)
     x = torch.randint(0, 256, (bs, size, size, 3), generator=gen,
                       dtype=torch.uint8).to(dev)
-    trace(lambda: postprocess(forward(x)), card, f"bs {bs}")
+    busy = trace(lambda: postprocess(forward(x)), card, f"bs {bs}")
+    if name == "SparseInst-DCN":
+        dcn_alone(card, forward, x, busy)
     if name == "YOLOX-KPTS":
         del x
         window_attention_alone(card, dev, forward.model, bs)

@@ -23,7 +23,16 @@ Then it times the bf16 training step at its section's batch
 16, DETR 8), host clock over 10 steps after 3, in turns with the setting
 off, on, on, off (``resize``: on is the fixed-order backward).
 
+``--dcn`` runs, in one process, the float32 step of SparseInst R-50-DCN
+(``chip_smoke.DCN_YAML``, 608 px, 4 images) twice under torch's defaults,
+twice with cuDNN deterministic and twice under
+``use_deterministic_algorithms(True, warn_only=True)`` (naming the ops
+without a deterministic form): the deformable convolution's sampling is
+the port's own op, whose backward adds into the input gradient with
+atomics (``F.grid_sample``).
+
     python3 tools/step_repeat.py [--mode default|cudnn|algorithms|resize]
+    python3 tools/step_repeat.py --dcn
 """
 
 from __future__ import annotations
@@ -131,12 +140,55 @@ def run_mode(mode: str) -> None:
             + f" ms; on / off {sum(det) / sum(off):.4f}")
 
 
+def run_dcn() -> None:
+    """``--dcn``: SparseInst R-50-DCN's float32 step, twice a setting."""
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    card = chip_smoke.card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    gen = torch.Generator().manual_seed(chip_smoke.SEED + 6)
+    cfg = chip_smoke.coco_cfg(chip_smoke.DCN_YAML, amp=False)
+    batch = chip_smoke.inseg_batch(4, gen, dev, cfg.input_size[0])
+    name = f"SparseInst R-50-DCN {cfg.input_size[0]} f32"
+
+    def build_fn():
+        _, state, step, _ = build_system(cfg, device=dev,
+                                         seed=chip_smoke.SEED)
+        return state, step
+
+    chip_smoke.repeat_phase(dev, card, f"{name} [default]", build_fn, batch)
+    with chip_smoke.deterministic_library():
+        chip_smoke.repeat_phase(dev, card, f"{name} [cuDNN deterministic]",
+                                build_fn, batch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        chip_smoke.repeat_phase(dev, card, f"{name} [algorithms]", build_fn,
+                                batch)
+    torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split("\n")[0] for w in caught
+                  if "deterministic" in str(w.message)})
+    chip_smoke.log(f"C.14 {name} [algorithms]: ops without a deterministic "
+                   f"form: {ops or 'none'}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--mode", choices=MODES)
+    parser.add_argument("--dcn", action="store_true",
+                        help="SparseInst R-50-DCN's float32 step alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("step_repeat: no CUDA device")
+    if args.dcn:
+        # before the first cuBLAS call: its deterministic workspace
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        run_dcn()
+        return 0
     if args.mode:
         run_mode(args.mode)
         return 0

@@ -5,9 +5,11 @@ yaml files of ``configs/`` into ``config/defaults.get_cfg()`` (a
 ``YoloxConfig.from_cfg``; the anchor-based YOLO family reads its subclass
 ``AnchorYoloConfig`` (``config/anchor_yolo.py``), SparseInst
 ``SparseInstConfig`` (``config/sparseinst.py``), DETR and AnchorDETR
-``DetrConfig`` (``config/detr.py``), YOLOX-KPTS ``YoloxKptsConfig``
-(``config/yolox_kpts.py``), YOLOv6 and YOLOF ``Yolov6Config`` and
-``YolofConfig`` (``config/onestage.py``). Only the dataclasses are
+``DetrConfig`` (``config/detr.py``, DetrSegm too), YOLOX-KPTS
+``YoloxKptsConfig`` (``config/yolox_kpts.py``), YOLOv6 and YOLOF
+``Yolov6Config`` and ``YolofConfig`` (``config/onestage.py``), SOLOv2
+``Solov2Config`` (``config/solov2.py``); YOLOMask reads
+``AnchorYoloConfig``. Only the dataclasses are
 imported here, so that serving needs no PyYAML."""
 
 from yolov7_d2_tpu_torch.config.anchor_yolo import (  # noqa: F401
@@ -18,6 +20,7 @@ from yolov7_d2_tpu_torch.config.onestage import (  # noqa: F401
     YolofConfig,
     Yolov6Config,
 )
+from yolov7_d2_tpu_torch.config.solov2 import Solov2Config  # noqa: F401
 from yolov7_d2_tpu_torch.config.sparseinst import (  # noqa: F401
     SparseInstConfig,
 )

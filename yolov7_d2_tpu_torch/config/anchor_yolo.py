@@ -1,5 +1,5 @@
 """The configuration of the anchor-based YOLO family (``YOLO``, ``YOLOV7``,
-``YOLOV7P``).
+``YOLOV7P``, ``YOLOV5``) and of YOLOMask.
 
 ``AnchorYoloConfig`` subclasses ``YoloxConfig``, so that the optimizer, the
 schedule and the device photometric stage read the shared fields
@@ -73,6 +73,8 @@ class AnchorYoloConfig(YoloxConfig):
     swin_out_features: Tuple[int, ...] = (1, 2, 3)
     pvt_type: str = "b1"
     pvt_out_features: Tuple[int, ...] = (1, 2, 3)
+    # YOLOMask's orientation head (MODEL.YOLO.ORIEN_HEAD.UP_CHANNELS)
+    orien_up_channels: int = 64
 
     @classmethod
     def from_cfg(cls, cfg) -> "AnchorYoloConfig":
@@ -114,4 +116,5 @@ class AnchorYoloConfig(YoloxConfig):
             pvt_type=str(cfg.MODEL.PVT.TYPE),
             pvt_out_features=tuple(int(s)
                                    for s in cfg.MODEL.PVT.OUT_FEATURES),
+            orien_up_channels=int(yolo.ORIEN_HEAD.UP_CHANNELS),
         )

@@ -49,14 +49,19 @@ class SparseInstConfig(YoloxConfig):
     @classmethod
     def from_cfg(cls, cfg) -> "SparseInstConfig":
         """Read the fields from a merged ``CfgNode``. The vd ResNet puts the
-        stride on the 3x3 whatever ``STRIDE_IN_1X1`` says (JAX :505)."""
+        stride on the 3x3 whatever ``STRIDE_IN_1X1`` says (JAX :505), and
+        DCN is read as the JAX builder reads it (:508, :269-272): any stage
+        of ``DEFORM_ON_PER_STAGE`` turns on deformable convolutions in
+        res4 and res5, the vd ResNet too."""
         base = YoloxConfig.from_cfg(cfg)
         si = cfg.MODEL.SPARSE_INST
         dec = si.DECODER
         loss = si.LOSS
         spec = ResNetSpec.from_cfg(cfg)
-        if spec.vd:
-            spec = dataclasses.replace(spec, stride_in_1x1=False)
+        dcn = any(bool(d) for d in cfg.MODEL.RESNETS.DEFORM_ON_PER_STAGE)
+        spec = dataclasses.replace(
+            spec, stride_in_1x1=spec.stride_in_1x1 and not spec.vd,
+            deform_on_per_stage=(False, False, dcn, dcn))
         return cls(
             **{f.name: getattr(base, f.name)
                for f in dataclasses.fields(YoloxConfig)

@@ -19,8 +19,8 @@ from typing import Tuple
 class ZooSpec:
     """What the backbone zoo's builders read (``models/backbones/zoo.py``):
     ``MODEL.REGNETS``, ``MODEL.CONVNEXT`` (``LAYER_SCALE_INIT_VALUE`` is
-    read by no JAX builder), ``MODEL.EFFICIENTNET`` and ``MODEL.FBNET_V2``
-    (``ARCH_DEF`` a tuple of the yaml's dicts)."""
+    read by no JAX builder), ``MODEL.EFFICIENTNET``, ``MODEL.FBNET_V2``
+    (``ARCH_DEF`` a tuple of the yaml's dicts) and ``MODEL.DLA``."""
 
     regnet_type: str = "x"
     regnet_out_features: Tuple[str, ...] = ("s2", "s3", "s4")
@@ -35,6 +35,11 @@ class ZooSpec:
     fbnet_arch_def: Tuple[dict, ...] = ()
     fbnet_out_features: Tuple[str, ...] = ("trunk3",)
     fbnet_scale_factor: float = 1.0
+    dla_num_layers: int = 34
+    dla_out_features: Tuple[str, ...] = ("dla2",)
+    dla_use_dla_up: bool = True
+    dla_ms_output: bool = False
+    dla_norm: str = "BN"
 
     @classmethod
     def from_cfg(cls, cfg) -> "ZooSpec":
@@ -54,6 +59,11 @@ class ZooSpec:
             fbnet_arch_def=tuple(dict(d) for d in m.FBNET_V2.ARCH_DEF),
             fbnet_out_features=tuple(m.FBNET_V2.OUT_FEATURES),
             fbnet_scale_factor=float(m.FBNET_V2.SCALE_FACTOR),
+            dla_num_layers=int(m.DLA.NUM_LAYERS),
+            dla_out_features=tuple(m.DLA.OUT_FEATURES),
+            dla_use_dla_up=bool(m.DLA.USE_DLA_UP),
+            dla_ms_output=bool(m.DLA.MS_OUTPUT),
+            dla_norm=str(m.DLA.NORM),
         )
 
 

@@ -2,7 +2,7 @@
 (model, state, train_step), for YOLOX (``build_yolox_system``) and, through
 ``build_system``, for the anchor-based YOLO family (YOLOv5 among them),
 YOLOv6, YOLOF, SparseInst, the DETR family (DETR, AnchorDETR, SMCA-DETR,
-DAB-DETR, the d2go DETR) and YOLOX-KPTS.
+DAB-DETR, the d2go DETR, DetrSegm), YOLOX-KPTS, SOLOv2 and YOLOMask.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from torch import nn
 from yolov7_d2_tpu_torch.config import (
     AnchorYoloConfig,
     DetrConfig,
+    Solov2Config,
     SparseInstConfig,
     YolofConfig,
     Yolov6Config,
@@ -26,8 +27,10 @@ from yolov7_d2_tpu_torch.config.defaults import get_cfg
 from yolov7_d2_tpu_torch.config.detr import DETR_ARCHS
 from yolov7_d2_tpu_torch.models.build import build_model
 from yolov7_d2_tpu_torch.models.meta_arch.detr import detr_loss_fn
+from yolov7_d2_tpu_torch.models.meta_arch.solov2 import solov2_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.sparseinst import sparseinst_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolof import yolof_loss_fn
+from yolov7_d2_tpu_torch.models.meta_arch.yolomask import yolomask_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolov6 import yolov6_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import anchor_yolo_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_loss_fn
@@ -149,10 +152,13 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0):
 BATCH_FIELDS = ("image", "gt_boxes", "gt_classes", "gt_valid")
 MASK_FIELDS = ("image", "gt_masks", "gt_classes", "gt_valid")
 KPTS_FIELDS = BATCH_FIELDS + ("gt_keypoints",)
+# SOLOv2's masks with their boxes (JAX engine.py:253); YOLOMask's and
+# DetrSegm's box fields with the masks (:273, :331)
+SOLOV2_FIELDS = ("image", "gt_masks", "gt_boxes", "gt_classes", "gt_valid")
+BOX_MASK_FIELDS = BATCH_FIELDS + ("gt_masks",)
 ANCHOR_YOLO_ARCHS = ("YOLO", "YOLOV5", "YOLOV7", "YOLOV7P")
 # where each architecture the JAX build_system trains comes in the port
 _ROADMAP_ITEM = {
-    "SOLOv2": "A.8c", "YOLOMask": "A.8c", "DetrSegm": "A.8c",
     "MaskRCNN": "A.8d", "FasterRCNN": "A.8d", "PanopticFPN": "A.8d",
 }
 
@@ -161,7 +167,8 @@ _ROADMAP_ITEM = {
 CONFIG_OF = {
     "YOLOX": YoloxConfig, "SparseInst": SparseInstConfig,
     "YOLOX_KPTS": YoloxKptsConfig, "YOLOV6": Yolov6Config,
-    "YOLOF": YolofConfig,
+    "YOLOF": YolofConfig, "SOLOv2": Solov2Config,
+    "YOLOMask": AnchorYoloConfig, "DetrSegm": DetrConfig,
     **{arch: AnchorYoloConfig for arch in ANCHOR_YOLO_ARCHS},
     **{arch: DetrConfig for arch in DETR_ARCHS},
 }
@@ -233,8 +240,12 @@ def build_system(cfg, device="cuda", seed: int = 0):
     the dropout (and drop-path) masks of a step drawn from the seed and the
     step (:func:`seed_dropout_by_step`); YOLOX_KPTS trains
     ``yolox_kpts_losses`` on the box fields and ``gt_keypoints`` [B, G,
-    P, 3] (``image`` uint8 through the normalize kernel); any other
-    architecture raises, naming the ROADMAP.md item that brings it."""
+    P, 3] (``image`` uint8 through the normalize kernel); SOLOv2 trains
+    ``solov2_losses`` on ``image``, ``gt_masks`` [B, G, H, W] uint8,
+    ``gt_boxes``, ``gt_classes`` and ``gt_valid``; YOLOMask
+    ``yolomask_losses`` and DetrSegm the set criterion with its mask terms
+    on the box fields and ``gt_masks``; any other architecture raises,
+    naming the ROADMAP.md item that brings it."""
     if hasattr(cfg, "MODEL"):
         arch = cfg.MODEL.META_ARCHITECTURE
         if arch in CONFIG_OF:
@@ -250,6 +261,12 @@ def build_system(cfg, device="cuda", seed: int = 0):
         loss_fn, fields = make_anchor_yolo_loss(cfg), BATCH_FIELDS
     elif arch in DETR_ARCHS:
         loss_fn, fields = detr_loss_fn(cfg), BATCH_FIELDS
+    elif arch == "DetrSegm":
+        loss_fn, fields = detr_loss_fn(cfg), BOX_MASK_FIELDS
+    elif arch == "SOLOv2":
+        loss_fn, fields = solov2_loss_fn(cfg), SOLOV2_FIELDS
+    elif arch == "YOLOMask":
+        loss_fn, fields = yolomask_loss_fn(cfg), BOX_MASK_FIELDS
     elif arch == "YOLOX_KPTS":
         loss_fn, fields = yolox_kpts_loss_fn(cfg), KPTS_FIELDS
     elif arch == "YOLOV6":

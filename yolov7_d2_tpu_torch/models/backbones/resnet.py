@@ -17,6 +17,14 @@ the flax ``params`` of those layers (nothing in its optimizer masks them);
 detectron2's ``FrozenBatchNorm2d`` would keep them fixed. Any other norm
 is a trainable ``nn.BatchNorm2d`` on batch statistics (torch's update
 rule, momentum 0.1 = flax 0.9).
+
+A stage of ``deform_on_per_stage`` runs deformable convolutions (DCNv2,
+``ops/deform_conv.py``) in its blocks' 3x3 where it has stride 1 (JAX
+:67): ``conv2_dcn`` (the JAX names: its ``offset_conv`` and the fuse's
+``weight`` and ``bias``) and ``conv2_bn``, the norm of the block's kind
+(FrozenBN on its running statistics, else trained). The JAX ResNet builds
+DCNv2 whatever ``MODEL.RESNETS.DEFORM_MODULATED`` and
+``DEFORM_NUM_GROUPS`` say, and so does the port (ROADMAP.md C.34).
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from yolov7_d2_tpu_torch.ops.deform_conv import DeformConv
 
 BN_EPS = 1e-5
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
@@ -96,8 +106,7 @@ class ConvNorm(nn.Conv2d):
                  stride: int = 1, act: bool = True, frozen_bn: bool = True):
         super().__init__(c_in, c_out, kernel, stride, (kernel - 1) // 2,
                          bias=False)
-        self.norm = (FrozenBatchNorm2d(c_out) if frozen_bn else
-                     nn.BatchNorm2d(c_out, eps=BN_EPS, momentum=0.1))
+        self.norm = norm2d(c_out, frozen_bn)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -105,20 +114,32 @@ class ConvNorm(nn.Conv2d):
         return F.relu(x) if self.act else x
 
 
+def norm2d(channels: int, frozen_bn: bool) -> nn.Module:
+    """FrozenBN (running statistics always) or a trained BatchNorm."""
+    return (FrozenBatchNorm2d(channels) if frozen_bn else
+            nn.BatchNorm2d(channels, eps=BN_EPS, momentum=0.1))
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 (no ReLU), plus the shortcut, ReLU (JAX :52).
     ``stride_in_1x1`` puts the stride on the first 1x1 (detectron2's
-    MSRA default), else on the 3x3. The vd shortcut average-pools by 2
-    (``ceil_mode``, padding not counted) and then projects."""
+    MSRA default), else on the 3x3. With ``deform`` the 3x3 is a
+    deformable convolution where its stride is 1 (``conv2_dcn`` and
+    ``conv2_bn``); a strided 3x3 stays plain. The vd shortcut average-pools
+    by 2 (``ceil_mode``, padding not counted) and then projects."""
 
     def __init__(self, c_in: int, c_out: int, stride: int = 1,
                  vd: bool = False, stride_in_1x1: bool = True,
-                 frozen_bn: bool = True):
+                 frozen_bn: bool = True, deform: bool = False):
         super().__init__()
         mid = c_out // 4
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = ConvNorm(c_in, mid, 1, s1, frozen_bn=frozen_bn)
-        self.conv2 = ConvNorm(mid, mid, 3, s3, frozen_bn=frozen_bn)
+        if deform and s3 == 1:
+            self.conv2_dcn = DeformConv(mid, mid)
+            self.conv2_bn = norm2d(mid, frozen_bn)
+        else:
+            self.conv2 = ConvNorm(mid, mid, 3, s3, frozen_bn=frozen_bn)
         self.conv3 = ConvNorm(mid, c_out, 1, 1, act=False,
                               frozen_bn=frozen_bn)
         self.pool_shortcut = vd and stride != 1
@@ -129,7 +150,12 @@ class Bottleneck(nn.Module):
                 act=False, frozen_bn=frozen_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv3(self.conv2(self.conv1(x)))
+        y = self.conv1(x)
+        if hasattr(self, "conv2_dcn"):
+            y = F.relu(self.conv2_bn(self.conv2_dcn(y)))
+        else:
+            y = self.conv2(y)
+        y = self.conv3(y)
         sc = x
         if self.shortcut is not None:
             if self.pool_shortcut:
@@ -162,16 +188,11 @@ class ResNet(nn.Module):
     """Stem and four stages; returns ``{name: feature}`` for
     ``spec.out_features`` (NCHW). ``out_channels`` gives each stage's
     width. Every depth of ``STAGE_BLOCKS`` builds bottleneck blocks, as
-    the JAX ResNet does. DCN (``deform_on_per_stage``) is not ported: it
-    raises."""
+    the JAX ResNet does; a stage of ``deform_on_per_stage`` takes
+    deformable 3x3s."""
 
     def __init__(self, spec: ResNetSpec = ResNetSpec()):
         super().__init__()
-        if any(spec.deform_on_per_stage):
-            raise NotImplementedError(
-                "ResNet with deformable convolutions (MODEL.RESNETS."
-                "DEFORM_ON_PER_STAGE) is not ported yet (ROADMAP.md Queue "
-                "A.8b: DCN)")
         self.out_features = tuple(spec.out_features)
         self.out_channels: Dict[str, int] = dict(RESNET_CHANNELS)
         self.stem = Stem(spec.vd, spec.frozen_bn)
@@ -183,7 +204,8 @@ class ResNet(nn.Module):
                 blocks.append(Bottleneck(
                     c_in, c, stride=(1 if stage == 0 or i else 2),
                     vd=spec.vd, stride_in_1x1=spec.stride_in_1x1,
-                    frozen_bn=spec.frozen_bn))
+                    frozen_bn=spec.frozen_bn,
+                    deform=bool(spec.deform_on_per_stage[stage])))
                 c_in = c
             self.add_module(f"res{stage + 2}", nn.Sequential(*blocks))
 

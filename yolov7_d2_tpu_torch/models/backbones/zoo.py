@@ -1,8 +1,8 @@
-"""The backbone zoo under the ported heads: RegNet, ConvNeXt, EfficientNet
-and FBNet, by the registry names the yamls give ``MODEL.BACKBONE.NAME``
-(the JAX ``BACKBONE_REGISTRY`` entries of those modules). YOLOX, YOLOV7
-and the d2go DETR take any of them, as their JAX builders take any
-registered backbone.
+"""The backbone zoo under the ported heads: RegNet, ConvNeXt, EfficientNet,
+FBNet and DLA, by the registry names the yamls give
+``MODEL.BACKBONE.NAME`` (the JAX ``BACKBONE_REGISTRY`` entries of those
+modules). YOLOX, YOLOV7 and the d2go DETR take any of them, as their JAX
+builders take any registered backbone.
 """
 
 from __future__ import annotations
@@ -13,6 +13,11 @@ from torch import nn
 
 from yolov7_d2_tpu_torch.models.backbones.convnext import (
     build_convnext_backbone,
+)
+from yolov7_d2_tpu_torch.models.backbones.dla import (
+    build_dla_backbone,
+    build_dla_fpn3_backbone,
+    build_dlaup_backbone,
 )
 from yolov7_d2_tpu_torch.models.backbones.efficientnet import (
     build_efficientnet_backbone,
@@ -29,6 +34,10 @@ ZOO_BACKBONES = {
     "build_fbnet_backbone": ("fbnet", build_fbnet_backbone),
     # the reference's registry name of the plain FBNet trunk (JAX :526)
     "FBNetV2C4Backbone": ("fbnet", build_fbnet_backbone),
+    # DLA (JAX models/backbones/dla.py:375-407): the trunk, DLASeg, DLAUp
+    "build_dla_backbone": ("dla", build_dla_backbone),
+    "build_dla_fpn3_backbone": ("dla", build_dla_fpn3_backbone),
+    "build_dlaup_backbone": ("dla", build_dlaup_backbone),
 }
 
 

@@ -21,10 +21,13 @@ def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
     family)."""
     from yolov7_d2_tpu_torch.models.meta_arch import (  # noqa: F401
         detr,
+        detr_seg,
         detr_variants,
+        solov2,
         sparseinst,
         yolof,
         yolov6,
+        yolomask,
         yolov7,
         yolox,
         yolox_kpts,
@@ -44,7 +47,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     N(0, 1/fan_in) (flax's lecun-normal scale) and every relative position
     bias table (Swin) from flax's truncated N(0, 0.02) with ``generator``;
     biases and BatchNorm keep their identity initialisation (zero bias,
-    unit scale, zero mean, unit var)."""
+    unit scale, zero mean, unit var). Then every module with an
+    ``init_fixed_`` method (a deformable convolution's zero offsets, DLA's
+    bilinear upsampling taps) sets its fixed initialisation, as its flax
+    initialiser does."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             # a transposed convolution's weight is [I, O, kH, kW]
@@ -59,3 +65,6 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
         if table is not None:
             nn.init.trunc_normal_(table, std=0.02, a=-0.04, b=0.04,
                                   generator=generator)
+    for m in model.modules():
+        if hasattr(m, "init_fixed_"):
+            m.init_fixed_()

@@ -43,6 +43,19 @@ def get_activation(name: str = "silu") -> nn.Module:
     raise ValueError(f"Unsupported activation: {name}")
 
 
+class AutocastReLU(nn.ReLU):
+    """ReLU, then the autocast dtype where autocast is on: the JAX heads'
+    ``relu(GroupNorm(dtype=float32)(x)).astype(dtype)`` after a norm that
+    autocast runs in float32 (SOLOv2's towers, DETRsegm's mask head)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(x)
+        dev = x.device.type
+        if torch.is_autocast_enabled(dev):
+            x = x.to(torch.get_autocast_dtype(dev))
+        return x
+
+
 class BaseConv(nn.Module):
     """Conv2d without bias -> BatchNorm -> activation (JAX ``BaseConv``)."""
 

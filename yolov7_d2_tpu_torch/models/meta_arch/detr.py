@@ -49,7 +49,9 @@ from yolov7_d2_tpu_torch.ops.iou import (
     generalized_box_iou,
     pairwise_generalized_box_iou,
 )
+from yolov7_d2_tpu_torch.models.meta_arch.sparseinst import _resize
 from yolov7_d2_tpu_torch.ops.losses import (
+    dice_loss,
     sigmoid_focal_loss,
     weighted_softmax_cross_entropy,
 )
@@ -257,6 +259,33 @@ def normalized_gt_boxes(gt_boxes: torch.Tensor, input_hw) -> torch.Tensor:
                       xyxy[..., 2:4] - xyxy[..., 0:2]], -1)
 
 
+def detr_mask_losses(pred_masks: torch.Tensor, gt_masks: torch.Tensor,
+                     pred_of_gt: torch.Tensor, ok: torch.Tensor,
+                     num_matched: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """DETRsegm's mask terms (JAX ``detr.py:261-291``): each matched
+    query's mask logits [Hm, Wm] against its gt's mask, resized bilinear
+    with antialiasing (``jax.image.resize``'s default) and cut at 0.5: the
+    dice loss (smooth 1) of the sigmoid and the mean sigmoid focal loss
+    over the pixels, each summed over the matched pairs and divided by
+    ``num_matched`` (the last level's matched count, at least 1). The
+    assignment is the last level's."""
+    b, _, hm, wm = pred_masks.shape
+    g = gt_masks.shape[1]
+    gt_small = (_resize(gt_masks.float(), (hm, wm), antialias=True)
+                > 0.5).float().reshape(b, g, -1)
+    matched = pred_masks.float().gather(
+        1, pred_of_gt[..., None, None].expand(-1, -1, hm, wm)).reshape(
+        b, g, -1)
+    okf = ok.float()
+    num = num_matched.clamp(min=1.0)
+    return {
+        "loss_mask_dice": (dice_loss(torch.sigmoid(matched), gt_small)
+                           * okf).sum() / num,
+        "loss_mask_focal": (sigmoid_focal_loss(matched, gt_small).mean(-1)
+                            * okf).sum() / num,
+    }
+
+
 def detr_losses(
     out: Dict[str, torch.Tensor],
     batch: Dict[str, torch.Tensor],
@@ -277,13 +306,9 @@ def detr_losses(
     the terms used, in that form (not a metric: the train step keeps it as
     ``TrainState.match``). The normalizers of every level go over
     the ranks of a process group in one all-reduce; ``num_boxes`` is the
-    last level's, the global batch's matched count. The mask term of
-    ``DetrSegm`` is not ported (ROADMAP.md Queue A.8): asking for it
-    raises."""
-    if "pred_masks" in out or "gt_masks" in batch:
-        raise NotImplementedError(
-            "the DETR mask loss (DetrSegm) is not ported yet (ROADMAP.md "
-            "Queue A.8)")
+    last level's, the global batch's matched count. Where ``out`` holds
+    ``pred_masks`` (DetrSegm) and ``batch`` holds ``gt_masks``, the mask
+    terms of :func:`detr_mask_losses` join the last level's."""
     gt = normalized_gt_boxes(batch["gt_boxes"], input_hw)
     cls, valid = batch["gt_classes"], batch["gt_valid"]
     levels = [(out["pred_logits"], out["pred_boxes"], "")]
@@ -317,6 +342,10 @@ def detr_losses(
         losses.update(detr_set_criterion(
             lg, bx, gt, valid, num_classes, (pred_of_gt[rows], ok[rows]),
             targets[rows], weights, norms[i], use_focal, prefix))
+    if "pred_masks" in out and "gt_masks" in batch:
+        losses.update(detr_mask_losses(
+            out["pred_masks"], batch["gt_masks"], pred_of_gt[:b], ok[:b],
+            norms[0, 0]))
     losses["total_loss"] = sum(v for k, v in losses.items() if "loss" in k)
     losses["num_boxes"] = norms[0, 0]
     losses["match_iters"] = iters.max().float()

@@ -523,7 +523,7 @@ def build_detr_d2go(cfg: DetrConfig, device="cuda",
         if zoo_backbone_type(cfg.backbone) is None:
             raise NotImplementedError(
                 f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md "
-                "Queue A.8b)")
+                "Queue A.8e)")
         backbone = build_zoo_backbone(cfg)
     model = finish_build(DetrD2go(
         attention_type=cfg.d2go_attention, centered_pe=cfg.centered_pe,

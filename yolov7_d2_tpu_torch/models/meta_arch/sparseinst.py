@@ -504,7 +504,8 @@ def build_sparseinst(cfg: SparseInstConfig, device="cuda",
                      seed: int = 0) -> SparseInst:
     """SparseInst from a ``SparseInstConfig`` (JAX :491) with weights from
     ``seed`` (drawn on the CPU), on ``device``, channels_last, eval mode.
-    The deformable-convolution configs raise (ROADMAP.md Queue A.8b)."""
+    The DCN configs run deformable convolutions in res4 and res5
+    (``cfg.resnet.deform_on_per_stage``), their offsets zero at init."""
     if not isinstance(cfg, SparseInstConfig):
         raise NotImplementedError(
             "SparseInst takes a SparseInstConfig (SparseInstConfig.from_cfg "

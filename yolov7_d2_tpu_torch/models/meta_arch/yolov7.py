@@ -133,8 +133,11 @@ class AnchorYOLO(nn.Module):
         return (getattr(self.neck, "generator", None)
                 or getattr(self.backbone, "generator", None))
 
-    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """images: uint8 or float [B, H, W, 3] letterboxed batch."""
+    def forward(self, images: torch.Tensor,
+                return_pyramid: bool = False) -> Dict[str, torch.Tensor]:
+        """images: uint8 or float [B, H, W, 3] letterboxed batch. With
+        ``return_pyramid`` the neck's levels come out too, as ``pyramid``
+        (YOLOMask's orientation head taps them, JAX :88-101)."""
         if images.dtype == torch.uint8:
             x = normalize_images(images, (0.0,) * 3, (1.0,) * 3, self.dtype)
         else:
@@ -156,6 +159,8 @@ class AnchorYOLO(nn.Module):
                                       LEVEL_STRIDES)
         flat["level_hw"] = tuple((o.shape[2], o.shape[3])
                                  for o in level_outputs)
+        if return_pyramid:
+            flat["pyramid"] = tuple(neck_out)
         return flat
 
 

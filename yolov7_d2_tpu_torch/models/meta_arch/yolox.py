@@ -168,7 +168,7 @@ def build_yolox(cfg: YoloxConfig, device="cuda", seed: int = 0) -> YOLOX:
         if zoo_backbone_type(cfg.backbone) is None:
             raise NotImplementedError(
                 f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md "
-                "Queue A.8b)")
+                "Queue A.8e)")
         backbone = build_zoo_backbone(cfg)
     model = YOLOX(
         num_classes=cfg.num_classes, depth_mul=cfg.depth_mul,

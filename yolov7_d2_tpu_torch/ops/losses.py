@@ -56,3 +56,21 @@ def dice_score(pred: torch.Tensor, target: torch.Tensor,
     denom = (torch.sum(pred * pred, dim=-1)
              + torch.sum(target * target, dim=-1))
     return inter / (denom + eps)
+
+
+def dice_loss(pred: torch.Tensor, target: torch.Tensor,
+              smooth: float = 1.0) -> torch.Tensor:
+    """Dice loss over the last axis of probabilities (JAX :66):
+    ``1 - (2 sum(p t) + smooth) / (sum(p^2) + sum(t^2) + smooth)``."""
+    inter = torch.sum(pred * target, dim=-1)
+    denom = (torch.sum(pred * pred, dim=-1)
+             + torch.sum(target * target, dim=-1))
+    return 1.0 - (2.0 * inter + smooth) / (denom + smooth)
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                min_count: float = 1.0) -> torch.Tensor:
+    """The mean over the elements where ``mask`` holds, of at least
+    ``min_count`` of them (JAX :153)."""
+    m = mask.to(values.dtype)
+    return torch.sum(values * m) / torch.clamp(torch.sum(m), min=min_count)

@@ -1,4 +1,5 @@
-"""Class-aware batched NMS (JAX ``ops/nms.py:99-123``).
+"""Class-aware batched NMS (JAX ``ops/nms.py:99-123``) and SOLOv2's matrix
+NMS (JAX :230).
 
 The greedy NMS itself is ``kernels/nms.py``: ``nms_batched`` launches
 the NMS kernel on a CUDA tensor and runs the plain version
@@ -31,3 +32,29 @@ def _class_offset_boxes(boxes: torch.Tensor,
     package (ops/nms.py:121)."""
     span = boxes.max() + 1.0
     return boxes + classes.to(boxes.dtype)[..., None] * span
+
+
+def matrix_nms_masks(mask_ious: torch.Tensor, labels: torch.Tensor,
+                     scores: torch.Tensor, kernel: str = "gaussian",
+                     sigma: float = 2.0) -> torch.Tensor:
+    """SOLOv2's matrix NMS (JAX :230): every score decayed at once from the
+    pairwise mask IoUs [N, N] of candidates sorted by descending score, by
+    the same-class IoUs with higher-scored candidates, compensated by each
+    suppressor's own largest such IoU; ``kernel`` "gaussian"
+    (``exp(-sigma iou^2)``) or else linear. Returns the decayed scores
+    [N]. Leading batch axes ([..., N, N], [..., N]) go through as they
+    are."""
+    n = scores.shape[-1]
+    same_class = labels[..., :, None] == labels[..., None, :]
+    upper = torch.ones((n, n), dtype=torch.bool,
+                       device=scores.device).triu(1)
+    decay_iou = torch.where(same_class & upper, mask_ious, 0.0)
+    compensate = decay_iou.amax(-2)
+    if kernel == "gaussian":
+        decay = torch.exp(-sigma * decay_iou ** 2)
+        comp = torch.exp(-sigma * compensate ** 2)
+        coef = (decay / comp[..., :, None]).amin(-2)
+    else:
+        coef = ((1.0 - decay_iou)
+                / (1.0 - compensate[..., :, None] + 1e-9)).amin(-2)
+    return scores * coef

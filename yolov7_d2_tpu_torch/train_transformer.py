@@ -1,5 +1,7 @@
 """DETR-family training CLI of the port (the JAX package's
-``train_transformer.py``): DETR and AnchorDETR.
+``train_transformer.py``): DETR, AnchorDETR, the other variants and
+DetrSegm, whose mask terms the CLI does not train (the mapper gives no
+masks, as the JAX script's ``DetrDatasetMapper`` gives none).
 
     python -m yolov7_d2_tpu_torch.train_transformer \
         --config-file configs/coco/detr/detr_256_6_6_r50.yaml \

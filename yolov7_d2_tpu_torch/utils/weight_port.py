@@ -42,6 +42,18 @@ block's path), RegNet and FBNet the flax ones (``map_flax_named_torch_name``).
 SMCA-DETR, DAB-DETR and the d2go DETR (``map_detr_variant_torch_name``)
 take their backbone's map and the flax names of their transformers, heads,
 ``cs_head`` and per-level ``dec_norm_{i}``.
+A deformable convolution's fuse weight keeps torch's ``[O, C, K, K]``
+(detectron2's and the reference DLA's ``ModulatedDeformConv``); the JAX
+package's is the 1x1 kernel over the taps ``[1, 1, K*K*C, O]``, tap-major
+(``dcn_weight_to_flax`` / ``dcn_weight_from_flax``, the layout of the JAX
+``port_dla_state_dict``). A ResNet DCN block keeps the flax names
+(``conv2_dcn``, its ``offset_conv``, ``conv2_bn``). DLA
+(``map_dla_torch_name``, a copy of the JAX map, in :data:`BACKBONE_MAPS`)
+keeps the reference's names; its ``up_*`` grouped transposed convolutions
+take the JAX ``BilinearUp`` kernel [k, k, 1, C] flipped spatially
+(``depthwise_up_from_flax``). SOLOv2 (``map_solov2_torch_name``: the JAX
+package's head maps), YOLOMask (``map_yolomask_torch_name``) and DETRsegm
+(``map_detr_segm_torch_name``) map by prefix.
 The flax tree is nested dicts of numpy arrays, so no JAX is needed here.
 """
 
@@ -259,11 +271,21 @@ def map_d2_resnet_name(name: str) -> Tuple[str, ...]:
 def map_resnet_torch_name(name: str, vd: bool = False) -> Tuple[str, ...]:
     """A key of the port's ResNet (``models/backbones/resnet.py``, under
     ``backbone.``) -> the flax path: :func:`map_d2_resnet_name`, except the
-    vd stem, whose ``stem.conv{k}`` are the flax ``stem{k}``."""
+    vd stem, whose ``stem.conv{k}`` are the flax ``stem{k}``, and a DCN
+    block's ``conv2_dcn`` (the fuse, ``.offset_conv``) and ``conv2_bn``,
+    which keep the flax names (``conv2_dcn/weight``,
+    ``conv2_dcn/offset_conv``, ``conv2_bn``)."""
     m = re.match(r"^backbone\.stem\.conv(\d)(\.norm)?$", name)
     if vd and m:
         return ("backbone", f"stem{m.group(1)}",
                 "bn" if m.group(2) else "conv")
+    m = re.match(r"^backbone\.res(\d)\.(\d+)\.(conv2_dcn|conv2_bn)"
+                 r"(\.offset_conv)?$", name)
+    if m:
+        stage, idx, part, offset = m.groups()
+        leaf = (("offset_conv",) if offset else ("weight",)) \
+            if part == "conv2_dcn" else ()
+        return ("backbone", f"res{stage}_{idx}", part) + leaf
     return map_d2_resnet_name(name)
 
 
@@ -767,6 +789,168 @@ def map_efficientnet_torch_name(name: str) -> Tuple[str, ...]:
     return tuple(name.replace(".", "/").split("/"))
 
 
+def _map_dla_block_inner(rest: str, block: str = "basic"
+                         ) -> Tuple[str, ...]:
+    """Names inside a DLA tree leaf: the basic block's flat
+    ``conv1/bn1/conv2/bn2``; the bottleneck's ``conv1`` and ``conv3`` in
+    ConvBN around a raw middle conv; a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:813``."""
+    if block == "basic":
+        return (rest,)
+    table = {
+        "conv1": ("conv1", "conv"), "bn1": ("conv1", "bn"),
+        "conv2": ("conv2",), "bn2": ("bn2",),
+        "conv3": ("conv3", "conv"), "bn3": ("conv3", "bn"),
+    }
+    if rest in table:
+        return table[rest]
+    return tuple(rest.split("."))
+
+
+def map_dla_torch_name(name: str, block: str = "basic") -> Tuple[str, ...]:
+    """Reference DLA / DLASeg module names (the port's ``models/backbones/
+    dla.py``) -> the JAX flax paths: ``base_layer.{0,1}`` -> ``base/{conv,
+    bn}``, ``level{0,1}.{3c,3c+1}`` -> ``level{0,1}_{c}/{conv,bn}``, the
+    trees structurally (``project.{0,1}`` -> ``project/{conv,bn}``,
+    ``root.{conv,bn}`` -> ``root/conv/{conv,bn}``), the decoders'
+    ``proj_{j}`` / ``node_{j}`` ``offset`` -> ``dcn/offset_conv``,
+    ``conv`` -> ``dcn/weight``, ``actf.0`` -> ``bn``, and ``up_{j}``; a
+    ``base.`` prefix (DLASeg) is kept. A copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:829``."""
+    parts = name.split(".")
+    out = []
+    i = 0
+    if parts[0] == "base":
+        out.append("base")
+        i = 1
+    if i < len(parts) and parts[i] == "base_layer":
+        idx = int(parts[i + 1])
+        return tuple(out + ["base", {0: "conv", 1: "bn"}[idx]])
+    if i < len(parts) and re.match(r"^level[01]$", parts[i]):
+        lvl = parts[i]
+        idx = int(parts[i + 1])
+        return tuple(out + [f"{lvl}_{idx // 3}",
+                            {0: "conv", 1: "bn"}[idx % 3]])
+    if i < len(parts) and re.match(r"^level[2-5]$", parts[i]):
+        out.append(parts[i])
+        i += 1
+        while i < len(parts):
+            p = parts[i]
+            if p in ("tree1", "tree2"):
+                nxt = parts[i + 1] if i + 1 < len(parts) else ""
+                if nxt in ("conv1", "bn1", "conv2", "bn2", "conv3", "bn3"):
+                    out.append(p)
+                    out.extend(_map_dla_block_inner(nxt, block))
+                    return tuple(out)
+                out.append(p)
+                i += 1
+                continue
+            if p == "project":
+                j = int(parts[i + 1])
+                return tuple(out + ["project", {0: "conv", 1: "bn"}[j]])
+            if p == "root":
+                leaf = parts[i + 1]
+                return tuple(out + ["root", "conv",
+                                    {"conv": "conv", "bn": "bn"}[leaf]])
+            out.append(p)
+            i += 1
+        return tuple(out)
+    if parts[i] in ("dla_up", "ida_up"):
+        out.append(parts[i])
+        i += 1
+        if parts[i].startswith("ida_"):
+            out.append(parts[i])
+            i += 1
+        p = parts[i]
+        m = re.match(r"^(proj|node)_(\d+)$", p)
+        if m:
+            sub = parts[i + 1]
+            if sub == "offset":
+                return tuple(out + [p, "dcn", "offset_conv"])
+            if sub == "conv":
+                return tuple(out + [p, "dcn", "weight"])
+            if sub == "actf":
+                return tuple(out + [p, "bn"])
+        m = re.match(r"^up_(\d+)$", p)
+        if m:
+            return tuple(out + [p])
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_solov2_ins_torch_name(name: str, use_dcn: bool = False,
+                              num_convs: int = 4) -> Tuple[str, ...]:
+    """Reference ``SOLOv2InsHead`` keys -> the JAX head's flax names:
+    ``{cate,kernel}_tower.{3i}`` (conv) / ``.{3i+1}`` (GN) ->
+    ``{kind}_conv_{i}`` / ``{kind}_gn_{i}``; with ``use_dcn`` the last
+    tower conv is the deformable ``{kind}_dcn_{i}`` (its fuse ``weight``,
+    its ``offset_conv``). A copy of ``yolov7_d2_tpu/utils/weight_port.py:
+    1099`` with the DCN towers added."""
+    m = re.match(r"^(cate|kernel)_tower\.(\d+)(\.offset_conv)?$", name)
+    if m:
+        kind, idx, offset = m.group(1), int(m.group(2)), m.group(3)
+        i, j = idx // 3, idx % 3
+        if j == 0 and use_dcn and i == num_convs - 1:
+            return (f"{kind}_dcn_{i}",
+                    "offset_conv" if offset else "weight")
+        return (f"{kind}_{'conv' if j == 0 else 'gn'}_{i}",)
+    if name in ("cate_pred", "kernel_pred"):
+        return (name,)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_solov2_mask_torch_name(name: str) -> Tuple[str, ...]:
+    """Reference ``SOLOv2MaskHead`` keys -> the JAX head's flax names:
+    ``convs_all_levels.{i}.conv{j}.{0,1}`` -> ``l{i}_c{j}_{conv,gn}``,
+    ``conv_pred.{0,1}`` -> ``pred_{conv,gn}``; a copy of
+    ``yolov7_d2_tpu/utils/weight_port.py:1114``."""
+    m = re.match(r"^convs_all_levels\.(\d+)\.conv(\d+)\.(\d)$", name)
+    if m:
+        i, j, k = m.groups()
+        return (f"l{i}_c{j}_{'conv' if k == '0' else 'gn'}",)
+    m = re.match(r"^conv_pred\.(\d)$", name)
+    if m:
+        return (f"pred_{'conv' if m.group(1) == '0' else 'gn'}",)
+    return tuple(name.replace(".", "/").split("/"))
+
+
+def map_solov2_torch_name(name: str, use_dcn: bool = False
+                          ) -> Tuple[str, ...]:
+    """A key of the port's ``SOLOv2`` -> the flax path of the JAX model, by
+    prefix: ``backbone.`` through :func:`map_d2_resnet_name`, ``fpn.`` by
+    its flax names, ``ins_head.`` and ``mask_head.`` through the two
+    SOLOv2 maps."""
+    prefix, _, rest = name.partition(".")
+    if prefix == "ins_head":
+        return ("ins_head",) + map_solov2_ins_torch_name(rest, use_dcn)
+    if prefix == "mask_head":
+        return ("mask_head",) + map_solov2_mask_torch_name(rest)
+    if prefix == "fpn":
+        return tuple(name.split("."))
+    return map_resnet_torch_name(name)
+
+
+def map_yolomask_torch_name(name: str) -> Tuple[str, ...]:
+    """A key of the port's ``YOLOMask`` -> the flax path of the JAX model:
+    ``detector.`` through :func:`map_anchor_yolo_torch_name` on
+    CSP-Darknet53, ``orien.`` (the orientation head's ``lat4``, ``lat5``,
+    ``conv1``, ``conv2`` BaseConvs and ``orien_pred``) by its flax names."""
+    prefix, _, rest = name.partition(".")
+    if prefix == "detector":
+        return ("detector",) + map_anchor_yolo_torch_name(
+            rest, backbone_type="cspdarknet53")
+    return tuple(name.split("."))
+
+
+def map_detr_segm_torch_name(name: str) -> Tuple[str, ...]:
+    """A key of the port's ``DETRsegm`` -> the flax path of the JAX model:
+    ``bbox_attention.`` (``q_proj``, ``k_proj``) and ``mask_head.``
+    (``lay{i}``, ``gn{i}``, ``out_lay``) by their flax names, the rest
+    through :func:`map_detr_torch_name`."""
+    if name.startswith(("bbox_attention.", "mask_head.")):
+        return tuple(name.split("."))
+    return map_detr_torch_name(name)
+
+
 def map_flax_named_torch_name(name: str) -> Tuple[str, ...]:
     """A module of the flax name (RegNet, FBNet: the JAX package has no
     reference map for them) -> its path: dots to path parts."""
@@ -780,7 +964,8 @@ BACKBONE_MAPS = {"swin": map_swin_torch_name,
                  "convnext": map_convnext_torch_name,
                  "efficientnet": map_efficientnet_torch_name,
                  "regnet": map_flax_named_torch_name,
-                 "fbnet": map_flax_named_torch_name}
+                 "fbnet": map_flax_named_torch_name,
+                 "dla": map_dla_torch_name}
 
 # Swin's PatchMerging: the reference concatenates the 2x2 neighbours as
 # [x0; x1; x2; x3] with x1 = (row + 1, col), x2 = (row, col + 1); the flax
@@ -814,6 +999,32 @@ def map_yolox_kpts_torch_name(name: str,
 _QKV = ("query", "key", "value")
 # the transposed convolutions of the port (RepPAN's upsamples)
 _CONV_TRANSPOSE = re.compile(r"(^|\.)upsample_transpose$")
+# the depthwise transposed convolutions (DLA's bilinear upsamples)
+_DEPTHWISE_UP = re.compile(r"(^|\.)up_\d+$")
+
+
+def dcn_weight_to_flax(weight: np.ndarray) -> np.ndarray:
+    """A deformable convolution's fuse weight, torch's ``[O, C, K, K]``
+    (the port's, detectron2's and the reference DLA's), -> the JAX
+    package's 1x1 kernel over the taps ``[1, 1, K*K*C, O]``, tap-major
+    rows (tap t = ky K + kx), as the JAX ``port_dla_state_dict`` does."""
+    w = np.asarray(weight)
+    o, c, kh, kw = w.shape
+    return np.transpose(w, (2, 3, 1, 0)).reshape(1, 1, kh * kw * c, o)
+
+
+def dcn_weight_from_flax(kernel: np.ndarray, k: int) -> np.ndarray:
+    """The inverse of :func:`dcn_weight_to_flax` for a K x K kernel."""
+    kern = np.asarray(kernel)
+    o = kern.shape[-1]
+    return np.transpose(kern.reshape(k, k, -1, o), (3, 2, 0, 1))
+
+
+def depthwise_up_from_flax(kernel: np.ndarray) -> np.ndarray:
+    """The JAX ``BilinearUp`` kernel [k, k, 1, C] (a cross-correlation on
+    the dilated input) -> the grouped ``ConvTranspose2d`` weight [C, 1, k,
+    k] that computes the same map: spatially flipped."""
+    return np.transpose(np.asarray(kernel)[::-1, ::-1], (3, 2, 0, 1))
 
 
 def conv_transpose_from_flax(kernel: np.ndarray) -> np.ndarray:
@@ -906,6 +1117,11 @@ def jax_to_torch_state_dict(
                 value = value.reshape(-1, value.shape[-1]).T
             elif _CONV_TRANSPOSE.search(module):
                 value = conv_transpose_from_flax(value)
+            elif _DEPTHWISE_UP.search(module):
+                value = depthwise_up_from_flax(value)
+            elif value.shape[:2] == (1, 1) and tuple(ref.shape[2:]) != (1, 1):
+                # a deformable convolution's 1x1 fuse over its K*K taps
+                value = dcn_weight_from_flax(value, ref.shape[-1])
             else:
                 value = np.transpose(value, (3, 2, 0, 1))
         if _SWIN_MERGE.search(module):
