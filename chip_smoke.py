@@ -7,8 +7,9 @@ and eval, of the one-stage box detectors' (YOLOv5, YOLOv6, YOLOF, BiFPN
 and PAN necks), of YOLOV7 on Res2Net, of the backbone zoo (RegNet,
 ConvNeXt, EfficientNet, FBNet) and of SMCA-DETR, DAB-DETR and the d2go
 DETR serving and training, of SparseInst R-50-DCN, YOLOX on DLA, SOLOv2,
-YOLOMask and DetrSegm serving and training, and of the repeatability of a
-training step, on one CUDA card.
+YOLOMask and DetrSegm serving and training, of LazyConfig, Mask R-CNN,
+Faster R-CNN and Panoptic FPN serving and training, and of the
+repeatability of a training step, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -222,7 +223,33 @@ set to 0 just before it and read just after:
   2 steps), the kernel path's ``Detections`` equal to the plain path's on
   each. Its launches are added to the normalize, normalize_608,
   normalize_sparseinst, normalize_detr, NMS, GridMask and grid_mask_u8
-  entries; it logs its seconds.
+  entries; it logs its seconds;
+* LazyConfig and the R-CNN family (section 21, ``rcnn_phase``): (a) Mask
+  R-CNN R-50-FPN from ``configs/new_baselines/
+  mask_rcnn_R_50_FPN_100ep_LSJ.py`` (the port's ``LazyConfig.load`` and
+  ``instantiate``, bf16) at the file's 1024: the normalize kernel at
+  detectron2's BGR statistics on [128,1024,1024,3], bit-exact (the
+  ``normalize_rcnn`` entry), and the NMS kernel's 2048 instance on the
+  RPN's [128,1280] candidates of one forward, index-exact (``nms_rpn``);
+  serving at 1, 8 and 128 images (the normalize kernel, the RPN's NMS, the
+  tail's class-aware NMS), both NMS calls against the plain version at
+  128, times and the busy share; f32 against the CPU at 512 px; 6 steps of
+  16 through ``build_system`` (sampled mode, GTs on the serving
+  proposals: a box and a mask term on the first step, weights moved,
+  FrozenBN statistics unmoved); one f32 step in expectation mode against
+  the CPU within 1e-3; (b) Panoptic FPN from ``panoptic_fpn_regnetx_0.4g.
+  py`` at 640: serving, ``combine_semantic_and_instance`` on one image, 6
+  steps of 16 with ``gt_sem_seg``; (c) each of the other 16 LazyConfig
+  files loaded, its model instantiated and served one request of 2 and
+  one ``build_system`` step of its architecture, and FasterRCNN through
+  the CfgNode; (d) ``lazyconfig_train_net`` on ``yolox_s_lazy.py`` for 4
+  steps of 16 at 640 with a checkpoint, ``--resume`` for 2 more, and
+  ``demo_lazyconfig`` on two mini-COCO JPEGs; (e) the float32 steps of
+  SparseInst R-50-DCN (608, 4 images) and of Mask R-CNN (expectation, 4
+  images at 256) twice each with cuDNN deterministic: bitwise equal (the
+  DCN's fixed-order backward), or for Mask R-CNN the first difference a
+  library module's. Its launches go to ``normalize_rcnn`` and
+  ``nms_rpn``; it logs its seconds.
 
 ``python3 chip_smoke.py --nccl`` runs (c) of sections 10 and 17 alone, on a
 machine of 2 or more cards.
@@ -236,6 +263,7 @@ run without a CUDA card or outside the repository.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -4853,6 +4881,773 @@ def mask_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     log(f"(20) section 20 in {time.perf_counter() - t0:.1f} s on [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# section 21: LazyConfig and the R-CNN family
+# ---------------------------------------------------------------------------
+
+CONFIGS = os.path.join(REPO, "configs")
+RCNN_LSJ = "new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py"  # under configs
+PANOPTIC_FILE = "new_baselines/panoptic_fpn_regnetx_0.4g.py"
+PANOPTIC_SIZE = 640  # do_train's default input size: the file names none
+YOLOX_LAZY = "common/yolox_s_lazy.py"
+RCNN_STEPS = 6  # the (a) and (b) steps of 16: 3 warm-up, 3 timed
+RCNN_GT_SLOTS = 20
+
+
+def lazy_files() -> list:
+    """The 18 LazyConfig files, relative to ``configs/``."""
+    out = []
+    for sub in ("common", "new_baselines"):
+        for root, _, files in os.walk(os.path.join(CONFIGS, sub)):
+            out += [os.path.relpath(os.path.join(root, f), CONFIGS)
+                    for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def lazy_rcnn_model(name: str, dev, dtype=torch.bfloat16, seed: int = SEED):
+    """``configs/<name>`` loaded with the port's ``LazyConfig``, its model
+    instantiated in ``dtype`` with weights from ``seed`` (as the
+    builders draw them), on ``dev``, eval mode -> (model, loaded config)."""
+    from yolov7_d2_tpu_torch.config.lazy import LazyConfig, instantiate
+    from yolov7_d2_tpu_torch.models.build import init_weights_
+
+    cfg = LazyConfig.load(os.path.join(CONFIGS, name))
+    cfg["model"]["dtype"] = dtype
+    model = instantiate(cfg["model"])
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    model = model.to(device=dev, memory_format=torch.channels_last)
+    return model.eval(), cfg
+
+
+def rcnn_train_cfg(name: str, size: int, **opts):
+    """The merged ``CfgNode`` that ``build_system`` trains the model of
+    ``configs/<name>`` from: its architecture (``MaskRCNN`` or
+    ``PanopticFPN``), the file's model arguments, ``size``, bf16, the
+    default sampled mode; ``opts`` (keys with dots) override."""
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+    from yolov7_d2_tpu_torch.config.lazy import LazyConfig
+
+    model = LazyConfig.load(os.path.join(CONFIGS, name))["model"]
+    arch = {"MaskRCNN": "MaskRCNN", "PanopticFPNShared": "PanopticFPN"}[
+        model["_target_"].__name__]
+    pairs = {"MODEL.META_ARCHITECTURE": arch,
+             "MODEL.ROI_HEADS.NUM_CLASSES": model.get("num_classes", 80),
+             "MODEL.RESNETS.DEPTH": model.get("resnet_depth", 50),
+             "MODEL.FPN.OUT_CHANNELS": model.get("fpn_channels", 256),
+             "MODEL.MASK_ON": model.get("mask_on", True),
+             "MODEL.SEM_SEG_HEAD.NUM_CLASSES": model.get("sem_seg_classes",
+                                                         54),
+             "MODEL.RPN.POST_NMS_TOPK": model.get("num_proposals", 128),
+             "INPUT.INPUT_SIZE": [size, size], "SOLVER.AMP.ENABLED": True,
+             **opts}
+    cfg = get_cfg()
+    for k, v in pairs.items():
+        cfg.merge_from_list([k, v if isinstance(v, str) else repr(v)])
+    return cfg
+
+
+def rcnn_batch(n: int, gen: torch.Generator, dev, size: int, model,
+               fields, slots: int = RCNN_GT_SLOTS) -> dict:
+    """A training batch of the R-CNN family: uint8 letterboxed images [n,
+    size, size, 3]; ``slots`` GT slots an image, 6-14 valid: the first 6
+    a few pixels off 6 of ``model``'s serving proposals on these images
+    (the step's first proposals, so that some are foreground), the rest
+    random boxes of 16 px to half the image; classes; with ``gt_masks``,
+    each box's rectangle less its top-left quarter (uint8 [n, slots, size,
+    size]); with ``gt_sem_seg``, 64 px blocks of the stuff classes and the
+    ignore label (int32 [n, size, size])."""
+    images = letterboxed_batch(n, gen, size).to(dev)
+    with torch.inference_mode():
+        props = model(images)["proposals"].float()
+    xy = torch.rand((n, slots, 2), generator=gen) * (size - 16)
+    wh = 16 + torch.rand((n, slots, 2), generator=gen) * (size // 2 - 16)
+    boxes = torch.cat([xy, (xy + wh).clamp(max=size)], -1).to(dev)
+    # a twentieth of the proposal's side at most off each edge: IoU > 0.8
+    side = (props[:, :6, 2:] - props[:, :6, :2]).repeat(1, 1, 2)
+    jitter = (torch.rand((n, 6, 4), generator=gen) * 0.1 - 0.05).to(dev)
+    boxes[:, :6] = (props[:, :6] + jitter * side).clamp(0, size)
+    count = torch.randint(6, 15, (n, 1), generator=gen)
+    valid = (torch.arange(slots)[None] < count).to(dev)
+    boxes = boxes * valid[..., None]
+    classes = model.num_classes if hasattr(model, "num_classes") else 80
+    batch = {"image": images, "gt_boxes": boxes, "gt_valid": valid,
+             "gt_classes": (torch.randint(0, classes, (n, slots),
+                                          generator=gen).to(dev)
+                            * valid).to(torch.int32)}
+    if "gt_masks" in fields:
+        grid = torch.arange(size, device=dev, dtype=torch.float32)
+        x0, y0, x1, y1 = boxes.unbind(-1)
+        inside_y = ((grid >= y0[..., None]) & (grid < y1[..., None]))
+        inside_x = ((grid >= x0[..., None]) & (grid < x1[..., None]))
+        corner_y = grid < ((y0 + y1) / 2)[..., None]
+        corner_x = grid < ((x0 + x1) / 2)[..., None]
+        masks = (inside_y[..., :, None] & inside_x[..., None, :]
+                 & ~(corner_y[..., :, None] & corner_x[..., None, :]))
+        batch["gt_masks"] = masks.to(torch.uint8)
+    if "gt_sem_seg" in fields:
+        stuff = model.sem_seg_classes
+        grid = torch.arange(size, device=dev) // 64
+        batch["gt_sem_seg"] = ((grid[:, None] * 7 + grid[None, :] * 3)
+                               % (stuff + 1)).to(torch.int32).expand(
+            n, size, size).contiguous()
+    return batch
+
+
+def rpn_instance(model, size: int) -> str:
+    """The launch count of the NMS kernel instance that takes the RPN's
+    candidates at ``size``: 5 levels of min(``pre_nms_topk``, 3 anchors a
+    cell), 1280 at 1024 and 640 px (the 2048 instance)."""
+    rcnn = getattr(model, "rcnn", model)
+    cand = sum(min(rcnn.pre_nms_topk, 3 * math.ceil(size / s) ** 2)
+               for s in (4, 8, 16, 32, 64))
+    return "nms" if cand <= 1024 else "nms_2048"
+
+
+def rcnn_serve(model, images, nms=None):
+    """uint8 batch -> the normalize kernel and the model (the RPN's NMS
+    kernel) -> ``mask_rcnn_postprocess`` (the tail's NMS kernel); ``nms``
+    replaces both NMS calls (the plain version)."""
+    from yolov7_d2_tpu_torch.models.meta_arch import mask_rcnn as mr
+
+    kernel = mr.nms_batched
+    if nms is not None:
+        mr.nms_batched = nms
+    try:
+        with torch.inference_mode():
+            out = model(images)
+            return out, mr.mask_rcnn_postprocess(out, nms=nms or kernel)
+    finally:
+        mr.nms_batched = kernel
+
+
+def serving_launches(model, size: int, requests: int) -> dict:
+    """A request's launches: the normalize kernel, the RPN's NMS and the
+    tail's (the 1024 instance)."""
+    launches = collections.Counter(normalize=requests, nms=requests)
+    launches[rpn_instance(model, size)] += requests
+    return dict(launches)
+
+
+def check_rcnn_detections(dets, n: int, what: str) -> str:
+    if dets.boxes.shape != (n, 100, 4) or dets.masks is not None:
+        raise AssertionError(f"{what}: Detections {tuple(dets.boxes.shape)}"
+                             f", masks {dets.masks is not None}")
+    counts = dets.num_valid()
+    if int(counts.min()) < 1:
+        raise AssertionError(f"{what}: an image with no detection")
+    if not torch.isfinite(dets.boxes[dets.valid]).all():
+        raise AssertionError(f"{what}: non-finite boxes")
+    return f"detections per image {int(counts.min())}-{int(counts.max())}"
+
+
+def rcnn_kernel_entries(kernels: dict, images: torch.Tensor,
+                        rpn: tuple) -> None:
+    """``normalize_rcnn``: the normalize kernel at detectron2's BGR
+    statistics on u8 ``images`` [128, 1024, 1024, 3] into bf16, bit-exact;
+    ``nms_rpn``: the NMS kernel's 2048 instance on the RPN's candidates of
+    one bs-128 forward (``rpn`` = boxes [128, 1280, 4], scores), class
+    agnostic at 0.7 to 128, index-exact. Launches are counted by the
+    paths."""
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched, nms_batched_plain
+    from yolov7_d2_tpu_torch.kernels.preprocess import (
+        normalize_images,
+        normalize_images_plain,
+    )
+    from yolov7_d2_tpu_torch.models.meta_arch import mask_rcnn as mr
+
+    args = (images, mr.PIXEL_MEAN, mr.PIXEL_STD, torch.bfloat16)
+    got, want = normalize_images(*args), normalize_images_plain(*args)
+    torch.cuda.synchronize()
+    if got.stride() != want.stride() or not torch.equal(got, want):
+        raise AssertionError("normalize kernel differs from its plain "
+                             "version at Mask R-CNN's statistics, 1024 px")
+    kernels["normalize_rcnn"] = {
+        "name": "normalize_rcnn", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/preprocess.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_preprocess.py:34",
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": kernel_ms(lambda: normalize_images(*args)),
+        "plain_ms": kernel_ms(lambda: normalize_images_plain(*args),
+                              host_ok="normalize_rcnn plain"),
+        "library_ms": None,  # no one PyTorch call: u8 NHWC -> normalized
+        # u8 read once, bf16 written once; a subtract and a divide each
+        **bound(images.numel() * 3, images.numel() * 2),
+        "launches": 0,
+    }
+    del got, want
+    boxes, scores = rpn
+    got = nms_batched(boxes, scores, 0.7, 128)
+    want = nms_batched_plain(boxes, scores, 0.7, 128)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("NMS kernel differs from its plain version on "
+                             f"the RPN's {tuple(scores.shape)} candidates")
+    kernels["nms_rpn"] = {
+        "name": "nms_rpn", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/nms.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_nms.py:34",
+        "max_abs_err": float((got[0] - want[0]).abs().max()),
+        "ms": kernel_ms(lambda: nms_batched(boxes, scores, 0.7, 128)),
+        "plain_ms": kernel_ms(lambda: nms_batched_plain(boxes, scores, 0.7,
+                                                      128),
+                              host_ok="nms_rpn plain"),
+        "library_ms": None,  # no torchvision: no PyTorch call does NMS
+        # the greedy walk's IoU tests on this data, ~15 float32 operations
+        # each; boxes and scores read once, indices and flags written once
+        **bound((boxes.numel() + scores.numel()) * 4 + got[1].numel() * 5,
+                float(nms_walk_pairs(scores, *got, 128)) * 15),
+        "launches": 0,
+    }
+    log(f"(21a) normalize at Mask R-CNN's statistics on "
+        f"{tuple(images.shape)}: bit-exact; the NMS kernel on the RPN's "
+        f"{tuple(scores.shape)} candidates at 0.7: index-exact, kept "
+        f"{int(got[1].sum(1).min())}-{int(got[1].sum(1).max())} an image")
+
+
+def capture_rpn_inputs(model, images) -> tuple:
+    """The boxes and scores the RPN hands the NMS in one forward."""
+    from yolov7_d2_tpu_torch.models.meta_arch import mask_rcnn as mr
+
+    kernel, seen = mr.nms_batched, []
+
+    def record(boxes, scores, thr, max_out):
+        seen.append((boxes.clone(), scores.clone()))
+        return kernel(boxes, scores, thr, max_out)
+
+    mr.nms_batched = record
+    try:
+        with torch.inference_mode():
+            model(images)
+    finally:
+        mr.nms_batched = kernel
+    return seen[0]
+
+
+def rcnn_serving_times(card: str, name: str, size: int, batches, model,
+                       dev, iters: int = ITERS) -> None:
+    """e2e, forward and tail ms by CUDA events at each request size (3
+    calls after 1 at the largest), the device's busy share of the
+    largest."""
+    from yolov7_d2_tpu_torch.models.meta_arch.mask_rcnn import (
+        mask_rcnn_postprocess,
+    )
+
+    for req in batches:
+        n = req.shape[0]
+        x = req.to(dev)
+        big = n == batches[-1].shape[0]
+        kw = dict(warmup=1, iters=3) if big else dict(iters=iters)
+        e2e = cuda_ms(lambda: rcnn_serve(model, x), **kw)
+        with torch.inference_mode():
+            fwd = cuda_ms(lambda: model(x), **kw)
+            out = model(x)
+            tail = cuda_ms(lambda: mask_rcnn_postprocess(out), **kw)
+        extra = ""
+        if big:
+            busy, window = device_busy_ms(lambda: rcnn_serve(model, x),
+                                          calls=2)
+            extra = (f"; device busy {busy:.3f} ms a call = "
+                     f"{100 * busy / e2e:.1f}% of the untraced call "
+                     f"(traced {window:.3f} ms)")
+        log(f"{name} {size} bs {n} bf16 on [{card}]: e2e {e2e:.3f} ms = "
+            f"{n * 1000 / e2e:.1f} img/s; forward-only {fwd:.3f} ms = "
+            f"{n * 1000 / fwd:.1f} img/s; tail {tail:.3f} ms{extra}")
+        del out, x
+
+
+def rcnn_f32_gap(dev, name: str, size: int, gen: torch.Generator) -> str:
+    """The float32 model of ``configs/<name>`` on the card against the
+    CPU, the same weights and one uint8 image at ``size``: the RPN's
+    outputs within 1e-4 of their max; the proposals, and the box and mask
+    heads' outputs on the proposals both sides kept (a proposal whose IoU
+    with the NMS threshold sits within the sides' rounding may differ)."""
+    images = letterboxed_batch(1, gen, size)
+    outs = []
+    for where in ("cpu", dev):
+        model, _ = lazy_rcnn_model(name, where, torch.float32)
+        with torch.inference_mode():
+            outs.append({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                         for k, v in model(images.to(where)).items()})
+        del model
+    ref, card = outs
+    gaps = []
+
+    def gap(key, r, c):
+        scale = float(r.abs().max())
+        err = float((c.float() - r).abs().max())
+        if err > 1e-4 * max(scale, 1e-6):
+            raise AssertionError(f"{name} {key}: the card differs from the "
+                                 f"CPU by {err} of {scale}")
+        gaps.append(f"{key} {err / max(scale, 1e-6):.3g}")
+
+    for key in ("rpn_obj", "rpn_deltas"):
+        gap(key, ref[key], card[key])
+    same = ((card["proposals"] - ref["proposals"]).abs().amax(-1)
+            <= 1e-3)[0] & ref["proposal_valid"][0]
+    if float(same.float().mean()) < 0.9:
+        raise AssertionError(f"{name}: only {int(same.sum())} proposals "
+                             "the same on the card and the CPU")
+    for key in ("cls_logits", "box_deltas", "mask_logits"):
+        if key in ref:
+            gap(key, ref[key][0][same], card[key][0][same])
+    return (f"f32 card against CPU at {size} px: " + ", ".join(gaps)
+            + f" of the max; {int(same.sum())} of "
+            f"{int(ref['proposal_valid'].sum())} proposals the same")
+
+
+def rcnn_step_gap(dev, name: str, gen: torch.Generator,
+                  size: int = 256) -> str:
+    """One float32 ``build_system`` step (expectation mode, 2 images at
+    ``size``) on the card against the CPU: the loss terms and the gradient
+    norm within 1e-3 relative."""
+    from yolov7_d2_tpu_torch.engine import build_system
+
+    cfg = rcnn_train_cfg(name, size, **{"SOLVER.AMP.ENABLED": False,
+                                        "MODEL.ROI_HEADS.SAMPLE_MODE":
+                                        "expectation"})
+    metrics, batch = {}, None
+    for where in ("cpu", dev):
+        _, state, step, fields = build_system(cfg, device=where, seed=SEED)
+        if batch is None:
+            model, _ = lazy_rcnn_model(name, "cpu", torch.float32)
+            batch = rcnn_batch(2, gen, "cpu", size, model, fields)
+            del model
+        _, m = step(state, {k: v.to(where) for k, v in batch.items()})
+        metrics[str(where)] = {k: float(v) for k, v in m.items()}
+    ref, card = metrics["cpu"], metrics[str(dev)]
+    if not ref["loss_box_reg"] > 0 or not ref["loss_mask"] > 0:
+        raise AssertionError(f"{name} f32 step: no foreground proposal")
+    for k, v in ref.items():
+        if abs(card[k] - v) > 1e-3 * max(abs(v), 1e-6):
+            raise AssertionError(f"{name} f32 step {k}: card {card[k]}, CPU "
+                                 f"{v}")
+    return ("f32 step (expectation, 2 images at "
+            f"{size}) card / CPU: " + ", ".join(
+                f"{k} {card[k]:.6g} / {ref[k]:.6g}" for k in sorted(ref)))
+
+
+def rcnn_train_path(dev, card: str, gen: torch.Generator, kernels: dict,
+                    name: str, size: int, serving_model, train_n: int,
+                    steps: int, label: str) -> None:
+    """``steps`` ``build_system`` steps of ``train_n`` images at ``size``
+    (bf16, sampled mode) of ``configs/<name>``'s architecture: finite
+    losses, foreground proposals on the first step (a box and a mask
+    term), weights moved and FrozenBN statistics not, ms a step, peak
+    memory; the launches go into ``normalize_rcnn`` and ``nms_rpn``."""
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.models.backbones.resnet import (
+        frozen_bn_buffers,
+    )
+
+    cfg = rcnn_train_cfg(name, size)
+    _, state, train_step, fields = build_system(cfg, device=dev, seed=SEED)
+    batches = [rcnn_batch(train_n, gen, dev, size, serving_model, fields)
+               for _ in range(2)]
+    frozen = [b.clone() for b in frozen_bn_buffers(state.model)]
+    before = [p.detach().clone() for p in state.model.parameters()]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    state, metrics, step_ms, peak = timed_steps(state, train_step, batches,
+                                                steps)
+    launches = dict(build.LAUNCHES)
+    rpn = rpn_instance(state.model, size)
+    if launches != {"normalize": steps, rpn: steps}:
+        raise AssertionError(f"{label} training launches {launches}")
+    kernels["normalize_rcnn"]["launches"] += launches["normalize"]
+    kernels["nms_rpn"]["launches"] += launches.get("nms_2048", 0)
+    keys = ["loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg",
+            "total_loss", "grad_norm"]
+    keys += [k for k in ("loss_mask", "loss_sem_seg") if k in metrics[0]]
+    check_finite(metrics, keys, label)
+    first = metrics[0]
+    if not float(first["loss_box_reg"]) > 0 or not float(
+            first.get("loss_mask", 1.0)) > 0:
+        raise AssertionError(f"{label}: no foreground proposal on the first "
+                             "step")
+    if all(torch.equal(a, b.detach())
+           for a, b in zip(before, state.model.parameters())):
+        raise AssertionError(f"{label} training moved no parameter")
+    if not all(torch.equal(a, b)
+               for a, b in zip(frozen, frozen_bn_buffers(state.model))):
+        raise AssertionError(f"{label} training moved FrozenBN statistics")
+    log(f"{label} train step bs {train_n} bf16 on [{card}], sampled mode: "
+        f"{step_ms:.3f} ms a step = {train_n * 1000 / step_ms:.1f} img/s "
+        f"(host clock over {steps - steps // 2} steps after {steps // 2}, "
+        f"batches on the card); peak memory {peak:.3f} GB; fields {fields}; "
+        "first step " + ", ".join(f"{k} {float(first[k]):.4f}"
+                                  for k in keys)
+        + f"; total loss -> {float(metrics[-1]['total_loss']):.4f}; weights "
+        f"moved, FrozenBN statistics did not; launches {launches}")
+    del state, train_step, batches, metrics, before, frozen
+    torch.cuda.empty_cache()
+
+
+def mask_rcnn_paths(dev, card: str, gen: torch.Generator, kernels: dict,
+                    requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+                    steps: int = RCNN_STEPS, small: int = 512,
+                    step_px: int = 256, size=None) -> None:
+    """(21a) Mask R-CNN R-50-FPN from ``configs/new_baselines/
+    mask_rcnn_R_50_FPN_100ep_LSJ.py`` (the port's ``LazyConfig`` and
+    ``instantiate``) at its ``train.input_size``: the kernel entries,
+    serving at each request size (K2, the model with the RPN's NMS, the
+    tail's NMS), the kernel path against the plain one, times and the busy
+    share, f32 card against CPU at ``small`` px; the step of ``train_n``
+    through ``build_system``; one f32 step card against CPU. ``size``
+    replaces the file's size (a rehearsal's)."""
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
+
+    model, lazy = lazy_rcnn_model(RCNN_LSJ, dev)
+    size = size or int(lazy["train"]["input_size"][0])
+    log(f"(21a) Mask R-CNN R-50-FPN {size} from {RCNN_LSJ}: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f} M "
+        f"parameters, {model.dtype}, masks {model.mask_on}, "
+        f"{model.num_proposals} proposals, {model.pre_nms_topk} candidates "
+        "a level")
+    batches = [letterboxed_batch(n, gen, size) for n in requests]
+    big = batches[-1].to(dev)
+    rcnn_kernel_entries(kernels, big, capture_rpn_inputs(model, big))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for req in batches:
+        _, dets = rcnn_serve(model, req.to(dev))
+        log(f"(21a) request bs {req.shape[0]}: " + check_rcnn_detections(
+            dets, req.shape[0], "Mask R-CNN serving"))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if launches != serving_launches(model, size, len(requests)):
+        raise AssertionError(f"Mask R-CNN serving launches {launches}")
+    kernels["normalize_rcnn"]["launches"] += launches["normalize"]
+    kernels["nms_rpn"]["launches"] += launches.get("nms_2048", 0)
+    _, with_kernel = rcnn_serve(model, big)
+    _, with_plain = rcnn_serve(model, big, nms=nms_batched_plain)
+    equal_detections(with_kernel, with_plain, "Mask R-CNN bs "
+                     f"{big.shape[0]}", fields=("valid", "classes", "boxes",
+                                                "scores"))
+    log(f"(21a) bs {big.shape[0]}: the kernel path's Detections equal the "
+        f"plain path's (both NMS calls plain); launches {launches}")
+    del big, with_kernel, with_plain, dets
+    rcnn_serving_times(card, "Mask R-CNN R-50-FPN", size, batches, model,
+                       dev)
+    del batches
+    torch.cuda.empty_cache()
+    log("(21a) Mask R-CNN " + rcnn_f32_gap(dev, RCNN_LSJ, small, gen))
+    rcnn_train_path(dev, card, gen, kernels, RCNN_LSJ, size, model, train_n,
+                    steps, f"(21a) Mask R-CNN R-50-FPN {size}")
+    del model
+    torch.cuda.empty_cache()
+    log("(21a) Mask R-CNN " + rcnn_step_gap(dev, RCNN_LSJ, gen, step_px))
+
+
+def panoptic_paths(dev, card: str, gen: torch.Generator, kernels: dict,
+                   requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+                   steps: int = RCNN_STEPS,
+                   size: int = PANOPTIC_SIZE) -> None:
+    """(21b) Panoptic FPN from ``configs/new_baselines/
+    panoptic_fpn_regnetx_0.4g.py`` (R-50 FPN whatever the name says,
+    ROADMAP.md C.40) at ``size``: serving at each request size, the
+    semantic logits finite, times; ``combine_semantic_and_instance`` on one
+    image's outputs (the detections carry no masks, C.41; stuff regions of
+    100 px or more, as the JAX test drives it); the step of
+    ``train_n`` with ``gt_sem_seg``."""
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.models.meta_arch.panoptic_fpn import (
+        combine_semantic_and_instance,
+    )
+    from yolov7_d2_tpu_torch.structures.instances import Detections
+
+    model, _ = lazy_rcnn_model(PANOPTIC_FILE, dev)
+    log(f"(21b) Panoptic FPN {size} from {PANOPTIC_FILE}: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f} M "
+        f"parameters, {model.sem_seg_classes} stuff classes")
+    batches = [letterboxed_batch(n, gen, size) for n in requests]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for req in batches:
+        out, dets = rcnn_serve(model, req.to(dev))
+        sem = out["sem_seg_logits"]
+        if sem.shape != (req.shape[0], size // 4, size // 4,
+                         model.sem_seg_classes) or \
+                not torch.isfinite(sem).all():
+            raise AssertionError(f"Panoptic FPN semantic logits "
+                                 f"{tuple(sem.shape)}")
+        log(f"(21b) request bs {req.shape[0]}: " + check_rcnn_detections(
+            dets, req.shape[0], "Panoptic FPN serving"))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if launches != serving_launches(model, size, len(requests)):
+        raise AssertionError(f"Panoptic FPN serving launches {launches}")
+    kernels["normalize_rcnn"]["launches"] += launches["normalize"]
+    kernels["nms_rpn"]["launches"] += launches.get("nms_2048", 0)
+    one = Detections(**{f: getattr(dets, f)[0].cpu() for f in
+                        ("boxes", "scores", "classes", "valid")})
+    # stuff regions of 100 px or more, as the JAX test drives the fusion
+    # (tests/test_mask_rcnn.py:161)
+    pan = combine_semantic_and_instance(sem[0].float().cpu().numpy(), one,
+                                        stuff_area_limit=100)
+    if pan.shape != (size // 4, size // 4) or pan.max() < 1:
+        raise AssertionError(f"panoptic fusion {pan.shape}, max {pan.max()}")
+    log(f"(21b) combine_semantic_and_instance on image 0 of bs "
+        f"{batches[-1].shape[0]}: {len(set(pan.ravel().tolist()) - {0})} "
+        f"segments (stuff only: no masks), {float((pan == 0).mean()):.3f} "
+        f"void; launches {launches}")
+    del out, dets, sem
+    rcnn_serving_times(card, "Panoptic FPN R-50", size, batches, model, dev)
+    del batches
+    rcnn_train_path(dev, card, gen, kernels, PANOPTIC_FILE, size, model,
+                    train_n, steps, f"(21b) Panoptic FPN {size}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def lazy_other_model(name: str, cfg, model, dev, gen, bs: int,
+                     px=None) -> str:
+    """One request of ``bs`` images through ``model`` (from ``configs/
+    <name>``) and its family's tail, and one ``build_system`` step of the
+    architecture at the file's settings (at ``px`` where given, a
+    rehearsal's)."""
+    from yolov7_d2_tpu_torch.config import YoloxConfig
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_postprocess
+
+    kind = type(model).__name__
+    size = px or int((cfg.get("train") or {}).get("input_size", (SIZE,))[0])
+    if kind in ("MaskRCNN", "PanopticFPNShared"):
+        _, dets = rcnn_serve(model, letterboxed_batch(bs, gen, size).to(dev))
+        served = check_rcnn_detections(dets, bs, name)
+        tcfg = rcnn_train_cfg(name, size)
+        _, state, step, fields = build_system(tcfg, device=dev, seed=SEED)
+        batch = rcnn_batch(bs, gen, dev, size, model, fields)
+    elif kind == "YOLOX":
+        with torch.inference_mode():
+            dets = yolox_postprocess(model(letterboxed_batch(bs, gen, size)
+                                           .to(dev)))
+        served = f"detections per image {int(dets.num_valid().min())}"
+        ycfg = YoloxConfig(num_classes=model.num_classes,
+                           depth_mul=cfg["model"]["depth_mul"],
+                           width_mul=cfg["model"]["width_mul"])
+        _, state, step, fields = build_system(ycfg, device=dev, seed=SEED)
+        batch = {k: v.to(dev) for k, v in train_batch(bs, gen,
+                                                      size).items()}
+    elif kind == "DETR":
+        size = px or DETR_SIZE
+        dcfg = detr_cfg(DETR_MODELS[0][1], input_size=(size, size))
+        _, dets = detr_serve(model, dcfg, letterboxed_batch(bs, gen, size)
+                             .to(dev))
+        served = f"detections per image {int(dets.num_valid().min())}"
+        _, state, step, fields = build_system(dcfg, device=dev, seed=SEED)
+        batch = detr_batch(bs, gen, dev, size)
+    elif kind == "SparseInst":
+        scfg = sparseinst_cfg(groups=cfg["model"]["groups"])
+        _, dets = sparseinst_serve(model, scfg, letterboxed_batch(
+            bs, gen, size).to(dev))
+        served = f"instances per image {int(dets.num_valid().min())}"
+        _, state, step, fields = build_system(scfg, device=dev, seed=SEED)
+        batch = inseg_batch(bs, gen, dev, size)
+    else:
+        raise AssertionError(f"{name}: no serving path for {kind}")
+    _, metrics = step(state, batch)
+    if not math.isfinite(float(metrics["total_loss"])):
+        raise AssertionError(f"{name}: total loss {metrics['total_loss']}")
+    return (f"{kind} at {size}: bs {bs} {served}; one step of {bs}: total "
+            f"loss {float(metrics['total_loss']):.4f}, fields {fields}")
+
+
+def lazy_others(dev, card: str, gen: torch.Generator, bs: int = 2,
+                px=None) -> None:
+    """(21c) Each of the other 16 LazyConfig files: loaded, its model
+    instantiated where it has one (bf16, weights from the seed), one
+    request and one ``build_system`` step (:func:`lazy_other_model`); then
+    FasterRCNN through the CfgNode: one request of ``build_model``'s model
+    and one step."""
+    from yolov7_d2_tpu_torch.config import RcnnConfig
+    from yolov7_d2_tpu_torch.config.lazy import LazyConfig, instantiate
+    from yolov7_d2_tpu_torch.engine import build_system, config_from_cfg
+    from yolov7_d2_tpu_torch.models.build import build_model, init_weights_
+
+    others = [f for f in lazy_files() if f not in (RCNN_LSJ, PANOPTIC_FILE)]
+    if len(others) != 16:
+        raise AssertionError(f"LazyConfig files: {others}")
+    for name in others:
+        cfg = LazyConfig.load(os.path.join(CONFIGS, name))
+        if "model" not in cfg:
+            log(f"(21c) {name}: loaded, keys {sorted(cfg)}")
+            continue
+        cfg["model"]["dtype"] = torch.bfloat16
+        model = instantiate(cfg["model"])
+        init_weights_(model, torch.Generator().manual_seed(SEED))
+        model = model.to(device=dev,
+                         memory_format=torch.channels_last).eval()
+        log(f"(21c) {name}: " + lazy_other_model(name, cfg, model, dev, gen,
+                                                  bs, px))
+        del model
+        torch.cuda.empty_cache()
+    size = px or SIZE
+    tcfg = rcnn_train_cfg(RCNN_LSJ, size, **{"MODEL.META_ARCHITECTURE":
+                                             "FasterRCNN"})
+    rcfg = config_from_cfg(tcfg)
+    if not isinstance(rcfg, RcnnConfig) or rcfg.mask_on:
+        raise AssertionError(f"FasterRCNN reads {rcfg}")
+    model = build_model(rcfg, dev, SEED)
+    _, dets = rcnn_serve(model, letterboxed_batch(bs, gen, size).to(dev))
+    served = check_rcnn_detections(dets, bs, "FasterRCNN")
+    _, state, step, fields = build_system(tcfg, device=dev, seed=SEED)
+    _, metrics = step(state, rcnn_batch(bs, gen, dev, size, model, fields))
+    if "loss_mask" in metrics or not math.isfinite(
+            float(metrics["total_loss"])):
+        raise AssertionError(f"FasterRCNN step {metrics}")
+    log(f"(21c) FasterRCNN through the CfgNode at {size}: bs {bs} {served}; "
+        f"one step of {bs}: total loss {float(metrics['total_loss']):.4f}, "
+        f"fields {fields}")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+
+def lazy_entry_points(dev, card: str, images: int = TRAIN_BATCH,
+                      steps: int = 4, size: int = SIZE) -> None:
+    """(21d) ``lazyconfig_train_net`` on ``configs/common/yolox_s_lazy.py``
+    for ``steps`` steps of ``images`` at 640 on the card (its synthetic
+    loader), a checkpoint at the end, then ``--resume`` for 2 more;
+    ``demo_lazyconfig`` on two of the mini-COCO JPEGs."""
+    from yolov7_d2_tpu_torch import demo_lazyconfig, lazyconfig_train_net
+
+    work = os.path.join(REPO, "build", "chip_smoke_lazy")
+    shutil.rmtree(work, ignore_errors=True)
+    config = os.path.join(CONFIGS, YOLOX_LAZY)
+
+    def argv(max_iter, *flags):
+        return ["--config-file", config, "--device", str(dev), *flags,
+                f"train.max_iter={max_iter}",
+                f"train.ims_per_batch={images}",
+                f"train.input_size=({size}, {size})",
+                f"train.output_dir={work}",
+                f"train.checkpointer={{'period': {steps}}}"]
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = lazyconfig_train_net.main(argv(steps))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(os.path.join(work, "ckpt")))
+        if first.state.step != steps or ckpts != [f"ckpt_{steps:08d}.pt"]:
+            raise AssertionError(f"lazyconfig_train_net: step "
+                                 f"{first.state.step}, checkpoints {ckpts}")
+        latest = first.storage.latest()
+        if not math.isfinite(latest["total_loss"]):
+            raise AssertionError(f"lazyconfig_train_net: {latest}")
+        resumed = lazyconfig_train_net.main(argv(steps + 2, "--resume"))
+        if resumed.start_iter != steps or resumed.state.step != steps + 2:
+            raise AssertionError(f"--resume: start {resumed.start_iter}, "
+                                 f"step {resumed.state.step}")
+        log(f"(21d) lazyconfig_train_net {YOLOX_LAZY} on [{card}], {images} "
+            f"images at {size}: {steps} steps in {wall:.2f} s, total loss "
+            f"{latest['total_loss']:.4f}, checkpoint {ckpts[0]}; --resume "
+            f"from step {resumed.start_iter} to {resumed.state.step}, total "
+            f"loss {resumed.storage.latest()['total_loss']:.4f}")
+        del first, resumed
+        _, img_dir = write_mini_coco(work, n=2)
+        jpgs = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+        results = demo_lazyconfig.main(["--config-file", config, "-i", *jpgs,
+                                        "--output", os.path.join(work, "vis"),
+                                        "-c", "0.0", "--input-size",
+                                        str(size), "--device", str(dev)])
+        drawn = sorted(os.listdir(os.path.join(work, "vis")))
+        if len(results) != 2 or len(drawn) != 2:
+            raise AssertionError(f"demo_lazyconfig: {drawn}")
+        log(f"(21d) demo_lazyconfig {YOLOX_LAZY} on two mini-COCO JPEGs: "
+            + ", ".join(f"{int(d.valid.sum())} detections" for _, d in
+                        results) + f", drawn {drawn}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def rcnn_repeat(dev, card: str, gen: torch.Generator, size: int = 256,
+                n: int = 4) -> None:
+    """(21e) C.14 on this slice: the SparseInst R-50-DCN float32 step (608
+    px, 4 images) twice with cuDNN deterministic, bitwise equal (the DCN
+    sampling's fixed-order backward); Mask R-CNN's float32 step
+    (expectation mode, ``n`` images at ``size``) the same: equal, or the
+    first gradient to differ is a library module's (a convolution, a
+    linear layer)."""
+    from torch import nn
+
+    from yolov7_d2_tpu_torch.engine import build_system
+
+    scfg = coco_cfg(DCN_YAML, amp=False)
+    sbatch = inseg_batch(4, gen, dev, scfg.input_size[0])
+
+    def dcn_build():
+        _, state, step, _ = build_system(scfg, device=dev, seed=SEED)
+        return state, step
+
+    with deterministic_library():
+        gaps = repeat_phase(dev, card, "(21e) SparseInst R-50-DCN "
+                            f"{scfg.input_size[0]} float32, cuDNN "
+                            "deterministic", dcn_build, sbatch)
+    if gaps["outputs_differ"] or gaps["params_differ"] or \
+            not gaps["weights_equal"]:
+        raise AssertionError("C.14 SparseInst R-50-DCN: two runs part at "
+                             f"{gaps['output']}")
+    del sbatch
+    tcfg = rcnn_train_cfg(RCNN_LSJ, size, **{
+        "SOLVER.AMP.ENABLED": False,
+        "MODEL.ROI_HEADS.SAMPLE_MODE": "expectation"})
+    model, _ = lazy_rcnn_model(RCNN_LSJ, dev, torch.float32)
+    batch = rcnn_batch(n, gen, dev, size, model, ("gt_masks",))
+    del model
+
+    def rcnn_build():
+        _, state, step, _ = build_system(tcfg, device=dev, seed=SEED)
+        return state, step
+
+    with deterministic_library():
+        gaps = repeat_phase(dev, card, f"(21e) Mask R-CNN {size} float32 "
+                            "expectation, cuDNN deterministic", rcnn_build,
+                            batch)
+    if gaps["outputs_differ"] or gaps["params_differ"] or \
+            not gaps["weights_equal"]:
+        _, state, _, _ = build_system(tcfg, device=dev, seed=SEED)
+        module = gaps["output"].rpartition("[")[0]
+        found = dict(state.model.named_modules()).get(module)
+        if not isinstance(found, (nn.Conv2d, nn.Linear,
+                                  nn.ConvTranspose2d)):
+            raise AssertionError(f"C.14 Mask R-CNN: two runs part at "
+                                 f"{gaps['output']}, not a library kernel")
+        log(f"(21e) Mask R-CNN: the first gradient to differ is "
+            f"{gaps['output']}, a {type(found).__name__} (a library "
+            "kernel)")
+    torch.cuda.empty_cache()
+
+
+def rcnn_phase(dev, card: str, gen: torch.Generator, kernels: dict,
+               requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
+               steps: int = RCNN_STEPS, small: int = 512,
+               step_px: int = 256, others_bs: int = 2,
+               panoptic_size: int = PANOPTIC_SIZE, lazy_images: int =
+               TRAIN_BATCH, repeat_px: int = 256, rcnn_size=None,
+               others_px=None, lazy_px: int = SIZE) -> None:
+    """Section 21: LazyConfig and the R-CNN family, full depth and width,
+    bf16 over f32 weights from ``SEED``: (a) Mask R-CNN R-50-FPN at 1024
+    (:func:`mask_rcnn_paths`), (b) Panoptic FPN at 640
+    (:func:`panoptic_paths`), (c) the other 16 LazyConfig files and Faster
+    R-CNN (:func:`lazy_others`), (d) the two LazyConfig entry points
+    (:func:`lazy_entry_points`), (e) the repeatability of the DCN and Mask
+    R-CNN float32 steps (:func:`rcnn_repeat`). Logs the section's
+    seconds. The sizes past ``repeat_px`` are a rehearsal's."""
+    t0 = time.perf_counter()
+    mask_rcnn_paths(dev, card, gen, kernels, requests, train_n, steps,
+                    small, step_px, rcnn_size)
+    panoptic_paths(dev, card, gen, kernels, requests, train_n, steps,
+                   panoptic_size)
+    lazy_others(dev, card, gen, others_bs, others_px)
+    lazy_entry_points(dev, card, lazy_images, size=lazy_px)
+    rcnn_repeat(dev, card, gen, repeat_px)
+    log(f"(21) section 21 in {time.perf_counter() - t0:.1f} s on [{card}]")
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -5303,7 +6098,14 @@ def main() -> int:
     # yaml they unlock one request and one step (mask_phase)
     mask_phase(dev, card, gen, kernels)
 
-    # ---- 21. times
+    # ---- 21. LazyConfig and the R-CNN family: Mask R-CNN R-50-FPN at 1024
+    # and Panoptic FPN at 640 from their LazyConfig files (serving, card
+    # against CPU, training), the other 16 files and Faster R-CNN one
+    # request and one step each, the two LazyConfig entry points, and the
+    # repeatability of the DCN and Mask R-CNN float32 steps (rcnn_phase)
+    rcnn_phase(dev, card, gen, kernels)
+
+    # ---- 22. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "

@@ -649,3 +649,26 @@ def assert_leaves_match_jax(model, jax_model, mapper, size=128):
     assert sum(p.numel() for p in model.parameters()) == count["params"]
     assert stats == count["batch_stats"]
     return count
+
+
+def rcnn_mini_cfg(get_cfg, arch: str = "MaskRCNN", mask_on: bool = True,
+                  **extra):
+    """The JAX ``tests/test_mask_rcnn.py`` ``_mini_cfg`` (ResNet-18, 64 px,
+    5 classes, 6 stuff classes, 32 candidates a level, 16 proposals) in
+    either package's CfgNode (``get_cfg``); ``extra`` keys with dots,
+    string values."""
+    cfg = get_cfg()
+    cfg.MODEL.META_ARCHITECTURE = arch
+    cfg.MODEL.MASK_ON = mask_on
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
+    cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES = 6
+    cfg.MODEL.RESNETS.DEPTH = 18
+    cfg.MODEL.RPN.PRE_NMS_TOPK = 32
+    cfg.MODEL.RPN.POST_NMS_TOPK = 16
+    cfg.MODEL.YOLO.MAX_BOXES_NUM = 4
+    cfg.INPUT.INPUT_SIZE = [64, 64]
+    cfg.SOLVER.AMP.ENABLED = False
+    cfg.SOLVER.EMA.ENABLED = False
+    for k, v in extra.items():
+        cfg.merge_from_list([k, v])
+    return cfg

@@ -61,25 +61,32 @@ def _nms_inputs(dev, b, n, seed=0, classes=80):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,max_out,thr", [
     (8, 1024, 100, 0.65), (8, 1024, 100, 0.3), (3, 300, 100, 0.65),
-    (2, 17, 32, 0.5),
+    (2, 17, 32, 0.5), (8, 1280, 128, 0.7), (4, 2048, 100, 0.3),
 ])
 def test_nms_kernel_matches_plain(dev, b, n, max_out, thr):
     boxes, scores, cls = _nms_inputs(dev, b, n)
-    before = build.LAUNCHES["nms"]
+    key = _instance(n)
+    before = build.LAUNCHES[key]
     got = batched_nms_batched(boxes, scores, cls, thr, max_out)
     want = batched_nms_batched(boxes, scores, cls, thr, max_out,
                                nms=nms_batched_plain)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["nms"] == before + 1
+    assert build.LAUNCHES[key] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _instance(n: int) -> str:
+    """The launch count of the kernel instance that holds n candidates."""
+    return "nms" if n <= 1024 else "nms_2048"
+
+
 def _assert_nms_matches_plain(boxes, scores, thr, max_out):
-    before = build.LAUNCHES["nms"]
+    key = _instance(scores.shape[1])
+    before = build.LAUNCHES[key]
     got = nms_batched(boxes, scores, thr, max_out)
     want = nms_batched_plain(boxes, scores, thr, max_out)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["nms"] == before + 1
+    assert build.LAUNCHES[key] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     return got
 
@@ -87,6 +94,7 @@ def _assert_nms_matches_plain(boxes, scores, thr, max_out):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,max_out", [
     (1, 1024, 100), (3, 1, 5), (2, 33, 20), (2, 200, 300), (4, 1024, 1),
+    (2, 1025, 100), (3, 1280, 2000), (2, 2048, 1),
 ])
 def test_nms_kernel_shapes(dev, b, n, max_out):
     boxes, scores, cls = _nms_inputs(dev, b, n, seed=n)
@@ -144,7 +152,8 @@ def test_nms_kernel_all_dead(dev):
 
 @pytest.mark.cuda
 def test_nms_kernel_refuses_what_it_cannot_take(dev):
-    boxes, scores, _ = _nms_inputs(dev, 1, 1032)
+    # past the largest instance's 2048 candidates
+    boxes, scores, _ = _nms_inputs(dev, 1, 2056)
     with pytest.raises(ValueError, match="candidates"):
         nms_batched(boxes, scores, 0.5, 10)
     with pytest.raises(TypeError):

@@ -146,6 +146,11 @@ def _case_inputs(name):
         return (*_clustered(rng, 2, 33, classes=2, zeros=3), 0.3, 20)
     if name == "max_out_1":
         return (*_clustered(rng, 2, 300, classes=4, zeros=10), 0.5, 1)
+    if name == "rpn_1280":
+        # Mask R-CNN's RPN: 5 levels of 256 candidates, one class, 0.7, 128
+        # out (the kernel's 2048 instance); a twentieth of them dead
+        boxes, scores, _ = _clustered(rng, 2, 1280, classes=1, zeros=64)
+        return boxes, scores, np.zeros((2, 1280), np.int64), 0.7, 128
     if name == "max_out_above_live":
         boxes, scores, cls = _clustered(rng, 2, 50, classes=2, zeros=40)
         return boxes, scores, cls, 0.65, 64
@@ -154,7 +159,7 @@ def _case_inputs(name):
 
 CASES = ["clustered_80_classes", "single_class_heavy", "ties_across_tiles",
          "zero_and_negative_scores", "iou_at_threshold", "k1", "k33",
-         "max_out_1", "max_out_above_live"]
+         "max_out_1", "max_out_above_live", "rpn_1280"]
 
 
 @functools.lru_cache(maxsize=None)

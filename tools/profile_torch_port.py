@@ -7,7 +7,8 @@ Swin-T's; with ``--yolov5`` / ``--yolov6`` / ``--yolof``, YOLOv5-s's,
 YOLOv6-s's or YOLOF R-50's; with ``--yolox-convnext``, YOLOX on
 ConvNeXt-T's; with ``--smca``, SMCA-DETR R-50's; with ``--res2net``,
 YOLOV7 on Res2Net-50's; with ``--sparseinst-dcn``, SparseInst
-R-50-DCN's; with ``--solov2``, SOLOv2 R-50's.
+R-50-DCN's; with ``--solov2``, SOLOv2 R-50's; with ``--mask-rcnn`` /
+``--panoptic``, Mask R-CNN R-50-FPN's / Panoptic FPN's.
 
     python3 tools/profile_torch_port.py            # serving
     python3 tools/profile_torch_port.py --train    # training step
@@ -19,6 +20,7 @@ R-50-DCN's; with ``--solov2``, SOLOv2 R-50's.
     python3 tools/profile_torch_port.py --yolox-convnext | --smca | \
         --res2net [--train]
     python3 tools/profile_torch_port.py --sparseinst-dcn | --solov2 [--train]
+    python3 tools/profile_torch_port.py --mask-rcnn | --panoptic [--train]
 
 Full-width YOLOX-s (or YOLOV7 from ``configs/coco/yolov7.yaml``'s
 defaults) at 640, bf16, random weights from seed 0, uint8 batches already
@@ -131,6 +133,8 @@ GROUPS = (
     ("roll", r"roll"),
     ("sort / top-k", r"[Ss]ort|[Tt]op[Kk]|radix|bitonic"),
     ("deformable sampling (grid_sample)", r"grid_sampler"),
+    ("fixed-order sums (segment_reduce)", r"segment_reduce"),
+    ("gathers (RoIAlign, top-k rows)", r"index_select|gather|index_kernel"),
     # cuDNN runs the 1x1 convolutions as cuBLAS GEMMs (nvjet kernels), so
     # the linear layers' and einsums' GEMMs count here too
     ("convolution and GEMM", r"conv|xmma|implicit_gemm|fprop|cudnn|sm90_|cutlass|"
@@ -232,6 +236,11 @@ KPTS_YAML = "yolox_kpts_swin.yaml"
 
 DCN_YAML = "sparseinst/sparse_inst_r50_dcn_giam_aug.yaml"
 SOLOV2_YAML = "solov2/solov2_r50.yaml"
+# the R-CNN family's LazyConfig files and sizes (chip_smoke.py section 21)
+RCNN_FILES = {"Mask R-CNN": ("new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py",
+                             1024),
+              "Panoptic FPN": ("new_baselines/panoptic_fpn_regnetx_0.4g.py",
+                               640)}
 
 
 def coco_cfg(yaml: str):
@@ -332,6 +341,52 @@ def serving(dev, model_name: str):
             cfg.max_detections, cfg.pre_nms_topk)
 
     return forward, postprocess
+
+
+def rcnn_serving(dev, model_name: str):
+    """(forward, postprocess) of the R-CNN family's file at bf16
+    (``chip_smoke.lazy_rcnn_model``): ``mask_rcnn_postprocess``, and for
+    Panoptic FPN the semantic logits' argmax as well."""
+    from chip_smoke import lazy_rcnn_model
+
+    from yolov7_d2_tpu_torch.models.meta_arch.mask_rcnn import (
+        mask_rcnn_postprocess,
+    )
+
+    model, _ = lazy_rcnn_model(RCNN_FILES[model_name][0], dev)
+
+    @torch.inference_mode()
+    def forward(x):
+        return model(x)
+
+    @torch.inference_mode()
+    def postprocess(out):
+        dets = mask_rcnn_postprocess(out)
+        if "sem_seg_logits" in out:
+            return dets, out["sem_seg_logits"].argmax(-1)
+        return dets
+
+    return forward, postprocess
+
+
+def profile_train_rcnn(card: str, dev, gen, model_name: str) -> None:
+    """``build_system``'s step (sampled mode, bf16) of 16 images of the
+    R-CNN file's architecture (``chip_smoke.rcnn_train_cfg``) on the
+    batch of ``chip_smoke.rcnn_batch`` (GTs on the serving proposals)."""
+    from chip_smoke import lazy_rcnn_model, rcnn_batch, rcnn_train_cfg
+
+    name, size = RCNN_FILES[model_name]
+    cfg = rcnn_train_cfg(name, size)
+    _, state, step, fields = build_system(cfg, device=dev, seed=0)
+    model, _ = lazy_rcnn_model(name, dev)
+    batch = rcnn_batch(TRAIN_BATCH, gen, dev, size, model, fields)
+    del model
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    trace(one_step, card, f"train step bs {TRAIN_BATCH}")
 
 
 def dcn_alone(card: str, forward, x, busy_ms: float) -> None:
@@ -622,6 +677,12 @@ def main() -> int:
                         "(sparse_inst_r50_dcn_giam_aug.yaml) at 608")
     parser.add_argument("--solov2", action="store_true",
                         help="SOLOv2 R-50 (solov2_r50.yaml)")
+    parser.add_argument("--mask-rcnn", action="store_true",
+                        help="Mask R-CNN R-50-FPN "
+                        "(mask_rcnn_R_50_FPN_100ep_LSJ.py) at 1024")
+    parser.add_argument("--panoptic", action="store_true",
+                        help="Panoptic FPN (panoptic_fpn_regnetx_0.4g.py) at"
+                        " 640")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_port: no CUDA device")
@@ -639,10 +700,13 @@ def main() -> int:
             "SMCA-DETR" if args.smca else
             "YOLOV7 Res2Net-50" if args.res2net else
             "SparseInst-DCN" if args.sparseinst_dcn else
-            "SOLOv2" if args.solov2 else "YOLOX-s")
+            "SOLOv2" if args.solov2 else
+            "Mask R-CNN" if args.mask_rcnn else
+            "Panoptic FPN" if args.panoptic else "YOLOX-s")
     size = 800 if name in DETR_YAMLS or name in (
         "YOLOF R-50", "YOLOX ConvNeXt-T") else (
-        608 if name == "SparseInst-DCN" else 640)
+        608 if name == "SparseInst-DCN" else
+        RCNN_FILES[name][1] if name in RCNN_FILES else 640)
     print(f"model: {name} {size} bf16", flush=True)
     if args.train and name in ONESTAGE_YAMLS:
         profile_train_onestage(card, dev, gen, name)
@@ -662,10 +726,14 @@ def main() -> int:
     if args.train and args.solov2:
         profile_train_solov2(card, dev, gen)
         return 0
+    if args.train and name in RCNN_FILES:
+        profile_train_rcnn(card, dev, gen, name)
+        return 0
     if args.train:
         profile_train(card, dev, gen, name)
         return 0
-    forward, postprocess = serving(dev, name)
+    forward, postprocess = (rcnn_serving(dev, name) if name in RCNN_FILES
+                            else serving(dev, name))
 
     for bs in BATCHES:
         x = torch.randint(0, 256, (bs, size, size, 3), generator=gen,

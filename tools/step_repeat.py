@@ -27,9 +27,13 @@ off, on, on, off (``resize``: on is the fixed-order backward).
 (``chip_smoke.DCN_YAML``, 608 px, 4 images) twice under torch's defaults,
 twice with cuDNN deterministic and twice under
 ``use_deterministic_algorithms(True, warn_only=True)`` (naming the ops
-without a deterministic form): the deformable convolution's sampling is
-the port's own op, whose backward adds into the input gradient with
-atomics (``F.grid_sample``).
+without a deterministic form), and raises unless the cuDNN-deterministic
+runs are bitwise equal: the deformable convolution's sampling is the
+port's own op, whose input gradient is summed in a fixed order
+(``ops/fixed_order.grid_sample_fixed_order``). The same two runs with
+``F.grid_sample``'s own backward (atomic adds) show what the repair
+changed. Then it times the bf16 step of 16 images with each backward, in
+turns (``F.grid_sample``, fixed order, fixed order, ``F.grid_sample``).
 
     python3 tools/step_repeat.py [--mode default|cudnn|algorithms|resize]
     python3 tools/step_repeat.py --dcn
@@ -52,9 +56,17 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 from yolov7_d2_tpu_torch.models.meta_arch import sparseinst  # noqa: E402
+from yolov7_d2_tpu_torch.ops import deform_conv  # noqa: E402
 
 MODES = ("default", "cudnn", "algorithms", "resize")
 FIXED_ORDER_RESIZE = sparseinst._resize
+FIXED_ORDER_SAMPLE = deform_conv.grid_sample
+
+
+def atomic_sample(img, grid):
+    """The DCN sampling with ``F.grid_sample``'s own backward."""
+    return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=False)
 
 
 def interpolate_resize(x, size, antialias: bool = False):
@@ -162,8 +174,17 @@ def run_dcn() -> None:
 
     chip_smoke.repeat_phase(dev, card, f"{name} [default]", build_fn, batch)
     with chip_smoke.deterministic_library():
-        chip_smoke.repeat_phase(dev, card, f"{name} [cuDNN deterministic]",
-                                build_fn, batch)
+        gaps = chip_smoke.repeat_phase(
+            dev, card, f"{name} [cuDNN deterministic]", build_fn, batch)
+        deform_conv.grid_sample = atomic_sample
+        chip_smoke.repeat_phase(
+            dev, card, f"{name} [cuDNN deterministic, F.grid_sample's "
+            "backward]", build_fn, batch)
+        deform_conv.grid_sample = FIXED_ORDER_SAMPLE
+    if gaps["outputs_differ"] or gaps["params_differ"] or \
+            not gaps["weights_equal"]:
+        raise AssertionError(f"C.14 {name}: two cuDNN-deterministic runs "
+                             f"part at {gaps['output']}")
     torch.use_deterministic_algorithms(True, warn_only=True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -174,6 +195,39 @@ def run_dcn() -> None:
                   if "deterministic" in str(w.message)})
     chip_smoke.log(f"C.14 {name} [algorithms]: ops without a deterministic "
                    f"form: {ops or 'none'}")
+    dcn_step_times(dev, card, gen)
+
+
+def dcn_step_times(dev, card: str, gen: torch.Generator,
+                   n: int = chip_smoke.TRAIN_BATCH) -> list:
+    """The bf16 SparseInst R-50-DCN step of ``n`` images with
+    ``F.grid_sample``'s backward and with the fixed-order one, in turns;
+    returns ``[(fixed, ms), ...]``."""
+    from yolov7_d2_tpu_torch.engine import build_system
+
+    cfg = chip_smoke.coco_cfg(chip_smoke.DCN_YAML)
+    batch = chip_smoke.inseg_batch(n, gen, dev, cfg.input_size[0])
+
+    def build16():
+        _, state, step, _ = build_system(cfg, device=dev,
+                                         seed=chip_smoke.SEED)
+        return state, step
+
+    turns = []
+    for fixed in (False, True, True, False):
+        deform_conv.grid_sample = FIXED_ORDER_SAMPLE if fixed \
+            else atomic_sample
+        turns.append((fixed, step_ms(build16, batch)))
+        torch.cuda.empty_cache()
+    deform_conv.grid_sample = FIXED_ORDER_SAMPLE
+    fixed_ms = [ms for f, ms in turns if f]
+    atomic_ms = [ms for f, ms in turns if not f]
+    chip_smoke.log(
+        f"C.14 SparseInst R-50-DCN {cfg.input_size[0]} bf16 step of {n} on "
+        f"[{card}], DCN backward F.grid_sample / fixed order / fixed order "
+        "/ F.grid_sample: " + ", ".join(f"{ms:.3f}" for _, ms in turns)
+        + f" ms; fixed / F.grid_sample {sum(fixed_ms) / sum(atomic_ms):.4f}")
+    return turns
 
 
 def main() -> int:

@@ -8,7 +8,8 @@ yaml files of ``configs/`` into ``config/defaults.get_cfg()`` (a
 ``DetrConfig`` (``config/detr.py``, DetrSegm too), YOLOX-KPTS
 ``YoloxKptsConfig`` (``config/yolox_kpts.py``), YOLOv6 and YOLOF
 ``Yolov6Config`` and ``YolofConfig`` (``config/onestage.py``), SOLOv2
-``Solov2Config`` (``config/solov2.py``); YOLOMask reads
+``Solov2Config`` (``config/solov2.py``), Mask R-CNN, Faster R-CNN and
+Panoptic FPN ``RcnnConfig`` (``config/rcnn.py``); YOLOMask reads
 ``AnchorYoloConfig``. Only the dataclasses are
 imported here, so that serving needs no PyYAML."""
 
@@ -20,6 +21,7 @@ from yolov7_d2_tpu_torch.config.onestage import (  # noqa: F401
     YolofConfig,
     Yolov6Config,
 )
+from yolov7_d2_tpu_torch.config.rcnn import RcnnConfig  # noqa: F401
 from yolov7_d2_tpu_torch.config.solov2 import Solov2Config  # noqa: F401
 from yolov7_d2_tpu_torch.config.sparseinst import (  # noqa: F401
     SparseInstConfig,

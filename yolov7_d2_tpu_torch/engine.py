@@ -2,7 +2,8 @@
 (model, state, train_step), for YOLOX (``build_yolox_system``) and, through
 ``build_system``, for the anchor-based YOLO family (YOLOv5 among them),
 YOLOv6, YOLOF, SparseInst, the DETR family (DETR, AnchorDETR, SMCA-DETR,
-DAB-DETR, the d2go DETR, DetrSegm), YOLOX-KPTS, SOLOv2 and YOLOMask.
+DAB-DETR, the d2go DETR, DetrSegm), YOLOX-KPTS, SOLOv2, YOLOMask, Mask
+R-CNN, Faster R-CNN and Panoptic FPN.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from torch import nn
 from yolov7_d2_tpu_torch.config import (
     AnchorYoloConfig,
     DetrConfig,
+    RcnnConfig,
     Solov2Config,
     SparseInstConfig,
     YolofConfig,
@@ -25,8 +27,11 @@ from yolov7_d2_tpu_torch.config import (
 )
 from yolov7_d2_tpu_torch.config.defaults import get_cfg
 from yolov7_d2_tpu_torch.config.detr import DETR_ARCHS
+from yolov7_d2_tpu_torch.config.rcnn import RCNN_ARCHS
 from yolov7_d2_tpu_torch.models.build import build_model
 from yolov7_d2_tpu_torch.models.meta_arch.detr import detr_loss_fn
+from yolov7_d2_tpu_torch.models.meta_arch.mask_rcnn import rcnn_loss_fn
+from yolov7_d2_tpu_torch.models.meta_arch.panoptic_fpn import panoptic_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.solov2 import solov2_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.sparseinst import sparseinst_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolof import yolof_loss_fn
@@ -156,11 +161,12 @@ KPTS_FIELDS = BATCH_FIELDS + ("gt_keypoints",)
 # DetrSegm's box fields with the masks (:273, :331)
 SOLOV2_FIELDS = ("image", "gt_masks", "gt_boxes", "gt_classes", "gt_valid")
 BOX_MASK_FIELDS = BATCH_FIELDS + ("gt_masks",)
+# Mask R-CNN's masks with their boxes, Panoptic FPN's with the semantic
+# target (JAX engine.py:285, :303-306)
+RCNN_MASK_FIELDS = ("image", "gt_masks", "gt_boxes", "gt_classes",
+                    "gt_valid")
+PANOPTIC_FIELDS = RCNN_MASK_FIELDS + ("gt_sem_seg",)
 ANCHOR_YOLO_ARCHS = ("YOLO", "YOLOV5", "YOLOV7", "YOLOV7P")
-# where each architecture the JAX build_system trains comes in the port
-_ROADMAP_ITEM = {
-    "MaskRCNN": "A.8d", "FasterRCNN": "A.8d", "PanopticFPN": "A.8d",
-}
 
 
 # the config dataclass each architecture the port builds reads
@@ -169,6 +175,7 @@ CONFIG_OF = {
     "YOLOX_KPTS": YoloxKptsConfig, "YOLOV6": Yolov6Config,
     "YOLOF": YolofConfig, "SOLOv2": Solov2Config,
     "YOLOMask": AnchorYoloConfig, "DetrSegm": DetrConfig,
+    **{arch: RcnnConfig for arch in RCNN_ARCHS},
     **{arch: AnchorYoloConfig for arch in ANCHOR_YOLO_ARCHS},
     **{arch: DetrConfig for arch in DETR_ARCHS},
 }
@@ -177,12 +184,11 @@ CONFIG_OF = {
 def config_from_cfg(cfg):
     """A merged ``CfgNode`` -> the config dataclass its architecture reads
     (:data:`CONFIG_OF`); an architecture the port does not build raises,
-    naming the ROADMAP.md item that brings it."""
+    naming ROADMAP.md's Queue A."""
     arch = cfg.MODEL.META_ARCHITECTURE
     if arch not in CONFIG_OF:
-        item = _ROADMAP_ITEM.get(arch, "A.8")
         raise NotImplementedError(
-            f"{arch!r} is not ported yet (ROADMAP.md Queue {item})")
+            f"{arch!r} is not ported yet (ROADMAP.md Queue A)")
     return CONFIG_OF[arch].from_cfg(cfg)
 
 
@@ -244,8 +250,13 @@ def build_system(cfg, device="cuda", seed: int = 0):
     ``solov2_losses`` on ``image``, ``gt_masks`` [B, G, H, W] uint8,
     ``gt_boxes``, ``gt_classes`` and ``gt_valid``; YOLOMask
     ``yolomask_losses`` and DetrSegm the set criterion with its mask terms
-    on the box fields and ``gt_masks``; any other architecture raises,
-    naming the ROADMAP.md item that brings it."""
+    on the box fields and ``gt_masks``; MaskRCNN and FasterRCNN
+    ``mask_rcnn_losses`` on the box fields (``gt_masks`` too where the
+    masks are on) and PanopticFPN ``panoptic_losses`` on those and
+    ``gt_sem_seg`` [B, H, W] (the label S ignored), in the configured
+    ``sample_mode``, drawing the sampled subsets from ``model.generator``,
+    which :func:`seed_dropout_by_step` reseeds a step; any other
+    architecture raises, naming ROADMAP.md's Queue A."""
     if hasattr(cfg, "MODEL"):
         arch = cfg.MODEL.META_ARCHITECTURE
         if arch in CONFIG_OF:
@@ -273,11 +284,21 @@ def build_system(cfg, device="cuda", seed: int = 0):
         loss_fn, fields = yolov6_loss_fn(cfg), BATCH_FIELDS
     elif arch == "YOLOF":
         loss_fn, fields = yolof_loss_fn(cfg), BATCH_FIELDS
+    elif arch in RCNN_ARCHS:
+        generator = torch.Generator(device=device)
+        if arch == "PanopticFPN":
+            loss_fn = panoptic_loss_fn(cfg, generator)
+            fields = PANOPTIC_FIELDS
+        else:
+            loss_fn = rcnn_loss_fn(cfg, generator)
+            fields = RCNN_MASK_FIELDS if cfg.mask_on else BATCH_FIELDS
     else:
-        item = _ROADMAP_ITEM.get(arch, "A.8")
         raise NotImplementedError(
-            f"training {arch!r} is not ported yet (ROADMAP.md Queue {item})")
-    state = _train_state(cfg, build_model(cfg, device, seed), device)
+            f"training {arch!r} is not ported yet (ROADMAP.md Queue A)")
+    model = build_model(cfg, device, seed)
+    if arch in RCNN_ARCHS:
+        model.generator = generator
+    state = _train_state(cfg, model, device)
     train_step = make_train_step(
         loss_fn, build_lr_schedule(cfg),
         ema_decay=cfg.ema_decay if cfg.ema else 0.0,

@@ -4,7 +4,9 @@ plain PyTorch version.
 Replaces the TPU kernel ``yolov7_d2_tpu/ops/pallas_nms.py:_nms_kernel``;
 the semantics are those of ``yolov7_d2_tpu/ops/nms.py:nms_batched``.
 ``nms_batched`` launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors.
+version only for CPU tensors. The kernel has two instances, of 1024 and of
+2048 candidates an image (Mask R-CNN's RPN gives 1280); the launcher takes
+the smallest that holds N.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ from yolov7_d2_tpu_torch.kernels import build
 from yolov7_d2_tpu_torch.ops.iou import pairwise_box_iou
 
 NEG_INF = -1e10
-MAX_BOXES = 1024  # one thread a candidate, one block a image (csrc/nms.cu)
+# one block of 1024 threads an image, one or two candidates a thread
+# (csrc/nms.cu)
+MAX_BOXES = 2048
 
 
 def nms_batched_plain(
@@ -84,5 +88,6 @@ def nms_batched(
         keep_valid.data_ptr(), b, n, float(iou_threshold), max_outputs,
         stream)
     build.check(err, "nms")
-    build.LAUNCHES["nms"] += 1
+    # a count an instance: "nms" (1024), "nms_2048" (Mask R-CNN's RPN)
+    build.LAUNCHES["nms" if n <= MAX_BOXES // 2 else "nms_2048"] += 1
     return keep_idx, keep_valid

@@ -10,6 +10,10 @@ from torch import nn
 from yolov7_d2_tpu_torch.core.registry import Registry
 
 META_ARCH_REGISTRY = Registry("META_ARCH")
+# backbones a config names as a whole by the JAX BACKBONE_REGISTRY's name
+# (``build_resnet_fpn_backbone``, ``models/necks/fpn.py``); the zoo's
+# backbones go through ``models/backbones/zoo.py``
+BACKBONE_REGISTRY = Registry("BACKBONE")
 
 
 def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
@@ -23,6 +27,8 @@ def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
         detr,
         detr_seg,
         detr_variants,
+        mask_rcnn,
+        panoptic_fpn,
         solov2,
         sparseinst,
         yolof,

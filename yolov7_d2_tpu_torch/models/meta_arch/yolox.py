@@ -55,6 +55,7 @@ class YOLOX(nn.Module):
                  backbone: Optional[nn.Module] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.num_classes = num_classes
         self.in_features = tuple(in_features)
         self.dtype = dtype
         # NORMALIZE_INPUT divides by 255 (JAX yolox.py:58); otherwise the

@@ -1,4 +1,7 @@
-"""detectron2-style FPN (JAX ``models/necks/fpn.py:22``): SOLOv2's neck.
+"""detectron2-style FPN (JAX ``models/necks/fpn.py:22``): SOLOv2's neck,
+and ``ResNetFPN`` (JAX :59), the ResNet with it that Mask R-CNN and
+Panoptic FPN build, with its registry builder ``build_resnet_fpn_backbone``
+(:85).
 
 A 1x1 lateral on each input level (shallow to deep), the top-down sum with
 the nearest 2x upsample of the level above, a 3x3 output convolution a
@@ -15,6 +18,13 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from yolov7_d2_tpu_torch.models.backbones.resnet import (
+    RESNET_CHANNELS,
+    ResNet,
+    ResNetSpec,
+)
+from yolov7_d2_tpu_torch.models.build import BACKBONE_REGISTRY
 
 
 class FPN(nn.Module):
@@ -45,3 +55,34 @@ class FPN(nn.Module):
             last = outs[f"p{self.first_level + n - 1}"]
             outs[f"p{self.first_level + n}"] = last[:, :, ::2, ::2]
         return outs
+
+
+class ResNetFPN(nn.Module):
+    """ResNet (res2-res5, ``bottom_up``) + FPN (p2-p6, ``fpn``):
+    detectron2's ``build_resnet_fpn_backbone`` (JAX :59). The JAX module
+    builds its ResNet with the stride in the 1x1 and FrozenBN unless
+    ``frozen_bn`` is False, whatever else ``MODEL.RESNETS`` says."""
+
+    FEATURES = ("res2", "res3", "res4", "res5")
+
+    def __init__(self, depth: int = 50, out_channels: int = 256,
+                 frozen_bn: bool = True):
+        super().__init__()
+        self.bottom_up = ResNet(ResNetSpec(depth=depth,
+                                           out_features=self.FEATURES,
+                                           frozen_bn=frozen_bn))
+        self.fpn = FPN([RESNET_CHANNELS[f] for f in self.FEATURES],
+                       out_channels, "maxpool")
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        feats = self.bottom_up(x)
+        return self.fpn([feats[f] for f in self.FEATURES])
+
+
+@BACKBONE_REGISTRY.register()
+def build_resnet_fpn_backbone(cfg) -> ResNetFPN:
+    """From a merged ``CfgNode`` (JAX :85): ``RESNETS.DEPTH``,
+    ``FPN.OUT_CHANNELS``, FrozenBN where ``RESNETS.NORM`` is "FrozenBN"."""
+    return ResNetFPN(depth=int(cfg.MODEL.RESNETS.DEPTH),
+                     out_channels=int(cfg.MODEL.FPN.OUT_CHANNELS),
+                     frozen_bn=str(cfg.MODEL.RESNETS.NORM) == "FrozenBN")

@@ -16,8 +16,11 @@ are stacked along the image's height. The JAX package takes four gathers
 and a lerp a tap; the two compute the same bilinear weights up to float32
 rounding (the pixel coordinate goes through grid_sample's normalized one).
 ``F.grid_sample``'s CUDA backward adds into the input gradient with
-atomics, so two runs of a training step may differ in the last bits there
-(ROADMAP.md C.14).
+atomics, so two runs of a training step would differ in the last bits
+there (ROADMAP.md C.14): the sampling goes through :data:`grid_sample`,
+``ops/fixed_order.grid_sample_fixed_order``, the same forward with an
+input gradient summed in a fixed order (``tools/step_repeat.py --dcn``
+swaps in ``F.grid_sample`` to time the two).
 
 The fuse weight keeps torch's ``[O, C, K, K]`` layout (detectron2's and the
 reference DLA's ``ModulatedDeformConv``); ``utils/weight_port.py`` turns it
@@ -32,6 +35,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolov7_d2_tpu_torch.ops.fixed_order import grid_sample_fixed_order
+
+# the sampling op of :func:`bilinear_sample`: F.grid_sample's forward with
+# the fixed-order input gradient
+grid_sample = grid_sample_fixed_order
 
 def _float32(device: torch.device):
     """A region outside autocast: the sampling runs in float32."""
@@ -47,8 +55,7 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor,
     grid = torch.stack([(2.0 * x.float() + 1.0) / w - 1.0,
                         (2.0 * y.float() + 1.0) / h - 1.0], -1)
     with _float32(img.device):
-        return F.grid_sample(img.float(), grid, mode="bilinear",
-                             padding_mode="zeros", align_corners=False)
+        return grid_sample(img.float(), grid)
 
 
 def deform_sample_taps(x: torch.Tensor, offsets: torch.Tensor,

@@ -41,7 +41,11 @@ the JAX maps; ConvNeXt's layer scale ``gamma`` is the flax parameter of the
 block's path), RegNet and FBNet the flax ones (``map_flax_named_torch_name``).
 SMCA-DETR, DAB-DETR and the d2go DETR (``map_detr_variant_torch_name``)
 take their backbone's map and the flax names of their transformers, heads,
-``cs_head`` and per-level ``dec_norm_{i}``.
+``cs_head`` and per-level ``dec_norm_{i}``. Mask R-CNN and Panoptic FPN
+(``map_mask_rcnn_torch_name``) keep the flax names but for the detectron2
+ResNet under ``backbone.bottom_up``; ``box_fc1``'s kernel reads the pooled
+features flattened as (S, S, C), which is the port's order too, and
+``mask_deconv`` is a flax ``ConvTranspose``.
 A deformable convolution's fuse weight keeps torch's ``[O, C, K, K]``
 (detectron2's and the reference DLA's ``ModulatedDeformConv``); the JAX
 package's is the 1x1 kernel over the taps ``[1, 1, K*K*C, O]``, tap-major
@@ -951,6 +955,19 @@ def map_detr_segm_torch_name(name: str) -> Tuple[str, ...]:
     return map_detr_torch_name(name)
 
 
+def map_mask_rcnn_torch_name(name: str) -> Tuple[str, ...]:
+    """A key of the port's ``MaskRCNN`` or ``PanopticFPNShared`` -> the
+    flax path: ``backbone.bottom_up.`` (the ResNet of ``ResNetFPN``)
+    through :func:`map_resnet_torch_name` under ``backbone/bottom_up``,
+    everything else by its flax name (``backbone.fpn.lateral_0``,
+    ``rcnn.box_fc1``, ``sem_seg_head.l1_gn0``)."""
+    prefix = "backbone.bottom_up."
+    if name.startswith(prefix):
+        return ("backbone", "bottom_up") + map_resnet_torch_name(
+            "backbone." + name[len(prefix):])[1:]
+    return tuple(name.split("."))
+
+
 def map_flax_named_torch_name(name: str) -> Tuple[str, ...]:
     """A module of the flax name (RegNet, FBNet: the JAX package has no
     reference map for them) -> its path: dots to path parts."""
@@ -997,8 +1014,9 @@ def map_yolox_kpts_torch_name(name: str,
 
 
 _QKV = ("query", "key", "value")
-# the transposed convolutions of the port (RepPAN's upsamples)
-_CONV_TRANSPOSE = re.compile(r"(^|\.)upsample_transpose$")
+# the transposed convolutions of the port (RepPAN's upsamples, Mask
+# R-CNN's mask head)
+_CONV_TRANSPOSE = re.compile(r"(^|\.)(upsample_transpose|mask_deconv)$")
 # the depthwise transposed convolutions (DLA's bilinear upsamples)
 _DEPTHWISE_UP = re.compile(r"(^|\.)up_\d+$")
 
