@@ -8,8 +8,9 @@ and PAN necks), of YOLOV7 on Res2Net, of the backbone zoo (RegNet,
 ConvNeXt, EfficientNet, FBNet) and of SMCA-DETR, DAB-DETR and the d2go
 DETR serving and training, of SparseInst R-50-DCN, YOLOX on DLA, SOLOv2,
 YOLOMask and DetrSegm serving and training, of LazyConfig, Mask R-CNN,
-Faster R-CNN and Panoptic FPN serving and training, and of the
-repeatability of a training step, on one CUDA card.
+Faster R-CNN and Panoptic FPN serving and training, of the repeatability
+of a training step, of the library NMS suite, and one train step of every
+yaml of ``configs/``, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -250,6 +251,20 @@ set to 0 just before it and read just after:
   DCN's fixed-order backward), or for Mask R-CNN the first difference a
   library module's. Its launches go to ``normalize_rcnn`` and
   ``nms_rpn``; it logs its seconds.
+* the library remainder and the closure (section 22, ``closure_phase``):
+  (a) the library NMS suite (``ops.nms``) on one image of 1000 candidates
+  of 80 classes: K1 at [1, 1000] index-exact against its plain version
+  (the ``nms_single`` entry), then ``nms``, ``batched_nms``,
+  ``generalized_batched_nms`` in its four modes and
+  ``weighted_boxes_fusion`` on the card against the CPU (the greedy ones
+  launch K1 at [1, 1000]: ``nms_single``'s launches); (b) one train step
+  of every yaml of ``configs/`` (109) at its full width and depth, 64 px
+  (128 with BiFPN), one image, AMP off (``zoo_step.step_sweep``, as the
+  JAX ``tests/test_config_zoo.py:29``): a finite ``total_loss`` and a
+  moved step counter each, a line a yaml, the slowest five and the peak
+  memory. Its launches go to the entries of their kernel and instance
+  (``normalize``, ``nms``, ``nms_rpn``, ``grid_mask``); it logs its
+  seconds.
 
 ``python3 chip_smoke.py --nccl`` runs (c) of sections 10 and 17 alone, on a
 machine of 2 or more cards.
@@ -266,6 +281,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import logging
@@ -5648,6 +5664,141 @@ def rcnn_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     log(f"(21) section 21 in {time.perf_counter() - t0:.1f} s on [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# section 22: the library remainder and the closure of the yaml zoo
+# ---------------------------------------------------------------------------
+
+LIBRARY_NMS = 1000       # candidates of one image, 80 classes
+CLOSURE_ENTRY = {"normalize": "normalize", "nms": "nms",
+                 "nms_2048": "nms_rpn", "grid_mask": "grid_mask"}
+
+
+def library_nms_phase(dev, card: str, gen: torch.Generator,
+                      kernels: dict, k: int = LIBRARY_NMS) -> None:
+    """(22a) The NMS kernel at [1, k] (80 classes offset as
+    ``batched_nms`` offsets them) against its plain version, index-exact:
+    the ``nms_single`` entry. Then the library suite on the card against
+    the same calls on the CPU: ``nms``, ``batched_nms``,
+    ``generalized_batched_nms`` "normal" and WBF's clustering launch K1
+    (their launches are the entry's) and are index-exact; cluster-NMS is
+    index-exact; soft-NMS keeps the same slots with scores within 1e-5
+    relative; WBF's boxes and scores within 1e-5 relative."""
+    from yolov7_d2_tpu_torch import ops
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched, nms_batched_plain
+    from yolov7_d2_tpu_torch.ops.nms import _class_offset_boxes
+
+    boxes, scores, cls = (t[0] for t in random_nms_inputs(dev, gen, 1, k))
+    shifted = _class_offset_boxes(boxes, cls)[None].contiguous()
+    one = scores[None].contiguous()
+    got = nms_batched(shifted, one, 0.65, 100)
+    want = nms_batched_plain(shifted, one, 0.65, 100)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("NMS kernel differs from its plain version at "
+                             f"[1, {k}] in {int((got[0] != want[0]).sum())}"
+                             " slots")
+    entry = {
+        "name": "nms_single", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/nms.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_nms.py:34",
+        "max_abs_err": float((got[0] - want[0]).abs().max()),
+        "plain_ms": kernel_ms(lambda: nms_batched_plain(shifted, one, 0.65,
+                                                      100),
+                              host_ok="nms plain [1, k]"),
+        "ms": kernel_ms(lambda: nms_batched(shifted, one, 0.65, 100)),
+        "library_ms": None,  # no torchvision: no PyTorch call does NMS
+        **bound((shifted.numel() + one.numel()) * 4 + got[1].numel() * 5,
+                float(nms_walk_pairs(one, *got, 100)) * 15),
+    }
+
+    cpu = [t.cpu() for t in (boxes, scores, cls)]
+    opts = dict(iou_threshold=0.65, max_outputs=100, score_threshold=0.05)
+    calls = {
+        "nms": lambda b, s, c: ops.nms(b, s, **opts),
+        "batched_nms": lambda b, s, c: ops.batched_nms(b, s, c, **opts),
+        **{f"generalized {t}": functools.partial(
+            ops.generalized_batched_nms, nms_type=t, **opts)
+           for t in ("normal", "softnms-linear", "softnms-gaussian",
+                     "cluster")},
+        "weighted_boxes_fusion": lambda b, s, c: ops.weighted_boxes_fusion(
+            b, s, 0.55, 100, 0.05),
+    }
+    build.reset_launches()
+    outs = {name: fn(boxes, scores, cls) for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if set(launches) != {"nms"} or launches["nms"] != 4:
+        raise AssertionError(f"library NMS launches {launches}")
+    entry["launches"] = launches["nms"]
+    for name, fn in calls.items():
+        got, want = outs[name], fn(*cpu)
+        if name == "weighted_boxes_fusion":
+            exact, close = (2,), (0, 1)
+        elif name.startswith("generalized softnms"):
+            exact, close = (1,), (2,)
+        else:
+            exact, close = tuple(range(len(want))), ()
+        for i in exact:
+            if not torch.equal(got[i].cpu(), want[i]):
+                raise AssertionError(f"{name} output {i} on the card "
+                                     "differs from the CPU's")
+        for i in close:
+            gap = relative_gap_max(got[i].cpu(), want[i])
+            if gap > 1e-5:
+                raise AssertionError(f"{name} output {i}: {gap:.3g} "
+                                     "relative off the CPU's")
+    kept = {name: int(outs[name][1 if name != "weighted_boxes_fusion"
+                                 else 2].sum()) for name in calls}
+    log(f"(22a) nms_single [1, {k}] 80 classes on [{card}]: index-exact "
+        f"against its plain version; kernel {entry['ms']:.4f} ms, plain "
+        f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms; the "
+        f"library suite on the card as on the CPU, kept {kept}; "
+        f"{entry['launches']} K1 launches")
+    kernels["nms_single"] = entry
+
+
+def relative_gap_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference over the largest magnitude of ``want``."""
+    scale = float(want.abs().max())
+    return float((got.float() - want.float()).abs().max()) / max(scale,
+                                                                  1e-30)
+
+
+def closure_phase(dev, card: str, gen: torch.Generator,
+                  kernels: dict) -> None:
+    """Section 22: (a) :func:`library_nms_phase`, (b) one train step of
+    every yaml (``zoo_step.step_sweep``), the launches counted from 0 and
+    added to their kernels' entries. Logs the section's seconds."""
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.zoo_step import step_sweep
+
+    t0 = time.perf_counter()
+    library_nms_phase(dev, card, gen, kernels)
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    rows = step_sweep(os.path.join(REPO, "configs"), dev,
+                      log=lambda msg: log(f"(22b) {msg}"))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    for key, n in launches.items():
+        kernels[CLOSURE_ENTRY[key]]["launches"] += n
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(rows) != 109:
+        raise AssertionError(f"the sweep found {len(rows)} yaml files, "
+                             "not 109")
+    slow = sorted(rows, key=lambda r: -r["seconds"])[:5]
+    log(f"(22b) {len(rows)} of 109 yamls took a step")
+    log(f"(22b) the sweep in {time.perf_counter() - t1:.1f} s on [{card}], "
+        f"peak memory {peak:.3f} GB; the slowest five: "
+        + ", ".join(f"{r['yaml']} {r['seconds']:.2f} s" for r in slow)
+        + f"; kernel launches {launches}")
+    log(f"(22) section 22 in {time.perf_counter() - t0:.1f} s on [{card}]")
+
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -5685,6 +5836,12 @@ def main() -> int:
     from yolov7_d2_tpu_torch.predictor import Predictor
 
     # ---- 1. device
+    t_run = time.perf_counter()
+
+    def mark(section: str) -> None:
+        log(f"({section}) done {time.perf_counter() - t_run:.1f} s into "
+            "the run")
+
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}")
@@ -5742,6 +5899,8 @@ def main() -> int:
     }
     del images
 
+    mark("3")
+
     # ---- 4. NMS kernel vs its plain version, [128, 1024], 80 classes
     boxes, scores, cls = random_nms_inputs(dev, gen)
     shifted = _class_offset_boxes(boxes, cls).contiguous()
@@ -5798,6 +5957,8 @@ def main() -> int:
     del boxes, scores, cls, shifted, got, want, one_box, one_score
     del crowd, crowd_scores
 
+    mark("4")
+
     # ---- 5. GridMask kernel vs its plain version, [16, 640, 640, 3], the
     # float32 images of the training path and the uint8 ones it gets with
     # mixup off; drawn parameters in both modes and identity rows
@@ -5827,6 +5988,8 @@ def main() -> int:
         f"{tuple(u8.shape)} uint8 and float32; share zeroed an image "
         f"{zeroed}")
     del imgs, u8, f32, got, want
+
+    mark("5")
 
     # ---- 6. serving: YOLOX-s 640, bf16, requests of 1, 8, 128 images
     cfg = YoloxConfig()
@@ -5894,6 +6057,8 @@ def main() -> int:
             not torch.equal(on_card["strides"].cpu(), ref["strides"]):
         raise AssertionError("grids or strides differ from the CPU")
 
+    mark("6")
+
     # ---- 7. serving times: each request size, the batch already on the card
     for req in requests:
         n = req.shape[0]
@@ -5908,6 +6073,8 @@ def main() -> int:
     del predictor, requests, results, big, head, with_kernel, with_plain, x
     del ref, on_card, bf16
     torch.cuda.empty_cache()
+
+    mark("7")
 
     # ---- 8. training: YOLOX-s 640, bf16, 16 images a step, GridMask on
     tcfg = dataclasses.replace(cfg, grid_mask=True)
@@ -5961,6 +6128,8 @@ def main() -> int:
     del state, train_step, step, before, after, metrics
     torch.cuda.empty_cache()
 
+    mark("8")
+
     # ---- 8b. training with mixup off: the images stay uint8 through the
     # GridMask kernel and into the normalize kernel at the model's head
     ucfg = dataclasses.replace(tcfg, mixup=False)
@@ -6001,6 +6170,8 @@ def main() -> int:
     del state, train_step, step, batches, before, after, metrics
     torch.cuda.empty_cache()
 
+    mark("8b")
+
     # ---- 9. one float32 train step, the card against the CPU: TF32 off,
     # width 0.25, 128 px, 2 images, the same weights, batch and draws
     # (GridMask parameters fixed). The forward differs from the CPU in the
@@ -6035,6 +6206,8 @@ def main() -> int:
     data = write_cli_data()
     median_a, median_b = cli_phase(dev, card, kernels, data)
 
+    mark("9 and the CLI")
+
     # ---- 10. multi-GPU training: (a) two gloo ranks on one card against
     # one process, (b) the CLI in an NCCL group of 1, (c) NCCL ranks
     sync_phase(dev, card, cfg)
@@ -6044,32 +6217,46 @@ def main() -> int:
     DatasetCatalog.remove(CLI_DATASET)
     shutil.rmtree(data.work, ignore_errors=True)
 
+    mark("10")
+
     # ---- 11. the anchor-YOLO family: YOLOV7 serving and training, then
     # YOLO and YOLOV7P, YOLOV7P on ResNet-50 (anchor_yolo_phase)
     anchor_yolo_phase(dev, card, gen)
 
+    mark("11")
+
     # ---- 12. SparseInst R-50: the normalize kernel at its statistics,
     # serving, card against CPU, training, train_inseg (sparseinst_phase)
     sparseinst_phase(dev, card, gen, kernels)
+
+    mark("12")
 
     # ---- 13. DETR and AnchorDETR R-50 at 800: the normalize kernel at
     # their statistics, serving, card against CPU, training,
     # train_transformer (detr_phase)
     detr_phase(dev, card, gen, kernels)
 
+    mark("13")
+
     # ---- 14. YOLOX-KPTS on Swin-T, CSPDarknet-X and PVTv2-b1: serving,
     # card against CPU, training, eval_coco; YOLOV7 on Swin-T and PVTv2-b0
     # (yolox_kpts_phase)
     yolox_kpts_phase(dev, card, gen, kernels)
+
+    mark("14")
 
     # ---- 15. the one-stage box detectors: YOLOv5-s, YOLOv6-s and YOLOF
     # R-50 serving, card against CPU, training; YOLOv6-tiny, YOLOv6-m and
     # YOLOV7 R-50 with the bifpn and pan necks (onestage_phase)
     onestage_phase(dev, card, gen, kernels)
 
+    mark("15")
+
     # ---- 16. C.14: is the training step bitwise repeatable, and which
     # kernel parts two runs (c14_phase)
     c14_phase(dev, card)
+
+    mark("16")
 
     # ---- 17. multi-GPU SparseInst and DETR: (a) two gloo ranks on one
     # card against one process, (b) the CLIs in an NCCL group of 1, (c)
@@ -6079,6 +6266,8 @@ def main() -> int:
         family_cli_phase(dev, card, family, kernels)
         family_nccl_phase(dev, card, family)
 
+    mark("17")
+
     # ---- 18. YOLOV7 on Res2Net-50 (configs/coco/r2_50.yaml): serving,
     # card against CPU, training; r2next_50, r2_50_l and tl/res2net_bifpn
     # one request and one step each (anchor_yolo_phase)
@@ -6086,17 +6275,23 @@ def main() -> int:
                       others=RES2NET_OTHERS, f32_px=128, kernels=kernels,
                       f64_step=True)
 
+    mark("18")
+
     # ---- 19. the backbone zoo and the other DETR variants: YOLOX on
     # ConvNeXt-T and SMCA-DETR R-50 at 800 (serving, card against CPU,
     # training, the CLIs), every other yaml they unlock one request and one
     # step (zoo_phase)
     zoo_phase(dev, card, gen, kernels)
 
+    mark("19")
+
     # ---- 20. deformable convolution and the last mask families:
     # SparseInst R-50-DCN at 608 and SOLOv2 R-50 at 640 (serving, card
     # against CPU, training; train_inseg on the DCN config), every other
     # yaml they unlock one request and one step (mask_phase)
     mask_phase(dev, card, gen, kernels)
+
+    mark("20")
 
     # ---- 21. LazyConfig and the R-CNN family: Mask R-CNN R-50-FPN at 1024
     # and Panoptic FPN at 640 from their LazyConfig files (serving, card
@@ -6105,7 +6300,16 @@ def main() -> int:
     # repeatability of the DCN and Mask R-CNN float32 steps (rcnn_phase)
     rcnn_phase(dev, card, gen, kernels)
 
-    # ---- 22. times
+    mark("21")
+
+    # ---- 22. the library remainder and the closure: the library NMS suite
+    # on K1 at [1, 1000] (the nms_single entry), one train step of every
+    # yaml of configs/ at 64-128 px (closure_phase)
+    closure_phase(dev, card, gen, kernels)
+
+    mark("22")
+
+    # ---- 23. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "

@@ -8,6 +8,7 @@ torch its share of the CPU's cores (:func:`share_cores_among_workers`)."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -389,6 +390,27 @@ def anchor_yolo_modules(arch: str, dtype=torch.float32):
     return jmodel, tmodel
 
 
+@contextlib.contextmanager
+def shape_only_deform_sampling():
+    """Within the block, the JAX deformable convolution's sampling
+    (``ops/deform_conv.deform_sample_taps``) gives a result of its shape
+    ([B, H, W, K*K*C]) without its gathers: it sets no parameter and no
+    shape, and tracing its gathers costs a DLAUp some 10 s of a
+    ``jax.eval_shape``. For shape-only traces."""
+    import jax.numpy as jnp
+
+    from yolov7_d2_tpu.ops import deform_conv
+
+    real = deform_conv.deform_sample_taps
+    deform_conv.deform_sample_taps = (
+        lambda x, offsets, kernel=3, modulation=None:
+        jnp.tile(x, (1, 1, 1, kernel * kernel)))
+    try:
+        yield
+    finally:
+        deform_conv.deform_sample_taps = real
+
+
 def flax_variables_like(jmodel, images, rng: np.random.Generator):
     """Variables of the flax ``jmodel`` (whose input is ``images``, an
     array or a list of them) drawn with numpy, without running
@@ -399,9 +421,10 @@ def flax_variables_like(jmodel, images, rng: np.random.Generator):
     import jax
     import jax.numpy as jnp
 
-    shapes = jax.eval_shape(
-        lambda x: jmodel.init(jax.random.PRNGKey(0), x),
-        jax.tree.map(lambda a: jnp.zeros(a.shape, jnp.float32), images))
+    with shape_only_deform_sampling():
+        shapes = jax.eval_shape(
+            lambda x: jmodel.init(jax.random.PRNGKey(0), x),
+            jax.tree.map(lambda a: jnp.zeros(a.shape, jnp.float32), images))
 
     def draw(path, leaf):
         if path[-1] == "kernel":
@@ -634,9 +657,10 @@ def assert_leaves_match_jax(model, jax_model, mapper, size=128):
         jax_to_torch_state_dict as to_torch,
     )
 
-    shapes = jax.eval_shape(
-        lambda x: jax_model.init(jax.random.PRNGKey(0), x),
-        jnp.zeros((1, size, size, 3), jnp.float32))
+    with shape_only_deform_sampling():
+        shapes = jax.eval_shape(
+            lambda x: jax_model.init(jax.random.PRNGKey(0), x),
+            jnp.zeros((1, size, size, 3), jnp.float32))
     zeros = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
     leaves = to_torch(zeros, model.state_dict(), mapper)
     assert sorted(leaves) == sorted(model.state_dict())

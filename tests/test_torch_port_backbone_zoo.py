@@ -54,6 +54,7 @@ from _torch_port_helpers import (
     REPO,
     assert_leaves_match_jax,
     flax_variables_like,
+    jit_o0,
     load_into,
     numpy_variables,
 )
@@ -517,7 +518,7 @@ def test_yolox_convnext_train_step_matches_jax(monkeypatch):
                        True)
         return losses["total_loss"], losses
 
-    jgrads, jlosses = jax.jit(jax.grad(loss, has_aux=True))(
+    jgrads, jlosses = jit_o0(jax.grad(loss, has_aux=True))(
         variables["params"])
     tmodel.train()
     try:

@@ -48,6 +48,7 @@ from _torch_port_helpers import (
     check_detr_gradients,
     detr_gt as _gt,
     detr_pair as _pair,
+    jit_o0,
     load_into,
     merged_detr_cfg as _merged,
     numpy_variables,
@@ -105,7 +106,7 @@ def _jax_grads():
         losses = jd.detr_losses(out, gt, 3, (SIZE, SIZE), use_focal=True)
         return losses["total_loss"], (losses, out)
 
-    grads, (losses, out) = jax.jit(jax.grad(loss, has_aux=True))(
+    grads, (losses, out) = jit_o0(jax.grad(loss, has_aux=True))(
         variables["params"])
     return jax.tree.map(np.asarray, (grads, losses, out))
 

@@ -42,6 +42,7 @@ from _torch_port_helpers import (
     check_detr_gradients,
     detr_gt,
     detr_pair,
+    jit_o0,
     load_into,
     merged_detr_cfg,
     opts_list,
@@ -213,7 +214,7 @@ def _jax_train_step():
         losses = jd.detr_losses(out, batch, 3, (DETR_SIZE, DETR_SIZE))
         return dict(losses, **{"out/" + k: v for k, v in out.items()})
 
-    state, metrics = jax.jit(make_train_step(jmodel, loss_fn, tx))(
+    state, metrics = jit_o0(make_train_step(jmodel, loss_fn, tx))(
         state, dict(gt, image=jnp.asarray(images)))
     metrics = jax.tree.map(np.asarray, metrics)
     out = {k[4:]: metrics.pop(k) for k in list(metrics)

@@ -69,6 +69,7 @@ from _torch_port_helpers import (
     assert_leaves_match_jax,
     detr_gt,
     detr_variables_like,
+    jit_o0,
     load_into,
     merged_detr_cfg,
     numpy_variables,
@@ -177,7 +178,7 @@ def _jax_step(name):
                                 CLASSES, (SIZE, SIZE), use_focal=focal)
         return losses["total_loss"], (losses, out, upd)
 
-    grads, (losses, out, upd) = jax.jit(jax.grad(loss, has_aux=True))(
+    grads, (losses, out, upd) = jit_o0(jax.grad(loss, has_aux=True))(
         variables["params"])
     return _np(grads), _np(losses), _np(out), _np(upd)
 

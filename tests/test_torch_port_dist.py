@@ -32,7 +32,7 @@ import torch
 from flax import linen as fnn
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from _torch_port_helpers import assert_trajectory_close
+from _torch_port_helpers import assert_trajectory_close, jit_o0
 from test_torch_port_train import (
     GRAD_RTOL,
     MODEL_LOSS_RTOL,
@@ -154,7 +154,7 @@ def test_two_ranks_match_one_process_and_the_jax_mesh(tmp_path):
         mesh = build_mesh((WORLD, 1), ("data", "model"),
                           jax.devices()[:WORLD])
         jstate = jax.device_put(jstate, NamedSharding(mesh, P()))
-        jstep = jax.jit(jstep)
+        jstep = jit_o0(jstep)
         jax_metrics = []
         for batch in batches:
             jstate, jm = jstep(jstate, shard_batch_pytree(

@@ -45,6 +45,7 @@ from _torch_port_helpers import (
     detr_gt,
     detr_variables_like,
     flax_variables_like,
+    jit_o0,
     load_into,
     opts_list,
 )
@@ -156,7 +157,7 @@ def _jax_steps(jcfg, variables, batches, monkeypatch):
     _, state, step, _ = jengine.build_system(jcfg)
     mesh = build_mesh((WORLD, 1), ("data", "model"), jax.devices()[:WORLD])
     state = jax.device_put(state, NamedSharding(mesh, P()))
-    step = jax.jit(step)
+    step = jit_o0(step)
     metrics = []
     for batch in batches:
         jb = {k: jnp.asarray(v.astype(np.float32) if k == "image" else v)

@@ -40,6 +40,7 @@ import torch
 
 from _torch_port_helpers import (
     flax_variables_like,
+    jit_o0,
     load_into,
     numpy_variables,
 )
@@ -129,7 +130,7 @@ def _v5_pair():
 @functools.lru_cache(maxsize=None)
 def _v5_eval():
     jmodel, variables, _, images = _v5_pair()
-    out = jax.jit(jmodel.apply)(variables, jnp.asarray(images, jnp.float32))
+    out = jit_o0(jmodel.apply)(variables, jnp.asarray(images, jnp.float32))
     return {k: np.asarray(v) for k, v in out.items() if k != "level_hw"}
 
 
@@ -161,7 +162,7 @@ def test_yolov5_train_mode_losses_and_statistics():
         return jarch.anchor_yolo_loss_fn(out, batch, np.asarray(ANCHORS),
                                          CLASSES, **kw), new
 
-    jlosses, jnew = jax.jit(run)(variables)
+    jlosses, jnew = jit_o0(run)(variables)
     import copy
     model = copy.deepcopy(tmodel).train()
     losses = tarch.anchor_yolo_loss_fn(model(torch.from_numpy(images)),
@@ -224,7 +225,7 @@ def test_yolov5_weight_carrier_both_ways():
     ported, report = jwp.port_torch_state_dict(sd, variables,
                                                name_mapper=mapper)
     assert not report["unused"], report["unused"][:5]
-    want = jax.jit(jmodel.apply)(ported, jnp.asarray(images, jnp.float32))
+    want = jit_o0(jmodel.apply)(ported, jnp.asarray(images, jnp.float32))
     with torch.no_grad():
         got = tmodel(torch.from_numpy(images))
     _assert_close(got["outputs"].numpy(), want["outputs"])
@@ -360,7 +361,7 @@ def test_yolov7_resnet_neck_forward_matches_jax(neck):
     mapper = functools.partial(twp.map_anchor_yolo_torch_name,
                                backbone_type="resnet")
     load_into(tmodel, variables, mapper)
-    want = jax.jit(jmodel.apply)(variables, jnp.asarray(images, jnp.float32))
+    want = jit_o0(jmodel.apply)(variables, jnp.asarray(images, jnp.float32))
     with torch.no_grad():
         got = tmodel(torch.from_numpy(images))
     assert got["level_hw"] == want["level_hw"] == ((16, 16), (8, 8), (4, 4))

@@ -56,7 +56,7 @@ from yolov7_d2_tpu_torch.config.defaults import get_cfg
 from yolov7_d2_tpu_torch.models.backbones import resnet as tresnet
 from yolov7_d2_tpu_torch.models.build import build_model
 from yolov7_d2_tpu_torch.models.meta_arch import solov2 as ts
-from yolov7_d2_tpu_torch.ops import nms as tnms
+from yolov7_d2_tpu_torch.ops.nms import matrix_nms_masks
 from yolov7_d2_tpu_torch.utils import weight_port as twp
 
 TOL = 1e-4
@@ -140,7 +140,7 @@ def test_matrix_nms_matches_jax(kernel):
     scores = np.sort(rng.random(n).astype(np.float32))[::-1].copy()
     want = jax_matrix_nms(jnp.asarray(ious), jnp.asarray(labels),
                           jnp.asarray(scores), kernel, 2.0)
-    got = tnms.matrix_nms_masks(*_torch(ious, labels, scores), kernel, 2.0)
+    got = matrix_nms_masks(*_torch(ious, labels, scores), kernel, 2.0)
     _close(got.numpy(), want)
     assert float(np.abs(np.asarray(want) - scores).max()) > 0.05
 

@@ -41,6 +41,7 @@ from scipy.optimize import linear_sum_assignment
 
 from _torch_port_helpers import (
     flax_variables_like,
+    jit_o0,
     load_into,
     numpy_variables,
 )
@@ -171,7 +172,7 @@ def test_resnet50_matches_jax(vd, stride_in_1x1):
     nested = {c: {"backbone": v} for c, v in variables.items()}
     load_into(tmodel, nested,
               lambda n: twp.map_resnet_torch_name("backbone." + n, vd))
-    want = jax.jit(jmodel.apply)(variables, jnp.asarray(x))
+    want = jit_o0(jmodel.apply)(variables, jnp.asarray(x))
     with torch.no_grad():
         got = tmodel(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert sorted(got) == sorted(want) == ["res3", "res4", "res5"]
@@ -379,7 +380,7 @@ def test_forward_and_train_step_gradients_match_jax(monkeypatch):
                                        80)
         return losses["total_loss"], (losses, out)
 
-    jgrads, (jlosses, want) = jax.jit(jax.grad(loss, has_aux=True))(
+    jgrads, (jlosses, want) = jit_o0(jax.grad(loss, has_aux=True))(
         variables["params"])
     with torch.no_grad():
         for x in (images, images.astype(np.uint8)):
@@ -732,7 +733,7 @@ def test_yolov7p_r50_matches_jax():
             ignore_threshold=0.5)
         return out, losses
 
-    jout, jlosses = jax.jit(fwd)(variables)
+    jout, jlosses = jit_o0(fwd)(variables)
     tmodel.train()
     with torch.no_grad():
         out = tmodel(torch.from_numpy(images))

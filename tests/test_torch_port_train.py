@@ -45,6 +45,7 @@ import torch
 
 from _torch_port_helpers import (
     assert_trajectory_close,
+    jit_o0,
     load_into,
     randomize_bn,
 )
@@ -299,7 +300,7 @@ def test_param_grads_match_jax_grad():
                        True)
         return losses["total_loss"], losses
 
-    jgrads, jlosses = jax.jit(jax.grad(loss, has_aux=True))(
+    jgrads, jlosses = jit_o0(jax.grad(loss, has_aux=True))(
         variables["params"])
 
     tmodel.train()
@@ -508,7 +509,7 @@ def test_yolox_sgd_ema_trajectory_3steps():
     sd0 = {k: v.numpy().copy() for k, v in model.state_dict().items()}
 
     rng = np.random.default_rng(21)
-    jstep = jax.jit(jstep)
+    jstep = jit_o0(jstep)
     for s in range(3):
         images = rng.uniform(0, 255, (2, 64, 64, 3)).astype(np.float32)
         gts = _gts(rng, 2, 64, 8, [5, 3])

@@ -50,6 +50,7 @@ import torch
 
 from _torch_port_helpers import (
     flax_variables_like,
+    jit_o0,
     load_into,
     numpy_variables,
 )
@@ -154,8 +155,8 @@ def test_repvgg_block_matches_jax(stride, c_in):
     def run(v, train):
         return jblock.apply(v, x, train=train, mutable=["batch_stats"])
 
-    want, _ = jax.jit(functools.partial(run, train=False))(variables)
-    want_t, stats = jax.jit(functools.partial(run, train=True))(variables)
+    want, _ = jit_o0(functools.partial(run, train=False))(variables)
+    want_t, stats = jit_o0(functools.partial(run, train=True))(variables)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2)
     with torch.no_grad():
         _assert_close(_nhwc(tblock(xt)), want)
@@ -265,7 +266,7 @@ def test_train_step_bn_statistics_losses_and_gradients():
         losses = j6.yolov6_losses(out, batch, CLASSES)
         return losses["total_loss"], (losses, new)
 
-    jgrads, (jlosses, jnew) = jax.jit(jax.grad(loss, has_aux=True))(
+    jgrads, (jlosses, jnew) = jit_o0(jax.grad(loss, has_aux=True))(
         variables["params"])
     fresh = copy.deepcopy(tmodel)
     losses, grads = _port_grads(fresh, images, batch)
@@ -364,7 +365,7 @@ def test_weight_carrier_both_ways():
         np.testing.assert_array_equal(kernel, w.transpose(2, 3, 0, 1))
         ported["params"]["neck"][f"upsample{i}"]["kernel"] = kernel[::-1,
                                                                     ::-1]
-    want = jax.jit(jmodel.apply)(ported, jnp.asarray(images, jnp.float32))
+    want = jit_o0(jmodel.apply)(ported, jnp.asarray(images, jnp.float32))
     with torch.no_grad():
         got = tmodel(torch.from_numpy(images))
     _assert_close(got["outputs"].numpy(), want["outputs"])

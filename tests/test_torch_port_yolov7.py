@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_helpers import ANCHOR_ARCHS, anchor_yolo_pair
+from _torch_port_helpers import ANCHOR_ARCHS, anchor_yolo_pair, jit_o0
 from yolov7_d2_tpu.config import get_cfg as jax_get_cfg
 from yolov7_d2_tpu.models.build import build_model as jax_build_model
 from yolov7_d2_tpu_torch.config import AnchorYoloConfig, YoloxConfig
@@ -55,7 +55,7 @@ def _assert_close(got, want):
 @pytest.mark.parametrize("arch", sorted(ANCHOR_ARCHS))
 def test_forward_matches_jax(arch):
     jmodel, variables, tmodel, images = _pair(arch)
-    want = jax.jit(jmodel.apply)(variables, jnp.asarray(images, jnp.float32))
+    want = jit_o0(jmodel.apply)(variables, jnp.asarray(images, jnp.float32))
     with torch.no_grad():
         got = tmodel(torch.from_numpy(images))
     assert got["level_hw"] == want["level_hw"] == ((8, 8), (4, 4), (2, 2))

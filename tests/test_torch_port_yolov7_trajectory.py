@@ -26,6 +26,7 @@ from _torch_port_helpers import (
     anchor_yolo_name_mapper,
     assert_trajectory_close,
     flax_variables_like,
+    jit_o0,
     load_into,
     tiny_cfg,
 )
@@ -108,7 +109,7 @@ def test_yolov7_sgd_ema_trajectory_3steps(monkeypatch):
     sd0 = {k: v.numpy().copy() for k, v in model.state_dict().items()}
 
     rng = np.random.default_rng(22)
-    jstep = jax.jit(jstep)
+    jstep = jit_o0(jstep)
     for s in range(3):
         images = rng.uniform(0, 255, (2, 64, 64, 3)).astype(np.float32)
         gts = _gts(rng, 2, 64, 8, [5, 3])

@@ -39,6 +39,7 @@ import torch
 
 from _torch_port_helpers import (
     flax_variables_like,
+    jit_o0,
     load_into,
     numpy_variables,
     tied_kpts_head,
@@ -204,7 +205,7 @@ def test_gradients_match_jax(monkeypatch):
         losses = jk.yolox_kpts_losses(out, b)
         return losses["total_loss"], losses
 
-    (_, jlosses), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+    (_, jlosses), jgrads = jit_o0(jax.value_and_grad(loss_fn, has_aux=True))(
         variables["params"], variables["batch_stats"],
         jnp.asarray(images, jnp.float32), batch)
     # the port in NCHW (ROADMAP.md C.20)

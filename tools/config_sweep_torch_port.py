@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Which yaml files under ``configs/`` the PyTorch port builds.
+"""Which yaml files under ``configs/`` the PyTorch port builds, and with
+``--step``, which take a train step.
 
     python3 tools/config_sweep_torch_port.py [--json PATH]
+    python3 tools/config_sweep_torch_port.py --step [--device cpu|cuda]
+        [--json PATH] [YAML ...]
 
 Each yaml is merged into the port's ``get_cfg`` as the entry points merge
 it, turned into its architecture's config dataclass
@@ -16,6 +19,14 @@ test_torch_port_backbone_zoo.py``, ``test_torch_port_detr_variants.py``,
 ``test_torch_port_dcn.py``, ``test_torch_port_dla.py``,
 ``test_torch_port_solov2.py``, ``test_torch_port_yolomask.py``,
 ``test_torch_port_detr_segm.py`` and the earlier families' tests).
+
+``--step`` runs ``yolov7_d2_tpu_torch.zoo_step.step_sweep`` instead: each
+yaml (or each one given, as paths) built by ``engine.build_system`` on
+``--device`` (the card by default) at its full width and depth, 64 px (128
+with BiFPN), and one train step taken on a synthetic image, as the JAX
+``tests/test_config_zoo.py:29`` does; a line a yaml, then ``N of M yamls
+took a step``. Any exception is a fault and ends the run non-zero. On the
+CPU all 109 take some minutes; ``chip_smoke.py`` runs it on the card.
 """
 
 from __future__ import annotations
@@ -30,7 +41,10 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from yolov7_d2_tpu_torch.engine import config_from_yaml  # noqa: E402
+from yolov7_d2_tpu_torch.engine import (  # noqa: E402
+    config_from_yaml,
+    resolve_device,
+)
 from yolov7_d2_tpu_torch.models import build  # noqa: E402
 from yolov7_d2_tpu_torch.models.meta_arch import (  # noqa: E402, F401
     detr_variants,
@@ -58,7 +72,15 @@ def sweep(paths):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write the rows to this file")
+    parser.add_argument("--step", action="store_true",
+                        help="take one train step of each yaml")
+    parser.add_argument("--device", default="cuda",
+                        help="the --step sweep's device (default: cuda)")
+    parser.add_argument("yamls", nargs="*",
+                        help="the --step sweep's yaml files (default: all)")
     args = parser.parse_args()
+    if args.step:
+        return step_main(args)
     torch.set_grad_enabled(False)
     paths = sorted((REPO / "configs").rglob("*.yaml"))
     rows = sweep(paths)
@@ -75,6 +97,20 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump([dict(zip(("yaml", "parameters", "statistics",
                                  "message"), r)) for r in rows], f, indent=1)
+    return 0
+
+
+def step_main(args) -> int:
+    from yolov7_d2_tpu_torch.zoo_step import step_sweep
+
+    configs = REPO / "configs"
+    paths = [Path(p).resolve() for p in args.yamls]
+    total = len(paths) or len(list(configs.rglob("*.yaml")))
+    rows = step_sweep(configs, resolve_device(args.device), paths)
+    print(f"{len(rows)} of {total} yamls took a step")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rows, f, indent=1)
     return 0
 
 

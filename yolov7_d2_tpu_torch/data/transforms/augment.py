@@ -1,7 +1,8 @@
 """Host-side numpy/cv2 augmentations of the YOLOX feed (copies from
 ``yolov7_d2_tpu/data/transforms/augment.py``): letterbox, the horizontal
-flip, HSV distortion, GridMask, ``random_perspective`` with
-``box_candidates_mask``, ``mosaic4`` and ``mixup``. Geometry is tracked on
+and vertical flips, the pixel shift, HSV distortion, GridMask, the jitter
+crop, ``random_perspective`` with ``box_candidates_mask``, ``mosaic4`` and
+``mixup``. Geometry is tracked on
 boxes [N, 4] xyxy; randomness comes from an explicit
 ``np.random.Generator``. ``blend_mosaic4``, the Darknet cut-point mosaic of
 the SparseInst feed, also carries instance masks.
@@ -53,6 +54,36 @@ def hflip(img: np.ndarray, boxes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return img, boxes
 
 
+def vflip(img: np.ndarray, boxes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    h = img.shape[0]
+    img = np.ascontiguousarray(img[::-1])
+    if len(boxes):
+        boxes = boxes.copy()
+        boxes[:, [1, 3]] = h - boxes[:, [3, 1]]
+    return img, boxes
+
+
+def random_shift(
+    img: np.ndarray,
+    boxes: np.ndarray,
+    max_pixels: int,
+    rng: np.random.Generator,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Pixel shift with gray padding (YOLOFShiftTransform, transform.py:341)."""
+    dx = int(rng.integers(-max_pixels, max_pixels + 1))
+    dy = int(rng.integers(-max_pixels, max_pixels + 1))
+    h, w = img.shape[:2]
+    out = np.full_like(img, GRAY)
+    xs0, xs1 = max(dx, 0), min(w + dx, w)
+    ys0, ys1 = max(dy, 0), min(h + dy, h)
+    out[ys0:ys1, xs0:xs1] = img[ys0 - dy : ys1 - dy, xs0 - dx : xs1 - dx]
+    if len(boxes):
+        boxes = boxes.copy()
+        boxes[:, [0, 2]] = np.clip(boxes[:, [0, 2]] + dx, 0, w)
+        boxes[:, [1, 3]] = np.clip(boxes[:, [1, 3]] + dy, 0, h)
+    return out, boxes
+
+
 def hsv_distort(
     img: np.ndarray,
     rng: np.random.Generator,
@@ -100,6 +131,35 @@ def grid_mask(
     if mode == 1:
         mask = 1.0 - mask  # keep grid cells, drop the rest
     return (img.astype(np.float32) * mask[..., None]).astype(img.dtype)
+
+
+def jitter_crop(
+    img: np.ndarray,
+    boxes: np.ndarray,
+    classes: np.ndarray,
+    jitter_ratio: float,
+    rng: np.random.Generator,
+):
+    """Random crop with jittered borders (YOLOFJitterCropTransform:142)."""
+    h, w = img.shape[:2]
+    dw = int(w * jitter_ratio)
+    dh = int(h * jitter_ratio)
+    pl = int(rng.integers(-dw, dw + 1))
+    pr = int(rng.integers(-dw, dw + 1))
+    pt = int(rng.integers(-dh, dh + 1))
+    pb = int(rng.integers(-dh, dh + 1))
+    x0, y0 = max(pl, 0), max(pt, 0)
+    x1, y1 = w - max(pr, 0), h - max(pb, 0)
+    if x1 - x0 < 8 or y1 - y0 < 8:
+        return img, boxes, classes
+    img = img[y0:y1, x0:x1]
+    if len(boxes):
+        boxes = boxes.copy()
+        boxes[:, [0, 2]] = np.clip(boxes[:, [0, 2]] - x0, 0, x1 - x0)
+        boxes[:, [1, 3]] = np.clip(boxes[:, [1, 3]] - y0, 0, y1 - y0)
+        keep = box_candidates_mask(boxes)
+        boxes, classes = boxes[keep], classes[keep]
+    return img, boxes, classes
 
 
 def box_candidates_mask(

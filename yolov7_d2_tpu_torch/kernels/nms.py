@@ -16,7 +16,6 @@ from typing import Tuple
 import torch
 
 from yolov7_d2_tpu_torch.kernels import build
-from yolov7_d2_tpu_torch.ops.iou import pairwise_box_iou
 
 NEG_INF = -1e10
 # one block of 1024 threads an image, one or two candidates a thread
@@ -30,6 +29,9 @@ def nms_batched_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """boxes [B, N, 4] xyxy, scores [B, N] (0 = padded slot) ->
     (keep_idx [B, max_outputs] int32 with -1 padding, keep_valid bool)."""
+    # here, not at the top: the ops package imports this module
+    from yolov7_d2_tpu_torch.ops.iou import pairwise_box_iou
+
     b, n, _ = boxes.shape
     iou = pairwise_box_iou(boxes, boxes)  # [B, N, N]
     live = torch.where(scores > 0.0, scores,

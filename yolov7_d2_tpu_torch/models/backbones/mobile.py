@@ -23,8 +23,17 @@ pooling run in float32 outside autocast and cast back.
 Module names are the flax ones (``s{stage}_g{group}_b{block}`` with
 ``conv`` / ``bn``, ``expand``, ``dw``, ``se.reduce`` / ``se.expand``,
 ``project``, ``bridge``), so that ``utils/weight_port.py`` maps them by
-turning dots into slashes. ``MobileViT``, ``cspresnet50d`` and the FPN
-variant (``FBNetV2FpnBackbone``) are not ported (ROADMAP.md Queue A.8e).
+turning dots into slashes.
+
+The registry's other mobile backbones, which no yaml sets: ``MobileViT``
+(JAX :472; :class:`MobileViTBlock` :425: a local 3x3, a 1x1 into the
+transformer width, the map unfolded into 2 x 2 patch positions of tokens,
+pre-norm transformer layers of float32 LayerNorms, flax's multi-head
+attention and a SiLU MLP, folded back, a 1x1 out and a 3x3 fusion with the
+input), the FBNet trunk under ``necks/fpn.py``'s FPN (:class:`FBNetFPN`,
+JAX :533, ``FBNetV2FpnBackbone`` :555) and CSPResNet50d (JAX :580: the
+ResNet-50-vd without FrozenBN), with their builders of a merged
+``CfgNode``.
 """
 
 from __future__ import annotations
@@ -34,6 +43,13 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from yolov7_d2_tpu_torch.models.backbones.resnet import ResNet, ResNetSpec
+from yolov7_d2_tpu_torch.models.layers.transformer import (
+    LayerNorm,
+    MultiheadAttention,
+)
+from yolov7_d2_tpu_torch.models.necks.fpn import FPN
 
 
 def _apply_act(x: torch.Tensor, act) -> torch.Tensor:
@@ -436,3 +452,131 @@ def build_fbnet_backbone(spec) -> FBNet:
         out = default_out
     return FBNet(arch=arch, out_features=out,
                  scale_factor=spec.fbnet_scale_factor)
+
+
+class MobileViTBlock(nn.Module):
+    """Local representation, a transformer across patches, fusion (JAX
+    :425). The layers' LayerNorms are flax's (eps 1e-6, float32), cast to
+    the stream's dtype."""
+
+    def __init__(self, c_in: int, dim: int, depth: int = 2, patch: int = 2,
+                 num_heads: int = 4):
+        super().__init__()
+        self.patch, self.depth = patch, depth
+        self.local_conv = ConvBNAct(c_in, c_in, 3)
+        self.proj_in = nn.Conv2d(c_in, dim, 1)
+        for i in range(depth):
+            self.add_module(f"norm1_{i}", LayerNorm(dim, eps=1e-6))
+            self.add_module(f"attn_{i}", MultiheadAttention(dim, num_heads))
+            self.add_module(f"norm2_{i}", LayerNorm(dim, eps=1e-6))
+            self.add_module(f"mlp1_{i}", nn.Linear(dim, dim * 2))
+            self.add_module(f"mlp2_{i}", nn.Linear(dim * 2, dim))
+        self.proj_out = nn.Conv2d(dim, c_in, 1)
+        self.fusion = ConvBNAct(2 * c_in, c_in, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.proj_in(self.local_conv(x))
+        b, c, h, w = y.shape
+        p = self.patch
+        # [B, C, H, W] -> [B * p * p, (H / p) (W / p), C]: the tokens of
+        # one position within the patches attend to each other
+        t = y.reshape(b, c, h // p, p, w // p, p).permute(0, 3, 5, 2, 4, 1)
+        t = t.reshape(b * p * p, -1, c)
+        for i in range(self.depth):
+            a = getattr(self, f"norm1_{i}")(t).to(t.dtype)
+            t = t + getattr(self, f"attn_{i}")(a, a, a)
+            m = getattr(self, f"norm2_{i}")(t).to(t.dtype)
+            m = getattr(self, f"mlp2_{i}")(F.silu(getattr(self,
+                                                          f"mlp1_{i}")(m)))
+            t = t + m
+        y = t.reshape(b, p, p, h // p, w // p, c).permute(0, 5, 3, 1, 4, 2)
+        y = self.proj_out(y.reshape(b, c, h, w))
+        return self.fusion(torch.cat([x, y], 1))
+
+
+class MobileViT(nn.Module):
+    """A stride-2 stem, then five stages of a stride-2 inverted residual
+    (expansion 4), the last three with a :class:`MobileViTBlock` (JAX
+    :472); returns ``stage{i}`` for ``out_features``. Needs inputs of 128
+    px or more: the last block unfolds 2 x 2 patches of a 1/64 map."""
+
+    # (channels, kind, transformer width) a stage, the JAX plan
+    PLAN = ((32, "mv2", 0), (64, "mv2", 0), (96, "vit", 144),
+            (128, "vit", 192), (160, "vit", 240))
+
+    def __init__(self, out_features: Sequence[str] = ("stage2", "stage3",
+                                                       "stage4")):
+        super().__init__()
+        self.out_features = tuple(out_features)
+        self.stem = ConvBNAct(3, 16, 3, 2)
+        c_in = 16
+        self.out_channels: Dict[str, int] = {}
+        for i, (c, kind, tdim) in enumerate(self.PLAN):
+            self.add_module(f"down_{i}", InvertedResidual(c_in, c, 2, 4))
+            if kind == "vit":
+                self.add_module(f"vit_{i}", MobileViTBlock(c, tdim))
+            c_in = c
+            if f"stage{i}" in self.out_features:
+                self.out_channels[f"stage{i}"] = c
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.stem(x)
+        out = {}
+        for i, (_, kind, _) in enumerate(self.PLAN):
+            x = getattr(self, f"down_{i}")(x)
+            if kind == "vit":
+                x = getattr(self, f"vit_{i}")(x)
+            if f"stage{i}" in self.out_features:
+                out[f"stage{i}"] = x
+        return out
+
+
+class FBNetFPN(nn.Module):
+    """An FBNet trunk (``bottom_up``) with the FPN (``fpn``, a max-pooled
+    extra level) over its ``in_features`` (JAX ``_FBNetFPN`` :533):
+    ``trunk{i}``, at stride ``2 ** (i + 1)``, is FPN level ``p{i + 1}``."""
+
+    def __init__(self, trunk: FBNet, in_features: Sequence[str],
+                 out_channels: int = 256):
+        super().__init__()
+        self.in_features = tuple(in_features)
+        self.bottom_up = trunk
+        first = int(self.in_features[0][5:]) + 1
+        self.fpn = FPN([trunk.out_channels[f] for f in self.in_features],
+                       out_channels, "maxpool", first)
+        n = len(self.in_features)
+        self.out_channels = {f"p{first + i}": out_channels
+                             for i in range(n + 1)}
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        feats = self.bottom_up(x)
+        return self.fpn([feats[f] for f in self.in_features])
+
+
+def build_fbnet_fpn_backbone(cfg) -> FBNetFPN:
+    """``FBNetV2FpnBackbone`` from a merged ``CfgNode`` (JAX :556): the
+    trunk of ``MODEL.FBNET_V2.ARCH`` at ``SCALE_FACTOR`` on
+    ``MODEL.FPN.IN_FEATURES`` (``trunk1``..``trunk4`` where they are not
+    all trunk levels), ``MODEL.FPN.OUT_CHANNELS`` wide."""
+    in_features = tuple(cfg.MODEL.FPN.IN_FEATURES) or (
+        "trunk1", "trunk2", "trunk3", "trunk4")
+    if not all(f.startswith("trunk") for f in in_features):
+        in_features = ("trunk1", "trunk2", "trunk3", "trunk4")
+    arch, _ = resolve_fbnet_arch(cfg.MODEL.FBNET_V2.ARCH)
+    trunk = FBNet(arch=arch, out_features=in_features,
+                  scale_factor=float(cfg.MODEL.FBNET_V2.SCALE_FACTOR))
+    return FBNetFPN(trunk, in_features, int(cfg.MODEL.FPN.OUT_CHANNELS))
+
+
+def build_mobilevit_backbone(cfg) -> MobileViT:
+    """MobileViT at its defaults, whatever the config says (JAX :575)."""
+    return MobileViT()
+
+
+def build_cspresnet50d_backbone(cfg) -> ResNet:
+    """CSPResNet50d (JAX :580): the port's ResNet-50-vd with
+    ``MODEL.RESNETS.OUT_FEATURES`` and trainable BatchNorm (no FrozenBN);
+    the stride in the 1x1, as the JAX ResNet's default."""
+    return ResNet(ResNetSpec(depth=50, vd=True,
+                             out_features=tuple(cfg.MODEL.RESNETS.OUT_FEATURES),
+                             frozen_bn=False))

@@ -10,10 +10,13 @@ from torch import nn
 from yolov7_d2_tpu_torch.core.registry import Registry
 
 META_ARCH_REGISTRY = Registry("META_ARCH")
-# backbones a config names as a whole by the JAX BACKBONE_REGISTRY's name
-# (``build_resnet_fpn_backbone``, ``models/necks/fpn.py``); the zoo's
-# backbones go through ``models/backbones/zoo.py``
+# the JAX ``core/registry.py:79-81``: every builder takes a merged
+# ``CfgNode``; ``models/registries.py`` fills them (the zoo's backbones in
+# ``models/backbones/zoo.py``, ``build_resnet_fpn_backbone`` in
+# ``models/necks/fpn.py``)
 BACKBONE_REGISTRY = Registry("BACKBONE")
+NECK_REGISTRY = Registry("NECK")
+HEAD_REGISTRY = Registry("HEAD")
 
 
 def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:

@@ -66,6 +66,14 @@ def load_library() -> Optional[ctypes.CDLL]:
                     ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
                     ctypes.c_int, ctypes.c_int, ctypes.c_uint8,
                 ]
+                lib.letterbox_batch_u8.restype = None
+                lib.letterbox_batch_u8.argtypes = [
+                    ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+                    ctypes.c_int, ctypes.c_uint8,
+                    ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                ]
                 _lib = lib
         return _lib
 
@@ -90,3 +98,34 @@ def letterbox_u8(
         th, tw, pad_value,
     )
     return out, float(scale)
+
+
+def letterbox_batch_u8(
+    images, size: Tuple[int, int], pad_value: int = 114,
+    num_threads: int = 8,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Native letterbox of a list of HWC uint8 images on ``num_threads``
+    host threads -> ([N, th, tw, 3] uint8, the scales [N] float32)."""
+    lib = load_library()
+    assert lib is not None, "native library unavailable"
+    n = len(images)
+    th, tw = size
+    images = [np.ascontiguousarray(im, np.uint8) for im in images]
+    ptrs = (ctypes.POINTER(ctypes.c_uint8) * n)(
+        *[im.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)) for im in images]
+    )
+    shapes = np.asarray(
+        [[im.shape[0], im.shape[1]] for im in images], np.int32
+    ).ravel()
+    out = np.empty((n, th, tw, 3), np.uint8)
+    scales = np.empty((n,), np.float32)
+    lib.letterbox_batch_u8(
+        ptrs,
+        shapes.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+        n,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        th, tw, pad_value,
+        scales.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        num_threads,
+    )
+    return out, scales

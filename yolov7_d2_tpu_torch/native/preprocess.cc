@@ -1,14 +1,18 @@
 // Host-side letterbox of the port's data feed: bilinear resize of an HWC
 // uint8 image into the top-left corner of a canvas filled with a gray value,
-// no dependencies. A copy of yolov7_d2_tpu/native/preprocess.cc (its
-// letterbox_u8), so that the port's mappers give the JAX package's samples.
+// one image or a batch over std::threads, no other dependencies. A copy of
+// yolov7_d2_tpu/native/preprocess.cc (letterbox_u8, letterbox_batch_u8), so
+// that the port's mappers give the JAX package's samples.
 // Python binds it through ctypes (native/__init__.py), which compiles it at
 // first use into build/native/ at the repository root.
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <thread>
+#include <vector>
 
 namespace {
 
@@ -61,6 +65,29 @@ float letterbox_u8(const uint8_t* src, int sh, int sw,
   std::memset(dst, pad_value, static_cast<size_t>(th) * tw * 3);
   resize_bilinear_into(src, sh, sw, dst, tw * 3, nh, nw);
   return r;
+}
+
+// Batch letterbox: N images -> one [N, th, tw, 3] uint8 buffer, the images
+// taken in turn by num_threads host threads. srcs: N pointers; shapes: N
+// (h, w) pairs; scales_out: N.
+void letterbox_batch_u8(const uint8_t** srcs, const int* shapes, int n,
+                        uint8_t* dst, int th, int tw, uint8_t pad_value,
+                        float* scales_out, int num_threads) {
+  std::atomic<int> next(0);
+  auto worker = [&]() {
+    while (true) {
+      int i = next.fetch_add(1);
+      if (i >= n) return;
+      scales_out[i] = letterbox_u8(
+          srcs[i], shapes[i * 2], shapes[i * 2 + 1],
+          dst + static_cast<size_t>(i) * th * tw * 3, th, tw, pad_value);
+    }
+  };
+  int nt = std::max(1, std::min(num_threads, n));
+  std::vector<std::thread> threads;
+  threads.reserve(nt);
+  for (int t = 0; t < nt; ++t) threads.emplace_back(worker);
+  for (auto& t : threads) t.join();
 }
 
 }  // extern "C"

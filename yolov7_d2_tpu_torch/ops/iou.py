@@ -1,5 +1,4 @@
-"""Box IoU, generalized IoU and the IoU loss family (JAX ``ops/iou.py:19-66,
-76-157``).
+"""Box IoU, generalized IoU and the IoU loss family (JAX ``ops/iou.py:19-157``).
 
 The operations and their order are those of the JAX functions, one rounding
 each, so that the plain NMS and the NMS kernel take the same decisions at
@@ -11,6 +10,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from yolov7_d2_tpu_torch.structures.boxes import cxcywh_to_xyxy
 
 EPS = 1e-9
 
@@ -54,6 +55,12 @@ def pairwise_generalized_box_iou(a: torch.Tensor,
     """a [..., N, 4] x b [..., M, 4] -> GIoU [..., N, M] (DETR's matching
     cost, JAX :43)."""
     return generalized_box_iou(a[..., :, None, :], b[..., None, :, :])
+
+
+def bbox_overlaps_cxcywh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of center-format (cx, cy, w, h) boxes (JAX :69, the
+    reference's ``bboxes_iou(xyxy=False)``)."""
+    return pairwise_box_iou(cxcywh_to_xyxy(a), cxcywh_to_xyxy(b))
 
 
 def _iou_terms(pred: torch.Tensor, target: torch.Tensor):

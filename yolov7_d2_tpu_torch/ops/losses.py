@@ -68,6 +68,55 @@ def dice_loss(pred: torch.Tensor, target: torch.Tensor,
     return 1.0 - (2.0 * inter + smooth) / (denom + smooth)
 
 
+def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``|pred - target|`` (JAX :92)."""
+    return (pred - target).abs()
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                   beta: float = 1.0) -> torch.Tensor:
+    """Huber-style smooth L1 (JAX :96): ``0.5 d^2 / beta`` below ``beta``,
+    ``d - 0.5 beta`` above."""
+    diff = (pred - target).abs()
+    return torch.where(diff < beta, 0.5 * diff * diff / beta,
+                       diff - 0.5 * beta)
+
+
+def quality_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       beta: float = 2.0) -> torch.Tensor:
+    """GFL's quality focal loss, unreduced (JAX :103): the BCE against a
+    continuous quality target in [0, 1] times ``|target - p| ** beta``."""
+    p = torch.sigmoid(logits)
+    ce = sigmoid_binary_cross_entropy(logits, targets)
+    return ce * (targets - p).abs() ** beta
+
+
+def distribution_focal_loss(logits: torch.Tensor,
+                            targets: torch.Tensor) -> torch.Tensor:
+    """GFL's distribution focal loss, unreduced (JAX :119): ``logits``
+    [..., n_bins] a distribution over integer positions, ``targets`` [...]
+    continuous positions in [0, n_bins - 1]; the cross entropy against the
+    two enclosing bins, each weighted by the target's nearness to it."""
+    n_bins = logits.shape[-1]
+    t = targets.clamp(0.0, n_bins - 1 - 1e-6)
+    left = torch.floor(t).to(torch.int64)
+    w_right = t - left
+    w_left = 1.0 - w_right
+    logp = torch.log_softmax(logits, -1)
+    lp_left = logp.gather(-1, left[..., None])[..., 0]
+    lp_right = logp.gather(-1, (left + 1).clamp(0, n_bins - 1)[..., None])[
+        ..., 0]
+    return -(w_left * lp_left + w_right * lp_right)
+
+
+def dfl_expectation(logits: torch.Tensor) -> torch.Tensor:
+    """A DFL distribution's expected position (JAX :145)."""
+    probs = torch.softmax(logits, -1)
+    bins = torch.arange(logits.shape[-1], dtype=probs.dtype,
+                        device=probs.device)
+    return (probs * bins).sum(-1)
+
+
 def masked_mean(values: torch.Tensor, mask: torch.Tensor,
                 min_count: float = 1.0) -> torch.Tensor:
     """The mean over the elements where ``mask`` holds, of at least

@@ -1,8 +1,10 @@
 """Metrics storage and writers (copies from ``yolov7_d2_tpu/utils/events.py``):
 ``EventStorage`` keeps the scalars of the steps, ``CommonMetricPrinter``
-logs them and ``JSONWriter`` appends them to ``metrics.json``, every
-``period`` iterations; ``force`` writes off the period too (the trainer's
-last iteration, as detectron2's writers do).
+logs them, ``JSONWriter`` appends them to ``metrics.json`` and
+``TensorboardWriter`` adds them to a TensorBoard event file (a no-op where
+``torch.utils.tensorboard`` does not import), every ``period``
+iterations; ``force`` writes off the period too (the trainer's last
+iteration, as detectron2's writers do).
 """
 
 from __future__ import annotations
@@ -80,3 +82,25 @@ class JSONWriter:
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
+
+
+class TensorboardWriter:
+    def __init__(self, log_dir: str, period: int = 20):
+        self.period = period
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._writer = SummaryWriter(log_dir)
+        except Exception:  # the optional tensorboard package is missing
+            self._writer = None
+
+    def write(self, storage: EventStorage, force: bool = False) -> None:
+        if self._writer is None or (storage.iter % self.period != 0
+                                    and not force):
+            return
+        for k, v in storage.latest().items():
+            self._writer.add_scalar(k, v, storage.iter)
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()

@@ -38,7 +38,11 @@ The backbone zoo under the ported heads (``BACKBONE_MAPS``, by the models'
 ``backbone_type``): ConvNeXt and EfficientNet keep the reference's names
 (``map_convnext_torch_name``, ``map_efficientnet_torch_name``, copies of
 the JAX maps; ConvNeXt's layer scale ``gamma`` is the flax parameter of the
-block's path), RegNet and FBNet the flax ones (``map_flax_named_torch_name``).
+block's path), RegNet and FBNet the flax ones (``map_flax_named_torch_name``),
+as FBNet under its FPN (``map_fbnet_fpn_torch_name``: the trunk is flax's
+``trunk``) and MobileViT (``map_mobilevit_torch_name``: its
+attentions' ``out_proj`` is flax's ``out``) do; CSPResNet50d takes the vd
+ResNet's map (``map_cspresnet50d_torch_name``).
 SMCA-DETR, DAB-DETR and the d2go DETR (``map_detr_variant_torch_name``)
 take their backbone's map and the flax names of their transformers, heads,
 ``cs_head`` and per-level ``dec_norm_{i}``. Mask R-CNN and Panoptic FPN
@@ -974,14 +978,38 @@ def map_flax_named_torch_name(name: str) -> Tuple[str, ...]:
     return tuple(name.split(".")) if name else ()
 
 
+def map_mobilevit_torch_name(name: str) -> Tuple[str, ...]:
+    """A key of the port's ``MobileViT`` (the flax names) -> its path; an
+    attention's ``out_proj`` is flax's ``out``."""
+    return _attention_out(map_flax_named_torch_name(name))
+
+
+def map_fbnet_fpn_torch_name(name: str) -> Tuple[str, ...]:
+    """A key of the port's ``FBNetFPN`` (the reference's ``bottom_up`` and
+    ``fpn``) -> its flax path: the JAX module holds the trunk as
+    ``trunk``."""
+    parts = map_flax_named_torch_name(name)
+    return ("trunk",) + parts[1:] if parts[:1] == ("bottom_up",) else parts
+
+
+def map_cspresnet50d_torch_name(name: str) -> Tuple[str, ...]:
+    """A key of the port's CSPResNet50d, a bare ResNet-50-vd, -> the flax
+    path of the JAX ``ResNet(vd=True)``: :func:`map_resnet_torch_name`."""
+    return map_resnet_torch_name(f"backbone.{name}", vd=True)[1:]
+
+
 # every backbone whose map the models take by ``backbone_type``: the
-# transformers and the zoo (``models/backbones/zoo.py``)
+# transformers, the zoo (``models/backbones/zoo.py``) and the registry's
+# backbones that no yaml sets (MobileViT, CSPResNet50d, FBNet with its FPN)
 BACKBONE_MAPS = {"swin": map_swin_torch_name,
                  "pvt_v2": map_pvt_v2_torch_name,
                  "convnext": map_convnext_torch_name,
                  "efficientnet": map_efficientnet_torch_name,
                  "regnet": map_flax_named_torch_name,
                  "fbnet": map_flax_named_torch_name,
+                 "fbnet_fpn": map_fbnet_fpn_torch_name,
+                 "mobilevit": map_mobilevit_torch_name,
+                 "cspresnet50d": map_cspresnet50d_torch_name,
                  "dla": map_dla_torch_name}
 
 # Swin's PatchMerging: the reference concatenates the 2x2 neighbours as
