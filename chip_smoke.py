@@ -9,8 +9,10 @@ ConvNeXt, EfficientNet, FBNet) and of SMCA-DETR, DAB-DETR and the d2go
 DETR serving and training, of SparseInst R-50-DCN, YOLOX on DLA, SOLOv2,
 YOLOMask and DetrSegm serving and training, of LazyConfig, Mask R-CNN,
 Faster R-CNN and Panoptic FPN serving and training, of the repeatability
-of a training step, of the library NMS suite, and one train step of every
-yaml of ``configs/``, on one CUDA card.
+of a training step, of the library NMS suite, one train step of every
+yaml of ``configs/``, and of deploy (the exported program with the NMS
+kernel in it, int8, pruning) and the rest of the feed, on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -159,15 +161,16 @@ set to 0 just before it and read just after:
 * multi-GPU SparseInst and DETR (section 17): SparseInst R-50 at 640 and
   DETR R-50 at 800 (dropout 0), full depth and width: (a) two gloo ranks
   on one card (``parallel.dryrun.train_steps``, DDP, the global count in
-  the loss), the float32 step, 2 images a rank for 3 steps, against one
+  the loss), the float32 step, 2 images a rank for 2 steps, against one
   process on the same 4 images taking the ranks' weights and assignments
   (the global ``num_inst`` / ``num_boxes`` equal, loss shares and gradient
   norm within 1e-3, ranks bitwise equal, launches a rank step); (b)
   ``train_inseg`` (blend mosaic, 16 images) and ``train_transformer`` (crop
-  branch, 8 images) for 6 steps inside an NCCL group of 1 against no
-  group (losses within 1e-3, both ms-a-step medians), ``train_inseg
-  --eval-only`` on rank 0; (c) ``--num-gpus N`` through each CLI where 2
-  or more cards are visible (logged as skipped on one card). (b)'s
+  branch, 8 images) for 4 steps on a mini-COCO of 32 JPEGs inside an NCCL
+  group of 1 against no group (losses within 1e-3, both ms-a-step
+  medians), ``train_inseg --eval-only`` on rank 0; (c) ``--num-gpus N``
+  through each CLI where 2 or more cards are visible (logged as skipped
+  on one card). (b)'s
   normalize launches are added to the ``normalize_sparseinst`` and
   ``normalize_detr`` entries;
 * YOLOV7 on Res2Net-50 (section 18, ``anchor_yolo_phase`` on
@@ -265,6 +268,29 @@ set to 0 just before it and read just after:
   memory. Its launches go to the entries of their kernel and instance
   (``normalize``, ``nms``, ``nms_rpn``, ``grid_mask``); it logs its
   seconds.
+* deploy and the rest of the feed (section 23, ``deploy_feed_phase``):
+  (a) YOLOX-s 640 exported with ``torch.export`` on a float32 NHWC batch:
+  by ``python -m yolov7_d2_tpu_torch.export --fuse-postprocess`` (bs 1)
+  in a process of its own, then loaded and run in another fresh process
+  (``--run-program``), whose K1 launch through the custom op is counted;
+  here at bs 128 with the tail fused and at bs 8 without it (bf16), and
+  at bs 8 both ways in float32; each program against ``Predictor``'s
+  model and tail on the same batch (float32: raw outputs within 1e-4 of
+  the max, ``Detections`` index-equal; bf16: raw outputs within 5e-2),
+  its convolutions in the model's dtype, its ms a call beside
+  ``Predictor``'s, the export's seconds; the programs' K1 launches are
+  the ``nms_export`` entry's, timed through the op at [128, 1024]; (b)
+  YOLOX-s's weights quantized to int8 (each element within its half
+  scale), dequantized to bf16 and served at bs 128, and pruned
+  (``l1_filter_prune`` 0.5) and served, the sparsity logged; (c) YOLOX on
+  ResNet-50 and MobileViT, YOLOV7 on CSPResNet50d and the d2go DETR on
+  Res2Net-50 (ROADMAP C.45) at their yamls' sizes: one request of 8
+  through the tail and one step of 16; (d) the host mosaic through
+  ``MultiProcessDataLoader`` with 1, 2 and 4 workers against the threaded
+  loader, YOLOX-s steps with the HSV distortion on (MixUp on with
+  GridMask, MixUp off, MixUp off with GridMask: float32 K3) and the
+  photometric stage timed beside HSV's bytes bound, and 6 steps under
+  ``MultiScaleHook`` over two sizes. It logs each subsection's end.
 
 ``python3 chip_smoke.py --nccl`` runs (c) of sections 10 and 17 alone, on a
 machine of 2 or more cards.
@@ -336,6 +362,13 @@ def cuda_ms(fn, warmup=WARMUP, iters=ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def request_timing(n: int) -> dict:
+    """``cuda_ms``'s calls for a request of ``n`` images on the families'
+    paths after YOLOX-s's: at the largest batch (a call of 40-670 ms) 3
+    timed after 1, else the defaults."""
+    return dict(warmup=1, iters=3) if n >= BATCH else {}
 
 
 def kernel_ms(fn, warmup=WARMUP, iters=ITERS, host_ok=None) -> float:
@@ -551,14 +584,15 @@ def cli_args(out: str, *flags, **opts):
     return default_argument_parser().parse_args(cli_argv(out, *flags, **opts))
 
 
-def loader_rate(loader, batches: int = 10, to=None) -> float:
+def loader_rate(loader, batches: int = 10, to=None, warm: int = 1) -> float:
     """Images a second of ``loader`` over ``batches`` batches after its
-    first (host clock; with ``to``, through a ``CudaPrefetcher`` onto that
-    device, synchronized at the end)."""
+    first ``warm`` (host clock; with ``to``, through a ``CudaPrefetcher``
+    onto that device, synchronized at the end)."""
     from yolov7_d2_tpu_torch.data.loader import CudaPrefetcher
 
     it = iter(loader if to is None else CudaPrefetcher(loader, to))
-    first = next(it)
+    for _ in range(warm):
+        first = next(it)
     t0 = time.perf_counter()
     n = sum(len(next(it)["image"]) for _ in range(batches))
     if to is not None:
@@ -1621,9 +1655,10 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     for req in batches:
         n = req.shape[0]
         x = req.to(dev)
-        e2e = cuda_ms(lambda: anchor_serve(model, cfg, x))
+        e2e = cuda_ms(lambda: anchor_serve(model, cfg, x),
+                      **request_timing(n))
         with torch.inference_mode():
-            fwd = cuda_ms(lambda: model(x))
+            fwd = cuda_ms(lambda: model(x), **request_timing(n))
             head = model(x)
         tail = cuda_ms(lambda: anchor_tail(head, cfg))
         log(f"{name} {size} bs {n} bf16 on [{card}]: e2e {e2e:.3f} ms = "
@@ -1924,9 +1959,10 @@ def sparseinst_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     for req in batches:
         n = req.shape[0]
         x = req.to(dev)
-        e2e = cuda_ms(lambda: sparseinst_serve(model, cfg, x))
+        e2e = cuda_ms(lambda: sparseinst_serve(model, cfg, x),
+                      **request_timing(n))
         with torch.inference_mode():
-            fwd = cuda_ms(lambda: model(x))
+            fwd = cuda_ms(lambda: model(x), **request_timing(n))
             out = model(x)
         tail = cuda_ms(lambda: si.sparseinst_postprocess(
             out, cfg.cls_threshold, cfg.mask_threshold, cfg.max_detections))
@@ -2347,9 +2383,10 @@ def detr_model_paths(dev, card: str, gen: torch.Generator, kernels: dict,
     for req in batches:
         n = req.shape[0]
         x = req.to(dev)
-        e2e = cuda_ms(lambda: detr_serve(model, cfg, x))
+        e2e = cuda_ms(lambda: detr_serve(model, cfg, x),
+                      **request_timing(n))
         with torch.inference_mode():
-            fwd = cuda_ms(lambda: model(x))
+            fwd = cuda_ms(lambda: model(x), **request_timing(n))
             out = model(x)
         tail = cuda_ms(lambda: detr_tail(out, cfg))
         extra = ""
@@ -2708,9 +2745,10 @@ def yolox_kpts_phase(dev, card: str, gen: torch.Generator, kernels: dict,
         for req in batches:
             n = req.shape[0]
             x = req.to(dev)
-            e2e = cuda_ms(lambda: kpts_serve(model, cfg, x))
+            e2e = cuda_ms(lambda: kpts_serve(model, cfg, x),
+                          **request_timing(n))
             with torch.inference_mode():
-                fwd = cuda_ms(lambda: model(x))
+                fwd = cuda_ms(lambda: model(x), **request_timing(n))
                 head = model(x)
             tail = cuda_ms(lambda: kpts_tail(head, cfg))
             extra = ""
@@ -3120,9 +3158,10 @@ def onestage_phase(dev, card: str, gen: torch.Generator, kernels: dict,
         for req in batches:
             n = req.shape[0]
             x = req.to(dev)
-            e2e = cuda_ms(lambda: onestage_serve(model, cfg, x))
+            e2e = cuda_ms(lambda: onestage_serve(model, cfg, x),
+                          **request_timing(n))
             with torch.inference_mode():
-                fwd = cuda_ms(lambda: model(x))
+                fwd = cuda_ms(lambda: model(x), **request_timing(n))
                 head = model(x)
             tail = cuda_ms(lambda: onestage_tail(head, cfg))
             extra = ""
@@ -3431,7 +3470,7 @@ def assignments_apart(a, b) -> int:
 
 
 def family_sync_phase(dev, card: str, family: str, world: int = 2,
-                      backend: str = "gloo", steps: int = 3,
+                      backend: str = "gloo", steps: int = 2,
                       size=None) -> None:
     """Section 17 (a), or (c) over NCCL: ``world`` ranks of ``family``'s
     bare float32 step (TF32 off, 2 images a rank, ``steps`` steps;
@@ -3574,7 +3613,7 @@ def family_cli_args(yaml: str, out: str, name: str, *flags, **opts):
 def family_cli_phase(dev, card: str, family: str, kernels: dict,
                      images: int = CLI_IMAGES, **opts) -> None:
     """Section 17 (b): ``train_inseg`` (the blend mosaic) or
-    ``train_transformer`` (the crop branch) on a synthetic mini-COCO, 6
+    ``train_transformer`` (the crop branch) on a synthetic mini-COCO, 4
     steps of the section's batch (16 images at 640, or 8 at 800; one mapper
     thread), inside an NCCL group of 1 (DDP) and without a group: the
     losses at step 6 within
@@ -3589,7 +3628,7 @@ def family_cli_phase(dev, card: str, family: str, kernels: dict,
     from yolov7_d2_tpu_torch.parallel.dist import init_distributed
     from yolov7_d2_tpu_torch.parallel.launch import local_dist_url
 
-    steps = 6
+    steps = 4
     work, name, cli, yaml = family_cli_data(family, images)
     entry = ("normalize_sparseinst" if family == "SparseInst"
              else "normalize_detr")
@@ -3941,8 +3980,9 @@ def yolox_zoo_paths(dev, card: str, gen: torch.Generator, kernels: dict,
     for req in batches:
         n = req.shape[0]
         x = req.to(dev)
-        e2e = cuda_ms(lambda: predictor.predict_batch(x))
-        fwd = cuda_ms(lambda: predictor.forward(x))
+        e2e = cuda_ms(lambda: predictor.predict_batch(x),
+                      **request_timing(n))
+        fwd = cuda_ms(lambda: predictor.forward(x), **request_timing(n))
         head = predictor.forward(x)
         tail = cuda_ms(lambda: predictor.postprocess(head))
         extra = ""
@@ -4307,9 +4347,9 @@ def serving_times(card: str, name: str, size: int, batches, serve_fn,
     for req in batches:
         n = req.shape[0]
         x = req.to(dev)
-        e2e = cuda_ms(lambda: serve_fn(x))
+        e2e = cuda_ms(lambda: serve_fn(x), **request_timing(n))
         with torch.inference_mode():
-            fwd = cuda_ms(lambda: forward_fn(x))
+            fwd = cuda_ms(lambda: forward_fn(x), **request_timing(n))
             out = forward_fn(x)
         tail = cuda_ms(lambda: tail_fn(out))
         extra = ""
@@ -5799,6 +5839,564 @@ def closure_phase(dev, card: str, gen: torch.Generator,
 
 
 
+# ---------------------------------------------------------------------------
+# section 23: deploy (export, int8, pruning), the C.45 pairings, the feed
+# ---------------------------------------------------------------------------
+
+EXPORT_DIR = os.path.join(REPO, "build", "chip_smoke_export")
+YOLOX_S_YAML = os.path.join(REPO, "configs", "coco", "yolox_s.yaml")
+# the pairings the builders refused before the registry's one table
+# (ROADMAP.md C.45): (label, yaml under configs/coco, backbone, features)
+C45_PAIRINGS = (
+    ("YOLOX ResNet-50", "yolox_s.yaml", "build_resnet_backbone",
+     ["res3", "res4", "res5"]),
+    ("YOLOX MobileViT", "yolox_s.yaml", "build_mobilevit_backbone",
+     ["stage2", "stage3", "stage4"]),
+    ("YOLOV7 CSPResNet50d", "yolov7.yaml", "build_cspresnet50d_backbone",
+     ["res3", "res4", "res5"]),
+    ("d2go DETR Res2Net-50", "detr/d2go/detr_bs16.yaml",
+     "build_res2net_backbone", None),
+)
+# HSV's passes over [16, 640, 640, 3] float32, in and out
+HSV_BYTES = TRAIN_BATCH * SIZE * SIZE * 3 * 4 * 2
+
+
+def run_program_main(argv) -> int:
+    """``python3 chip_smoke.py --run-program PROGRAM INPUT OUTPUT DEVICE``:
+    in a process of its own, ``load_program(PROGRAM)`` run once on the
+    float32 batch saved at INPUT, on DEVICE (the card); saves its outputs,
+    the kernels' launches and whether JAX was imported to OUTPUT."""
+    program_path, input_path, output_path, device = argv
+    sys.path.insert(0, REPO)
+    from yolov7_d2_tpu_torch.deploy.export import load_program
+    from yolov7_d2_tpu_torch.kernels import build
+
+    x = torch.load(input_path).to(device)
+    program = load_program(program_path).module()
+    build.reset_launches()
+    with torch.inference_mode():
+        out = program(x)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    torch.save({"out": [t.cpu() for t in out],
+                "launches": dict(build.LAUNCHES),
+                "jax": "jax" in sys.modules}, output_path)
+    return 0
+
+
+def detections_equal(got, want) -> int:
+    """The slots where the tuple ``got`` (boxes, scores, classes, valid)
+    and ``want``'s ``Detections`` hold the same detection: validity and
+    class equal, boxes and scores within 1e-4 of the boxes' largest
+    coordinate and of 1."""
+    span = max(1.0, float(want.boxes.abs().max()))
+    same = (got[3] == want.valid) & (got[2] == want.classes) \
+        & ((got[1] - want.scores).abs() <= 1e-4) \
+        & ((got[0] - want.boxes).abs() <= 1e-4 * span).all(-1)
+    return int(same.sum())
+
+
+def nms_export_entry(dev, predictor, x, kernels: dict) -> dict:
+    """The ``nms_export`` entry: K1 through the custom op at the shapes
+    the fused bs-128 program gives it (the tail's top-1024 candidates,
+    offset by class), against its plain version."""
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched, nms_batched_plain
+
+    caught = []
+
+    def capture(boxes, scores, thr, max_out):
+        caught.append((boxes.clone(), scores.clone(), thr, max_out))
+        return nms_batched(boxes, scores, thr, max_out)
+
+    predictor.postprocess(predictor.forward(x), nms=capture)
+    boxes, scores, thr, max_out = caught[0]
+    op = torch.ops.yolov7_d2_tpu_torch.nms_batched
+    got = op(boxes, scores, thr, max_out)
+    want = nms_batched_plain(boxes, scores, thr, max_out)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("(23a) the NMS op differs from its plain "
+                             "version on the exported path's inputs")
+    return {
+        "name": "nms_export", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/nms.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_nms.py:34",
+        "launches": 0,
+        "max_abs_err": float((got[0] - want[0]).abs().max()),
+        "ms": kernel_ms(lambda: op(boxes, scores, thr, max_out)),
+        "plain_ms": kernel_ms(lambda: nms_batched_plain(boxes, scores, thr,
+                                                      max_out),
+                              host_ok="nms_export plain"),
+        "library_ms": None,  # no torchvision: no PyTorch call does NMS
+        **bound((boxes.numel() + scores.numel()) * 4 + got[1].numel() * 5,
+                float(nms_walk_pairs(scores, *got, max_out)) * 15),
+    }
+
+
+def export_paths(dev, card: str, gen: torch.Generator, kernels: dict,
+                 cli_opts=()) -> None:
+    """(23a) YOLOX-s 640 (``configs/coco/yolox_s.yaml``, bf16, the seed's
+    weights) exported on a float32 NHWC batch: by
+    ``yolov7_d2_tpu_torch.export``'s ``main`` (the CLI's command line,
+    ``--fuse-postprocess``, bs 1), loaded and run in a fresh process (its
+    K1 launch counted) while this one exports at bs 128 with the tail
+    fused and at bs 8 without it, and in float32 (AMP off) at bs 8 both
+    ways. Each program, loaded by ``load_program``, against
+    ``Predictor``'s model and tail on
+    the same float32 batch: float32 raw outputs within 1e-4 of their max
+    and ``Detections`` index-equal; bf16 raw outputs within 5e-2 of their
+    max, the fused programs' ``Detections`` finite and of their shapes
+    (the slots equal to ``Predictor``'s logged); the convolutions of the
+    bf16 programs in bfloat16. Logs each program's ms a call beside
+    ``Predictor``'s and the export's seconds; the programs' K1 launches
+    are the ``nms_export`` entry's. ``cli_opts`` end the CLI's command
+    line (config keys and values)."""
+    from yolov7_d2_tpu_torch.config import YoloxConfig
+    from yolov7_d2_tpu_torch.deploy.export import (
+        conv_dtypes,
+        export_inference_fn,
+        load_program,
+    )
+    from yolov7_d2_tpu_torch import export as export_cli
+    from yolov7_d2_tpu_torch.export import yolox_tail
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.predictor import Predictor
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    cfg = YoloxConfig()
+    predictor = Predictor(cfg, device=dev, seed=SEED)
+    batches = {n: letterboxed_batch(n, gen).float().to(dev)
+               for n in REQUEST_BATCHES}
+    one, few, many = REQUEST_BATCHES
+    launches = 0
+
+    # the CLI, then a fresh process that loads and runs its artifact while
+    # this one exports the others
+    cli_dir = os.path.join(EXPORT_DIR, "cli_bs1")
+    t0 = time.perf_counter()
+    export_cli.main(["--config-file", YOLOX_S_YAML, "--fuse-postprocess",
+                     "--batch", str(one), "--output", cli_dir, *cli_opts])
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(cli_dir, "export_meta.json")) as f:
+        meta = json.load(f)
+    if meta != {"input_shape": [one, SIZE, SIZE, 3],
+                "input_dtype": "float32", "layout": "NHWC",
+                "postprocess_fused": True}:
+        raise AssertionError(f"(23a) export_meta.json: {meta}")
+    torch.save(batches[one].cpu(), os.path.join(EXPORT_DIR, "bs1.pt"))
+    t_fresh = time.perf_counter()
+    fresh_proc = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--run-program",
+         os.path.join(cli_dir, "model.pt2"),
+         os.path.join(EXPORT_DIR, "bs1.pt"),
+         os.path.join(EXPORT_DIR, "bs1_out.pt"), str(dev)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    f32cfg = dataclasses.replace(cfg, amp=False)
+    f32 = Predictor(f32cfg, device=dev, seed=SEED)
+    programs = [(f"bf16 bs {one} fused (the CLI's)", cfg, predictor, one,
+                 True, os.path.join(cli_dir, "model.pt2"), None)]
+    for label, c, pred, bs, fused in (
+            (f"bf16 bs {many} fused", cfg, predictor, many, True),
+            (f"bf16 bs {few} raw", cfg, predictor, few, False),
+            (f"float32 bs {few} raw", f32cfg, f32, few, False),
+            (f"float32 bs {few} fused", f32cfg, f32, few, True)):
+        t0 = time.perf_counter()
+        paths = export_inference_fn(
+            pred.model, (bs, SIZE, SIZE, 3),
+            os.path.join(EXPORT_DIR, label.replace(" ", "_")),
+            yolox_tail(c) if fused else None)
+        programs.append((label, c, pred, bs, fused, paths["program"],
+                         time.perf_counter() - t0))
+    try:
+        _, err = fresh_proc.communicate(timeout=600)
+    finally:
+        fresh_proc.kill()
+    fresh_s = time.perf_counter() - t_fresh
+    if fresh_proc.returncode != 0:
+        raise AssertionError(f"(23a) the fresh process failed: {err[-3000:]}")
+    fresh = torch.load(os.path.join(EXPORT_DIR, "bs1_out.pt"))
+    if fresh["launches"] != {"nms": 1} or fresh["jax"]:
+        raise AssertionError(f"(23a) the fresh process: launches "
+                             f"{fresh['launches']}, jax {fresh['jax']}")
+    launches += 1
+    want1 = predictor.postprocess(predictor.forward(batches[one]))
+    fresh_out = [t.to(dev) for t in fresh["out"]]
+    if not torch.isfinite(fresh_out[0][fresh_out[3]]).all():
+        raise AssertionError("(23a) the CLI artifact gave non-finite boxes")
+    log(f"(23a) export CLI (bs {one}, tail fused) in {cli_s:.1f} s; a "
+        f"fresh process loaded and ran it in {fresh_s:.1f} s (beside the "
+        f"exports below): K1 launches {fresh['launches']}, jax imported "
+        f"{fresh['jax']}; {detections_equal(fresh_out, want1)} of "
+        f"{want1.valid.numel()} slots equal Predictor's (bf16)")
+    for label, c, pred, bs, fused, path, export_s in programs:
+        loaded = load_program(path)
+        dtypes = conv_dtypes(loaded)
+        want_dtype = "bfloat16" if c.amp else "float32"
+        if list(dtypes) != [want_dtype]:
+            raise AssertionError(f"(23a) {label}: convolutions {dtypes}")
+        program = loaded.module()
+        x = batches[bs]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        with torch.inference_mode():
+            got = program(x)
+        torch.cuda.synchronize()
+        got_l = dict(build.LAUNCHES)
+        if got_l != ({"nms": 1} if fused else {}):
+            raise AssertionError(f"(23a) {label}: launches {got_l}")
+        launches += got_l.get("nms", 0)
+        head = pred.forward(x)
+        if fused:
+            want = pred.postprocess(head)
+            equal = detections_equal(got, want)
+            if c.amp:
+                check_detections(type(want)(*got), bs, c, label)
+            elif equal != want.valid.numel():
+                raise AssertionError(f"(23a) {label}: {equal} of "
+                                     f"{want.valid.numel()} slots equal")
+            what = f"{equal} of {want.valid.numel()} slots equal"
+        else:
+            scale = float(head["outputs"].float().abs().max())
+            err = float((got["outputs"].float()
+                         - head["outputs"].float()).abs().max())
+            tol = 5e-2 if c.amp else 1e-4
+            if err > tol * scale:
+                raise AssertionError(f"(23a) {label}: raw outputs {err:.3g}"
+                                     f" off, above {tol} of {scale:.4g}")
+            what = f"raw outputs {err:.3g} of max {scale:.4g} off"
+
+        def ref():
+            out = pred.forward(x)
+            return pred.postprocess(out) if fused else out
+
+        with torch.inference_mode():
+            prog_ms = cuda_ms(lambda: program(x))
+        ref_ms = cuda_ms(ref)
+        log(f"(23a) {label} on [{card}]: {what}; convolutions {dtypes}; "
+            f"program {prog_ms:.3f} ms a call, Predictor "
+            f"{'model + tail' if fused else 'model'} {ref_ms:.3f} ms"
+            + ("" if export_s is None else
+               f"; exported, saved in {export_s:.1f} s"))
+        del loaded, program, got, head
+    entry = nms_export_entry(dev, predictor, batches[many], kernels)
+    entry["launches"] = launches
+    kernels["nms_export"] = entry
+    log(f"(23a) nms_export [{card}]: K1 through the custom op on "
+        f"[{many}, {cfg.pre_nms_topk}], index-exact; kernel "
+        f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms; {launches} launches from the "
+        "programs")
+    del predictor, f32, batches
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def quant_prune_paths(dev, card: str, gen: torch.Generator,
+                      kernels: dict) -> None:
+    """(23b) YOLOX-s's weights quantized to int8 on the card: each element
+    within its half scale of the weight; dequantized to bf16 and served at
+    bs 128 (finite ``Detections``); ``l1_filter_prune`` at 0.5 and served,
+    the sparsity report logged."""
+    from yolov7_d2_tpu_torch.config import YoloxConfig
+    from yolov7_d2_tpu_torch.deploy import prune, quantize
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.predictor import Predictor
+
+    cfg = YoloxConfig()
+    predictor = Predictor(cfg, device=dev, seed=SEED)
+    model = predictor.model
+    weights = {k: v.detach().clone() for k, v in model.named_parameters()}
+    t0 = time.perf_counter()
+    q, scales = quantize.quantize_weights_int8(model)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    worst, count, n_int8 = -0.5, 0, 0
+    for name, s in scales.items():
+        if s is None:
+            continue
+        # how far past its half scale an element's round trip lands (in
+        # scales; -0.5 is exact)
+        gap = ((q[name].float() * s - weights[name]).abs() - s / 2) / s
+        worst = max(worst, float(gap.max()))
+        count += 1
+        n_int8 += q[name].numel()
+    if worst > 1e-5:
+        raise AssertionError(f"(23b) an int8 weight is {worst:.3g} of a "
+                             "scale beyond its half scale")
+    req = letterboxed_batch(BATCH, gen).to(dev)
+    model.load_state_dict(quantize.dequantize_weights(q, scales), strict=False)
+    build.reset_launches()
+    summary_q = check_detections(predictor.predict_batch(req), BATCH, cfg,
+                                 "(23b) int8 weights")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    model.load_state_dict(weights, strict=False)
+    pruned, _ = prune.l1_filter_prune(model, 0.5)
+    model.load_state_dict(pruned, strict=False)
+    summary_p = check_detections(predictor.predict_batch(req), BATCH, cfg,
+                                 "(23b) pruned weights")
+    report = prune.sparsity_report(model)
+    for k in ("normalize", "nms"):
+        kernels[k]["launches"] += launches.get(k, 0)
+    layers = sorted((v, k) for k, v in report.items() if k != "global")
+    log(f"(23b) int8 on [{card}]: {count} tensors, {n_int8} weights "
+        f"quantized in {q_s:.2f} s, every element within its half scale "
+        f"(worst {worst:.2e} of a scale beyond it); bf16 dequantized, bs "
+        f"{BATCH}: {summary_q}, launches {launches}; l1_filter_prune 0.5: "
+        f"bs {BATCH} {summary_p}; sparsity global {report['global']:.4f}, "
+        f"layers {layers[0][0]:.3f} ({layers[0][1]}) to {layers[-1][0]:.3f} "
+        f"({layers[-1][1]})")
+    del predictor, model, weights, q, scales, pruned
+    torch.cuda.empty_cache()
+
+
+def c45_cfg(yaml: str, backbone: str, features):
+    """The config dataclass of ``configs/coco/<yaml>`` on ``backbone``
+    (``MODEL.YOLO.IN_FEATURES`` its three outputs where given), through
+    the CfgNode, as a user's config reaches the registry's builder."""
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+    from yolov7_d2_tpu_torch.engine import config_from_cfg
+
+    node = get_cfg()
+    node.merge_from_file(os.path.join(REPO, "configs", "coco", yaml))
+    node.MODEL.BACKBONE.NAME = backbone
+    if features is not None:
+        node.MODEL.YOLO.IN_FEATURES = features
+    return config_from_cfg(node)
+
+
+def c45_paths(dev, card: str, gen: torch.Generator, kernels: dict,
+              bs: int = 8, train_n: int = TRAIN_BATCH, size=None) -> None:
+    """(23c) Each of :data:`C45_PAIRINGS` at full width and its yaml's size:
+    one request of ``bs`` images through the family's tail (K2 at the
+    head; K1 in the YOLO tails) and one ``build_system`` step of
+    ``train_n`` images (YOLOX and YOLOV7 in ``make_packed_photo_step``):
+    finite losses, launches added to ``kernels``. ``size`` replaces the
+    yamls' input size."""
+    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.predictor import Predictor
+
+    for label, yaml, backbone, features in C45_PAIRINGS:
+        t0 = time.perf_counter()
+        cfg = c45_cfg(yaml, backbone, features)
+        if size is not None:
+            cfg = dataclasses.replace(cfg, input_size=(size, size))
+        px = cfg.input_size[0]
+        model, state, train_step, _ = build_system(cfg, device=dev,
+                                                   seed=SEED)
+        req = letterboxed_batch(bs, gen, px).to(dev)
+        build.reset_launches()
+        if cfg.meta_architecture == "YOLOX":
+            dets = Predictor(cfg, device=dev, model=model.eval()
+                             ).predict_batch(req)
+        elif cfg.meta_architecture == "DetrD2go":
+            _, dets = detr_serve(model.eval(), cfg, req)
+        else:
+            _, dets = anchor_serve(model.eval(), cfg, req)
+        summary = check_detections(dets, bs, cfg, label)
+        torch.cuda.synchronize()
+        serve = dict(build.LAUNCHES)
+        if cfg.meta_architecture == "DetrD2go":
+            batch = detr_batch(train_n, gen, dev, px)
+            step = train_step
+        else:
+            batch = {k: v.to(dev) for k, v in train_batch(
+                train_n, gen, px).items()}
+            step = make_packed_photo_step(cfg, train_step, seed=SEED)
+        model.train()
+        build.reset_launches()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        train = dict(build.LAUNCHES)
+        bad = [k for k, v in m.items() if "loss" in k
+               and not math.isfinite(float(v))]
+        if bad or not math.isfinite(float(m["total_loss"])):
+            raise AssertionError(f"(23c) {label}: non-finite {bad}")
+        needs = ("normalize",) + (() if cfg.meta_architecture == "DetrD2go"
+                                  else ("nms",))
+        for kernel in needs:
+            if serve.get(kernel, 0) < 1:
+                raise AssertionError(f"(23c) {label} serving never launched "
+                                     f"{kernel}")
+        entry = {"YOLOX": "normalize", "YOLOV7": "normalize"}.get(
+            cfg.meta_architecture, "normalize_detr")
+        kernels[entry]["launches"] += serve.get("normalize", 0) + train.get(
+            "normalize", 0)
+        kernels["nms"]["launches"] += serve.get("nms", 0)
+        log(f"(23c) {label} ({type(model.backbone).__name__}, "
+            f"{sum(p.numel() for p in model.parameters())} parameters) at "
+            f"{px} on [{card}]: bs {bs} {summary}, launches {serve}; one "
+            f"step of {train_n}: total loss {float(m['total_loss']):.4f}, "
+            f"launches {train}; {time.perf_counter() - t0:.1f} s")
+        del model, state, train_step, step, batch
+        torch.cuda.empty_cache()
+
+
+def feed_paths(dev, card: str, gen: torch.Generator, kernels: dict,
+               images: int = CLI_IMAGES, steps: int = 3) -> None:
+    """(23d) The feed: YOLOX-s's host mosaic (``YOLOXDatasetMapper`` at
+    640) through ``MultiProcessDataLoader`` with 1, 2 and 4 spawned workers
+    (``MapperFactory``) against the threaded ``DataLoader``, img/s over 10
+    batches of 16 (after the first, or after 2 a worker); ``steps`` steps
+    of YOLOX-s 640 with the HSV distortion on, MixUp on with GridMask (its
+    float32 instance), MixUp off, and MixUp off with GridMask (float32
+    again: HSV makes the image float), the photometric stage timed alone
+    beside HSV's bytes bound; then steps under ``MultiScaleHook`` over two
+    sizes, switching every 2 steps (the wrapped mapper maps each batch in
+    this process)."""
+    import numpy as np
+
+    from yolov7_d2_tpu_torch.config import YoloxConfig
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+    from yolov7_d2_tpu_torch.data import mappers
+    from yolov7_d2_tpu_torch.data.coco import load_coco_json
+    from yolov7_d2_tpu_torch.data.device_aug import (
+        DevicePhotometric,
+        make_packed_photo_step,
+    )
+    from yolov7_d2_tpu_torch.data.loader import (
+        build_detection_train_loader,
+        stack_batch,
+    )
+    from yolov7_d2_tpu_torch.data.mp_loader import MultiProcessDataLoader
+    from yolov7_d2_tpu_torch.data.multiscale import (
+        MultiScaleMapperWrapper,
+        size_for_step,
+    )
+    from yolov7_d2_tpu_torch.engine import build_yolox_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.train.trainer import MultiScaleHook
+
+    work = os.path.join(REPO, "build", "chip_smoke_feed")
+    shutil.rmtree(work, ignore_errors=True)
+    js, img_dir = write_mini_coco(work, n=images)
+    records = load_coco_json(js, img_dir)
+    node = get_cfg()
+    node.merge_from_file(YOLOX_S_YAML)
+    node.DATALOADER.NUM_WORKERS = 4
+    try:
+        threads = loader_rate(build_detection_train_loader(
+            node, records, mappers.YOLOXDatasetMapper(node, seed=0),
+            batch_size=TRAIN_BATCH))
+        rates = {}
+        for workers in (1, 2, 4):
+            t0 = time.perf_counter()
+            loader = MultiProcessDataLoader(
+                records, mappers.MapperFactory(mappers.YOLOXDatasetMapper,
+                                               node),
+                TRAIN_BATCH, num_workers=workers, seed=SEED)
+            # every worker's first samples come before the timed batches:
+            # a spawned worker starts in 10-15 s (its imports)
+            rates[workers] = (loader_rate(loader, warm=2 * workers),
+                              time.perf_counter() - t0)
+        log(f"(23d) YOLOX-s mosaic at 640 on [{card}], os.cpu_count() "
+            f"{os.cpu_count()}: threaded DataLoader (4 threads) "
+            f"{threads:.1f} img/s; MultiProcessDataLoader "
+            + ", ".join(f"{w} worker{'s' * (w > 1)} {r:.1f} img/s ({s:.1f} "
+                        "s with the spawn)" for w, (r, s) in rates.items())
+            + f" (10 batches of {TRAIN_BATCH} after the first, after 2 a "
+            "worker for the process loaders, host clock)")
+
+        # the HSV distortion in the photometric stage
+        base = dataclasses.replace(YoloxConfig(), distortion=True)
+        _, state, train_step = build_yolox_system(base, device=dev,
+                                                  seed=SEED)
+        batches = [{k: v.to(dev) for k, v in train_batch(
+            TRAIN_BATCH, gen).items()} for _ in range(steps)]
+        for label, mixup, grid in (("MixUp on, GridMask", True, True),
+                                   ("MixUp off", False, False),
+                                   ("MixUp off, GridMask", False, True)):
+            cfg = dataclasses.replace(base, mixup=mixup, grid_mask=grid,
+                                      grid_mask_prob=1.0)
+            step = make_packed_photo_step(cfg, train_step, seed=SEED)
+            build.reset_launches()
+            metrics = []
+            for b in batches:
+                state, m = step(state, b)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+            check_yolox_metrics(metrics, f"(23d) HSV, {label}")
+            want = {"grid_mask": steps} if grid else {}
+            if not mixup:
+                want["normalize"] = 0
+            if {k: launches.get(k, 0) for k in want} != want:
+                raise AssertionError(f"(23d) HSV, {label}: launches "
+                                     f"{launches}")
+            if grid:
+                kernels["grid_mask"]["launches"] += launches["grid_mask"]
+            aug = DevicePhotometric(cfg)
+            draws = aug.draw(torch.Generator().manual_seed(SEED),
+                             TRAIN_BATCH, SIZE, SIZE)
+            out = aug.apply(batches[0], draws)
+            if out["image"].dtype != torch.float32:
+                raise AssertionError(f"(23d) HSV, {label}: "
+                                     f"{out['image'].dtype} image")
+            stage_ms = cuda_ms(lambda: aug.apply(batches[0], draws))
+            log(f"(23d) HSV on, {label}, on [{card}]: {steps} steps of "
+                f"{TRAIN_BATCH}, total loss "
+                f"{float(metrics[-1]['total_loss']):.4f}, launches "
+                f"{launches}; the photometric stage alone {stage_ms:.3f} ms "
+                f"(HSV's bytes bound {HSV_BYTES / HBM_BYTES_PER_S * 1e3:.4f}"
+                f" ms: {HSV_BYTES / 1e6:.0f} MB in and out)")
+
+        # MultiScaleHook: two sizes, a new draw every 2 steps
+        small = SIZE * 9 // 10 // 32 * 32
+        sizes = [(SIZE, SIZE), (small, small)]
+        seed = next(sd for sd in range(SEED, SEED + 100) if len({
+            size_for_step(i, sizes, 2, sd) for i in range(6)}) == 2)
+        wrapper = MultiScaleMapperWrapper(
+            mappers.YOLOXDatasetMapper(node, seed=0), sizes, interval=2,
+            seed=seed)
+        hook = MultiScaleHook(wrapper)
+        step = make_packed_photo_step(base, train_step, seed=SEED)
+        seen = []
+        rng = np.random.default_rng(SEED)
+        for i in range(6):
+            hook.after_step(types_namespace(iter=i))
+            picks = rng.choice(len(records), TRAIN_BATCH, replace=False)
+            batch = stack_batch([wrapper(records[int(j)]) for j in picks])
+            seen.append(tuple(batch["image"].shape[1:3]))
+            state, m = step(state, {k: torch.from_numpy(batch[k]).to(dev)
+                                    for k in ("image", "gt_boxes",
+                                              "gt_classes", "gt_valid")})
+            check_yolox_metrics([m], f"(23d) multi-scale step {i}")
+        if set(seen) != set(sizes) or any(
+                seen[i] != size_for_step(i, sizes, 2, seed)
+                for i in range(6)):
+            raise AssertionError(f"(23d) multi-scale sizes {seen}")
+        log(f"(23d) MultiScaleHook on [{card}]: 6 steps of {TRAIN_BATCH} at "
+            f"sizes {seen} (schedule seed {seed}), finite losses")
+        del state, train_step, step, batches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def types_namespace(**storage):
+    """A stand-in trainer whose ``storage`` has the given fields."""
+    import types
+
+    return types.SimpleNamespace(storage=types.SimpleNamespace(**storage))
+
+
+def deploy_feed_phase(dev, card: str, gen: torch.Generator,
+                      kernels: dict) -> None:
+    """Section 23: (a) :func:`export_paths`, (b) :func:`quant_prune_paths`,
+    (c) :func:`c45_paths`, (d) :func:`feed_paths`, each subsection's end
+    logged."""
+    t0 = time.perf_counter()
+    for label, fn in (("a", export_paths), ("b", quant_prune_paths),
+                      ("c", c45_paths), ("d", feed_paths)):
+        fn(dev, card, gen, kernels)
+        log(f"(23{label}) done {time.perf_counter() - t0:.1f} s into "
+            "section 23")
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -6263,7 +6861,7 @@ def main() -> int:
     # NCCL ranks where two or more cards are visible
     for family, _ in FAMILY_RANKS:
         family_sync_phase(dev, card, family)
-        family_cli_phase(dev, card, family, kernels)
+        family_cli_phase(dev, card, family, kernels, images=CLI_IMAGES // 2)
         family_nccl_phase(dev, card, family)
 
     mark("17")
@@ -6309,7 +6907,16 @@ def main() -> int:
 
     mark("22")
 
-    # ---- 23. times
+    # ---- 23. deploy and the rest of the feed: YOLOX-s exported (the CLI,
+    # a fresh process, bs 1 / 8 / 128, bf16 and float32) against
+    # Predictor, int8 and pruning served, the C.45 pairings, the
+    # process-worker loader, HSV on the card, multi-scale steps
+    # (deploy_feed_phase)
+    deploy_feed_phase(dev, card, gen, kernels)
+
+    mark("23")
+
+    # ---- 24. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "
@@ -6365,4 +6972,6 @@ def nccl_main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--run-program"]:
+        sys.exit(run_program_main(sys.argv[2:]))
     sys.exit(nccl_main() if sys.argv[1:] == ["--nccl"] else main())

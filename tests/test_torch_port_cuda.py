@@ -161,6 +161,49 @@ def test_nms_kernel_refuses_what_it_cannot_take(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["non_contiguous", "misaligned"])
+def test_nms_op_copies_what_the_kernel_cannot_read(dev, layout):
+    """The custom op's CUDA body copies inputs that are not contiguous or
+    whose boxes are not 16-byte aligned, and launches the kernel."""
+    boxes, scores, _ = _nms_inputs(dev, 3, 300, seed=5)
+    if layout == "non_contiguous":
+        boxes = boxes.transpose(0, 1).contiguous().transpose(0, 1)
+        scores = scores.t().contiguous().t()
+        assert not (boxes.is_contiguous() or scores.is_contiguous())
+    else:
+        flat = torch.empty(boxes.numel() + 1, device=dev)
+        flat[1:] = boxes.flatten()
+        boxes = flat[1:].view(boxes.shape)
+        assert boxes.is_contiguous() and boxes.data_ptr() % 16
+    _assert_nms_matches_plain(boxes, scores, 0.65, 100)
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_the_nms_kernel(dev, tmp_path):
+    """A program exported with the class-aware NMS in it, saved and loaded,
+    launches the kernel through the custom op."""
+    from yolov7_d2_tpu_torch.deploy.export import (
+        export_program,
+        load_program,
+    )
+
+    boxes, scores, cls = _nms_inputs(dev, 4, 1024, seed=9)
+    path = export_program(
+        lambda b, s, c: batched_nms_batched(b, s, c, 0.65, 100),
+        (boxes, scores, cls), str(tmp_path / "nms.pt2"))
+    program = load_program(path)
+    nodes = [str(n.target) for n in program.graph.nodes]
+    assert "yolov7_d2_tpu_torch.nms_batched.default" in nodes
+    before = build.LAUNCHES["nms"]
+    got = program.module()(boxes, scores, cls)
+    want = batched_nms_batched(boxes, scores, cls, 0.65, 100,
+                               nms=nms_batched_plain)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["nms"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("stats", ["identity", "pixel"])
 def test_normalize_kernel_matches_plain(dev, out_dtype, stats):

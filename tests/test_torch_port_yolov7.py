@@ -140,9 +140,15 @@ def test_yolov7_flagship_size():
 
 def test_unported_parts_raise():
     cfg = dataclasses.replace(AnchorYoloConfig(), amp=False)
+    # every registered backbone builds (MobileViT from the defaults'
+    # MODEL.MOBILEVIT, the YOLO features set to its outputs)
+    model = build_model(dataclasses.replace(
+        cfg, backbone="build_mobilevit_backbone",
+        in_features=("stage2", "stage3", "stage4")), "cpu")
+    assert type(model.backbone).__name__ == "MobileViT"
     for replace, item in (
-            (dict(backbone="build_swin_backbone"), "A.8"),
-            (dict(backbone="build_mobilevit_backbone"), "A.8"),
+            # an unregistered name raises, naming it
+            (dict(backbone="build_swin_backbone"), "'build_swin_backbone'"),
             # the R-CNN family builds, from its own config
             (dict(meta_architecture="MaskRCNN"), "takes an RcnnConfig")):
         with pytest.raises(NotImplementedError, match=item):

@@ -264,8 +264,14 @@ def test_build_model_registry():
         build_model(YoloxConfig(meta_architecture="MaskRCNN"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(YoloxConfig(meta_architecture="RetinaNet"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(YoloxConfig(backbone="build_mobilevit_backbone"))
+    # any registered backbone builds; an unregistered name raises, naming
+    # it
+    model = build_model(YoloxConfig(
+        backbone="build_mobilevit_backbone", width_mul=0.25, amp=False,
+        in_features=("stage2", "stage3", "stage4")), "cpu")
+    assert type(model.backbone).__name__ == "MobileViT"
+    with pytest.raises(NotImplementedError, match="'build_swin_backbone'"):
+        build_model(YoloxConfig(backbone="build_swin_backbone"))
 
 
 def test_decode_outputs_matches_jax():

@@ -5,6 +5,8 @@
     python3 tools/config_sweep_torch_port.py [--json PATH]
     python3 tools/config_sweep_torch_port.py --step [--device cpu|cuda]
         [--json PATH] [YAML ...]
+    python3 tools/config_sweep_torch_port.py --export [--device cpu|cuda]
+        [--json PATH]
 
 Each yaml is merged into the port's ``get_cfg`` as the entry points merge
 it, turned into its architecture's config dataclass
@@ -27,6 +29,13 @@ with BiFPN), and one train step taken on a synthetic image, as the JAX
 ``tests/test_config_zoo.py:29`` does; a line a yaml, then ``N of M yamls
 took a step``. Any exception is a fault and ends the run non-zero. On the
 CPU all 109 take some minutes; ``chip_smoke.py`` runs it on the card.
+
+``--export`` runs ``zoo_step.export_sweep``: the first yaml of each
+meta-architecture built as ``--step`` builds it (64 px, AMP off) and
+exported through ``deploy/export.export_inference_fn`` into a temporary
+directory, loaded back and run against the model; a line an architecture
+(the program's gap to the model, or the exception that stopped the
+export), then ``N of M architectures export``, non-zero if one failed.
 """
 
 from __future__ import annotations
@@ -78,9 +87,13 @@ def main() -> int:
                         help="the --step sweep's device (default: cuda)")
     parser.add_argument("yamls", nargs="*",
                         help="the --step sweep's yaml files (default: all)")
+    parser.add_argument("--export", action="store_true",
+                        help="export one yaml of each architecture")
     args = parser.parse_args()
     if args.step:
         return step_main(args)
+    if args.export:
+        return export_main(args)
     torch.set_grad_enabled(False)
     paths = sorted((REPO / "configs").rglob("*.yaml"))
     rows = sweep(paths)
@@ -112,6 +125,22 @@ def step_main(args) -> int:
         with open(args.json, "w") as f:
             json.dump(rows, f, indent=1)
     return 0
+
+
+def export_main(args) -> int:
+    import tempfile
+
+    from yolov7_d2_tpu_torch.zoo_step import export_sweep
+
+    with tempfile.TemporaryDirectory() as out:
+        rows = export_sweep(REPO / "configs", resolve_device(args.device),
+                            out)
+    failed = [r for r in rows if "error" in r]
+    print(f"{len(rows) - len(failed)} of {len(rows)} architectures export")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rows, f, indent=1)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ instead, so that they need neither PyYAML nor OpenCV.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +96,10 @@ class YoloxConfig:
     aug_disable_at_iter: int = 120000  # also where the L1 term turns on
     flip_prob: float = 0.5  # 0 when RANDOM_FLIP_HORIZONTAL is off
     distortion: bool = False
+    # the HSV draws' ranges (INPUT.DISTORTION)
+    distortion_hue: float = 0.1
+    distortion_saturation: float = 1.5
+    distortion_exposure: float = 1.5
     grid_mask: bool = False
     grid_mask_mode: int = 1
     grid_mask_prob: float = 0.3
@@ -126,6 +130,11 @@ class YoloxConfig:
     clip_value: float = 1.0
     ema: bool = True
     ema_decay: float = 0.9998
+    # the merged CfgNode the fields were read from (``from_cfg``): a
+    # registered backbone that the fields above do not describe builds
+    # from it (``models/registries.build_backbone``)
+    cfg_node: Optional[Any] = dataclasses.field(default=None, compare=False,
+                                                repr=False)
 
     @classmethod
     def from_cfg(cls, cfg) -> "YoloxConfig":
@@ -163,6 +172,9 @@ class YoloxConfig:
             aug_disable_at_iter=int(inp.MOSAIC_AND_MIXUP.DISABLE_AT_ITER),
             flip_prob=float(flip.PROB) if flip.ENABLED else 0.0,
             distortion=bool(inp.DISTORTION.ENABLED),
+            distortion_hue=float(inp.DISTORTION.HUE),
+            distortion_saturation=float(inp.DISTORTION.SATURATION),
+            distortion_exposure=float(inp.DISTORTION.EXPOSURE),
             grid_mask=bool(grid.ENABLED),
             grid_mask_mode=int(grid.MODE),
             grid_mask_prob=float(grid.PROB),
@@ -193,4 +205,5 @@ class YoloxConfig:
             clip_value=float(solver.CLIP_GRADIENTS.CLIP_VALUE),
             ema=bool(solver.EMA.ENABLED),
             ema_decay=float(solver.EMA.DECAY),
+            cfg_node=cfg.clone(),
         )

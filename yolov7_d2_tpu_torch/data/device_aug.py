@@ -1,27 +1,29 @@
 """The training step's photometric stage on the device (JAX
-``data/device_aug.py:503, 642-768``, with GridMask from
+``data/device_aug.py:453, 503, 642-768``, with GridMask from
 ``data/transforms/augment.py:117-140``).
 
 Batches arrive pre-augmented in geometry (mosaic, affine) and letterboxed,
 as uint8 NHWC. On the device: in-batch MixUp (a 0.5 / 0.5 blend with a
-permuted partner and the union of the two box sets), then GridMask (the
-kernel of ``kernels/grid_mask.py``), then the horizontal flip, then the
-boxes packed valid-first into ``max_boxes`` slots. GridMask sits after
-mixup and before the flip, as in the mapper's order
-(``yolov7_d2_tpu/data/detection_utils.py:12``).
+permuted partner and the union of the two box sets), then the HSV
+distortion (:func:`hsv_distort`, plain PyTorch: it is XLA code in JAX),
+then GridMask (the kernel of ``kernels/grid_mask.py``), then the
+horizontal flip, then the boxes packed valid-first into ``max_boxes``
+slots. HSV and GridMask sit after mixup and before the flip, in the
+mapper's order (``yolov7_d2_tpu/data/detection_utils.py:66-112``:
+distortion, then GridMask).
 
-The random draws (permutation, coins, GridMask parameters) are made on the
-host from a ``torch.Generator`` and moved to the card; torch's generator
-gives other numbers than ``jax.random``, so the tests hand both packages
-the same draws. With mixup off the image stays uint8 and the model takes it
-through the normalize kernel; the values are the JAX package's float32
-ones either way.
+The random draws (permutation, coins, GridMask parameters, HSV gains) are
+made on the host from a ``torch.Generator`` and moved to the card; torch's
+generator gives other numbers than ``jax.random``, so the tests hand both
+packages the same draws. With mixup and the distortion off the image stays
+uint8 and the model takes it through the normalize kernel (GridMask's
+uint8 instance); the values are the JAX package's float32 ones either way.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -50,6 +52,50 @@ def sample_grid_mask_params(generator: torch.Generator, batch: int, h: int,
     return torch.where(drawn[:, None], params, identity).to(torch.int32)
 
 
+def hsv_distort(img: torch.Tensor, dhue: torch.Tensor, dsat: torch.Tensor,
+                dexp: torch.Tensor) -> torch.Tensor:
+    """JAX ``device_aug.py:453`` over a batch: float BGR [B, H, W, 3] in
+    0..255 -> HSV on cv2's uint8 scale (H in [0, 180)), the hue shifted by
+    ``dhue * 180`` (mod 180), S and V scaled by ``dsat`` / ``dexp`` and
+    clipped, -> BGR. ``dhue`` / ``dsat`` / ``dexp`` are float32 [B]. The
+    JAX expression step by step: ``jnp.mod`` is a floor modulo
+    (``torch.remainder``), the hue's branch is the first of ``v == r``,
+    ``v == g`` that holds, exactly."""
+    dhue, dsat, dexp = (t.float()[:, None, None] for t in (dhue, dsat, dexp))
+    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+    v = torch.maximum(torch.maximum(r, g), b)
+    mn = torch.minimum(torch.minimum(r, g), b)
+    diff = v - mn
+    safe = diff.clamp(min=1e-6)
+    h = torch.where(v == r, 60.0 * (g - b) / safe,
+                    torch.where(v == g, 120.0 + 60.0 * (b - r) / safe,
+                                240.0 + 60.0 * (r - g) / safe))
+    h = torch.where(diff <= 0, 0.0, torch.remainder(h, 360.0)) / 2.0
+    s = torch.where(v > 0, 255.0 * diff / v.clamp(min=1e-6), 0.0)
+
+    h = torch.remainder(h + dhue * 180.0, 180.0)
+    s = (s * dsat).clamp(0.0, 255.0)
+    v = (v * dexp).clamp(0.0, 255.0)
+
+    h6 = h * 2.0 / 60.0                       # the sector, in [0, 6)
+    i = torch.floor(h6)
+    f = h6 - i
+    sf = s / 255.0
+    p = v * (1.0 - sf)
+    q = v * (1.0 - sf * f)
+    t = v * (1.0 - sf * (1.0 - f))
+    i = torch.remainder(i.to(torch.int32), 6)
+
+    def select(*values):
+        out = values[5]
+        for k in range(4, -1, -1):
+            out = torch.where(i == k, values[k], out)
+        return out
+
+    return torch.stack([select(p, p, t, v, v, q), select(t, v, v, q, p, p),
+                        select(v, q, p, p, t, v)], dim=-1)
+
+
 def pack_boxes(boxes: torch.Tensor, classes: torch.Tensor,
                valid: torch.Tensor, max_out: int):
     """Valid-first stable pack of [B, N] slots into the first ``max_out``
@@ -68,30 +114,33 @@ class PhotoDraws:
     do_mix: torch.Tensor         # [B] bool
     grid_params: torch.Tensor    # [B, 5] int32
     do_flip: torch.Tensor        # [B] bool
+    # the HSV gains (float32 [B]), drawn where the distortion is on
+    dhue: Optional[torch.Tensor] = None
+    dsat: Optional[torch.Tensor] = None
+    dexp: Optional[torch.Tensor] = None
 
     def to(self, device) -> "PhotoDraws":
-        return PhotoDraws(*(t.to(device, non_blocking=True)
+        return PhotoDraws(*(None if t is None
+                            else t.to(device, non_blocking=True)
                             for t in dataclasses.astuple(self)))
 
 
 class DevicePhotometric:
-    """MixUp blend, GridMask and horizontal flip over a batch on the card.
-
-    HSV distortion (``hsv_distort``) is not ported yet, and the kernel
-    masks both bands always, so ``distortion`` and a GridMask without
-    ``grid_mask_use_height`` or ``grid_mask_use_width`` raise.
+    """MixUp blend, HSV distortion, GridMask and horizontal flip over a
+    batch on the card. The kernel masks both bands always, so a GridMask
+    without ``grid_mask_use_height`` or ``grid_mask_use_width`` raises.
     """
 
     def __init__(self, cfg):
-        if cfg.distortion:
-            raise NotImplementedError(
-                "HSV distortion on the device is not ported yet (ROADMAP.md "
-                "Queue A.5)")
         if cfg.grid_mask and not (cfg.grid_mask_use_height
                                   and cfg.grid_mask_use_width):
             raise NotImplementedError(
                 "GridMask with one band only: the kernel masks both")
         self.mixup = cfg.mixup
+        self.distortion = cfg.distortion
+        self.hue = cfg.distortion_hue
+        self.saturation = cfg.distortion_saturation
+        self.exposure = cfg.distortion_exposure
         self.grid_mask = cfg.grid_mask
         self.grid_mask_prob = cfg.grid_mask_prob
         self.grid_mask_mode = cfg.grid_mask_mode
@@ -110,7 +159,19 @@ class DevicePhotometric:
             grid = torch.tensor(IDENTITY_GRID,
                                 dtype=torch.int32).expand(batch, 5)
         do_flip = torch.rand(batch, generator=generator) < self.flip_prob
-        return PhotoDraws(perm, do_mix, grid, do_flip)
+        if not self.distortion:
+            return PhotoDraws(perm, do_mix, grid, do_flip)
+
+        def gain(top):
+            # U(1, top), or its reciprocal on a coin below 0.5 (JAX :703-714)
+            g = 1.0 + torch.rand(batch, generator=generator) * (top - 1.0)
+            coin = torch.rand(batch, generator=generator) < 0.5
+            return torch.where(coin, g, 1.0 / g)
+
+        dhue = -self.hue + torch.rand(batch, generator=generator) * (
+            2.0 * self.hue)
+        return PhotoDraws(perm, do_mix, grid, do_flip, dhue,
+                          gain(self.saturation), gain(self.exposure))
 
     def apply(self, batch: Dict[str, torch.Tensor],
               draws: PhotoDraws) -> Dict[str, torch.Tensor]:
@@ -127,6 +188,10 @@ class DevicePhotometric:
             gb = torch.cat([gb, gb[perm]], dim=1)
             gc = torch.cat([gc, gc[perm]], dim=1)
             gv = torch.cat([gv, gv[perm] & draws.do_mix[:, None]], dim=1)
+        if self.distortion:
+            # float32 from here on: GridMask takes its float32 instance
+            img = hsv_distort(img.float(), draws.dhue, draws.dsat,
+                              draws.dexp)
         if self.grid_mask:
             img = grid_mask(img.contiguous(), draws.grid_params.contiguous())
         do_flip = draws.do_flip

@@ -484,3 +484,20 @@ class DetrDatasetMapper(SimpleDatasetMapper):
         )
         return self._finalize(record, img, boxes, classes, None, None,
                               pre_scale)
+
+
+class MapperFactory:
+    """A picklable ``mapper_factory(worker_id)`` for the spawned workers of
+    ``data/mp_loader.py`` (JAX :502): worker ``i`` builds
+    ``mapper_cls(cfg, is_train, seed=i, **kw)``. A closure over ``cfg``
+    cannot cross the spawn boundary."""
+
+    def __init__(self, mapper_cls, cfg, is_train: bool = True, **kw):
+        self.mapper_cls = mapper_cls
+        self.cfg = cfg.clone()
+        self.is_train = is_train
+        self.kw = kw
+
+    def __call__(self, worker_id: int):
+        return self.mapper_cls(self.cfg, is_train=self.is_train,
+                               seed=worker_id, **self.kw)

@@ -7,17 +7,18 @@ builders take any registered backbone.
 The names live in ``models.build.BACKBONE_REGISTRY``, as the registry's
 other backbones do: each entry builds from a merged ``CfgNode`` and
 carries the weight carrier's backbone type (``kind``) and the builder of
-a ``ZooSpec`` (``from_spec``), which the heads call with ``cfg.zoo``.
-:data:`ZOO_BACKBONES` is the registry's view of those entries.
+a ``ZooSpec`` (``from_spec``), which ``models/registries.build_backbone``
+calls with a model config's ``zoo``. :data:`ZOO_BACKBONES` is the
+registry's view of those entries.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
 from torch import nn
 
-from yolov7_d2_tpu_torch.config.yolox import ZooSpec
+from yolov7_d2_tpu_torch.config.yolox import YoloxConfig, ZooSpec
 from yolov7_d2_tpu_torch.models.backbones.convnext import (
     build_convnext_backbone,
 )
@@ -40,6 +41,9 @@ def _register(name: str, kind: str, from_spec: Callable) -> None:
         return from_spec(ZooSpec.from_cfg(cfg))
 
     build.kind, build.from_spec = kind, from_spec
+    # a model config carries its zoo options (``cfg.zoo``)
+    build.from_fields, build.fields_type = (lambda c: from_spec(c.zoo),
+                                            YoloxConfig)
     BACKBONE_REGISTRY.register(build, name=name)
 
 
@@ -61,13 +65,6 @@ for _name, _kind, _from_spec in (
 ZOO_BACKBONES: Dict[str, Tuple[str, Callable]] = {
     name: (build.kind, build.from_spec) for name, build in BACKBONE_REGISTRY
     if hasattr(build, "from_spec")}
-
-
-def zoo_backbone_type(name: str) -> Optional[str]:
-    """The backbone type of the registry name ``name``, None outside the
-    zoo."""
-    entry = ZOO_BACKBONES.get(name)
-    return None if entry is None else entry[0]
 
 
 def build_zoo_backbone(cfg) -> nn.Module:

@@ -39,12 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolov7_d2_tpu_torch.config.detr import DetrConfig
-from yolov7_d2_tpu_torch.models.backbones.darknetx import CSPDarknetX
 from yolov7_d2_tpu_torch.models.backbones.resnet import RESNET_CHANNELS
-from yolov7_d2_tpu_torch.models.backbones.zoo import (
-    build_zoo_backbone,
-    zoo_backbone_type,
-)
 from yolov7_d2_tpu_torch.models.build import META_ARCH_REGISTRY
 from yolov7_d2_tpu_torch.models.layers.rcda import RCDAttention, pos2posemb2d
 from yolov7_d2_tpu_torch.models.layers.smca import (
@@ -70,6 +65,7 @@ from yolov7_d2_tpu_torch.models.meta_arch.detr import (
     normalized_input,
     stable_top_k,
 )
+from yolov7_d2_tpu_torch.models.registries import build_backbone
 from yolov7_d2_tpu_torch.structures.instances import Detections
 
 
@@ -411,7 +407,9 @@ class DetrD2go(_DenseEncoderDETR):
             backbone, feat = (detr_backbone(resnet_depth),
                               RESNET_CHANNELS["res5"])
         else:
-            feat = list(backbone.out_channels.values())[-1]
+            # the feature ``encode`` takes: ``res5``, else the last
+            widths = backbone.out_channels
+            feat = widths.get("res5", list(widths.values())[-1])
         super().__init__(backbone, feat, num_classes + (not use_focal),
                          hidden_dim, nheads, enc_layers, dim_feedforward,
                          centered_pe, dtype)
@@ -509,22 +507,17 @@ def build_dab_detr(cfg: DetrConfig, device="cuda", seed: int = 0) -> DABDETR:
 def build_detr_d2go(cfg: DetrConfig, device="cuda",
                     seed: int = 0) -> DetrD2go:
     """The d2go DETR from a ``DetrConfig`` (JAX :677): the registered
-    backbone ``cfg.backbone`` names where the name lacks "resnet" (a zoo
-    backbone, or CSPDarknet-X at ``MODEL.YOLO``'s multipliers, which is
-    what the default name gives ``detr/d2go/detr_bs16.yaml``, ROADMAP.md
-    C.30; another raises, naming its ROADMAP.md item), else the family's
-    ResNet; ConvNeXt's drop path draws from the model's generator."""
+    backbone ``cfg.backbone`` names where the name lacks "resnet", in any
+    case (``models/registries.build_backbone``: a zoo backbone, Res2Net,
+    Swin, MobileViT, ..., or CSPDarknet-X at ``MODEL.YOLO``'s multipliers,
+    which is what the default name gives ``detr/d2go/detr_bs16.yaml``,
+    ROADMAP.md C.30), else the family's ResNet (so for
+    ``build_cspresnet50d_backbone`` too, as in JAX); ConvNeXt's drop path
+    draws from the model's generator."""
     check_detr_config(cfg, "DetrD2go")
     backbone = None
-    if cfg.backbone == "build_cspdarknetx_backbone":
-        backbone = CSPDarknetX(cfg.depth_mul, cfg.width_mul,
-                               cfg.in_features, cfg.depthwise)
-    elif cfg.backbone and "resnet" not in cfg.backbone.lower():
-        if zoo_backbone_type(cfg.backbone) is None:
-            raise NotImplementedError(
-                f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md "
-                "Queue A.8e)")
-        backbone = build_zoo_backbone(cfg)
+    if cfg.backbone and "resnet" not in cfg.backbone.lower():
+        backbone = build_backbone(cfg)
     model = finish_build(DetrD2go(
         attention_type=cfg.d2go_attention, centered_pe=cfg.centered_pe,
         use_focal=cfg.use_focal_loss, backbone=backbone, **_dims(cfg)),

@@ -140,11 +140,19 @@ def encode_deltas(anchors: torch.Tensor, boxes: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
+def _device_anchors(h: int, w: int, stride: int, size: int,
+                    device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(level_anchors(h, w, stride, size)).to(device)
+
+
 def device_anchors(h: int, w: int, stride: int, size: int,
                    device: torch.device) -> torch.Tensor:
-    """:func:`level_anchors` on ``device``, made once a shape: a copy from
-    the host waits for the card's queue."""
-    return torch.from_numpy(level_anchors(h, w, stride, size)).to(device)
+    """:func:`level_anchors` on ``device``, made once a shape (a copy from
+    the host waits for the card's queue), except while ``torch.export``
+    traces (its tensors are the tracer's, and would stay in the cache)."""
+    make = (_device_anchors.__wrapped__ if torch.compiler.is_compiling()
+            else _device_anchors)
+    return make(h, w, stride, size, device)
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -177,8 +177,12 @@ def _anchors_cpu(h: int, w: int, stride: int,
 def yolof_anchors(h: int, w: int, device="cpu") -> torch.Tensor:
     """Anchors xyxy [h w 5, 4] float32 of ``ANCHOR_SIZES`` centred on the
     cells of a stride-32 map, cell-major then size (JAX :116; the same
-    float64 arithmetic, one rounding)."""
-    return _anchors_cpu(h, w, STRIDE, ANCHOR_SIZES).to(device)
+    float64 arithmetic, one rounding). Made once a shape, except while
+    ``torch.export`` traces (its tensors are the tracer's, and would stay
+    in the cache)."""
+    make = (_anchors_cpu.__wrapped__ if torch.compiler.is_compiling()
+            else _anchors_cpu)
+    return make(h, w, STRIDE, ANCHOR_SIZES).to(device)
 
 
 def decode_deltas(anchors: torch.Tensor,

@@ -25,24 +25,8 @@ from yolov7_d2_tpu_torch.kernels.nms import nms_batched
 from yolov7_d2_tpu_torch.kernels.preprocess import normalize_images
 from yolov7_d2_tpu_torch.models.backbones.darknet import Darknet53
 from yolov7_d2_tpu_torch.models.backbones.darknetx import CSPDarknetX
-from yolov7_d2_tpu_torch.models.backbones.efficientrep import (
-    build_efficientrep_backbone,
-    build_efficientrep_tiny_backbone,
-)
-from yolov7_d2_tpu_torch.models.backbones.pvt_v2 import build_pvt_v2_backbone
-from yolov7_d2_tpu_torch.models.backbones.res2net import (
-    build_res2net_backbone,
-)
-from yolov7_d2_tpu_torch.models.backbones.resnet import ResNet
-from yolov7_d2_tpu_torch.models.backbones.swin import (
-    build_swin_transformer_backbone,
-)
 from yolov7_d2_tpu_torch.models.backbones.yolov5 import (
     build_yolov5_backbone,
-)
-from yolov7_d2_tpu_torch.models.backbones.zoo import (
-    ZOO_BACKBONES,
-    build_zoo_backbone,
 )
 from yolov7_d2_tpu_torch.models.build import (
     META_ARCH_REGISTRY,
@@ -61,6 +45,7 @@ from yolov7_d2_tpu_torch.models.necks.bifpn import BiFPN
 from yolov7_d2_tpu_torch.models.necks.reppan import PPYOLOPAN
 from yolov7_d2_tpu_torch.models.necks.yolo_fpn import YOLOFPN
 from yolov7_d2_tpu_torch.models.necks.yolo_pafpn import YOLOPAFPN
+from yolov7_d2_tpu_torch.models.registries import build_backbone
 from yolov7_d2_tpu_torch.ops.nms import batched_nms_batched
 from yolov7_d2_tpu_torch.structures.boxes import cxcywh_to_xyxy
 from yolov7_d2_tpu_torch.structures.instances import Detections
@@ -250,57 +235,24 @@ def anchor_yolo_postprocess(
         pre_nms_topk=pre_nms_topk, v5_gate=(variant == "yolov5"), nms=nms)
 
 
+# the builtin darknets (JAX :240); every other registered name comes from
+# ``models/registries.build_backbone`` (JAX :301-304, :328-331)
 _BACKBONE_NAME_MAP = {
     "build_darknet_backbone": "darknet53",
     "build_cspdarknet_backbone": "cspdarknet53",
     "build_cspdarknetx_backbone": "cspdarknetx",
-    # the registry's ResNets (JAX BACKBONE_REGISTRY), 512/1024/2048 channels
-    "build_resnet_backbone": "resnet",
-    "build_resnet_vd_backbone": "resnet_vd",
-    # Res2Net / Res2NeXt (MODEL.RESNETS.R2TYPE), 512/1024/2048 channels
-    "build_res2net_backbone": "res2net",
-    # the transformers (MODEL.SWIN, MODEL.PVT), features stage1..3
-    "build_swin_transformer_backbone": "swin",
-    "build_pvt_v2_backbone": "pvt_v2",
-    # the one-stage zoo's backbones, features erep3..5 / c3..c5
-    "build_efficientrep_backbone": "efficientrep",
-    "build_efficientrep_tiny_backbone": "efficientrep",
-    "build_yolov5_backbone": "yolov5",
-    # the backbone zoo (models/backbones/zoo.py): RegNet (s2..s4),
-    # ConvNeXt (stage1..3), EfficientNet (stride8..32), FBNet (trunk{i})
-    **{name: kind for name, (kind, _) in ZOO_BACKBONES.items()},
 }
-
-# builders of a backbone that ``AnchorYOLO`` takes built, by config name
-_BACKBONE_BUILDERS = {
-    "build_swin_transformer_backbone": build_swin_transformer_backbone,
-    "build_pvt_v2_backbone": build_pvt_v2_backbone,
-    "build_efficientrep_backbone": build_efficientrep_backbone,
-    "build_efficientrep_tiny_backbone": build_efficientrep_tiny_backbone,
-    "build_yolov5_backbone": build_yolov5_backbone,
-    "build_res2net_backbone": build_res2net_backbone,
-    **{name: build_zoo_backbone for name in ZOO_BACKBONES},
-}
-
-
-def _backbone_type(cfg: AnchorYoloConfig) -> str:
-    if cfg.backbone not in _BACKBONE_NAME_MAP:
-        raise NotImplementedError(
-            f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md Queue "
-            "A.8)")
-    return _BACKBONE_NAME_MAP[cfg.backbone]
 
 
 def _backbone(cfg: AnchorYoloConfig):
-    """A built ResNet (``cfg.resnet``, from ``MODEL.RESNETS``), Res2Net
-    (``cfg.r2type``), Swin (``MODEL.SWIN``), PVTv2 (``MODEL.PVT``),
-    EfficientRep, the YOLOv5 backbone or one of the zoo (``cfg.zoo``) for
-    those builders, as the JAX builder takes any registered backbone, else
-    None (``AnchorYOLO`` builds its darknet)."""
-    if _backbone_type(cfg).startswith("resnet"):
-        return ResNet(cfg.resnet)
-    builder = _BACKBONE_BUILDERS.get(cfg.backbone)
-    return None if builder is None else builder(cfg)
+    """(backbone type, built backbone): a builtin darknet's type and None
+    (``AnchorYOLO`` builds it), else the registered backbone
+    ``cfg.backbone`` names (its ResNet from ``cfg.resnet``, Res2Net from
+    ``cfg.r2type``, Swin and PVTv2 from their fields, the zoo from
+    ``cfg.zoo``, the others from the config's ``CfgNode``)."""
+    if cfg.backbone in _BACKBONE_NAME_MAP:
+        return _BACKBONE_NAME_MAP[cfg.backbone], None
+    return "registered", build_backbone(cfg)
 
 
 def _finish(model: AnchorYOLO, device, seed: int) -> AnchorYOLO:
@@ -366,10 +318,10 @@ def build_yolov7p(cfg: AnchorYoloConfig, device="cuda",
     std. The width and depth multipliers stay 1.0, as in the JAX builder.
     ``configs/coco/r50.yaml`` gives it a ResNet-50 (FrozenBN)."""
     dtype = _dtype(cfg)
+    backbone_type, backbone = _backbone(cfg)
     return _finish(AnchorYOLO(
         num_classes=cfg.num_classes, anchors=cfg.anchors,
-        backbone_type=_backbone_type(cfg), backbone=_backbone(cfg),
-        neck_type="pafpn",
+        backbone_type=backbone_type, backbone=backbone, neck_type="pafpn",
         in_features=cfg.in_features, act="silu", head_style="direct",
         pixel_mean=cfg.pixel_mean, pixel_std=cfg.pixel_std,
         dtype=dtype), device, seed)
@@ -384,10 +336,10 @@ def build_yolov7(cfg: AnchorYoloConfig, device="cuda",
     dtype = _dtype(cfg)
     neck = cfg.neck_type if cfg.neck_type in (
         "pafpn", "bifpn", "pan", "ppyolo_pan") else "yolov3"
+    backbone_type, backbone = _backbone(cfg)
     return _finish(AnchorYOLO(
         num_classes=cfg.num_classes, anchors=cfg.anchors,
-        backbone_type=_backbone_type(cfg), backbone=_backbone(cfg),
-        neck_type=neck,
+        backbone_type=backbone_type, backbone=backbone, neck_type=neck,
         in_features=cfg.in_features, with_spp=cfg.with_spp,
         width_mul=cfg.width_mul, depth_mul=cfg.depth_mul, act="silu",
         dtype=dtype), device, seed)

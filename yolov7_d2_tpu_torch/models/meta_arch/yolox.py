@@ -20,10 +20,6 @@ from yolov7_d2_tpu_torch.config import YoloxConfig
 from yolov7_d2_tpu_torch.kernels.nms import nms_batched
 from yolov7_d2_tpu_torch.kernels.preprocess import normalize_images
 from yolov7_d2_tpu_torch.models.backbones.darknetx import CSPDarknetX
-from yolov7_d2_tpu_torch.models.backbones.zoo import (
-    build_zoo_backbone,
-    zoo_backbone_type,
-)
 from yolov7_d2_tpu_torch.models.build import (
     META_ARCH_REGISTRY,
     init_weights_,
@@ -34,6 +30,7 @@ from yolov7_d2_tpu_torch.models.heads.yolox_head import (
     yolox_losses,
 )
 from yolov7_d2_tpu_torch.models.necks.yolo_pafpn import YOLOPAFPN
+from yolov7_d2_tpu_torch.models.registries import build_backbone
 from yolov7_d2_tpu_torch.ops.nms import batched_nms_batched
 from yolov7_d2_tpu_torch.structures.boxes import cxcywh_to_xyxy
 from yolov7_d2_tpu_torch.structures.instances import Detections
@@ -44,8 +41,9 @@ class YOLOX(nn.Module):
     grids and strides. ``dtype`` is the compute dtype: bfloat16 runs the
     convolutions under autocast over float32 parameters (the JAX
     ``dtype``/``param_dtype`` pair). A built ``backbone`` (with
-    ``out_channels``; the zoo of ``models/backbones/zoo.py``) replaces
-    CSPDarknet-X, and the neck takes its widths, which flax infers."""
+    ``out_channels``; any registered one, ``models/registries.py``)
+    replaces CSPDarknet-X, and the neck takes its widths, which flax
+    infers."""
 
     def __init__(self, num_classes: int = 80, depth_mul: float = 0.33,
                  width_mul: float = 0.50,
@@ -160,17 +158,13 @@ def yolox_postprocess(
 @META_ARCH_REGISTRY.register(name="YOLOX")
 def build_yolox(cfg: YoloxConfig, device="cuda", seed: int = 0) -> YOLOX:
     """YOLOX in eval mode on ``device``, weights drawn from ``seed`` (on
-    the CPU, so that every device starts from the same numbers). A zoo
-    backbone's name (JAX :183-188 resolves any registered one) builds it
-    from ``cfg.zoo``; ConvNeXt's drop-path generator goes on ``device``,
-    seeded with ``seed``."""
+    the CPU, so that every device starts from the same numbers). Any
+    other registered backbone than CSPDarknet-X (JAX :183-188) comes from
+    ``models/registries.build_backbone``; ConvNeXt's drop-path generator
+    goes on ``device``, seeded with ``seed``."""
     backbone = None
-    if cfg.backbone != "build_cspdarknetx_backbone":
-        if zoo_backbone_type(cfg.backbone) is None:
-            raise NotImplementedError(
-                f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md "
-                "Queue A.8e)")
-        backbone = build_zoo_backbone(cfg)
+    if cfg.backbone and cfg.backbone != "build_cspdarknetx_backbone":
+        backbone = build_backbone(cfg)
     model = YOLOX(
         num_classes=cfg.num_classes, depth_mul=cfg.depth_mul,
         width_mul=cfg.width_mul, in_features=cfg.in_features,

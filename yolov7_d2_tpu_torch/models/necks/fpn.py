@@ -73,6 +73,7 @@ class ResNetFPN(nn.Module):
                                            frozen_bn=frozen_bn))
         self.fpn = FPN([RESNET_CHANNELS[f] for f in self.FEATURES],
                        out_channels, "maxpool")
+        self.out_channels = {f"p{i}": out_channels for i in range(2, 7)}
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         feats = self.bottom_up(x)

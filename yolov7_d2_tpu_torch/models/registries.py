@@ -9,13 +9,21 @@ corresponds to, with the same output features. flax infers a neck's input
 widths at its first call; the port's necks are told them:
 ``feat_channels`` (or ``in_channels``) are the backbone's, shallow to
 deep, and the semantic head's ``in_channels`` the FPN's width.
+
+:func:`build_backbone` is the one backbone table of the builders that
+take any registered name (YOLOX, YOLOV7 / YOLOV7P, the d2go DETR), as
+their JAX builders resolve any name through ``BACKBONE_REGISTRY``: every
+backbone it gives has ``out_channels`` ({feature: width}).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from torch import nn
+
 from yolov7_d2_tpu_torch.config.anchor_yolo import AnchorYoloConfig
+from yolov7_d2_tpu_torch.config.yolox import YoloxConfig
 from yolov7_d2_tpu_torch.models.backbones import zoo  # noqa: F401
 from yolov7_d2_tpu_torch.models.backbones.darknet import (
     build_cspdarknet_backbone,
@@ -56,17 +64,21 @@ from yolov7_d2_tpu_torch.models.necks.yolo_fpn import YOLOFPN
 from yolov7_d2_tpu_torch.models.necks.yolo_pafpn import YOLOPAFPN
 
 __all__ = ["BACKBONE_REGISTRY", "HEAD_REGISTRY", "META_ARCH_REGISTRY",
-           "NECK_REGISTRY"]
+           "NECK_REGISTRY", "build_backbone"]
 
 
-def _register_from_fields(name: str, builder) -> None:
-    """``builder`` takes the fields of an ``AnchorYoloConfig`` (the port's
-    builders of the anchor family's backbones); its registry entry reads
-    them from the merged ``CfgNode``."""
+def _register_from_fields(name: str, builder, fields_type=AnchorYoloConfig
+                          ) -> None:
+    """``builder`` takes the fields of a ``fields_type`` config (the
+    port's builders of the anchor family's backbones take an
+    ``AnchorYoloConfig``); its registry entry reads them from the merged
+    ``CfgNode``, and :func:`build_backbone` hands a config of that type
+    straight to ``builder`` (``from_fields``)."""
     def build(cfg):
-        return builder(AnchorYoloConfig.from_cfg(cfg))
+        return builder(fields_type.from_cfg(cfg))
 
     build.__doc__ = builder.__doc__
+    build.from_fields, build.fields_type = builder, fields_type
     BACKBONE_REGISTRY.register(build, name=name)
 
 
@@ -78,13 +90,14 @@ for _builder in (build_darknet_backbone, build_cspdarknet_backbone,
     _register_from_fields(_builder.__name__, _builder)
 
 
-@BACKBONE_REGISTRY.register(name="build_cspdarknetx_backbone")
-def _cspdarknetx(cfg) -> CSPDarknetX:
-    """JAX ``darknetx.py:96``."""
-    return CSPDarknetX(float(cfg.MODEL.YOLO.DEPTH_MUL),
-                       float(cfg.MODEL.YOLO.WIDTH_MUL),
-                       tuple(cfg.MODEL.YOLO.IN_FEATURES),
-                       bool(cfg.MODEL.DARKNET.DEPTH_WISE))
+def _cspdarknetx(cfg: YoloxConfig) -> CSPDarknetX:
+    """JAX ``darknetx.py:96``: at ``MODEL.YOLO``'s multipliers."""
+    return CSPDarknetX(cfg.depth_mul, cfg.width_mul, cfg.in_features,
+                       cfg.depthwise)
+
+
+_register_from_fields("build_cspdarknetx_backbone", _cspdarknetx,
+                      YoloxConfig)
 
 
 @BACKBONE_REGISTRY.register(name="build_resnet_backbone")
@@ -99,9 +112,52 @@ def _resnet_vd(cfg) -> ResNet:
     return ResNet(ResNetSpec.from_cfg(cfg, vd_builder=True))
 
 
+# an AnchorYoloConfig carries the ResNet it reads (``resnet``, vd by the
+# registry name)
+for _entry in (_resnet, _resnet_vd):
+    _entry.from_fields = lambda cfg: ResNet(cfg.resnet)
+    _entry.fields_type = AnchorYoloConfig
+
+
 BACKBONE_REGISTRY.register(build_fbnet_fpn_backbone, name="FBNetV2FpnBackbone")
 BACKBONE_REGISTRY.register(build_mobilevit_backbone)
 BACKBONE_REGISTRY.register(build_cspresnet50d_backbone)
+
+
+def _cfg_node(cfg: YoloxConfig):
+    """The merged ``CfgNode`` ``cfg`` was read from; for a config made
+    without one, ``get_cfg``'s defaults with the config's backbone name
+    and YOLO fields."""
+    if cfg.cfg_node is not None:
+        return cfg.cfg_node
+    from yolov7_d2_tpu_torch.config.defaults import get_cfg
+
+    node = get_cfg()
+    node.MODEL.BACKBONE.NAME = cfg.backbone
+    node.MODEL.YOLO.DEPTH_MUL = cfg.depth_mul
+    node.MODEL.YOLO.WIDTH_MUL = cfg.width_mul
+    node.MODEL.YOLO.IN_FEATURES = list(cfg.in_features)
+    node.MODEL.DARKNET.DEPTH_WISE = cfg.depthwise
+    return node
+
+
+def build_backbone(cfg: YoloxConfig) -> nn.Module:
+    """The registered backbone ``cfg.backbone`` names, for a model config
+    (``YoloxConfig`` or a subclass), as the JAX builders take it from
+    ``BACKBONE_REGISTRY``: the zoo from ``cfg.zoo``, a builder of
+    dataclass fields from ``cfg`` where it is of the entry's type (the
+    anchor family's backbones from an ``AnchorYoloConfig``, CSPDarknet-X
+    from any config), every other one from the merged ``CfgNode`` of
+    ``cfg`` (:func:`_cfg_node`). An unregistered name raises, naming it."""
+    name = cfg.backbone
+    if name not in BACKBONE_REGISTRY:
+        raise NotImplementedError(
+            f"backbone {name!r} is not a registered backbone; the registry "
+            f"has {sorted(BACKBONE_REGISTRY.keys())}")
+    entry = BACKBONE_REGISTRY.get(name)
+    if isinstance(cfg, getattr(entry, "fields_type", ())):
+        return entry.from_fields(cfg)
+    return entry(_cfg_node(cfg))
 
 
 @NECK_REGISTRY.register()

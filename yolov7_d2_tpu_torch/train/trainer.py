@@ -137,6 +137,19 @@ class AugDisableHook(HookBase):
             )
 
 
+class MultiScaleHook(HookBase):
+    """Advance a ``data/multiscale.MultiScaleMapperWrapper``'s step, so that
+    its size schedule follows training (JAX ``trainer.py:114``; the
+    reference's size broadcast, ``yolo.py:131-146``, without the
+    collective). No CLI registers it, as in the JAX package."""
+
+    def __init__(self, ms_wrapper):
+        self.ms = ms_wrapper
+
+    def after_step(self, trainer):
+        self.ms.step = trainer.storage.iter
+
+
 class Trainer:
     """The loop: ``train_step(state, batch) -> (state, metrics)`` over a
     data iterator, from ``start_iter`` to ``max_iter`` steps."""

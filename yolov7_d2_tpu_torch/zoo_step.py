@@ -125,3 +125,68 @@ def step_sweep(configs: Path, device, paths: Iterable[Path] = (),
             + (" (C.31: MODEL.EFFICIENTNET.FEATURE_INDICES [4, 7, 15, 22])"
                if row["override"] else ""))
     return rows
+
+
+def export_one(path, device, out_dir: str, rel: str = "") -> dict:
+    """Build the yaml as :func:`step_cfg` sets it up (eval mode, weights
+    from seed 0), export its forward on a float32 NHWC image of 114 through
+    ``deploy/export.export_inference_fn``, load the program back and run
+    it; returns the row: architecture, size, seconds, and the largest gap
+    of the program's outputs to the model's over their largest magnitude
+    (at least 1)."""
+    from yolov7_d2_tpu_torch.deploy.export import (
+        export_inference_fn,
+        load_program,
+    )
+    from yolov7_d2_tpu_torch.deploy.quantize import tree_leaves
+    from yolov7_d2_tpu_torch.models.build import build_model
+
+    t0 = time.perf_counter()
+    cfg, size = step_cfg(path, rel)
+    model = build_model(config_from_cfg(cfg), device)
+    paths = export_inference_fn(model, (1, size, size, 3), out_dir)
+    program = load_program(paths["program"])
+    image = torch.full((1, size, size, 3), 114.0, device=device)
+    with torch.no_grad():
+        want = tree_leaves(model(image))
+        got = tree_leaves(program.module()(image))
+    if len(got) != len(want):
+        raise AssertionError(f"{rel or path}: {len(got)} outputs, the "
+                             f"model {len(want)}")
+    gap = 0.0
+    for g, w in zip(got, want):
+        if not isinstance(w, torch.Tensor):
+            if g != w:
+                raise AssertionError(f"{rel or path}: output {g!r}, the "
+                                     f"model {w!r}")
+        elif w.numel():
+            gap = max(gap, float((g.float() - w.float()).abs().max())
+                      / max(1.0, float(w.float().abs().max())))
+    return {"yaml": rel or str(path), "arch": cfg.MODEL.META_ARCHITECTURE,
+            "px": size, "outputs": len(want), "gap": gap,
+            "seconds": time.perf_counter() - t0}
+
+
+def export_sweep(configs: Path, device, out_dir: str,
+                 log: Callable[[str], None] = print) -> List[dict]:
+    """:func:`export_one` for the first yaml (in path order) of each
+    meta-architecture under ``configs``; a yaml that fails gives a row
+    with its exception's text (``error``) and the sweep goes on."""
+    first = {}
+    for path in sorted(Path(configs).rglob("*.yaml")):
+        cfg, _ = step_cfg(path, str(path.relative_to(configs)))
+        first.setdefault(cfg.MODEL.META_ARCHITECTURE, path)
+    rows = []
+    for arch, path in sorted(first.items()):
+        rel = str(Path(path).relative_to(configs))
+        try:
+            row = export_one(path, device, str(Path(out_dir) / arch), rel)
+            log(f"export {rel}: {arch} at {row['px']} px, {row['outputs']} "
+                f"outputs, gap {row['gap']:.3g}, {row['seconds']:.2f} s")
+        except Exception as exc:  # noqa: BLE001 - logged and reported
+            row = {"yaml": rel, "arch": arch,
+                   "error": f"{type(exc).__name__}: {exc}"}
+            log(f"export {rel}: {arch} FAILED: {row['error'][:400]}")
+        gc.collect()
+        rows.append(row)
+    return rows
