@@ -10,9 +10,10 @@ DETR serving and training, of SparseInst R-50-DCN, YOLOX on DLA, SOLOv2,
 YOLOMask and DetrSegm serving and training, of LazyConfig, Mask R-CNN,
 Faster R-CNN and Panoptic FPN serving and training, of the repeatability
 of a training step, of the library NMS suite, one train step of every
-yaml of ``configs/``, and of deploy (the exported program with the NMS
-kernel in it, int8, pruning) and the rest of the feed, on one CUDA
-card.
+yaml of ``configs/``, of deploy (the exported program with the NMS
+kernel in it, int8, pruning) and the rest of the feed, and of YOLOX-s
+trained on a (data, model) grid with its widest parameters sharded over
+the model axis, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -43,7 +44,7 @@ set to 0 just before it and read just after:
   checkpoint save timed;
 * multi-GPU training (``parallel/``): (a) two ranks on one card over gloo
   (``launch(..., backend="gloo")``), the bare float32 step, 2 images a
-  rank for 3 steps, against one process on the same 4 images (fg counts,
+  rank for 2 steps, against one process on the same 4 images (fg counts,
   losses and gradient norm, ranks bitwise equal, kernel launches a step);
   (b) the CLI's packed feed, 6 steps with GridMask until step 4 and the
   COCO eval at 6 on rank 0, inside an NCCL group of 1 (DDP) against no
@@ -286,14 +287,26 @@ set to 0 just before it and read just after:
   ResNet-50 and MobileViT, YOLOV7 on CSPResNet50d and the d2go DETR on
   Res2Net-50 (ROADMAP C.45) at their yamls' sizes: one request of 8
   through the tail and one step of 16; (d) the host mosaic through
-  ``MultiProcessDataLoader`` with 1, 2 and 4 workers against the threaded
+  ``MultiProcessDataLoader`` with 4 workers against the threaded
   loader, YOLOX-s steps with the HSV distortion on (MixUp on with
   GridMask, MixUp off, MixUp off with GridMask: float32 K3) and the
   photometric stage timed beside HSV's bytes bound, and 6 steps under
   ``MultiScaleHook`` over two sizes. It logs each subsection's end.
 
-``python3 chip_smoke.py --nccl`` runs (c) of sections 10 and 17 alone, on a
-machine of 2 or more cards.
+* tensor parallelism (``parallel/mesh.py``): YOLOX-s 640 at full width
+  and depth on a (2, 2) grid of 4 gloo ranks on the card, the parameters
+  with 128 or more output features sharded over the model axis
+  (column-parallel): (a) the float32 step, 2 images a data rank, 2 steps,
+  against one process from the ranks' gathered weights (fg counts, losses
+  and gradient norm within 1e-3, shards of O / 2 rows, the gathered state
+  bitwise equal on every rank, a rank's share of the parameters); (b) 3
+  bf16 steps with MixUp and GridMask, 8 images a data rank (finite, moved,
+  the model ranks' images and replicated parameters bitwise equal; its
+  GridMask launches join the ``grid_mask`` entry); (c) over NCCL where 2
+  or more cards are visible.
+
+``python3 chip_smoke.py --nccl`` runs (c) of sections 10, 17 and 24 alone,
+on a machine of 2 or more cards.
 
 Output: progress lines, then the card's name and power limit, a JSON line
 of the kernels (times, launches on the path, bound, plain and library
@@ -317,6 +330,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -879,11 +893,62 @@ def prefilter_ranked_by(obj_logits: torch.Tensor):
         yolox_head._prefilter_key = own
 
 
+def spawn_plans(plans: list, world: int, backend: str) -> None:
+    """The rank calls of every plan (``calls``: ``(fn, (out_dir, ...))``)
+    in one spawn of ``world`` ranks, in turn (``dryrun.in_turn``: each
+    rank starts once), TF32 off in the ranks as here; sets each plan's
+    ``wall`` (the spawn's seconds) and ``shared`` (how many plans it
+    ran)."""
+    from yolov7_d2_tpu_torch.parallel.dryrun import in_turn
+    from yolov7_d2_tpu_torch.parallel.launch import launch
+
+    for plan in plans:
+        shutil.rmtree(plan.out, ignore_errors=True)
+        for _, args in plan.calls:
+            os.makedirs(args[0], exist_ok=True)
+    # the ranks start with torch's defaults: TF32 off for them as here
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    t0 = time.perf_counter()
+    try:
+        launch(in_turn, world, args=([c for plan in plans
+                                      for c in plan.calls],),
+               backend=backend)
+    finally:
+        del os.environ["NVIDIA_TF32_OVERRIDE"]
+    for plan in plans:
+        plan.wall, plan.shared = time.perf_counter() - t0, len(plans)
+
+
+def spawned(plan) -> str:
+    return (f"{plan.wall:.2f} s for the spawn, the ranks' start-up and "
+            + ("its steps" if plan.shared == 1 else
+               f"the steps of {plan.shared} checks in turn"))
+
+
+def sync_plan(dev, cfg, world: int = 2, backend: str = "gloo",
+              follow_ranks: bool = True):
+    """The ranks' part of :func:`sync_phase`: its batches and rank call."""
+    from yolov7_d2_tpu_torch.parallel.dryrun import train_steps
+
+    fcfg = dataclasses.replace(cfg, amp=False)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    batches = [train_batch(2 * world, gen) for _ in range(2)]
+    out = os.path.join(REPO, "build", "chip_smoke_ranks")
+    # gloo: every rank on ``dev``; NCCL: rank i on card i
+    calls = [(train_steps, (
+        out, fcfg, batches, str(dev) if backend == "gloo" else dev.type,
+        SEED, None, 1 if dev.type == "cuda" else None, True, follow_ranks))]
+    return types.SimpleNamespace(out=out, calls=calls, fcfg=fcfg,
+                                 batches=batches, world=world,
+                                 backend=backend, follow_ranks=follow_ranks)
+
+
 def sync_phase(dev, card: str, cfg, world: int = 2,
-               backend: str = "gloo", follow_ranks: bool = True):
+               backend: str = "gloo", follow_ranks: bool = True,
+               plan=None):
     """(a) ``world`` ranks on one card over gloo (``launch(...,
     backend="gloo")``), or (c) one card each over NCCL: the bare YOLOX-s
-    640 train step in float32, TF32 off, 2 images a rank, 3 steps
+    640 train step in float32, TF32 off, 2 images a rank, 2 steps
     (``parallel.dryrun.train_steps``: ``SyncBatchNorm2d``, the global
     foreground count, DDP), against the one-process step on the same
     images, each step taken from the ranks' weights before it
@@ -904,36 +969,22 @@ def sync_phase(dev, card: str, cfg, world: int = 2,
     each run's outputs differs among those kept (:func:`assignment_gaps`);
     with ``follow_ranks`` also the gaps of the one-process step under its
     own prefilter (taken first from the same weights, not held).
-    Both count the CUDA kernels the host launches in step 1. Returns the
-    batches, the one process's head outputs and the ranks' outputs, step
-    by step."""
+    Both count the CUDA kernels the host launches in step 1. The ranks'
+    part comes from ``plan`` (:func:`sync_plan`, run by the caller's
+    spawn), or is spawned here. Returns the batches, the one process's head
+    outputs and the ranks' outputs, step by step."""
     from yolov7_d2_tpu_torch.engine import (
         build_yolox_system,
         resolve_simota_prefilter,
     )
-    from yolov7_d2_tpu_torch.parallel.dryrun import train_steps
-    from yolov7_d2_tpu_torch.parallel.launch import launch
     from yolov7_d2_tpu_torch.utils.profiling import count_cuda_launches
 
     label = "(a)" if backend == "gloo" else "(c)"
-    fcfg = dataclasses.replace(cfg, amp=False)
-    gen = torch.Generator().manual_seed(SEED + 2)
-    batches = [train_batch(2 * world, gen) for _ in range(3)]
-    out = os.path.join(REPO, "build", "chip_smoke_ranks")
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
-    # the ranks start with torch's defaults: TF32 off for them as here
-    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
-    t0 = time.perf_counter()
-    try:
-        # gloo: every rank on ``dev``; NCCL: rank i on card i
-        launch(train_steps, world, args=(
-            out, fcfg, batches, str(dev) if backend == "gloo" else dev.type,
-            SEED, None, 1 if dev.type == "cuda" else None, True,
-            follow_ranks), backend=backend)
-    finally:
-        del os.environ["NVIDIA_TF32_OVERRIDE"]
-    wall = time.perf_counter() - t0
+    if plan is None:
+        plan = sync_plan(dev, cfg, world, backend, follow_ranks)
+        spawn_plans([plan], world, backend)
+    fcfg, batches, out = plan.fcfg, plan.batches, plan.out
+    world, follow_ranks = plan.world, plan.follow_ranks
     ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
              for r in range(world)]
     shutil.rmtree(out, ignore_errors=True)
@@ -1004,17 +1055,16 @@ def sync_phase(dev, card: str, cfg, world: int = 2,
                 if not torch.equal(v, rec[key][name]):
                     raise AssertionError(f"{label} ranks differ in {key} "
                                          f"{name}")
-    if any(rec["step"] != 3 for rec in ranks):
-        raise AssertionError(f"{label} the ranks took other than 3 steps")
+    if any(rec["step"] != 2 for rec in ranks):
+        raise AssertionError(f"{label} the ranks took other than 2 steps")
     launches_rank = ranks[0]["metrics"][1].get("launches")
     where = ("on one card, host-paced over gloo and not a multi-GPU rate"
              if backend == "gloo" else "over NCCL, one card each")
     log(f"{label} {world} {backend} ranks [{card}]: parameters, BN buffers "
-        f"and EMA bitwise equal across the ranks after 3 steps; CUDA kernel "
+        f"and EMA bitwise equal across the ranks after 2 steps; CUDA kernel "
         f"launches in step 1: one process {launches_one} ({2 * world} "
         f"images), a rank {launches_rank} (2 images, SyncBatchNorm2d + DDP); "
-        f"{wall:.2f} s for the spawn, 3 steps and the ranks' start-up, "
-        f"{where}")
+        f"{spawned(plan)}, {where}")
     return batches, heads, [rec["outputs"] for rec in ranks]
 
 
@@ -1119,29 +1169,11 @@ def repeat_phase(dev, card: str, what: str, build_fn, batch) -> dict:
     return gaps
 
 
-def sync_bn_phase(dev, card: str, world: int = 2,
-                  backend: str = "gloo") -> None:
-    """``SyncBatchNorm2d`` alone on CUDA tensors (its fused path), ``world``
-    ranks on one card over gloo or one card each over NCCL
-    (``parallel.dryrun.norm_sync_ranks``), at a YOLOX-s 640 layer's shape
-    (2 images a rank, 128 channels at 80 x 80, channels_last), in float32
-    and in bfloat16 (the recipe's activations, float32 weights), against
-    ``nn.BatchNorm2d`` (cuDNN) on the whole batch on this card: output,
-    input gradient, the summed weight and bias gradients, the running
-    statistics, and ``all_reduce_norm`` and ``precise_bn`` against their
-    one-process values; every rank's statistics bitwise equal. Bounds, of
-    the reference's largest magnitude: float32 1e-4 (the same moments in
-    another sum order); bfloat16 1e-2 for the outputs and gradients (both
-    round to bfloat16, whose step is 2^-8 of a value) and 1e-4 for the
-    statistics (float32 moments of the same bfloat16 inputs)."""
+def sync_bn_plan(dev, world: int = 2, backend: str = "gloo"):
+    """The ranks' part of :func:`sync_bn_phase`: its inputs (both dtypes)
+    and rank calls."""
     from yolov7_d2_tpu_torch.parallel.dryrun import norm_sync_ranks
-    from yolov7_d2_tpu_torch.parallel.launch import launch
-    from yolov7_d2_tpu_torch.parallel.norm_sync import (
-        SyncBatchNorm2d,
-        precise_bn,
-    )
 
-    label = "(a)" if backend == "gloo" else "(c)"
     n, c, hw = 2 * world, 128, 80
     gen = torch.Generator().manual_seed(SEED + 4)
     params = {"weight": torch.rand(c, generator=gen) + 0.5,
@@ -1155,6 +1187,7 @@ def sync_bn_phase(dev, card: str, world: int = 2,
     def nhwc(t, dtype):
         return t.to(dtype).contiguous(memory_format=torch.channels_last)
 
+    cases = []
     for dtype, close, stat_close in ((torch.float32, 1e-4, 1e-4),
                                      (torch.bfloat16, 1e-2, 1e-4)):
         x = nhwc(torch.randn((n, c, hw, hw), generator=gen) * 3.0 + 1.0,
@@ -1163,14 +1196,47 @@ def sync_bn_phase(dev, card: str, world: int = 2,
         batches = torch.stack([
             nhwc(torch.randn((n, c, hw, hw), generator=gen) * 2.0 - 1.0,
                  dtype) for _ in range(2)])
-        shutil.rmtree(out, ignore_errors=True)
-        os.makedirs(out)
-        launch(norm_sync_ranks, world, args=(
-            out, params, x, grad_out, running, batches,
-            str(dev) if backend == "gloo" else dev.type), backend=backend)
-        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+        cases.append((dtype, close, stat_close, x, grad_out, batches,
+                      os.path.join(out, str(dtype).split(".")[-1])))
+    calls = [(norm_sync_ranks, (sub, params, x, grad_out, running, batches,
+                                str(dev) if backend == "gloo" else dev.type))
+             for _, _, _, x, grad_out, batches, sub in cases]
+    return types.SimpleNamespace(out=out, calls=calls, world=world, n=n, c=c,
+                                 hw=hw, params=params, running=running,
+                                 cases=cases)
+
+
+def sync_bn_phase(dev, card: str, world: int = 2,
+                  backend: str = "gloo", plan=None) -> None:
+    """``SyncBatchNorm2d`` alone on CUDA tensors (its fused path), ``world``
+    ranks on one card over gloo or one card each over NCCL
+    (``parallel.dryrun.norm_sync_ranks``), at a YOLOX-s 640 layer's shape
+    (2 images a rank, 128 channels at 80 x 80, channels_last), in float32
+    and in bfloat16 (the recipe's activations, float32 weights), against
+    ``nn.BatchNorm2d`` (cuDNN) on the whole batch on this card (the ranks'
+    part from ``plan``, :func:`sync_bn_plan`, run by the caller's spawn, or
+    spawned here): output, input gradient, the summed weight and bias
+    gradients, the running statistics, and ``all_reduce_norm`` and ``precise_bn`` against their
+    one-process values; every rank's statistics bitwise equal. Bounds, of
+    the reference's largest magnitude: float32 1e-4 (the same moments in
+    another sum order); bfloat16 1e-2 for the outputs and gradients (both
+    round to bfloat16, whose step is 2^-8 of a value) and 1e-4 for the
+    statistics (float32 moments of the same bfloat16 inputs)."""
+    from yolov7_d2_tpu_torch.parallel.norm_sync import (
+        SyncBatchNorm2d,
+        precise_bn,
+    )
+
+    label = "(a)" if backend == "gloo" else "(c)"
+    if plan is None:
+        plan = sync_bn_plan(dev, world, backend)
+        spawn_plans([plan], world, backend)
+    world, n, c, params, running, cases = (
+        plan.world, plan.n, plan.c, plan.params, plan.running, plan.cases)
+    hw = plan.hw
+    for dtype, close, stat_close, x, grad_out, batches, sub in cases:
+        ranks = [torch.load(os.path.join(sub, f"rank{r}.pt"),
                             weights_only=True) for r in range(world)]
-        shutil.rmtree(out, ignore_errors=True)
         for key in ("running_mean", "running_var", "reduced_mean",
                     "reduced_var", "precise_mean", "precise_var"):
             if any(not torch.equal(r[key], ranks[0][key]) for r in ranks):
@@ -1220,6 +1286,7 @@ def sync_bn_phase(dev, card: str, world: int = 2,
             f"[{n},{c},{hw},{hw}]: " + ", ".join(
                 f"{k} {e:.2e}" for k, e in errs.items())
             + " (of the max); the ranks' statistics bitwise equal")
+    shutil.rmtree(plan.out, ignore_errors=True)
 
 
 def packed_step_ms(dev, cfg, batches, in_group: bool) -> float:
@@ -3469,9 +3536,28 @@ def assignments_apart(a, b) -> int:
     return int(((a[1] != b[1]) | (a[1] & (a[0] != b[0]))).sum())
 
 
+def family_plan(dev, family: str, world: int = 2, backend: str = "gloo",
+                steps: int = 2, size=None):
+    """The ranks' part of :func:`family_sync_phase`: its batches and rank
+    call."""
+    from yolov7_d2_tpu_torch.parallel.dryrun import train_steps
+
+    kw = {} if size is None else {"input_size": (size, size)}
+    cfg = family_cfg(family, amp=False, **kw)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    batches = [family_batch(family, 2 * world, gen, size)
+               for _ in range(steps)]
+    out = os.path.join(REPO, "build", "chip_smoke_family_ranks", family)
+    calls = [(train_steps, (
+        out, cfg, batches, str(dev) if backend == "gloo" else dev.type,
+        SEED, None, 1 if dev.type == "cuda" else None, False, True))]
+    return types.SimpleNamespace(out=out, calls=calls, cfg=cfg,
+                                 batches=batches, world=world, steps=steps)
+
+
 def family_sync_phase(dev, card: str, family: str, world: int = 2,
                       backend: str = "gloo", steps: int = 2,
-                      size=None) -> None:
+                      size=None, plan=None) -> None:
     """Section 17 (a), or (c) over NCCL: ``world`` ranks of ``family``'s
     bare float32 step (TF32 off, 2 images a rank, ``steps`` steps;
     ``parallel.dryrun.train_steps``: DDP, the global count in the loss)
@@ -3482,38 +3568,23 @@ def family_sync_phase(dev, card: str, family: str, world: int = 2,
     summed loss shares and the gradient norm within 1e-3 relative, the
     ranks' weights bitwise equal. Logs how many assignments the one
     process's own matcher makes apart (its step under its own matcher,
-    not held) and the CUDA kernels a rank's step launches."""
+    not held) and the CUDA kernels a rank's step launches. The ranks' part
+    comes from ``plan`` (:func:`family_plan`, run by the caller's spawn),
+    or is spawned here."""
     from yolov7_d2_tpu_torch.engine import build_system
-    from yolov7_d2_tpu_torch.parallel.dryrun import (
-        merge_matches,
-        train_steps,
-    )
-    from yolov7_d2_tpu_torch.parallel.launch import launch
+    from yolov7_d2_tpu_torch.parallel.dryrun import merge_matches
     from yolov7_d2_tpu_torch.utils.profiling import count_cuda_launches
 
     label = "(17a)" if backend == "gloo" else "(17c)"
     count = dict(FAMILY_RANKS)[family]
-    kw = {} if size is None else {"input_size": (size, size)}
-    cfg = family_cfg(family, amp=False, **kw)
-    gen = torch.Generator().manual_seed(SEED + 7)
-    batches = [family_batch(family, 2 * world, gen, size)
-               for _ in range(steps)]
-    out = os.path.join(REPO, "build", "chip_smoke_family_ranks")
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
-    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
-    t0 = time.perf_counter()
-    try:
-        launch(train_steps, world, args=(
-            out, cfg, batches, str(dev) if backend == "gloo" else dev.type,
-            SEED, None, 1 if dev.type == "cuda" else None, False, True),
-            backend=backend)
-    finally:
-        del os.environ["NVIDIA_TF32_OVERRIDE"]
-    wall = time.perf_counter() - t0
-    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
-             for r in range(world)]
-    shutil.rmtree(out, ignore_errors=True)
+    if plan is None:
+        plan = family_plan(dev, family, world, backend, steps, size)
+        spawn_plans([plan], world, backend)
+    cfg, batches, world, steps = plan.cfg, plan.batches, plan.world, \
+        plan.steps
+    ranks = [torch.load(os.path.join(plan.out, f"rank{r}.pt"),
+                        weights_only=True) for r in range(world)]
+    shutil.rmtree(plan.out, ignore_errors=True)
 
     _, state, step, _ = build_system(cfg, device=dev, seed=SEED)
     launches_one = None
@@ -3574,8 +3645,7 @@ def family_sync_phase(dev, card: str, family: str, world: int = 2,
         f"equal across the ranks after {steps} steps; CUDA kernel launches "
         f"in step 1: one process {launches_one} ({2 * world} images), a "
         f"rank {ranks[0]['metrics'][1].get('launches')} (2 images, DDP); "
-        f"{wall:.2f} s for the spawn, {steps} steps and the ranks' start-up, "
-        f"{where}")
+        f"{spawned(plan)}, {where}")
     del state, step
     torch.cuda.empty_cache()
 
@@ -6239,7 +6309,7 @@ def c45_paths(dev, card: str, gen: torch.Generator, kernels: dict,
 def feed_paths(dev, card: str, gen: torch.Generator, kernels: dict,
                images: int = CLI_IMAGES, steps: int = 3) -> None:
     """(23d) The feed: YOLOX-s's host mosaic (``YOLOXDatasetMapper`` at
-    640) through ``MultiProcessDataLoader`` with 1, 2 and 4 spawned workers
+    640) through ``MultiProcessDataLoader`` with 4 spawned workers
     (``MapperFactory``) against the threaded ``DataLoader``, img/s over 10
     batches of 16 (after the first, or after 2 a worker); ``steps`` steps
     of YOLOX-s 640 with the HSV distortion on, MixUp on with GridMask (its
@@ -6283,7 +6353,7 @@ def feed_paths(dev, card: str, gen: torch.Generator, kernels: dict,
             node, records, mappers.YOLOXDatasetMapper(node, seed=0),
             batch_size=TRAIN_BATCH))
         rates = {}
-        for workers in (1, 2, 4):
+        for workers in (4,):
             t0 = time.perf_counter()
             loader = MultiProcessDataLoader(
                 records, mappers.MapperFactory(mappers.YOLOXDatasetMapper,
@@ -6395,6 +6465,240 @@ def deploy_feed_phase(dev, card: str, gen: torch.Generator,
         fn(dev, card, gen, kernels)
         log(f"(23{label}) done {time.perf_counter() - t0:.1f} s into "
             "section 23")
+
+
+# ---------------------------------------------------------------------------
+# section 24: tensor parallelism over the model axis of a (data, model) grid
+# ---------------------------------------------------------------------------
+
+TP_MIN_FEATURES = 128  # the JAX dryrun's (__graft_entry__.py:95)
+TP_F32_STEPS = 2
+TP_PHOTO_STEPS = 3
+TP_PHOTO_BATCH = 8  # images a data rank in (b)
+
+
+def grid_checks(label: str, ranks: list, shape: tuple) -> None:
+    """The shard checks of a grid run (``train_steps`` records in rank
+    order): each sharded parameter, its optimizer state and its EMA of O /
+    model rows, the shards bitwise equal across the data ranks and apart
+    across the model ranks, and the gathered state (so every replicated
+    parameter) bitwise equal on every rank."""
+    data, model = shape
+    names = set(ranks[0]["shards"])
+    if not names:
+        raise AssertionError(f"{label} no parameter is sharded")
+    whole = ranks[0]["model"]
+    for r, rec in enumerate(ranks):
+        if set(rec["shards"]) != names:
+            raise AssertionError(f"{label} rank {r} shards other parameters")
+        for name in names:
+            rows = whole[name].shape[0] // model
+            got = {rec["shards"][name].shape[0],
+                   rec["ema_shards"][name].shape[0],
+                   *(s[0] for s in rec["opt_shapes"][name])}
+            if got != {rows}:
+                raise AssertionError(f"{label} rank {r} {name}: rows {got}, "
+                                     f"not {rows}")
+            same_m = ranks[r % model]["shards"][name]
+            if not torch.equal(rec["shards"][name], same_m):
+                raise AssertionError(f"{label} {name}: data ranks hold other "
+                                     "shards")
+        for key in ("model", "ema"):
+            for name, v in ranks[0][key].items():
+                if not torch.equal(rec[key][name], v):
+                    raise AssertionError(f"{label} rank {r}: gathered {key} "
+                                         f"{name} differs from rank 0's")
+    for name in names:
+        if torch.equal(ranks[0]["shards"][name], ranks[1]["shards"][name]):
+            raise AssertionError(f"{label} {name}: model ranks 0 and 1 hold "
+                                 "the same shard")
+
+
+def tensor_parallel_phase(dev, card: str, cfg, kernels: dict,
+                          shape: tuple = (2, 2),
+                          backend: str = "gloo") -> None:
+    """Section 24: YOLOX-s 640 at full width and depth on a (data, model)
+    grid of ``shape`` (``parallel.mesh``: the parameters with 128 or more
+    output features sharded over the model axis, column-parallel; the JAX
+    dryrun's strategy), in one spawn: gloo ranks all on ``dev``, or over
+    NCCL one card a rank ((c), ``nccl_main``).
+
+    (a) The float32 step, TF32 off, 2 images a data rank, 2 steps, each
+    held against one process from the ranks' gathered weights and under
+    the ranks' prefilter (as section 10 (a)): the foreground count equal,
+    the summed loss shares and the gradient norm within 1e-3 relative, and
+    :func:`grid_checks`. Logs the parameter elements a rank holds against
+    one process and the CUDA kernel launches of a rank's step 1.
+
+    (b) 3 bf16 steps of ``make_packed_photo_step`` (MixUp and GridMask on)
+    on 8 uint8 images a data rank: finite losses and foreground, weights
+    moved, :func:`grid_checks`, and the images each model took equal
+    across the model ranks of a data slice and apart across data slices
+    (the model ranks drew alike). Its GridMask launches (K3, counted in the
+    ranks) join the ``grid_mask`` entry."""
+    from yolov7_d2_tpu_torch.engine import (
+        build_yolox_system,
+        resolve_simota_prefilter,
+    )
+    from yolov7_d2_tpu_torch.parallel.dryrun import in_turn, train_steps
+    from yolov7_d2_tpu_torch.parallel.launch import launch
+
+    label = "(24a)" if backend == "gloo" else "(24c)"
+    data, model = shape
+    world = data * model
+    fcfg = dataclasses.replace(cfg, amp=False)
+    pcfg = dataclasses.replace(cfg, grid_mask=True, mixup=True)
+    gen = torch.Generator().manual_seed(SEED + 24)
+    f32_batches = [train_batch(2 * data, gen) for _ in range(TP_F32_STEPS)]
+    photo_batches = [train_batch(TP_PHOTO_BATCH * data, gen)
+                     for _ in range(TP_PHOTO_STEPS)]
+    out = os.path.join(REPO, "build", "chip_smoke_grid")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    where = str(dev) if backend == "gloo" else dev.type
+    common = (SEED, None)
+    calls = [
+        (train_steps, (out, fcfg, f32_batches, where, *common,
+                       1 if dev.type == "cuda" else None, True, True, shape,
+                       TP_MIN_FEATURES, False, "a")),
+        (train_steps, (out, pcfg, photo_batches, where, *common, None,
+                       False, True, shape, TP_MIN_FEATURES, True, "b")),
+    ]
+    # the ranks start with torch's defaults: TF32 off for them as here
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    t0 = time.perf_counter()
+    try:
+        launch(in_turn, world, args=(calls,), backend=backend)
+    finally:
+        del os.environ["NVIDIA_TF32_OVERRIDE"]
+    wall = time.perf_counter() - t0
+    runs = {tag: [torch.load(os.path.join(out, f"{tag}{r}.pt"),
+                             weights_only=True) for r in range(world)]
+            for tag in ("a", "b")}
+    shutil.rmtree(out, ignore_errors=True)
+
+    # ---- (a) float32 against one process
+    ranks = runs["a"]
+    firsts = ranks[::model]  # model rank 0 of each data slice
+    k = resolve_simota_prefilter(fcfg)
+    _, state, step = build_yolox_system(fcfg, device=dev, seed=SEED)
+    from yolov7_d2_tpu_torch.utils.profiling import count_cuda_launches
+
+    launches_one = None
+    for i, batch in enumerate(f32_batches):
+        batch = {key: v.to(dev) for key, v in batch.items()}
+        state.model.load_state_dict(ranks[0]["weights"][i])
+        state.step = i
+        ranked = torch.cat([rec["outputs"][i][..., 4] for rec in firsts])
+        with prefilter_ranked_by(ranked.to(dev)):
+            if i == 1 and dev.type == "cuda":
+                (state, m), launches_one = count_cuda_launches(
+                    lambda: step(state, batch))
+            else:
+                state, m = step(state, batch)
+        want = {key: float(v) for key, v in m.items()}
+        ms = [rec["metrics"][i] for rec in ranks]
+        # the model ranks of a data slice compute the same loss share, up to
+        # the library's sum order
+        apart = max(relative_gap(ms[r]["total_loss"],
+                                 ms[r - r % model]["total_loss"])
+                    for r in range(world))
+        loss = sum(rec["metrics"][i]["total_loss"] for rec in firsts)
+        gaps = {key: relative_gap(got, want[key]) for key, got in (
+            ("total_loss", loss), ("grad_norm", ms[0]["grad_norm"]))}
+        log(f"{label} step {i}: grid {shape} / one process: total_loss "
+            f"{loss:.6g} / {want['total_loss']:.6g} "
+            f"({gaps['total_loss']:.2e}), grad_norm {ms[0]['grad_norm']:.6g}"
+            f" / {want['grad_norm']:.6g} ({gaps['grad_norm']:.2e}), num_fg "
+            f"{ms[0]['num_fg']:.0f} / {want['num_fg']:.0f}; the model ranks' "
+            f"loss shares {apart:.2e} apart")
+        if any(m_["num_fg"] != want["num_fg"] for m_ in ms):
+            raise AssertionError(f"{label} step {i}: fg counts differ")
+        if len({m_["grad_norm"] for m_ in ms}) != 1:
+            raise AssertionError(f"{label} step {i}: the ranks' gradient "
+                                 "norms differ")
+        for key, gap in gaps.items():
+            if gap > 1e-3:
+                raise AssertionError(f"{label} step {i}: {key} off by "
+                                     f"{gap:.2e} relative to one process, "
+                                     "above 1e-3")
+    del state, step
+    grid_checks(label, ranks, shape)
+    if any(rec["step"] != TP_F32_STEPS for rec in ranks):
+        raise AssertionError(f"{label} the ranks took other steps")
+    held, whole = ranks[0]["param_elements"]
+    n_sharded = len(ranks[0]["shards"])
+    sharded_elems = sum(ranks[0]["model"][n].numel()
+                        for n in ranks[0]["shards"])
+    launches_rank = ranks[0]["metrics"][1].get("launches")
+    host = ("on one card, host-paced over gloo and not a multi-GPU rate"
+            if backend == "gloo" else "over NCCL, one card a rank")
+    log(f"{label} grid {shape} of {world} {backend} ranks [{card}]: "
+        f"{n_sharded} parameters ({sharded_elems} of {whole} elements) "
+        f"sharded at {TP_MIN_FEATURES}; a rank holds {held} parameter "
+        f"elements, {held / whole:.4f} of one process's (and as much of its "
+        f"momentum and EMA); gathered state bitwise equal on every rank, "
+        f"shards equal across data ranks and apart across model ranks; CUDA "
+        f"kernel launches in step 1: one process {launches_one} "
+        f"({2 * data} images), a rank {launches_rank} (2 images); {wall:.2f}"
+        f" s for the spawn, (a) and (b) and the ranks' start-up, {host}")
+
+    # ---- (b) bf16 photometric steps
+    label_b = "(24b)" if backend == "gloo" else "(24c)"
+    ranks = runs["b"]
+    for r, rec in enumerate(ranks):
+        for i, m_ in enumerate(rec["metrics"]):
+            for key in ("total_loss", "loss_iou", "loss_obj", "loss_cls",
+                        "grad_norm"):
+                if not math.isfinite(m_[key]):
+                    raise AssertionError(f"{label_b} rank {r} step {i}: "
+                                         f"{key} {m_[key]}")
+            if not m_["num_fg"] > 1:
+                raise AssertionError(f"{label_b} rank {r} step {i}: no "
+                                     "foreground anchor")
+        same = ranks[r - r % model]["inputs"]
+        if rec["inputs"] != same:
+            raise AssertionError(f"{label_b} rank {r}: the model took other "
+                                 "images than its data slice's model rank 0")
+    if data > 1 and ranks[0]["inputs"] == ranks[model]["inputs"]:
+        raise AssertionError(f"{label_b} two data slices took the same "
+                             "images")
+    first = ranks[0]["weights"][0]
+    moved = sum(not torch.equal(first[n], v)
+                for n, v in ranks[0]["model"].items())
+    if moved == 0:
+        raise AssertionError(f"{label_b} the steps moved no tensor")
+    grid_checks(label_b, ranks, shape)
+    masks = sum(rec["kernel_launches"].get("grid_mask", 0) for rec in ranks)
+    if masks < world * TP_PHOTO_STEPS:
+        raise AssertionError(f"{label_b} grid_mask launched {masks} times "
+                             f"in {world} ranks x {TP_PHOTO_STEPS} steps")
+    masked = sum(m_["grid_masked"] for rec in ranks for m_ in rec["metrics"])
+    kernels["grid_mask"]["launches"] += masks
+    log(f"{label_b} grid {shape} [{card}], bf16, {TP_PHOTO_BATCH} images a "
+        f"data rank, MixUp and GridMask: {TP_PHOTO_STEPS} steps finite; "
+        f"{moved} state tensors moved; the model ranks of each data slice "
+        f"took bitwise equal images and hold bitwise equal replicated "
+        f"parameters; grid_mask launched {masks} times over the ranks "
+        f"({masked:.0f} images masked); total_loss by step on rank 0: "
+        + ", ".join(f"{m_['total_loss']:.4f}" for m_ in ranks[0]["metrics"]))
+
+
+def grid_nccl_phase(card: str, cfg) -> None:
+    """(24c) :func:`tensor_parallel_phase` over NCCL, one card a rank: a
+    (2, 2) grid on 4 or more visible cards, (1, 2) on 2-3; logged as
+    skipped on one."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"(24c) NCCL grid: skipped, {n} CUDA card visible (needs 2)")
+        return
+    shape = (2, 2) if n >= 4 else (1, 2)
+    t0 = time.perf_counter()
+    tensor_parallel_phase(torch.device("cuda", 0), card, cfg,
+                          {"grid_mask": {"launches": 0}}, shape=shape,
+                          backend="nccl")
+    log(f"(24c) NCCL grid {shape} [{card}] x{n}: "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def snapshot(state) -> dict:
@@ -6808,8 +7112,15 @@ def main() -> int:
 
     # ---- 10. multi-GPU training: (a) two gloo ranks on one card against
     # one process, (b) the CLI in an NCCL group of 1, (c) NCCL ranks
-    sync_phase(dev, card, cfg)
-    sync_bn_phase(dev, card)
+    # one spawn of 2 gloo ranks runs the ranks' part of (a), of its
+    # SyncBatchNorm2d check and of 17 (a) (SparseInst, DETR) in turn: each
+    # rank starts once
+    plans = {"sync": sync_plan(dev, cfg), "bn": sync_bn_plan(dev),
+             **{family: family_plan(dev, family)
+                for family, _ in FAMILY_RANKS}}
+    spawn_plans(list(plans.values()), 2, "gloo")
+    sync_phase(dev, card, cfg, plan=plans["sync"])
+    sync_bn_phase(dev, card, plan=plans["bn"])
     ddp_world1_phase(dev, card, kernels, data, cfg)
     nccl_ranks_phase(dev, card, cfg, data)
     DatasetCatalog.remove(CLI_DATASET)
@@ -6860,7 +7171,7 @@ def main() -> int:
     # card against one process, (b) the CLIs in an NCCL group of 1, (c)
     # NCCL ranks where two or more cards are visible
     for family, _ in FAMILY_RANKS:
-        family_sync_phase(dev, card, family)
+        family_sync_phase(dev, card, family, plan=plans[family])
         family_cli_phase(dev, card, family, kernels, images=CLI_IMAGES // 2)
         family_nccl_phase(dev, card, family)
 
@@ -6916,7 +7227,17 @@ def main() -> int:
 
     mark("23")
 
-    # ---- 24. times
+    # ---- 24. tensor parallelism: YOLOX-s 640 on a (2, 2) grid of 4 gloo
+    # ranks on the card, the widest parameters sharded over the model
+    # axis: (a) the float32 step against one process, (b) bf16 steps with
+    # MixUp and GridMask, (c) the grid over NCCL where 2 or more cards are
+    # visible (tensor_parallel_phase)
+    tensor_parallel_phase(dev, card, cfg, kernels)
+    grid_nccl_phase(card, cfg)
+
+    mark("24")
+
+    # ---- 25. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "
@@ -6932,6 +7253,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    mark("25, the whole script")
     print(card, flush=True)
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels.values()]}), flush=True)
@@ -6942,10 +7264,10 @@ def main() -> int:
 
 
 def nccl_main() -> int:
-    """``python3 chip_smoke.py --nccl``: sections 10 (c) and 17 (c) alone,
-    on every visible card up to 4 (the paths that exist only across cards,
-    for a machine of several); the kernels are built first, so that the
-    ranks only load them."""
+    """``python3 chip_smoke.py --nccl``: sections 10 (c), 17 (c) and 24 (c)
+    alone, on every visible card up to 4 (the paths that exist only across
+    cards, for a machine of several); the kernels are built first, so that
+    the ranks only load them."""
     if torch.cuda.device_count() < 2:
         raise RuntimeError("chip_smoke --nccl: needs 2 or more CUDA cards")
     sys.path.insert(0, REPO)
@@ -6964,6 +7286,7 @@ def nccl_main() -> int:
     shutil.rmtree(data.work, ignore_errors=True)
     for family, _ in FAMILY_RANKS:
         family_nccl_phase(torch.device("cuda", 0), card, family)
+    grid_nccl_phase(card, YoloxConfig())
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

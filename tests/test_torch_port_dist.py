@@ -16,7 +16,8 @@ the CPU: gloo process groups of 2 ranks, tiny shapes.
 * ``all_reduce_norm`` and ``precise_bn`` against the JAX package's
   ``allreduce_norm_host`` and ``precise_bn``: 1e-6 and 1e-5 relative (an
   average of two float32 numbers; float32 moments of another sum order);
-* ``dryrun_multigpu(2)``.
+* ``dryrun_multigpu(2)``: a (1, 2) grid, the widest parameters sharded
+  over the model axis.
 
 Each spawn is bounded by ``launch``'s ``timeout``: past it the ranks are
 killed and the test fails.
@@ -309,8 +310,16 @@ def test_sync_batchnorm_without_a_group_is_batchnorm():
 
 
 def test_dryrun_multigpu_two_ranks():
+    """Two ranks are a (1, 2) grid, as the JAX dryrun's (n // 2, 2) mesh:
+    the widest parameters (128 or more output features) sharded over the
+    model axis, half of their rows a rank."""
     ranks = dryrun_multigpu(WORLD, device="cpu", timeout=TIMEOUT)
     assert len(ranks) == WORLD and ranks[0]["step"] == 1
+    assert [r["grid"] for r in ranks] == [
+        {"shape": (1, 2), "data_rank": 0, "model_rank": m} for m in (0, 1)]
+    assert ranks[0]["shards"]
+    for name, shard in ranks[0]["shards"].items():
+        assert 2 * shard.shape[0] == ranks[0]["model"][name].shape[0] >= 128
 
 
 def test_launch_refuses_more_ranks_than_cards(monkeypatch):

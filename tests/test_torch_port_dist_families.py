@@ -270,9 +270,11 @@ def test_metrics_reduce_over_ranks_by_kind(tmp_path):
 
 
 def test_dropout_masks_differ_by_rank_and_not_by_history(monkeypatch):
-    """``seed_dropout_by_step``: the generator's draws of a step on rank 0
-    and rank 1 differ, rank 0's are the seed's and the step's alone (the
-    same after other steps), and a world of 1 is rank 0."""
+    """``seed_dropout_by_step``: the generator's draws of a step on data
+    rank 0 and data rank 1 differ, data rank 0's are the seed's and the
+    step's alone (the same after other steps), and a world of 1 is data
+    rank 0. The draws follow the data rank, so the model ranks of a data
+    slice draw alike."""
     from yolov7_d2_tpu_torch import engine
 
     def draw(state, batch):
@@ -281,7 +283,7 @@ def test_dropout_masks_differ_by_rank_and_not_by_history(monkeypatch):
     step = seed_dropout_by_step(draw, seed=3)
 
     def run(rank, at, before=()):
-        monkeypatch.setattr(engine, "get_rank", lambda: rank)
+        monkeypatch.setattr(engine, "get_data_rank", lambda: rank)
         state = SimpleNamespace(step=0, model=SimpleNamespace(
             generator=torch.Generator()))
         for s in (*before, at):

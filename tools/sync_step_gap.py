@@ -2,7 +2,7 @@
 
 Runs ``chip_smoke.py``'s check (a) -- the bare YOLOX-s 640 train step in
 float32 (TF32 off), 2 gloo ranks of 2 images on one card against one
-process on the 4, 3 steps, here with the one process following its own
+process on the 4, 2 steps, here with the one process following its own
 updates -- three times in one process:
 
 1. with ``SyncBatchNorm2d``'s elementwise path (the CPU's, forced on the
@@ -14,7 +14,7 @@ updates -- three times in one process:
    float32 run's head outputs are from it.
 
 Then two controls: the one-process run against itself (the card's
-run-to-run spread over the same 3 steps), and the weights after one step
+run-to-run spread over the same 2 steps), and the weights after one step
 on 2 ranks against one process, parameter by parameter (the tensors that
 differ most, of their largest magnitude).
 

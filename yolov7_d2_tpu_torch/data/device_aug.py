@@ -231,20 +231,27 @@ def draw_seed(seed: int, step: int, rank: int = 0) -> int:
 
 
 def make_packed_photo_step(cfg, train_step: Callable, seed: int = 0,
-                           rank: int = 0) -> Callable:
+                           rank: Optional[int] = None) -> Callable:
     """Wrap ``train_step`` so that it takes a uint8 batch (on the host or
     the card): the batch moves to the model's device and goes through
     :class:`DevicePhotometric` until ``cfg.aug_disable_at_iter`` steps,
     then through its passthrough. The draws of step s come from a generator
-    seeded with (seed, s, rank) (:func:`draw_seed`), so that a run repeats.
-    Each rank draws for its own batch, so MixUp pairs images within a
-    rank's share (the reference's per-GPU mapper; the JAX mesh permutes the
-    global batch). The metrics gain ``grid_masked``, the number of images
+    seeded with (seed, s, rank) (:func:`draw_seed`), so that a run repeats;
+    ``rank`` is the data rank (by default the grid's, ``parallel.dist.
+    get_data_rank``): each data rank draws for its own batch, so MixUp
+    pairs images within a data rank's share (the reference's per-GPU
+    mapper; the JAX mesh permutes the global batch), and the model ranks
+    of a data slice draw alike, so that their replicated activations stay
+    equal. The metrics gain ``grid_masked``, the number of images
     GridMask masked in the rank's step. A batch with ``gt_keypoints``
     raises: the flip and MixUp would not move them (the JAX package has no
     device photometric stage for keypoints)."""
     aug = DevicePhotometric(cfg)
     disable_at = int(cfg.aug_disable_at_iter)
+    if rank is None:
+        from yolov7_d2_tpu_torch.parallel.dist import get_data_rank
+
+        rank = get_data_rank()
 
     def step(state, batch: Dict[str, torch.Tensor]):
         if "gt_keypoints" in batch:

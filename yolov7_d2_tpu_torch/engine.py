@@ -40,7 +40,14 @@ from yolov7_d2_tpu_torch.models.meta_arch.yolov6 import yolov6_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolov7 import anchor_yolo_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox import yolox_loss_fn
 from yolov7_d2_tpu_torch.models.meta_arch.yolox_kpts import yolox_kpts_loss_fn
-from yolov7_d2_tpu_torch.parallel.dist import get_rank, is_initialized
+from yolov7_d2_tpu_torch.parallel.dist import (
+    data_group,
+    get_data_rank,
+    get_data_size,
+    get_model_size,
+    is_initialized,
+)
+from yolov7_d2_tpu_torch.parallel.mesh import shard_model
 from yolov7_d2_tpu_torch.parallel.norm_sync import convert_sync_batchnorm
 from yolov7_d2_tpu_torch.train.optimizer import build_optimizer
 from yolov7_d2_tpu_torch.train.schedules import build_lr_schedule
@@ -103,25 +110,38 @@ def dummy_batch(cfg, batch_size: int = 2,
     }
 
 
-def _train_state(cfg, model: nn.Module, device) -> TrainState:
+def _train_state(cfg, model: nn.Module, device,
+                 tp_min_features: int = 0) -> TrainState:
     """The model in train mode, SGD over the decay classes and the EMA.
     Inside a process group (``parallel.launch``) the BatchNorms become
-    ``SyncBatchNorm2d`` and the forward runs through
-    ``DistributedDataParallel``, whose construction broadcasts rank 0's
-    weights (every rank draws the same from the seed anyway, but an init
-    that depends on the device cannot split the ranks); the EMA starts from
-    the broadcast weights. Without a group: plain BatchNorm, no wrapper."""
+    ``SyncBatchNorm2d``; on a model axis above 1 with ``tp_min_features``
+    the rule's parameters are sharded over it (``parallel.mesh.
+    shard_model``, before the optimizer, the EMA and DDP take the
+    parameters); the forward runs through ``DistributedDataParallel`` over
+    the data group (where the data axis has more than one rank, or the
+    grid has no model axis: a group of 1 keeps its wrapper), whose
+    construction broadcasts each data group's first rank's weights, which
+    are the same shard (every rank draws the same from the seed anyway,
+    but an init that depends on the device cannot split the ranks); the
+    EMA starts from the broadcast weights. Without a group: plain
+    BatchNorm, no wrapper."""
     model.train()
     ddp = None
     if is_initialized():
-        # imported here: the import takes seconds, and one process needs none
-        from torch.nn.parallel import DistributedDataParallel
-
         model = convert_sync_batchnorm(model)
-        device = torch.device(device)
-        ddp = DistributedDataParallel(
-            model, device_ids=None if device.type == "cpu" else [device],
-            broadcast_buffers=False, gradient_as_bucket_view=True)
+        if get_model_size() > 1 and tp_min_features > 0:
+            shard_model(model, tp_min_features)
+        if get_data_size() > 1 or get_model_size() == 1:
+            # imported here: the import takes seconds, and one process
+            # needs none
+            from torch.nn.parallel import DistributedDataParallel
+
+            device = torch.device(device)
+            ddp = DistributedDataParallel(
+                model,
+                device_ids=None if device.type == "cpu" else [device],
+                process_group=data_group(), broadcast_buffers=False,
+                gradient_as_bucket_view=True)
     return TrainState(
         step=0, model=model, optimizer=build_optimizer(cfg, model),
         ema_params=({n: p.detach().clone()
@@ -130,17 +150,19 @@ def _train_state(cfg, model: nn.Module, device) -> TrainState:
         ddp=ddp)
 
 
-def build_yolox_system(cfg, device="cuda", seed: int = 0):
+def build_yolox_system(cfg, device="cuda", seed: int = 0,
+                       tp_min_features: int = 0):
     """(model, state, train_step) for YOLOX from a ``YoloxConfig``: the
     model in train mode with weights from ``seed``, SGD over the decay
     classes, the schedule, the EMA and the L1 switch at
     ``aug_disable_at_iter`` (the reference turns L1 on when the strong
     augmentation turns off). The JAX builder's sample batch only traces
     the flax init, so no batch size is needed here. Inside a process group,
-    SyncBatchNorm and DDP (:func:`_train_state`). On ConvNeXt the drop-path
-    masks of a step come from the seed and the step
-    (:func:`seed_dropout_by_step`)."""
-    state = _train_state(cfg, build_model(cfg, device, seed), device)
+    SyncBatchNorm, the model axis's shards at ``tp_min_features`` and DDP
+    (:func:`_train_state`). On ConvNeXt the drop-path masks of a step come
+    from the seed and the step (:func:`seed_dropout_by_step`)."""
+    state = _train_state(cfg, build_model(cfg, device, seed), device,
+                         tp_min_features)
     train_step = make_train_step(
         make_yolox_loss_adapter(cfg.num_classes,
                                 resolve_simota_prefilter(cfg)),
@@ -226,7 +248,8 @@ def make_anchor_yolo_loss(cfg: AnchorYoloConfig) -> Callable:
     return loss_fn
 
 
-def build_system(cfg, device="cuda", seed: int = 0):
+def build_system(cfg, device="cuda", seed: int = 0,
+                 tp_min_features: int = 0):
     """cfg -> (model, state, train_step, batch fields) for every
     architecture the port trains (JAX ``engine.py:155``). ``cfg`` is a
     merged ``CfgNode`` or a config dataclass (``YoloxConfig``,
@@ -256,7 +279,9 @@ def build_system(cfg, device="cuda", seed: int = 0):
     ``gt_sem_seg`` [B, H, W] (the label S ignored), in the configured
     ``sample_mode``, drawing the sampled subsets from ``model.generator``,
     which :func:`seed_dropout_by_step` reseeds a step; any other
-    architecture raises, naming ROADMAP.md's Queue A."""
+    architecture raises, naming ROADMAP.md's Queue A. Inside a process
+    group with a model axis above 1, ``tp_min_features`` > 0 shards the
+    JAX rule's parameters over it (:func:`_train_state`)."""
     if hasattr(cfg, "MODEL"):
         arch = cfg.MODEL.META_ARCHITECTURE
         if arch in CONFIG_OF:
@@ -264,7 +289,8 @@ def build_system(cfg, device="cuda", seed: int = 0):
     else:
         arch = cfg.meta_architecture
     if arch == "YOLOX":
-        model, state, train_step = build_yolox_system(cfg, device, seed)
+        model, state, train_step = build_yolox_system(cfg, device, seed,
+                                                      tp_min_features)
         return model, state, train_step, BATCH_FIELDS
     if arch == "SparseInst":
         loss_fn, fields = sparseinst_loss_fn(cfg), MASK_FIELDS
@@ -298,7 +324,7 @@ def build_system(cfg, device="cuda", seed: int = 0):
     model = build_model(cfg, device, seed)
     if arch in RCNN_ARCHS:
         model.generator = generator
-    state = _train_state(cfg, model, device)
+    state = _train_state(cfg, model, device, tp_min_features)
     train_step = make_train_step(
         loss_fn, build_lr_schedule(cfg),
         ema_decay=cfg.ema_decay if cfg.ema else 0.0,
@@ -310,11 +336,12 @@ def build_system(cfg, device="cuda", seed: int = 0):
 
 def seed_dropout_by_step(train_step: Callable, seed: int) -> Callable:
     """Reseed the model's dropout generator (``model.generator``) before
-    each step from ``seed``, the step and the rank in a process group, as
-    the JAX step folds the step into its seed's key: a step's masks do not
-    depend on the steps before it, so a resumed run draws what an unbroken
-    one would, and each rank draws its own masks (as it draws its own
-    MixUp pairs)."""
+    each step from ``seed``, the step and the data rank in a process group,
+    as the JAX step folds the step into its seed's key: a step's masks do
+    not depend on the steps before it, so a resumed run draws what an
+    unbroken one would, and each data rank draws its own masks (as it draws
+    its own MixUp pairs), while the model ranks of a data slice draw
+    alike, so that their replicated activations stay equal."""
 
     def step(state, batch):
         gen = state.model.generator
@@ -323,7 +350,7 @@ def seed_dropout_by_step(train_step: Callable, seed: int) -> Callable:
             # far apart from every other rank's modulo 2**32 too, where a
             # CPU generator cuts its seed
             gen.manual_seed(seed * 1_000_003 + state.step
-                            + get_rank() * 0x9E3779B1)
+                            + get_data_rank() * 0x9E3779B1)
         return train_step(state, batch)
 
     return step

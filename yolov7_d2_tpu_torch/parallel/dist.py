@@ -6,6 +6,13 @@ batch is split by the compiler. The port runs one process per device, each
 on its share of the batch, in a ``torch.distributed`` group: NCCL for CUDA
 devices, gloo for the CPU. Without a group every helper answers as the one
 process of a world of 1.
+
+Inside a group the processes form a (data, model) grid
+(``parallel/mesh.py``): the batch is split over the data axis, so every
+reduction over the batch goes over the data group and counts data ranks
+(:func:`get_data_size`, :func:`data_group`); the model axis shards the
+widest parameters. Until ``mesh.build_grid`` sets a grid, the grid is
+(world, 1): the data group is the world.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import torch.distributed as dist
 # detectron2's timeout: rank 0's COCO eval on the full val set outlasts the
 # default collective timeout while the other ranks wait at a barrier
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
+
+# the process's ``mesh.Grid`` (set by ``mesh.build_grid``), None: (world, 1)
+_GRID = None
 
 
 def is_initialized() -> bool:
@@ -50,6 +60,55 @@ def get_local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", 0)) if is_initialized() else 0
 
 
+def set_grid(grid) -> None:
+    """Make ``grid`` (a ``mesh.Grid``, or None) the current grid."""
+    global _GRID
+    _GRID = grid
+
+
+def current_grid():
+    """The grid that ``mesh.build_grid`` set inside the current group, else
+    None."""
+    return _GRID if is_initialized() else None
+
+
+def get_data_size() -> int:
+    """The ranks of the data axis: the processes that split the batch."""
+    grid = current_grid()
+    return grid.data_size if grid is not None else get_world_size()
+
+
+def get_data_rank() -> int:
+    """This process's place on the data axis: the share of the batch it
+    takes, and the seed of its draws."""
+    grid = current_grid()
+    return grid.data_rank if grid is not None else get_rank()
+
+
+def data_group():
+    """The group of the data axis that holds this process (the world
+    without a grid)."""
+    grid = current_grid()
+    return grid.data_group if grid is not None else dist.group.WORLD
+
+
+def get_model_size() -> int:
+    grid = current_grid()
+    return grid.model_size if grid is not None else 1
+
+
+def get_model_rank() -> int:
+    grid = current_grid()
+    return grid.model_rank if grid is not None else 0
+
+
+def model_group():
+    """The group of the model axis that holds this process (None on an
+    axis of 1)."""
+    grid = current_grid()
+    return grid.model_group if grid is not None else None
+
+
 def is_main_process() -> bool:
     return get_rank() == 0
 
@@ -66,13 +125,13 @@ def synchronize() -> None:
 
 def local_batch_size(global_batch: int) -> int:
     """This process's share of a global batch (the counterpart of
-    ``local_process_batch_slice``); the batch must divide by the world
-    size."""
-    world = get_world_size()
-    if global_batch % world:
+    ``local_process_batch_slice``); the batch must divide by the data
+    axis's size (the model ranks of a data slice take the same share)."""
+    data = get_data_size()
+    if global_batch % data:
         raise ValueError(f"a global batch of {global_batch} does not divide "
-                         f"into {world} processes")
-    return global_batch // world
+                         f"into {data} data ranks")
+    return global_batch // data
 
 
 def _collective_device() -> torch.device:
@@ -82,28 +141,30 @@ def _collective_device() -> torch.device:
 
 
 def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """The sum of ``tensor`` over the ranks (a new tensor, without
-    gradient); ``tensor`` itself without a group."""
-    if not is_initialized():
+    """The sum of ``tensor`` over the data ranks (a new tensor, without
+    gradient): a loss's global count; ``tensor`` itself without a group or
+    on a data axis of 1."""
+    if get_data_size() == 1:
         return tensor
     out = tensor.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=data_group())
     return out
 
 
 def all_reduce_scalars(
         scalars: Dict[str, Union[torch.Tensor, float, int]],
         op: dist.ReduceOp = dist.ReduceOp.SUM) -> Dict[str, float]:
-    """``{name: sum (or ``op``) over ranks}`` as floats, for logged
-    metrics: one all_reduce of every value, in float64, and one fetch."""
+    """``{name: sum (or ``op``) over the data ranks}`` as floats, for
+    logged metrics: one all_reduce of every value, in float64, and one
+    fetch."""
     if not scalars:
         return {}
     keys = sorted(scalars)  # every rank reduces in the same order
-    if not is_initialized():
+    if get_data_size() == 1:
         return {k: float(scalars[k]) for k in keys}
     device = _collective_device()
     values = torch.stack([torch.as_tensor(scalars[k]).to(device,
                                                          torch.float64)
                           for k in keys])
-    dist.all_reduce(values, op=op)
+    dist.all_reduce(values, op=op, group=data_group())
     return dict(zip(keys, values.tolist()))

@@ -1,6 +1,7 @@
-"""Data-parallel runs of the bare train step on several processes: the
+"""Runs of the bare train step on a (data, model) grid of processes: the
 port's counterpart of ``__graft_entry__._dryrun_multichip_impl``
-(:func:`dryrun_multigpu`, YOLOX), and the rank function behind it
+(:func:`dryrun_multigpu`, YOLOX, the batch over ``data`` and the widest
+parameters over ``model``), and the rank function behind it
 (:func:`train_steps`, any configuration ``engine.build_system`` takes),
 which the tests and ``chip_smoke.py`` also use to hold N processes against
 one. Both live in the package because ``spawn`` imports a rank's function
@@ -15,15 +16,28 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from yolov7_d2_tpu_torch.parallel.dist import get_rank, get_world_size
+from yolov7_d2_tpu_torch.parallel.dist import (
+    get_data_rank,
+    get_data_size,
+    get_model_size,
+    get_rank,
+)
 from yolov7_d2_tpu_torch.parallel.launch import launch
+from yolov7_d2_tpu_torch.parallel.mesh import (
+    build_grid,
+    gather_state_dict,
+    gather_tensors,
+    shard_state_dict,
+    sharded_specs,
+)
 from yolov7_d2_tpu_torch.utils.profiling import count_cuda_launches
 
 
 def rank_slice(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """This rank's share of a global batch: rows ``rank * b / world`` up to
-    the next rank's (``local_process_batch_slice``)."""
-    world, rank = get_world_size(), get_rank()
+    """This rank's share of a global batch: rows ``rank * b / data`` up to
+    the next data rank's, for the data rank (``local_process_batch_slice``;
+    the model ranks of a data slice take the same rows)."""
+    world, rank = get_data_size(), get_data_rank()
     per = next(iter(batch.values())).shape[0] // world
     return {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
 
@@ -54,30 +68,58 @@ def train_steps(out_dir: str, cfg,
                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
                 count_launches_at: Optional[int] = None,
                 keep_outputs: bool = False,
-                keep_weights: bool = False) -> None:
-    """One rank: ``engine.build_system(cfg)`` (a ``YoloxConfig``,
+                keep_weights: bool = False,
+                grid_shape: Sequence[int] = (-1, 1),
+                tp_min_features: int = 0,
+                packed_photo: bool = False, tag: str = "rank") -> None:
+    """One rank of a grid of ``grid_shape`` (data, model; ``mesh.
+    build_grid``): ``engine.build_system(cfg)`` (a ``YoloxConfig``,
     ``SparseInstConfig``, ``DetrConfig`` or any other config it takes) on
-    ``device`` (inside the group: synchronized BatchNorm and DDP) with the
-    weights of ``seed``, or ``state_dict`` where given (the EMA then starts
-    from it), then one step on this rank's share of each global batch
-    (host tensors). Writes ``out_dir/rank<r>.pt``: each step's metrics as
-    floats, the assignment its loss used (``matches``: each step's
-    ``state.match``, for SparseInst and DETR; :func:`merge_matches` makes
-    the global batch's), and the final state dict, EMA and step count on
-    the CPU. With ``count_launches_at`` (a CUDA device), the metrics of
-    that step gain ``launches``, the CUDA kernels it launched. With
-    ``keep_outputs``, ``outputs`` holds each step's raw head outputs [b,
-    A, 5 + C] (float32, on the CPU), from which the caller can recompute
-    the step's SimOTA assignment; with ``keep_weights``, rank 0's
-    ``weights`` holds the state dict before each step (on the CPU), so
-    that one process can take each step from
-    the ranks' weights."""
+    ``device`` (inside the group: synchronized BatchNorm over the data
+    axis, the rule's parameters sharded over the model axis at
+    ``tp_min_features``, DDP over the data axis) with the weights of
+    ``seed``, or ``state_dict`` where given (whole: the rank loads its
+    shard of it; the EMA then starts from it), then one step on this data
+    rank's share of each global batch (host tensors). Writes
+    ``out_dir/rank<r>.pt``: each step's metrics as floats, the assignment
+    its loss used (``matches``: each step's ``state.match``, for SparseInst
+    and DETR; :func:`merge_matches` makes the global batch's), the final
+    state dict, EMA (both gathered whole from the model ranks) and step
+    count on the CPU, the grid (``grid``: shape, data and model rank), and
+    the rank's own shards of the sharded parameters (``shards``: {name:
+    tensor}), of their EMA (``ema_shards``) and the shapes of their
+    optimizer state (``opt_shapes``: {name: [shape of each tensor]}). With
+    ``count_launches_at`` (a CUDA device), the metrics of that step gain
+    ``launches``, the CUDA kernels it launched. With ``keep_outputs``,
+    ``outputs`` holds each step's raw head outputs [b, A, 5 + C] (float32,
+    on the CPU), from which the caller can recompute the step's SimOTA
+    assignment; with ``keep_weights``, rank 0's ``weights`` holds the whole
+    state dict before each step (on the CPU), so that one process can take
+    each step from the ranks' weights. With ``packed_photo`` the step is
+    ``make_packed_photo_step``'s on uint8 batches (MixUp, GridMask, flip
+    drawn by the data rank). Also written: ``inputs``, a fingerprint of the
+    images each step's model took (:func:`fingerprint`: equal on the model
+    ranks of a data slice where they drew alike), ``kernel_launches``, the
+    port's kernels this rank launched in its steps (``kernels.build.
+    LAUNCHES``), and ``param_elements``, the parameter elements this rank
+    holds and those of the whole model. The file is
+    ``out_dir/<tag><r>.pt``."""
+    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
     from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
 
+    grid = build_grid(grid_shape)
     device = rank_device(device)
-    _, state, step, _ = build_system(cfg, device=device, seed=seed)
+    _, state, step, _ = build_system(cfg, device=device, seed=seed,
+                                     tp_min_features=tp_min_features)
+    if packed_photo:
+        step = make_packed_photo_step(cfg, step, seed=seed)
+    inputs: List[int] = []
+    state.model.register_forward_pre_hook(
+        lambda module, args: inputs.append(fingerprint(args[0])))
+    specs = sharded_specs(state.model)
     if state_dict is not None:
-        state.model.load_state_dict(state_dict)
+        state.model.load_state_dict(shard_state_dict(state_dict, specs))
         if state.ema_params is not None:
             state.ema_params = {n: p.detach().clone()
                                 for n, p in state.model.named_parameters()}
@@ -89,10 +131,12 @@ def train_steps(out_dir: str, cfg,
     history: List[Dict[str, float]] = []
     weights: List[Dict[str, torch.Tensor]] = []
     matches: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    build.reset_launches()
     for i, batch in enumerate(batches):
-        if keep_weights and get_rank() == 0:
-            weights.append({k: v.cpu().clone()
-                            for k, v in state.model.state_dict().items()})
+        if keep_weights:
+            whole = gather_state_dict(state.model)
+            if get_rank() == 0:
+                weights.append({k: v.cpu().clone() for k, v in whole.items()})
         local = {k: v.to(device) for k, v in rank_slice(batch).items()}
         if i == count_launches_at:
             (state, metrics), launches = count_cuda_launches(
@@ -104,16 +148,53 @@ def train_steps(out_dir: str, cfg,
             history[-1]["launches"] = launches
         if state.match is not None:
             matches.append(tuple(t.cpu() for t in state.match))
+    kernel_launches = dict(build.LAUNCHES)
+    params = dict(state.model.named_parameters())
+    ema = state.ema_params
+    whole = sum(p.numel() for p in params.values()) + sum(
+        (get_model_size() - 1) * params[k].numel() for k in specs)
     torch.save({
         "metrics": history,
         "step": state.step,
-        "model": {k: v.cpu() for k, v in state.model.state_dict().items()},
-        "ema": ({k: v.cpu() for k, v in state.ema_params.items()}
-                if state.ema_params is not None else None),
+        "model": {k: v.cpu()
+                  for k, v in gather_state_dict(state.model).items()},
+        "ema": ({k: v.cpu() for k, v in gather_tensors(ema, specs).items()}
+                if ema is not None else None),
+        "grid": {"shape": tuple(grid.shape), "data_rank": grid.data_rank,
+                 "model_rank": grid.model_rank},
+        "shards": {k: params[k].detach().cpu() for k in specs},
+        "ema_shards": ({k: ema[k].cpu() for k in specs}
+                       if ema is not None else {}),
+        "opt_shapes": {k: [tuple(v.shape) for v in
+                           state.optimizer.state[params[k]].values()
+                           if isinstance(v, torch.Tensor)] for k in specs},
         "outputs": outputs,
         "weights": weights,
         "matches": matches,
-    }, os.path.join(out_dir, f"rank{get_rank()}.pt"))
+        "inputs": inputs,
+        "kernel_launches": kernel_launches,
+        "param_elements": (sum(p.numel() for p in params.values()), whole),
+    }, os.path.join(out_dir, f"{tag}{get_rank()}.pt"))
+
+
+def fingerprint(t: torch.Tensor) -> int:
+    """An exact fingerprint of a tensor's bits: each element's bits as an
+    integer, weighted by position, summed in int64 (wrapping, so the sum
+    order does not matter): equal bits give equal fingerprints."""
+    t = t.detach().contiguous()
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[t.element_size()]
+    words = t.view(as_int).reshape(-1).to(torch.int64)
+    weights = torch.arange(words.numel(), device=t.device) % 1_000_003 + 1
+    return int((words * weights).sum())
+
+
+def in_turn(calls: Sequence[Tuple]) -> None:
+    """A rank function that runs each ``(fn, args)`` of ``calls`` as
+    ``fn(*args)`` in turn: several rank functions in one spawn (each rank
+    starts once)."""
+    for fn, args in calls:
+        fn(*args)
 
 
 def tiny_config():
@@ -127,20 +208,26 @@ def tiny_config():
 
 def dryrun_multigpu(n: int, device: str = "cuda",
                     timeout: float = 300.0) -> List[Dict]:
-    """n processes, each one step of the tiny YOLOX system on its share of
-    ``dummy_batch(cfg, 2 n)``: over NCCL, one card each (``device``
-    "cuda"; fewer visible cards than n raise), or over gloo on the CPU
-    ("cpu"). Asserts that the loss is finite and positive and that every
-    rank ends with the same parameters, BatchNorm buffers and EMA; returns
-    each rank's record of :func:`train_steps`."""
+    """The counterpart of ``_dryrun_multichip_impl``: n processes as an
+    ``(n // 2, 2)`` grid where n is even and above 1, else ``(n, 1)``,
+    each one step of the tiny YOLOX system on its data rank's share of
+    ``dummy_batch(cfg, 2 x data)``, the parameters with 128 or more output
+    features sharded over the model axis: over NCCL, one card each
+    (``device`` "cuda"; fewer visible cards than n raise), or over gloo on
+    the CPU ("cpu"). Asserts that the loss is finite and positive, that
+    every rank ends with the same gathered parameters, BatchNorm buffers
+    and EMA, and that on a model axis of 2 the shards differ between the
+    model ranks; returns each rank's record of :func:`train_steps`."""
     import math
 
     from yolov7_d2_tpu_torch.engine import dummy_batch
 
+    model = 2 if n % 2 == 0 and n > 1 else 1
     cfg = tiny_config()
-    batch = dummy_batch(cfg, 2 * n, device="cpu")
+    batch = dummy_batch(cfg, 2 * (n // model), device="cpu")
     with tempfile.TemporaryDirectory() as out:
-        launch(train_steps, n, args=(out, cfg, [batch], device),
+        launch(train_steps, n, args=(out, cfg, [batch], device, 0, None,
+                                     None, False, False, (-1, model), 128),
                backend="gloo" if device == "cpu" else "nccl",
                timeout=timeout)
         ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
@@ -154,6 +241,14 @@ def dryrun_multigpu(n: int, device: str = "cuda",
                 if not torch.equal(v, ranks[0][key][name]):
                     raise AssertionError(f"rank {r}: {key} {name} differs "
                                          "from rank 0's")
+    if model > 1:
+        if not ranks[0]["shards"]:
+            raise AssertionError("no parameter is sharded over the model "
+                                 "axis")
+        for name, shard in ranks[0]["shards"].items():
+            if torch.equal(shard, ranks[1]["shards"][name]):
+                raise AssertionError(f"{name}: model ranks 0 and 1 hold "
+                                     "the same shard")
     return ranks
 
 

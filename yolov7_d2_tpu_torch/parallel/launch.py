@@ -21,7 +21,11 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from yolov7_d2_tpu_torch.parallel.dist import DEFAULT_TIMEOUT, init_distributed
+from yolov7_d2_tpu_torch.parallel.dist import (
+    DEFAULT_TIMEOUT,
+    init_distributed,
+    set_grid,
+)
 
 
 def local_dist_url() -> str:
@@ -48,6 +52,7 @@ def _distributed_worker(local_rank: int, main_fn: Callable, world_size: int,
     try:
         main_fn(*args)
     finally:
+        set_grid(None)
         dist.destroy_process_group()
 
 

@@ -3,10 +3,12 @@
 
 Under the JAX mesh one jitted step sees the global batch, so its BatchNorm
 takes the moments of the global batch. The port's processes each hold a
-share, and ``SyncBatchNorm2d`` rebuilds the global moments: each rank takes
-its per-channel count, mean and sum of squared deviations (M2), one
-``all_reduce`` of a zero-filled ``[world, 2C + 1]`` buffer in which each
-rank fills its own row stands in for an all-gather (which gloo lacks for
+share, and ``SyncBatchNorm2d`` rebuilds the global moments over the data
+axis of the grid (``parallel/mesh.py``; the world without a grid): each
+rank takes its per-channel count, mean and sum of squared deviations (M2),
+one ``all_reduce`` over the data group of a zero-filled ``[data, 2C + 1]``
+buffer in which each rank fills the row of its data rank stands in for an
+all-gather (which gloo lacks for
 CUDA tensors), and the rows are merged by Chan's parallel formula. That is
 exact, with no E[x^2] - E[x]^2 cancellation (the stem sees raw 0-255
 pixels). The backward runs through the all_reduce, so every rank's input
@@ -30,23 +32,27 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from yolov7_d2_tpu_torch.parallel.dist import get_rank, get_world_size
+from yolov7_d2_tpu_torch.parallel.dist import (
+    data_group,
+    get_data_rank,
+    get_data_size,
+)
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks, whose gradient is the sum of the ranks'
-    gradients."""
+    """Sum over the data ranks, whose gradient is the sum of the data
+    ranks' gradients."""
 
     @staticmethod
     def forward(ctx, x):
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=data_group())
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.contiguous().clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=data_group())
         return out
 
 
@@ -63,12 +69,12 @@ class _SyncBatchNormCuda(torch.autograd.Function):
             x = x.contiguous()
         c = x.shape[1]
         mean, invstd = torch.batch_norm_stats(x, eps)   # float32 for bf16
-        rows = mean.new_zeros((get_world_size(), 2 * c + 1))
-        row = rows[get_rank()]
+        rows = mean.new_zeros((get_data_size(), 2 * c + 1))
+        row = rows[get_data_rank()]
         row[:c].copy_(mean)
         row[c:2 * c].copy_(invstd)
         row[2 * c] = x.numel() // c
-        dist.all_reduce(rows)
+        dist.all_reduce(rows, group=data_group())
         counts = rows[:, 2 * c].contiguous()
         mean, invstd = torch.batch_norm_gather_stats_with_counts(
             x, rows[:, :c], rows[:, c:2 * c], running_mean, running_var,
@@ -88,7 +94,7 @@ class _SyncBatchNormCuda(torch.autograd.Function):
         grad_x = None
         if need_x:
             sums = torch.cat([sum_dy, sum_dy_xmu])
-            dist.all_reduce(sums)
+            dist.all_reduce(sums, group=data_group())
             sum_dy, sum_dy_xmu = sums.split(sum_dy.shape[0])
             grad_x = torch.batch_norm_backward_elemt(
                 grad_out, x, mean, invstd, weight, sum_dy, sum_dy_xmu,
@@ -99,14 +105,14 @@ class _SyncBatchNormCuda(torch.autograd.Function):
 
 class SyncBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training-mode moments are those of the
-    global batch of the process group. Without a group, at a world of 1 and
-    in eval mode it is ``nn.BatchNorm2d`` itself (``F.batch_norm``), and its
+    global batch of the process group's data axis. Without a group, on a
+    data axis of 1 and in eval mode it is ``nn.BatchNorm2d`` itself (``F.batch_norm``), and its
     state-dict keys are the same, so checkpoints move across world sizes.
     The running variance takes the global count for Bessel's correction, as
     torch does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or get_world_size() == 1:
+        if not self.training or get_data_size() == 1:
             return super().forward(x)
         self._check_input_dim(x)
         m = 0.0
@@ -131,7 +137,7 @@ class SyncBatchNorm2d(nn.BatchNorm2d):
         mean = xf.mean((0, 2, 3))
         m2 = (xf - mean[:, None, None]).square().sum((0, 2, 3))
         count = mean.new_full((1,), xf.numel() // c)
-        world, rank = get_world_size(), get_rank()
+        world, rank = get_data_size(), get_data_rank()
         row = torch.cat([mean, m2, count])[None]
         rows = _AllReduceSum.apply(torch.cat([
             row.new_zeros((rank, 2 * c + 1)), row,
@@ -184,14 +190,14 @@ def _bn_buffers(model: nn.Module):
 
 def all_reduce_norm(model: nn.Module) -> None:
     """Average every BatchNorm running mean and variance of ``model`` over
-    the ranks, in place (``allreduce_norm_host``; the reference's
+    the data ranks, in place (``allreduce_norm_host``; the reference's
     ``all_reduce_norm`` hook). Nothing without a group."""
-    world = get_world_size()
+    world = get_data_size()
     buffers = _bn_buffers(model)
     if world == 1 or not buffers:
         return
     flat = torch.cat([b.flatten() for b in buffers])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=data_group())
     flat /= world
     with torch.no_grad():
         for b, v in zip(buffers, flat.split([b.numel() for b in buffers])):

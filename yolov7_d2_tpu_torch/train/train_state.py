@@ -8,12 +8,17 @@ updates ``state`` in place, where the JAX step returns a new one, and
 returns it too.
 
 Inside a process group (``parallel/``) the forward runs through the
-state's ``DistributedDataParallel`` wrapper. Each rank's loss is its share
-of the global loss (the YOLOX losses divide by the global foreground
-count); DDP averages the gradients over the ranks, so the share is scaled
-by the world size before the backward, and the reduced gradient is that of
-the global loss, as under the JAX mesh. The gradient norm and the clipping
-read the reduced gradients, so every rank takes the same update.
+state's ``DistributedDataParallel`` wrapper over the data axis of the grid
+(``parallel/mesh.py``). Each rank's loss is its share of the global loss
+(the YOLOX losses divide by the global foreground count); DDP averages the
+gradients over the data ranks, so the share is scaled by the data axis's
+size before the backward, and the reduced gradient is that of the global
+loss, as under the JAX mesh. On a model axis above 1 the replicated
+parameters take model rank 0's gradients and the norm sums the sharded
+parameters' squares over the model group
+(``mesh.replicate_grads_over_model``, ``mesh.grid_global_norm``). The
+gradient norm and the clipping read the reduced gradients, so every rank
+takes the same update.
 """
 
 from __future__ import annotations
@@ -28,7 +33,12 @@ from torch import nn
 
 from yolov7_d2_tpu_torch.parallel.dist import (
     all_reduce_scalars,
-    get_world_size,
+    get_data_size,
+    get_model_size,
+)
+from yolov7_d2_tpu_torch.parallel.mesh import (
+    grid_global_norm,
+    replicate_grads_over_model,
 )
 from yolov7_d2_tpu_torch.train.optimizer import clip_gradients_, global_norm
 
@@ -57,14 +67,15 @@ def metric_kind(name: str) -> str:
 def reduce_metrics(metrics: Mapping[str, torch.Tensor]) -> Dict[str, float]:
     """The global value of each metric of a step (:data:`METRIC_KINDS`),
     as floats: one all-reduce of the sums and one of the maxima over the
-    ranks of a group; without a group, each value as it is."""
+    data ranks of a group (the model ranks of a data slice hold the same
+    values); without a group, each value as it is."""
     kinds = {k: metric_kind(k) for k in metrics}
     sums = all_reduce_scalars({k: v for k, v in metrics.items()
                                if kinds[k] in ("share", "mean")})
     maxima = all_reduce_scalars({k: v for k, v in metrics.items()
                                  if kinds[k] == "max"},
                                 op=dist.ReduceOp.MAX)
-    world = get_world_size()
+    world = get_data_size()
     return {k: (float(v) if kinds[k] == "global" else maxima[k]
                 if kinds[k] == "max" else sums[k] / world
                 if kinds[k] == "mean" else sums[k])
@@ -111,11 +122,16 @@ def make_train_step(
         if state.ddp is None:
             losses["total_loss"].backward()
         else:
-            (losses["total_loss"] * get_world_size()).backward()
+            (losses["total_loss"] * get_data_size()).backward()
 
-        grads = [p.grad for group in opt.param_groups
-                 for p in group["params"] if p.grad is not None]
-        grad_norm = global_norm(grads)
+        params = [p for group in opt.param_groups for p in group["params"]
+                  if p.grad is not None]
+        grads = [p.grad for p in params]
+        if get_model_size() > 1:
+            replicate_grads_over_model(params)
+            grad_norm = grid_global_norm(params)
+        else:
+            grad_norm = global_norm(grads)
         if clip_cfg is not None:
             clip_gradients_(grads, grad_norm, clip_cfg)
         lr = lr_schedule(state.step)

@@ -11,11 +11,15 @@ aug-disable, periodic checkpoint, periodic COCO eval, writers) ->
 ``MODEL.DEVICE`` (``cuda`` by default; ``MODEL.DEVICE cpu`` runs on the
 CPU). ``--num-gpus N`` runs N processes a machine (``parallel.launch``),
 one card each over NCCL (N processes on the CPU over gloo with
-``MODEL.DEVICE cpu``); each takes ``IMS_PER_BATCH / world`` images a step,
-and the step is that of the global batch (synchronized BatchNorm, the
-global foreground count, the summed gradient). Rank 0 writes the metrics
-and checkpoints and runs the eval. One process (the default) makes no
-process group.
+``MODEL.DEVICE cpu``). The processes form the grid of ``TPU.MESH_SHAPE``
+over ``TPU.MESH_AXES`` (``parallel.mesh.build_grid``, as the JAX script
+builds its mesh): each data rank takes ``IMS_PER_BATCH / data`` images a
+step and seeds its loader and mapper with its data rank, and the step is
+that of the global batch (synchronized BatchNorm, the global foreground
+count, the summed gradient over the data axis). A model axis above 1
+replicates the weights: the JAX CLIs never shard them, and neither does
+this one. Rank 0 writes the metrics and checkpoints and runs the eval.
+One process (the default) makes no process group.
 
 Feeds:
 
@@ -143,18 +147,36 @@ def _registered_main(main_fn, datasets, args):
     return main_fn(args)
 
 
+def rank_share(cfg, world: int, rank: int):
+    """``(grid, images)``: the grid of ``cfg.TPU.MESH_SHAPE`` over
+    ``cfg.TPU.MESH_AXES`` in a world of ``world`` processes, seen from
+    ``rank`` (``mesh.Grid.layout``, without groups), and the images of
+    ``SOLVER.IMS_PER_BATCH`` that its data rank takes a step. The data rank
+    seeds the rank's loader and mapper: the model ranks of a data slice
+    read the same images."""
+    from yolov7_d2_tpu_torch.parallel.mesh import Grid
+
+    grid = Grid.layout(cfg.TPU.MESH_SHAPE, world, rank, cfg.TPU.MESH_AXES)
+    if cfg.SOLVER.IMS_PER_BATCH % grid.data_size:
+        raise ValueError(f"IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} does not "
+                         f"divide into {grid.data_size} data ranks")
+    return grid, cfg.SOLVER.IMS_PER_BATCH // grid.data_size
+
+
 def rank_setup(args, scale=None):
     """A training CLI's start in one process of ``launch_main``: logging
     for a spawned rank (rank 0 logs progress), the config (``scale(cfg,
     world)`` applied where given: ``train_det``'s ``auto_scale_config``),
-    the device (a CUDA rank takes the card of its local rank) and, on rank
-    0, ``OUTPUT_DIR/config.yaml``. Returns ``(cfg, device)``."""
+    the grid of ``TPU.MESH_SHAPE`` (``parallel.mesh.build_grid``), the
+    device (a CUDA rank takes the card of its local rank) and, on rank 0,
+    ``OUTPUT_DIR/config.yaml``. Returns ``(cfg, device)``."""
     from yolov7_d2_tpu_torch.engine import resolve_device
     from yolov7_d2_tpu_torch.parallel.dist import (
         get_local_rank,
         get_world_size,
         is_main_process,
     )
+    from yolov7_d2_tpu_torch.parallel.mesh import build_grid
     from yolov7_d2_tpu_torch.utils.args import setup_cfg
 
     if get_world_size() > 1:
@@ -166,6 +188,7 @@ def rank_setup(args, scale=None):
         cfg.defrost()
         scale(cfg, get_world_size())
         cfg.freeze()
+    build_grid(cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES)
     device = resolve_device(cfg.MODEL.DEVICE)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", get_local_rank())
@@ -196,8 +219,8 @@ def run(args):
     from yolov7_d2_tpu_torch.engine import build_yolox_system
     from yolov7_d2_tpu_torch.parallel.dist import (
         get_rank,
+        get_world_size,
         is_main_process,
-        local_batch_size,
         synchronize,
     )
     from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
@@ -212,8 +235,8 @@ def run(args):
     )
 
     cfg, device = rank_setup(args, scale=auto_scale_config)
-    rank = get_rank()
-    batch_size = local_batch_size(cfg.SOLVER.IMS_PER_BATCH)
+    grid, batch_size = rank_share(cfg, get_world_size(), get_rank())
+    rank = grid.data_rank
     packed_dir = str(cfg.DATALOADER.PACKED_CACHE_DIR)
     if cfg.INPUT.MOSAIC_AND_MIXUP.DEVICE and not packed_dir:
         raise NotImplementedError(
@@ -252,8 +275,8 @@ def run(args):
             SwitchingPackedLoader,
         )
 
-        # each rank shuffles every record with its own seed, as the JAX
-        # package's hosts do (seed + process_index)
+        # each data rank shuffles every record with its own seed, as the
+        # JAX package's hosts do (seed + process_index)
         train_step = make_packed_photo_step(ycfg, train_step, seed=seed,
                                             rank=rank)
         loader = PackedShardLoader(

@@ -21,11 +21,14 @@ It runs on ``MODEL.DEVICE`` (``cuda`` by default, ``MODEL.DEVICE cpu`` on
 the CPU) and never falls back to the CPU. ``--num-gpus N`` (with
 ``--num-machines``, ``--machine-rank``, ``--dist-url`` as in ``train_det``)
 runs N processes a machine, one card each over NCCL (gloo on the CPU with
-``MODEL.DEVICE cpu``); ``SOLVER.IMS_PER_BATCH`` stays the global batch, of
-which each rank takes its share, and the step is that of the global batch
-(the set criterion's normalizers summed over the ranks, DDP's summed
-gradient). Each rank maps, shuffles and drops out with its own seed; rank
-0 writes the config, the metrics and the checkpoints.
+``MODEL.DEVICE cpu``) in the grid of ``TPU.MESH_SHAPE``
+(``train_det.rank_share``); ``SOLVER.IMS_PER_BATCH`` stays the global
+batch, of which each data rank takes its share, and the step is that of
+the global batch (the set criterion's normalizers summed over the data
+ranks, DDP's summed gradient). Each data rank maps, shuffles and drops out
+with its own seed; a model axis above 1 replicates the weights, as the
+JAX script's mesh does; rank 0 writes the config, the metrics and the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -60,8 +63,8 @@ def run(args):
     from yolov7_d2_tpu_torch.engine import build_system
     from yolov7_d2_tpu_torch.parallel.dist import (
         get_rank,
+        get_world_size,
         is_main_process,
-        local_batch_size,
     )
     from yolov7_d2_tpu_torch.train.checkpoint import Checkpointer
     from yolov7_d2_tpu_torch.train.trainer import (
@@ -70,11 +73,11 @@ def run(args):
         PeriodicWriter,
         Trainer,
     )
-    from yolov7_d2_tpu_torch.train_det import rank_setup
+    from yolov7_d2_tpu_torch.train_det import rank_setup, rank_share
 
     cfg, device = rank_setup(args)
-    rank = get_rank()
-    batch_size = local_batch_size(cfg.SOLVER.IMS_PER_BATCH)
+    grid, batch_size = rank_share(cfg, get_world_size(), get_rank())
+    rank = grid.data_rank
 
     records = []
     for name in cfg.DATASETS.TRAIN:
