@@ -40,8 +40,10 @@ set to 0 just before it and read just after:
   mosaic feed for 12 steps (checkpoints at 6 and 12, the COCO eval at 12
   through the normalize and NMS kernels) and ``--resume`` to 16; the
   packed feed (shards written by the port's writers) with GridMask until
-  step 8 and the plain shards after it; the loaders alone, the eval and a
-  checkpoint save timed;
+  step 8 and the plain shards after it; the device geometry feed (the
+  tile loader, ``DeviceAug`` in the step) with GridMask for 12 steps and
+  the COCO eval at 12; the loaders alone, the eval and a checkpoint save
+  timed;
 * multi-GPU training (``parallel/``): (a) two ranks on one card over gloo
   (``launch(..., backend="gloo")``), the bare float32 step, 2 images a
   rank for 2 steps, against one process on the same 4 images (fg counts,
@@ -55,7 +57,8 @@ set to 0 just before it and read just after:
   card). The
   kernels' launches in the JSON line are those of (b) (GridMask on its
   steps before DISABLE_AT_ITER, normalize on the plain steps and in the
-  eval, NMS in the eval); the uint8 GridMask's are the mixup-off path's;
+  eval, NMS in the eval) and of the CLI's run C (GridMask every step,
+  normalize and NMS in the eval); the uint8 GridMask's are the mixup-off path's;
   ``normalize_sparseinst``'s are the sum of SparseInst's serving (b) and
   training (d) paths below;
 * the anchor-YOLO family (``anchor_yolo_phase``): YOLOV7 at 640 from
@@ -67,7 +70,7 @@ set to 0 just before it and read just after:
   128, the f32 head outputs on the card against the CPU at bs 1 within
   1e-4 of the max, times by CUDA events. Training: ``build_system``'s step
   in ``make_packed_photo_step``, GridMask (mode 1, prob 0.3) and mixup on,
-  EMA on, 13 steps of 16 images (finite losses, foreground anchors,
+  EMA on, 6 steps of 16 images (finite losses, foreground anchors,
   weights, EMA and BN statistics moved, ms a step, peak memory, GridMask
   launches), then one f32 step (128 px, 2 images) on the card against the
   CPU within 1e-3 with the same fg count. Then one request and one train
@@ -84,7 +87,7 @@ set to 0 just before it and read just after:
   images (instances found, finite masks, one launch a request, times by
   CUDA events) and ``upsample_masks_two_stage`` on one request; (c) the
   f32 forward on the card against the CPU at 128 px within 1e-4 of each
-  output's max; (d) 13 steps of 16 images through ``build_system``
+  output's max; (d) 6 steps of 16 images through ``build_system``
   (AdamW, 100 dense mask slots an image): finite losses, matched
   instances, parameters moved, FrozenBN statistics unmoved, ms a step,
   peak memory, the auction's rounds a step; one f32 step on the card
@@ -104,7 +107,7 @@ set to 0 just before it and read just after:
   and tail by CUDA events, the device's busy share at 128) and the kernel
   path's ``Detections`` equal to the plain path's at 8; (b) f32 outputs
   on the card against the CPU at 128 px within 1e-4 of the max, bf16
-  within 5e-2; (c) 13 steps of 8 images through ``build_system``: finite
+  within 5e-2; (c) 6 steps of 8 images through ``build_system``: finite
   losses and matched counts equal to the valid gts at all 6 levels,
   parameters moved, FrozenBN statistics unmoved, ms a step, peak memory,
   auction rounds; one f32 step at dropout 0 on the card against the CPU
@@ -141,7 +144,7 @@ set to 0 just before it and read just after:
   128 images (one normalize and one NMS launch a request, times, the
   device's busy share at 128), the kernel path's ``Detections`` equal to
   the plain path's at 8; (b) f32 outputs on the card against the CPU at
-  128 px within 1e-4 of the max, bf16 within 5e-2; (c) 13 steps of 16
+  128 px within 1e-4 of the max, bf16 within 5e-2; (c) 6 steps of 16
   images through ``build_system`` (YOLOv5 and YOLOv6 with mixup and
   GridMask, YOLOF on uint8 through the normalize kernel): finite losses,
   foreground, parameters, EMA and BN statistics moved, FrozenBN unmoved,
@@ -179,7 +182,7 @@ set to 0 just before it and read just after:
   the normalize kernel's identity form): serving at 1, 8 and 128 images
   (normalize and NMS kernels, the kernel path's ``Detections`` equal to
   the plain path's at 128), the f32 outputs on the card against the CPU at
-  128 px within 1e-4 of the max; 13 steps of 16 images in
+  128 px within 1e-4 of the max; 6 steps of 16 images in
   ``make_packed_photo_step`` with mixup and GridMask on; one f32 step
   against the CPU with the same foreground count; ``r2next_50.yaml``,
   ``r2_50_l.yaml`` (768 px) and ``tl/res2net_bifpn.yaml`` one request and
@@ -194,7 +197,7 @@ set to 0 just before it and read just after:
   1, 8 and 128 images (normalize kernel in its identity form and NMS
   kernel, the kernel path's ``Detections`` equal to the plain path's at
   128, f32 on the card against the CPU at 128 px within 1e-4 of the max,
-  times and the device's busy share), 13 steps of 16 images in
+  times and the device's busy share), 6 steps of 16 images in
   ``make_packed_photo_step`` with mixup and GridMask, one f32 step at
   drop path 0 against the CPU, the drop path's kept share at rate 0.2 in
   float32 steps on the card (within 3 standard deviations), and
@@ -304,6 +307,17 @@ set to 0 just before it and read just after:
   the model ranks' images and replicated parameters bitwise equal; its
   GridMask launches join the ``grid_mask`` entry); (c) over NCCL where 2
   or more cards are visible.
+* the device geometry feed and rematerialization (section 25,
+  ``device_aug_remat_phase``): (a) ``DeviceAug`` (mosaic4, the perspective
+  warp, MixUp, HSV, GridMask, flip) on 16 tiles of 640 px, its ms beside
+  the packed photometric stage's and its output against the CPU's on the
+  same draws (1e-3 of 255 on 99.9% of the pixels, boxes 1e-3 px); (b) 3
+  bf16 YOLOX-s steps through ``make_device_aug_step``, the uint8
+  passthrough at step 2 (its K3 and K2 launches join their entries); (c)
+  float32 steps with ``TPU.REMAT`` / ``MODEL.DETR.REMAT`` against the step
+  without (YOLOX-s of 16 at 640, DETR R-50 of 8 at 800 with dropout):
+  loss, gradients and BN buffers, peak memory and ms a step of each. Run C
+  of the CLI (section 9) trains on the device geometry feed.
 
 ``python3 chip_smoke.py --nccl`` runs (c) of sections 10, 17 and 24 alone,
 on a machine of 2 or more cards.
@@ -342,6 +356,9 @@ REQUEST_BATCHES = (1, 8, BATCH)
 PIXEL_MEAN = (103.53, 116.28, 123.675)  # config/defaults.py, R-50 families
 PIXEL_STD = (57.375, 57.12, 58.395)
 WARMUP, ITERS = 3, 10
+# the bf16 training steps of each family after YOLOX-s's (sections 11-19):
+# 3 warm-up, 3 timed, as sections 20-21 take theirs
+FAMILY_STEPS = 6
 TRAIN_BATCH = 16  # one card's share of IMS_PER_BATCH 112 over 8 cards
 CLI_IMAGES = 64  # the CLI phase's synthetic mini-COCO
 CLI_DATASET = "chip_smoke_mini_coco"
@@ -686,9 +703,13 @@ def cli_phase(dev, card: str, kernels: dict, data: CliData, **opts):
     at 640 px and 80 classes on the synthetic mini-COCO of 64 JPEGs
     (``opts`` override config keys). Run A is the host mosaic feed, with
     the COCO eval at step 12 and then ``--resume`` to 16; run B the packed
-    feed with GridMask on and the plain shards from step 8. Checks the
-    runs, sets the kernels' ``launches`` to the CLI's and returns the
-    median seconds a step of each feed."""
+    feed with GridMask on and the plain shards from step 8; run C the
+    device geometry feed (``INPUT.MOSAIC_AND_MIXUP.DEVICE``: the tile
+    loader, ``DeviceAug`` in the step) with GridMask on and the COCO eval
+    at step 12. Checks the runs, sets the kernels' ``launches`` to the
+    CLI's and returns the median seconds a step of each feed and run C's
+    launches (which the caller adds once section 10 (b) has set the
+    entries)."""
     import numpy as np
 
     from yolov7_d2_tpu_torch import native, train_det
@@ -711,12 +732,15 @@ def cli_phase(dev, card: str, kernels: dict, data: CliData, **opts):
         geo, TRAIN_BATCH, image_dtype=np.uint8, seed=SEED))
     packed_card_rate = loader_rate(PackedShardLoader(
         geo, TRAIN_BATCH, image_dtype=np.uint8, seed=SEED), to=dev)
+    tile_rate = loader_rate(build_detection_train_loader(
+        ccfg, records, mappers.TileDatasetMapper(ccfg, seed=0)))
     log(f"cli loaders on [{card}], {TRAIN_BATCH} images a batch: host "
         f"mosaic (YOLOXDatasetMapper, {ccfg.DATALOADER.NUM_WORKERS} "
         f"threads) {host_rate:.1f} img/s alone, {host_card_rate:.1f} img/s "
         f"through CudaPrefetcher onto the card; packed shards "
         f"{packed_rate:.1f} img/s alone, {packed_card_rate:.1f} img/s onto "
-        f"the card")
+        f"the card; tiles (TileDatasetMapper, the device feed's) "
+        f"{tile_rate:.1f} img/s alone")
 
     # run A: the host mosaic feed
     out_a = os.path.join(work, "host")
@@ -804,6 +828,35 @@ def cli_phase(dev, card: str, kernels: dict, data: CliData, **opts):
     del run_b
     torch.cuda.empty_cache()
 
+    # run C: the device geometry feed, GridMask on, the COCO eval at 12
+    out_c = os.path.join(work, "device")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run_c = train_det.main(cli_args(
+        out_c, INPUT__MOSAIC_AND_MIXUP__DEVICE=True,
+        INPUT__GRID_MASK__ENABLED=True, **opts))
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    launches_c = dict(build.LAUNCHES)
+    log(f"cli run C (device geometry feed) launches: {launches_c}")
+    latest_c = cli_checks(run_c, out_c, "cli run C")
+    steps_c = run_c.storage.iter
+    if launches_c.get("grid_mask", 0) != steps_c or any(
+            launches_c.get(name, 0) != eval_batches
+            for name in ("normalize", "nms")):
+        raise AssertionError(f"cli run C launches {launches_c}: GridMask "
+                             f"once a step, normalize and NMS once an eval "
+                             f"batch ({eval_batches})")
+    missing = [k for k in COCO_KEYS if f"eval/{k}" not in latest_c]
+    if missing:
+        raise AssertionError(f"cli run C: no COCO {missing} in {latest_c}")
+    median_c = run_c.storage.median("time_per_iter")
+    log("cli run C COCO eval at step 12: " + ", ".join(
+        f"{k} {latest_c['eval/' + k]:.4f}" for k in COCO_KEYS))
+    del run_c
+    torch.cuda.empty_cache()
+
     log(f"cli run A, host mosaic feed, on [{card}]: time_per_iter median "
         f"{median_a * 1e3:.3f} ms = {TRAIN_BATCH / median_a:.1f} img/s; "
         f"12 steps, eval and 2 checkpoints in {wall_a:.2f} s (build "
@@ -811,12 +864,17 @@ def cli_phase(dev, card: str, kernels: dict, data: CliData, **opts):
     log(f"cli run B, packed feed, on [{card}]: time_per_iter median "
         f"{median_b * 1e3:.3f} ms = {TRAIN_BATCH / median_b:.1f} img/s; "
         f"12 steps and 2 checkpoints in {wall_b:.2f} s (build included)")
+    log(f"cli run C, device geometry feed, on [{card}]: time_per_iter "
+        f"median {median_c * 1e3:.3f} ms = {TRAIN_BATCH / median_c:.1f} "
+        f"img/s (run A {median_a * 1e3:.3f} ms, run B "
+        f"{median_b * 1e3:.3f} ms); 12 steps, eval and 2 checkpoints in "
+        f"{wall_c:.2f} s (build included)")
     log(f"cli eval on [{card}]: {len(records)} images in {eval_s:.3f} s = "
         f"{len(records) / eval_s:.1f} img/s (mapper, normalize, forward, "
         f"NMS, COCO matching)")
     log(f"cli checkpoint on [{card}]: save {save_ms:.1f} ms, "
         f"{save_mb:.1f} MB (model, optimizer, EMA)")
-    return median_a, median_b
+    return median_a, median_b, median_c, launches_c
 
 
 def relative_gap(got: float, want: float) -> float:
@@ -1641,7 +1699,7 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     size, the kernel path against the plain one, the f32 card against the
     CPU at bs 1 (at ``f32_px`` where given); (b) ``build_system``'s step in
     ``make_packed_photo_step`` with GridMask (mode 1, prob 0.3) and mixup
-    on, ``train_n`` images a step for 13 steps, then one f32 step on the
+    on, ``train_n`` images a step for 6 steps, then one f32 step on the
     card against the CPU; (c) one request and one train step each of
     ``others`` (name, yaml under ``configs/coco``, fields replaced):
     ``YOLO`` (darknet53.yaml) and ``YOLOV7P`` (CSP-Darknet53), and
@@ -1746,16 +1804,14 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    for i in range(WARMUP):
+    for i in range(FAMILY_STEPS):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
         state, m = step(state, tbatches[i % 4])
         metrics.append(m)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(WARMUP, WARMUP + ITERS):
-        state, m = step(state, tbatches[i % 4])
-        metrics.append(m)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    step_ms = (time.perf_counter() - t0) * 1e3 / (FAMILY_STEPS - WARMUP)
     launches = dict(build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"({label}b) {name} training path launches: {launches}")
@@ -1779,7 +1835,7 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
             f"{k} {float(metrics[i][k]):.4f}" for k in fmt))
     log(f"({label}b) {name} {size} train step bs {train_n} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {train_n * 1000 / step_ms:.1f} img/s "
-        f"(host clock over {ITERS} steps after {WARMUP}); peak memory "
+        f"(host clock over {FAMILY_STEPS - WARMUP} steps after {WARMUP}); peak memory "
         f"{peak_gb:.3f} GB; {masked} of {train_n * len(metrics)} images "
         f"GridMask-ed; parameters, EMA and BN statistics moved")
     del state, train_step, step, before, after, metrics, tbatches
@@ -2091,16 +2147,14 @@ def sparseinst_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    for i in range(WARMUP):
+    for i in range(FAMILY_STEPS):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
         state, m = train_step(state, tbatches[i % 4])
         metrics.append(m)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(WARMUP, WARMUP + ITERS):
-        state, m = train_step(state, tbatches[i % 4])
-        metrics.append(m)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    step_ms = (time.perf_counter() - t0) * 1e3 / (FAMILY_STEPS - WARMUP)
     train_launches = dict(build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"(12d) SparseInst training path launches: {train_launches}")
@@ -2132,9 +2186,10 @@ def sparseinst_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     slots = tbatches[0]["gt_masks"].shape[1]
     log(f"(12d) SparseInst R-50 {size} train step bs {train_n} bf16 on "
         f"[{card}]: {step_ms:.3f} ms a step = "
-        f"{train_n * 1000 / step_ms:.1f} img/s (host clock over {ITERS} "
-        f"steps after {WARMUP}, batches on the card, {slots} mask slots an "
-        f"image, 1-20 valid); peak memory {peak_gb:.3f} GB; auction rounds "
+        f"{train_n * 1000 / step_ms:.1f} img/s (host clock over "
+        f"{FAMILY_STEPS - WARMUP} steps after {WARMUP}, batches on the card, "
+        f"{slots} mask slots an image, 1-20 valid); peak memory "
+        f"{peak_gb:.3f} GB; auction rounds "
         f"a step {iters}; parameters moved, FrozenBN statistics did not")
     del state, train_step, tbatches, metrics, before, frozen
     torch.cuda.empty_cache()
@@ -2335,7 +2390,7 @@ def device_busy_ms(fn, calls: int = 3) -> tuple:
 def detr_phase(dev, card: str, gen: torch.Generator, kernels: dict,
                requests=REQUEST_BATCHES, train_n: int = DETR_TRAIN_BATCH,
                size: int = DETR_SIZE, small: int = 128,
-               cli_images: int = CLI_IMAGES, steps: int = WARMUP + ITERS,
+               cli_images: int = CLI_IMAGES, steps: int = FAMILY_STEPS,
                **cli_opts) -> None:
     """Section 13: DETR R-50 (``configs/coco/detr/detr_256_6_6_r50.yaml``)
     and AnchorDETR R-50 (``anchordetr_r50.yaml``, RCDA, 300 x 3 queries)
@@ -2405,7 +2460,7 @@ def detr_phase(dev, card: str, gen: torch.Generator, kernels: dict,
 def detr_model_paths(dev, card: str, gen: torch.Generator, kernels: dict,
                      name: str, yaml: str, label: str, batches,
                      train_n: int = DETR_TRAIN_BATCH, size: int = DETR_SIZE,
-                     small: int = 128, steps: int = WARMUP + ITERS) -> None:
+                     small: int = 128, steps: int = FAMILY_STEPS) -> None:
     """The paths of one model of the DETR family from ``configs/coco/detr/
     <yaml>`` at ``size`` (sections 13 and 19): serving ``batches`` (uint8
     -> normalize kernel -> forward -> the tail, one launch a request, times
@@ -2755,7 +2810,7 @@ def yolox_kpts_phase(dev, card: str, gen: torch.Generator, kernels: dict,
                      requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
                      size: int = SIZE, small: int = 128,
                      eval_images: int = CLI_IMAGES,
-                     steps: int = WARMUP + ITERS, **eval_opts) -> None:
+                     steps: int = FAMILY_STEPS, **eval_opts) -> None:
     """Section 14: YOLOX-KPTS at ``size``, full depth and width, one class,
     17 keypoints, bf16 over f32 weights from ``SEED``. (a) serving on
     ``yolox_kpts_swin.yaml`` (Swin-T), then ``yolox_kpts.yaml``
@@ -3119,7 +3174,7 @@ def onestage_assignment(model, cfg, batch) -> dict:
 
 def onestage_phase(dev, card: str, gen: torch.Generator, kernels: dict,
                    requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
-                   small: int = 128, steps: int = WARMUP + ITERS,
+                   small: int = 128, steps: int = FAMILY_STEPS,
                    big_batch: int = BATCH) -> None:
     """Section 15: the one-stage box detectors of ``configs/coco`` at the
     full width and depth of their yaml files, bf16 over f32 weights from
@@ -3967,7 +4022,7 @@ def zoo_kernel_entries(dev, gen: torch.Generator, kernels: dict,
 
 def yolox_zoo_paths(dev, card: str, gen: torch.Generator, kernels: dict,
                     requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
-                    small: int = 128, steps: int = WARMUP + ITERS,
+                    small: int = 128, steps: int = FAMILY_STEPS,
                     drop_px: int = 256) -> None:
     """(19a) YOLOX on ConvNeXt-T (``configs/coco/yolox/yolox_convnext.yaml``,
     800 px, YOLOPAFPN and the head at 0.33 / 0.50 on ConvNeXt's 192 / 384 /
@@ -4142,7 +4197,7 @@ def yolox_zoo_paths(dev, card: str, gen: torch.Generator, kernels: dict,
                                  "the CPU")
     del st, ts
     torch.cuda.empty_cache()
-    drop_path_share(dev, card, gen, cfg, train_n, steps, drop_px)
+    drop_path_share(dev, card, gen, cfg, train_n, WARMUP + ITERS, drop_px)
 
 
 def zoo_train_det_run(dev, card: str, kernels: dict,
@@ -4300,7 +4355,7 @@ def zoo_detr_others(dev, gen: torch.Generator, kernels: dict, bs: int = 8,
 def zoo_phase(dev, card: str, gen: torch.Generator, kernels: dict,
               requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
               detr_train_n: int = DETR_TRAIN_BATCH, small: int = 128,
-              steps: int = WARMUP + ITERS, cli_images: int = CLI_IMAGES,
+              steps: int = FAMILY_STEPS, cli_images: int = CLI_IMAGES,
               cli_steps: int = 4, drop_px: int = 256,
               detr_size: int = DETR_SIZE, **cli_opts) -> None:
     """Section 19: the backbone zoo (RegNet, ConvNeXt, EfficientNet, FBNet)
@@ -6701,6 +6756,256 @@ def grid_nccl_phase(card: str, cfg) -> None:
         f"{time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# section 25: the device geometry feed (DeviceAug) and rematerialization
+# ---------------------------------------------------------------------------
+
+AUG_IMAGE_TOL = 1e-3 * 255  # DeviceAug on the card against the CPU
+AUG_PIXEL_SHARE = 0.999     # of the pixels within it (seams may flip)
+AUG_BOX_TOL = 1e-3          # px
+REMAT_STEPS = 3             # one compared, two timed
+
+
+def device_tiles(n: int, gen: torch.Generator, size: int = SIZE,
+                 slots: int = 100) -> dict:
+    """A batch of tiles as ``TileDatasetMapper`` gives them (host
+    tensors): images of 240-640 px a side, letterboxed to fit ``size`` at
+    the top left, gray elsewhere (noise inside), ``orig_hw`` their sizes,
+    1-20 boxes of 8 px to half the image inside each, in ``slots``
+    valid-first slots."""
+    orig = (240 + torch.randint(0, 401, (n, 2), generator=gen)).float()
+    scale = torch.minimum(size / orig[:, 0], size / orig[:, 1])
+    pre = (orig * scale[:, None]).round()
+    ys = torch.arange(size)[None, :, None]
+    xs = torch.arange(size)[None, None, :]
+    inside = (ys < pre[:, 0, None, None]) & (xs < pre[:, 1, None, None])
+    noise = torch.randint(0, 256, (n, size, size, 3), generator=gen,
+                          dtype=torch.uint8)
+    image = torch.where(inside[..., None], noise, torch.tensor(
+        114, dtype=torch.uint8))
+    count = torch.randint(1, 21, (n, 1), generator=gen)
+    valid = torch.arange(slots)[None] < count
+    span = pre.flip(-1)[:, None, :]                     # (w, h)
+    xy = torch.rand((n, slots, 2), generator=gen) * (span - 8)
+    wh = 8 + torch.rand((n, slots, 2), generator=gen) * (span / 2 - 8)
+    boxes = torch.cat([xy, torch.minimum(xy + wh, span)], -1)
+    return {"image": image, "gt_boxes": boxes * valid[..., None],
+            "gt_classes": (torch.randint(0, 80, (n, slots), generator=gen)
+                           * valid).to(torch.int32),
+            "gt_valid": valid, "orig_hw": orig}
+
+
+def remat_record(build_fn, batch, steps: int = REMAT_STEPS) -> dict:
+    """The first step of ``build_fn()``'s fresh state on ``batch``: its
+    metrics, every gradient, the BatchNorm buffers after it and the peak
+    of ``max_memory_allocated``; then the host-clock ms a step of the next
+    ``steps - 1``."""
+    state, step = build_fn()
+    grads = {}
+    update = state.optimizer.step
+
+    def grab():
+        grads.update({n: p.grad.clone()
+                      for n, p in state.model.named_parameters()
+                      if p.grad is not None})
+        update()
+
+    state.optimizer.step = grab
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    buffers = {k: v.clone() for k, v in state.model.state_dict().items()
+               if "running_" in k or "num_batches_tracked" in k}
+    state.optimizer.step = update
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads, "buffers": buffers, "peak_gb": peak, "ms": ms}
+
+
+def remat_gaps(got: dict, want: dict, what: str) -> str:
+    """Checks a remat step against the step without: the loss within
+    1e-6 relative, every gradient within 1e-5 of its largest magnitude,
+    the BatchNorm buffers bitwise; returns how far apart they are."""
+    loss_gap = relative_gap(got["metrics"]["total_loss"],
+                            want["metrics"]["total_loss"])
+    unequal, worst = 0, 0.0
+    for k, w in want["grads"].items():
+        g = got["grads"][k]
+        if not torch.equal(g, w):
+            unequal += 1
+            worst = max(worst, float((g - w).abs().max())
+                        / max(float(w.abs().max()), 1e-30))
+    bn_equal = all(torch.equal(got["buffers"][k], v)
+                   for k, v in want["buffers"].items())
+    if sorted(got["grads"]) != sorted(want["grads"]) or loss_gap > 1e-6 \
+            or worst > 1e-5 or not bn_equal:
+        raise AssertionError(f"(25c) {what}: remat parts from the step "
+                             f"without: loss {loss_gap:.3g}, gradients "
+                             f"{worst:.3g}, BN buffers equal {bn_equal}")
+    return (f"loss {'bitwise' if loss_gap == 0 else f'{loss_gap:.3g}'}, "
+            f"{len(want['grads']) - unequal} of {len(want['grads'])} "
+            f"gradients bitwise (worst {worst:.3g} of its max), "
+            f"{len(want['buffers'])} BN buffers bitwise")
+
+
+def device_aug_remat_phase(dev, card: str, gen: torch.Generator,
+                           kernels: dict) -> None:
+    """Section 25. (a) ``DeviceAug`` on [16, 640, 640, 3] tiles -> 640 with
+    MixUp, HSV and GridMask: ms by CUDA events (10 calls after 3) beside
+    the packed photometric stage's on the same card, and the card's output
+    against the port's CPU output on the same draws. (b) 3 bf16 steps of
+    YOLOX-s 640 through ``make_device_aug_step`` with DISABLE_AT_ITER 2:
+    finite, weights moved, K3 at steps 0-1 and the uint8 passthrough
+    through K2 at step 2; K3's and K2's launches added to their entries.
+    (c) float32 steps with remat and without from the same weights and
+    batch, cuDNN deterministic (DETR also SDPA's math backend; C.14):
+    YOLOX-s of 16 at 640 (``TPU.REMAT``), DETR R-50 of 8 at 800, dropout
+    0.1, with ``MODEL.DETR.REMAT`` and with ``TPU.REMAT``: loss, gradients
+    and BN buffers, and each one's peak memory and step ms."""
+    from yolov7_d2_tpu_torch.config import YoloxConfig
+    from yolov7_d2_tpu_torch.data.device_aug import (
+        DeviceAug,
+        DevicePhotometric,
+        make_device_aug_step,
+    )
+    from yolov7_d2_tpu_torch.engine import build_system, build_yolox_system
+    from yolov7_d2_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    n = TRAIN_BATCH
+    # ---- (a) DeviceAug alone, the card against the CPU
+    cfg = dataclasses.replace(YoloxConfig(), distortion=True, grid_mask=True)
+    aug = DeviceAug(cfg)
+    host = device_tiles(n, gen)
+    tiles = {k: v.to(dev) for k, v in host.items()}
+    draws = aug.draw(torch.Generator().manual_seed(SEED), n)
+    ref = aug.apply(host, draws)
+    on_card = draws.to(dev)
+    got = aug.apply(tiles, on_card)
+    torch.cuda.synchronize()
+    px = (got["image"].cpu() - ref["image"]).abs().amax(-1)
+    off = int((px > AUG_IMAGE_TOL).sum())
+    box_err = float((got["gt_boxes"].cpu() - ref["gt_boxes"]).abs().max())
+    same = (torch.equal(got["gt_valid"].cpu(), ref["gt_valid"])
+            and torch.equal(got["gt_classes"].cpu(), ref["gt_classes"]))
+    log(f"(25a) DeviceAug {tuple(host['image'].shape)} -> {cfg.input_size}, "
+        f"MixUp, HSV, GridMask: card against the CPU on the same draws: "
+        f"image max err {float(px.max()):.4g}, {off} of {px.numel()} pixels "
+        f"past {AUG_IMAGE_TOL:.3g}; boxes max err {box_err:.3g} px; "
+        f"classes and validity equal {same}; "
+        f"{int(got['gt_valid'].sum())} boxes kept, "
+        f"{int(on_card.do_mixup.sum())} images mixed")
+    if off > (1 - AUG_PIXEL_SHARE) * px.numel() or box_err > AUG_BOX_TOL \
+            or not same:
+        raise AssertionError("(25a) DeviceAug on the card differs from the "
+                             "CPU")
+    aug_ms = cuda_ms(lambda: aug.apply(tiles, on_card))
+    photo = DevicePhotometric(cfg)
+    packed = {k: v.to(dev) for k, v in train_batch(n, gen).items()}
+    pdraws = photo.draw(torch.Generator().manual_seed(SEED), n,
+                        SIZE, SIZE).to(dev)
+    photo_ms = cuda_ms(lambda: photo.apply(packed, pdraws))
+    log(f"(25a) DeviceAug on [{card}]: {aug_ms:.3f} ms a batch of {n} "
+        f"(CUDA events, {ITERS} calls after {WARMUP}) = "
+        f"{n * 1e3 / aug_ms:.1f} img/s; the packed photometric stage "
+        f"(MixUp, HSV, GridMask, flip) {photo_ms:.3f} ms on the same card")
+    del host, tiles, ref, got, packed, px
+    torch.cuda.empty_cache()
+
+    # ---- (b) the step: make_device_aug_step, the passthrough from step 2
+    bcfg = dataclasses.replace(cfg, aug_disable_at_iter=2)
+    _, state, step = build_yolox_system(bcfg, device=dev, seed=SEED)
+    step = make_device_aug_step(bcfg, step, seed=SEED)
+    batches = [device_tiles(n, gen) for _ in range(3)]
+    before = snapshot(state)
+    metrics, per_step = [], []
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for b in batches:
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        metrics.append(m)
+        per_step.append(dict(build.LAUNCHES))
+    launches = dict(build.LAUNCHES)
+    log(f"(25b) make_device_aug_step launches after each step: {per_step}")
+    if launches.get("grid_mask", 0) != 2 or launches.get("normalize", 0) != 1 \
+            or per_step[1].get("normalize", 0):
+        raise AssertionError(f"(25b) launches {per_step}: GridMask at steps "
+                             "0-1, the normalize kernel at step 2 only")
+    for i, m in enumerate(metrics):
+        for key in ("total_loss", "loss_iou", "loss_obj", "loss_cls",
+                    "grad_norm"):
+            if not math.isfinite(float(m[key])):
+                raise AssertionError(f"(25b) step {i}: {key} = "
+                                     f"{float(m[key])}")
+        if not float(m["num_fg"]) > 1.0:
+            raise AssertionError(f"(25b) step {i}: no foreground anchor")
+    after = snapshot(state)
+    for key in before:
+        if all(torch.equal(a, b) for a, b in zip(before[key], after[key])):
+            raise AssertionError(f"(25b) training moved no {key} tensor")
+    kernels["grid_mask"]["launches"] += launches["grid_mask"]
+    kernels["normalize"]["launches"] += launches["normalize"]
+    log(f"(25b) YOLOX-s 640 bf16, {n} tiles a step through "
+        f"make_device_aug_step: total loss " + ", ".join(
+            f"{float(m['total_loss']):.4f}" for m in metrics)
+        + f"; GridMask-ed {[m['grid_masked'] for m in metrics]}; step 2 "
+        f"the uint8 passthrough; parameters, EMA and BN statistics moved")
+    del state, step, batches, before, after, metrics
+    torch.cuda.empty_cache()
+
+    # ---- (c) remat against the step without, float32
+    ycfg = dataclasses.replace(YoloxConfig(), amp=False)
+    ybatch = {k: v.to(dev) for k, v in train_batch(n, gen).items()}
+    dcfg = detr_cfg(DETR_MODELS[0][1], amp=False)
+    dbatch = detr_batch(DETR_TRAIN_BATCH, gen, dev)
+
+    def yolox(remat):
+        def build_fn():
+            _, st, sp = build_yolox_system(
+                dataclasses.replace(ycfg, remat=remat), device=dev,
+                seed=SEED)
+            return st, sp
+        return build_fn
+
+    def detr(**replace):
+        def build_fn():
+            _, st, sp, _ = build_system(dataclasses.replace(dcfg, **replace),
+                                        device=dev, seed=SEED)
+            return st, sp
+        return build_fn
+
+    cases = [("YOLOX-s 640 f32", n, False, ybatch,
+              (("without", yolox(False)), ("TPU.REMAT", yolox(True)))),
+             (f"DETR R-50 800 f32 dropout {dcfg.dropout}", DETR_TRAIN_BATCH,
+              True, dbatch,
+              (("without", detr()), ("MODEL.DETR.REMAT",
+                                     detr(layer_remat=True)),
+               ("TPU.REMAT", detr(remat=True))))]
+    for what, bs, sdpa, batch, runs in cases:
+        with deterministic_library(sdpa):
+            records = [(name, remat_record(fn, batch)) for name, fn in runs]
+        want = records[0][1]
+        for name, rec in records:
+            gaps = ("" if rec is want else
+                    "; against the step without: "
+                    + remat_gaps(rec, want, f"{what} {name}"))
+            log(f"(25c) {what} step of {bs}, {name} remat on [{card}]: "
+                f"total loss {rec['metrics']['total_loss']:.6g}, peak "
+                f"memory {rec['peak_gb']:.3f} GB, {rec['ms']:.3f} ms a step "
+                f"(host clock, {REMAT_STEPS - 1} steps after 1){gaps}")
+        del records, want
+        torch.cuda.empty_cache()
+    log(f"(25) section 25 in {time.perf_counter() - t0:.1f} s on [{card}]")
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -7106,7 +7411,8 @@ def main() -> int:
             raise AssertionError(f"{k} differs between the card and the CPU")
 
     data = write_cli_data()
-    median_a, median_b = cli_phase(dev, card, kernels, data)
+    median_a, median_b, median_c, launches_c = cli_phase(dev, card, kernels,
+                                                         data)
 
     mark("9 and the CLI")
 
@@ -7122,6 +7428,8 @@ def main() -> int:
     sync_phase(dev, card, cfg, plan=plans["sync"])
     sync_bn_phase(dev, card, plan=plans["bn"])
     ddp_world1_phase(dev, card, kernels, data, cfg)
+    for name in ("grid_mask", "normalize", "nms"):
+        kernels[name]["launches"] += launches_c[name]   # the CLI's run C
     nccl_ranks_phase(dev, card, cfg, data)
     DatasetCatalog.remove(CLI_DATASET)
     shutil.rmtree(data.work, ignore_errors=True)
@@ -7237,13 +7545,22 @@ def main() -> int:
 
     mark("24")
 
-    # ---- 25. times
+    # ---- 25. the device geometry feed and rematerialization: DeviceAug
+    # at [16, 640, 640, 3] against the CPU, 3 steps through
+    # make_device_aug_step, remat against the step without for YOLOX-s and
+    # DETR (device_aug_remat_phase); run C of the CLI is in section 9
+    device_aug_remat_phase(dev, card, gen, kernels)
+
+    mark("25")
+
+    # ---- 26. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "
         f"card); peak memory {peak_gb:.3f} GB; a CLI step takes "
         f"{median_a * 1e3 / step_ms:.3f}x that on the host mosaic feed, "
-        f"{median_b * 1e3 / step_ms:.3f}x on the packed feed")
+        f"{median_b * 1e3 / step_ms:.3f}x on the packed feed, "
+        f"{median_c * 1e3 / step_ms:.3f}x on the device geometry feed")
     for k in kernels.values():
         log(f"{k['name']} on [{card}]: kernel {k['ms']:.4f} ms, plain "
             f"PyTorch {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
@@ -7253,7 +7570,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    mark("25, the whole script")
+    mark("26, the whole script")
     print(card, flush=True)
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels.values()]}), flush=True)

@@ -1,8 +1,10 @@
-"""The rank function of the 2-rank spawn of
-``tests/test_torch_port_tensor_parallel.py``, in a module that imports no
-JAX, since ``spawn`` imports a rank's function by its module's name."""
+"""The rank functions of the 2-rank spawns of
+``tests/test_torch_port_tensor_parallel.py`` and
+``tests/test_torch_port_dist.py``, in a module that imports no JAX, since
+``spawn`` imports a rank's function by its module's name."""
 
 import copy
+import dataclasses
 import os
 
 import torch
@@ -43,3 +45,12 @@ def modules_then_steps(out_dir: str, cases: dict, steps_args: tuple) -> None:
         mesh.GATHER_BY_ALL_REDUCE = None
     torch.save(out, os.path.join(out_dir, f"modules{get_rank()}.pt"))
     train_steps(out_dir, *steps_args)
+
+
+def steps_with_and_without_remat(out_dir: str, cfg, *args) -> None:
+    """:func:`train_steps` ``(out_dir, cfg, *args)``, then the same with
+    ``cfg.remat`` on (the forward recomputed in the backward, inside the
+    DDP wrapper), written as ``out_dir/remat<r>.pt``."""
+    train_steps(out_dir, cfg, *args)
+    train_steps(out_dir, dataclasses.replace(cfg, remat=True), *args,
+                tag="remat")

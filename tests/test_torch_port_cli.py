@@ -372,9 +372,13 @@ def test_num_gpus_2_on_cuda_without_two_cards_raises(mini, tmp_path,
 
 
 def test_device_tile_aug_raises(mini, tmp_path):
-    with pytest.raises(NotImplementedError, match="DeviceAug"):
+    """The device geometry feed trains (tests/test_torch_port_device_aug.py)
+    on square tiles only: a non-square input size raises, as the JAX
+    ``DeviceAug`` asserts."""
+    with pytest.raises(ValueError, match="tiles must be square"):
         train_det.main(_args(tmp_path, mini[0],
-                             INPUT__MOSAIC_AND_MIXUP__DEVICE=True))
+                             INPUT__MOSAIC_AND_MIXUP__DEVICE=True,
+                             INPUT__INPUT_SIZE=[64, 96]))
 
 
 def test_cuda_without_a_card_raises(mini, tmp_path, monkeypatch):

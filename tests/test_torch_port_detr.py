@@ -554,5 +554,7 @@ def test_detr_defaults_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     with pytest.raises(NotImplementedError, match="DetrConfig"):
         td.build_detr(get_cfg(), "cpu")
-    with pytest.raises(NotImplementedError, match="REMAT"):
-        build_model(DetrConfig(remat=True), "cpu")
+    # MODEL.DETR.REMAT and TPU.REMAT build (their steps:
+    # tests/test_torch_port_remat.py)
+    model = build_model(DetrConfig(remat=True, layer_remat=True), "cpu")
+    assert model.transformer.remat

@@ -8,7 +8,10 @@ the CPU: gloo process groups of 2 ranks, tiny shapes.
   ``tests/test_torch_port_train.py::test_yolox_sgd_ema_trajectory_3steps``
   (losses 1e-4 relative, the gradient norm 1e-3 on the first step and 1e-2
   after, parameters, BN statistics and EMA by its trajectory rule), the
-  foreground count exact, and every rank bitwise equal to the others;
+  foreground count exact, and every rank bitwise equal to the others; the
+  same spawn runs the 3 steps again with ``remat`` (``TPU.REMAT``): every
+  metric, parameter, BN statistic and ``num_batches_tracked`` and the EMA
+  bitwise those of the ranks without it;
 * ``SyncBatchNorm2d`` over 2 ranks against ``nn.BatchNorm2d`` on the whole
   batch: 1e-5 relative (the same float32 moments, summed in another order;
   Chan's merge of two halves against one pass), the running statistics
@@ -34,6 +37,7 @@ from flax import linen as fnn
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from _torch_port_helpers import assert_trajectory_close, jit_o0
+from _torch_port_tp_ranks import steps_with_and_without_remat
 from test_torch_port_train import (
     GRAD_RTOL,
     MODEL_LOSS_RTOL,
@@ -60,7 +64,6 @@ from yolov7_d2_tpu_torch.parallel import dist as pdist
 from yolov7_d2_tpu_torch.parallel.dryrun import (
     dryrun_multigpu,
     norm_sync_ranks,
-    train_steps,
 )
 from yolov7_d2_tpu_torch.parallel.launch import launch
 from yolov7_d2_tpu_torch.parallel.norm_sync import (
@@ -149,7 +152,7 @@ def test_two_ranks_match_one_process_and_the_jax_mesh(tmp_path):
     # the ranks run while JAX compiles its step here
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(
-            _ranks, tmp_path, train_steps, ycfg,
+            _ranks, tmp_path, steps_with_and_without_remat, ycfg,
             [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches],
             "cpu", 0, sd0)
         mesh = build_mesh((WORLD, 1), ("data", "model"),
@@ -182,6 +185,12 @@ def test_two_ranks_match_one_process_and_the_jax_mesh(tmp_path):
                                        rtol=GRAD_RTOL if s == 0 else 1e-2)
     assert [rec["step"] for rec in ranks] == [3, 3] and state.step == 3
     _assert_ranks_equal(ranks, ("model", "ema"))
+    # remat on the same ranks: the same steps, bit for bit
+    for r, rec in enumerate(ranks):
+        remat = torch.load(tmp_path / f"remat{r}.pt", weights_only=True)
+        assert remat["metrics"] == rec["metrics"], r
+        _assert_ranks_equal([rec, remat], ("model", "ema"))
+        assert any(k.endswith("num_batches_tracked") for k in remat["model"])
 
     tmpl = jax.tree.map(lambda a: np.zeros(np.shape(a), np.float32),
                         {"params": jstate.params,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the CLI's training step loses time to its feed, on one CUDA card.
 
-    python3 tools/profile_torch_feed.py
+    python3 tools/profile_torch_feed.py [--device-aug]
 
 YOLOX-s 640 (``configs/coco/yolox_s.yaml``), bf16, 16 images a step, the
 packed photometric step with GridMask on (the CLI's packed feed, where
@@ -25,6 +25,17 @@ ways, all of them twice in turn:
 * ``mosaic``: the host mosaic ``DataLoader`` through ``CudaPrefetcher``
   into the plain train step (the CLI's host feed: float32 images,
   augmented on the host).
+
+``--device-aug`` times the device geometry feed's stage instead
+(``data/device_aug.DeviceAug`` on 16 tiles of 640 px from
+``chip_smoke.device_tiles`` -> 640, MixUp, HSV and GridMask on), twice in
+turn: the draws on the host and their copy (host clock), the whole
+``apply`` (CUDA events, 10 calls after 3), and each of its parts by CUDA
+events recorded around its call inside those calls: the mosaic and warp
+(one gather of four taps a pixel), the mosaic's boxes, MixUp's image and
+boxes, HSV, GridMask (K3), the flip with the box packing. A part's events
+hold the card's time from the part's first kernel to its last, gaps
+where the host has not yet launched included.
 
 Every line carries the card's name and power limit. Imports no JAX.
 """
@@ -111,10 +122,69 @@ def median_step_ms(cfg, feed, photo: bool) -> float:
     return float(np.median(timer.times[WARMUP:])) * 1e3
 
 
+# DeviceAug.apply's parts, by the module functions it calls
+DEVICE_AUG_PARTS = ("mosaic_perspective_image", "transform_boxes",
+                    "mixup_image", "mixup_boxes", "hsv_distort", "grid_mask",
+                    "flip_and_pack")
+
+
+def device_aug_parts(card: str) -> None:
+    """``--device-aug``: ``DeviceAug.apply`` 10 times after 3, each of
+    its parts (:data:`DEVICE_AUG_PARTS`) between two CUDA events recorded
+    around its call inside the real ``apply``, and the whole by CUDA events
+    (``chip_smoke.cuda_ms``); the draws on the host and their copy by the
+    host clock. Twice in turn."""
+    from yolov7_d2_tpu_torch.data import device_aug as da
+
+    cfg = dataclasses.replace(YoloxConfig(), distortion=True, grid_mask=True)
+    aug = da.DeviceAug(cfg)
+    tiles = {k: v.cuda() for k, v in chip_smoke.device_tiles(
+        BATCH, torch.Generator().manual_seed(0)).items()}
+    draws = aug.draw(torch.Generator().manual_seed(0), BATCH).to("cuda")
+    events = {name: [] for name in DEVICE_AUG_PARTS}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return call
+
+    shape = tuple(tiles["image"].shape)
+    for name in DEVICE_AUG_PARTS:
+        setattr(da, name, timed(name, getattr(da, name)))
+    gen = torch.Generator().manual_seed(1)
+    for round_ in range(ROUNDS):
+        t0 = time.perf_counter()
+        for _ in range(chip_smoke.ITERS):
+            aug.draw(gen, BATCH).to("cuda")
+        torch.cuda.synchronize()
+        rows = [("draws (host) + copy", (time.perf_counter() - t0) * 1e3
+                 / chip_smoke.ITERS)]
+        for _ in range(chip_smoke.WARMUP):
+            aug.apply(tiles, draws)
+        for ev in events.values():
+            ev.clear()
+        rows.append(("whole apply", chip_smoke.cuda_ms(
+            lambda: aug.apply(tiles, draws), warmup=0)))
+        rows += [(name, sum(a.elapsed_time(b) for a, b in ev) / len(ev))
+                 for name, ev in events.items()]
+        for name, ms in rows:
+            print(f"round {round_} DeviceAug {shape} -> {aug.out_hw} "
+                  f"{name:24s} on [{card}]: {ms:8.3f} ms", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_feed: no CUDA device")
     card = chip_smoke.card_line()
+    if sys.argv[1:] == ["--device-aug"]:
+        device_aug_parts(card)
+        return 0
     work = os.path.join(REPO, "build", "profile_torch_feed")
     shutil.rmtree(work, ignore_errors=True)
     js, img_dir = chip_smoke.write_mini_coco(work)

@@ -2,7 +2,10 @@
 ``yolov7_d2_tpu/config/defaults.py``, copied whole so that every yaml under
 ``configs/`` merges into it. One value differs: ``MODEL.DEVICE`` is
 ``"cuda"`` (the port's entry points run on the card unless the config says
-``MODEL.DEVICE cpu``). The ``TPU`` keys are read by nothing in the port.
+``MODEL.DEVICE cpu``). Of the ``TPU`` keys the port reads ``MESH_SHAPE``
+and ``MESH_AXES`` (the CLIs' process grid, ``parallel/mesh.py``) and
+``REMAT`` (the forward recomputed in the backward, every family's
+``remat``); the others are the JAX package's and read by nothing here.
 """
 
 from __future__ import annotations

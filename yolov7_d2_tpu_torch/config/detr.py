@@ -43,7 +43,10 @@ class DetrConfig(YoloxConfig):
     dim_feedforward: int = 2048
     dropout: float = 0.1
     pre_norm: bool = False
-    remat: bool = False
+    # MODEL.DETR.REMAT: each encoder and decoder layer recomputed in the
+    # backward (``models/layers/transformer.py``); ``remat``, read from
+    # TPU.REMAT, recomputes the whole forward
+    layer_remat: bool = False
     # AnchorDETR
     num_query_position: int = 300
     num_query_pattern: int = 3
@@ -87,7 +90,7 @@ class DetrConfig(YoloxConfig):
             dim_feedforward=int(d.DIM_FEEDFORWARD),
             dropout=float(d.DROPOUT),
             pre_norm=bool(d.PRE_NORM),
-            remat=bool(d.REMAT),
+            layer_remat=bool(d.REMAT),
             num_query_position=int(d.NUM_QUERY_POSITION),
             num_query_pattern=int(d.NUM_QUERY_PATTERN),
             spatial_prior=str(d.SPATIAL_PRIOR),

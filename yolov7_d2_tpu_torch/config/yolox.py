@@ -105,6 +105,20 @@ class YoloxConfig:
     grid_mask_prob: float = 0.3
     grid_mask_use_height: bool = True
     grid_mask_use_width: bool = True
+    # training: the device geometry stage (INPUT.MOSAIC_AND_MIXUP with
+    # DEVICE: ``data/device_aug.DeviceAug``): the mosaic canvas's ranges,
+    # the perspective warp's and MixUp's jitter
+    mosaic_height_range: Tuple[float, float] = (512.0, 800.0)
+    mosaic_width_range: Tuple[float, float] = (512.0, 800.0)
+    mosaic_degrees: float = 10.0
+    mosaic_translate: float = 0.1
+    mosaic_scale: Tuple[float, float] = (0.5, 1.5)
+    mosaic_shear: float = 2.0
+    mosaic_perspective: float = 0.0
+    mixup_scale: Tuple[float, float] = (0.5, 1.5)
+    # TPU.REMAT: the forward recomputed in the backward
+    # (``train/train_state.make_train_step``), every family
+    remat: bool = False
     # training: optimizer and schedule (SOLVER)
     optimizer: str = "sgd"          # or "adamw"
     adam_bf16_state: bool = False   # AdamW's first moment in bfloat16
@@ -180,6 +194,17 @@ class YoloxConfig:
             grid_mask_prob=float(grid.PROB),
             grid_mask_use_height=bool(grid.USE_HEIGHT),
             grid_mask_use_width=bool(grid.USE_WIDTH),
+            mosaic_height_range=tuple(
+                float(v) for v in inp.MOSAIC_AND_MIXUP.MOSAIC_HEIGHT_RANGE),
+            mosaic_width_range=tuple(
+                float(v) for v in inp.MOSAIC_AND_MIXUP.MOSAIC_WIDTH_RANGE),
+            mosaic_degrees=float(inp.MOSAIC_AND_MIXUP.DEGREES),
+            mosaic_translate=float(inp.MOSAIC_AND_MIXUP.TRANSLATE),
+            mosaic_scale=tuple(float(v) for v in inp.MOSAIC_AND_MIXUP.SCALE),
+            mosaic_shear=float(inp.MOSAIC_AND_MIXUP.SHEAR),
+            mosaic_perspective=float(inp.MOSAIC_AND_MIXUP.PERSPECTIVE),
+            mixup_scale=tuple(float(v) for v in inp.MOSAIC_AND_MIXUP.MSCALE),
+            remat=bool(cfg.TPU.REMAT),
             optimizer=str(solver.OPTIMIZER).lower(),
             adam_bf16_state=bool(solver.ADAM_BF16_STATE),
             base_lr=float(solver.BASE_LR),

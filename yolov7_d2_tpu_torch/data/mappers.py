@@ -14,6 +14,9 @@
   * ``DetrDatasetMapper``: flip and ``ResizeShortestEdge``, half the time
     with a small resize and ``RandomCrop`` before the last resize, the DETR
     family's feed.
+  * ``TileDatasetMapper``: decode and one letterbox, uint8, with
+    ``orig_hw``: the host part of the device geometry feed
+    (``INPUT.MOSAIC_AND_MIXUP.DEVICE``, ``data/device_aug.DeviceAug``).
 
 Samples have static shapes: the image letterboxed to ``INPUT.INPUT_SIZE``
 (float32 0..255), the labels densified to ``MAX_BOXES_NUM`` slots with a
@@ -484,6 +487,36 @@ class DetrDatasetMapper(SimpleDatasetMapper):
         )
         return self._finalize(record, img, boxes, classes, None, None,
                               pre_scale)
+
+
+class TileDatasetMapper:
+    """The host part of the device geometry feed (JAX ``data/mappers.py:
+    473``): decode, one letterbox to fit ``INPUT.INPUT_SIZE`` with the gray
+    pad, the labels densified, and nothing else: mosaic, the warp, MixUp,
+    HSV and the flip run on the card (``data/device_aug.DeviceAug``). The
+    image stays uint8 (a quarter of the float32 mappers' copy to the card);
+    ``orig_hw`` (float32 [2], the size before the letterbox) lets the card
+    rebuild each tile's scale on the mosaic canvas; ``image_id`` as the
+    other mappers give it. ``seed`` is taken for ``MapperFactory`` and
+    draws nothing."""
+
+    def __init__(self, cfg, is_train: bool = True, seed: int = 0):
+        self.input_size = tuple(cfg.INPUT.INPUT_SIZE)
+        self.max_boxes = cfg.MODEL.YOLO.MAX_BOXES_NUM
+        self.pad_value = int(cfg.MODEL.PADDED_VALUE)
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, record: dict) -> Dict[str, np.ndarray]:
+        img = read_image_bgr(record["file_name"])
+        h0, w0 = img.shape[:2]
+        boxes, classes = annotations_to_arrays(record)
+        img, boxes, _ = _letterbox_fast(img, boxes, self.input_size,
+                                        self.pad_value)
+        sample = densify(boxes, classes, self.max_boxes)
+        sample["image"] = np.ascontiguousarray(img, np.uint8)
+        sample["orig_hw"] = np.asarray([h0, w0], np.float32)
+        sample["image_id"] = np.asarray(record.get("image_id", 0), np.int64)
+        return sample
 
 
 class MapperFactory:

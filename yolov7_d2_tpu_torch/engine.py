@@ -52,6 +52,7 @@ from yolov7_d2_tpu_torch.parallel.norm_sync import convert_sync_batchnorm
 from yolov7_d2_tpu_torch.train.optimizer import build_optimizer
 from yolov7_d2_tpu_torch.train.schedules import build_lr_schedule
 from yolov7_d2_tpu_torch.train.train_state import TrainState, make_train_step
+from yolov7_d2_tpu_torch.utils.remat import Remat
 
 
 def resolve_simota_prefilter(cfg) -> Optional[int]:
@@ -123,8 +124,9 @@ def _train_state(cfg, model: nn.Module, device,
     construction broadcasts each data group's first rank's weights, which
     are the same shard (every rank draws the same from the seed anyway,
     but an init that depends on the device cannot split the ranks); the
-    EMA starts from the broadcast weights. Without a group: plain
-    BatchNorm, no wrapper."""
+    EMA starts from the broadcast weights; with ``cfg.remat`` DDP wraps the
+    model's ``utils.remat.Remat``. Without a group: plain BatchNorm, no
+    wrapper."""
     model.train()
     ddp = None
     if is_initialized():
@@ -138,7 +140,7 @@ def _train_state(cfg, model: nn.Module, device,
 
             device = torch.device(device)
             ddp = DistributedDataParallel(
-                model,
+                Remat(model) if cfg.remat else model,
                 device_ids=None if device.type == "cpu" else [device],
                 process_group=data_group(), broadcast_buffers=False,
                 gradient_as_bucket_view=True)
@@ -170,6 +172,7 @@ def build_yolox_system(cfg, device="cuda", seed: int = 0,
         ema_decay=cfg.ema_decay if cfg.ema else 0.0,
         use_l1_after=cfg.aug_disable_at_iter,
         clip_cfg=cfg if cfg.clip_gradients else None,
+        remat=cfg.remat,
     )
     if state.model.generator is not None:
         train_step = seed_dropout_by_step(train_step, seed)
@@ -328,7 +331,7 @@ def build_system(cfg, device="cuda", seed: int = 0,
     train_step = make_train_step(
         loss_fn, build_lr_schedule(cfg),
         ema_decay=cfg.ema_decay if cfg.ema else 0.0,
-        clip_cfg=cfg if cfg.clip_gradients else None)
+        clip_cfg=cfg if cfg.clip_gradients else None, remat=cfg.remat)
     if getattr(state.model, "generator", None) is not None:
         train_step = seed_dropout_by_step(train_step, seed)
     return state.model, state, train_step, fields

@@ -24,6 +24,12 @@ decoder's shared final norm returns float32 for the float32 heads.
 
 Dropout (:func:`dropout`) draws its masks from an explicit
 ``torch.Generator`` on the tensors' device and acts in train mode only.
+
+With ``remat`` (``MODEL.DETR.REMAT``, JAX :170-205) each encoder and
+decoder layer recomputes its activations in the backward
+(``utils/remat.remat_call``), replaying the dropout generator so that the
+recompute draws the first forward's masks, as ``nn.remat`` replays its
+keys.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from yolov7_d2_tpu_torch.utils.remat import remat_call
 
 
 def sine_position_embedding(
@@ -258,15 +266,18 @@ class Transformer(nn.Module):
     """DETR's encoder-decoder (JAX :159). ``forward`` returns every
     decoder level through the one shared ``decoder.norm`` (float32,
     [L, B, Q, C]) and the memory. ``encoder.norm`` exists for pre-norm
-    only. The decoder starts from zeros, the queries as its position."""
+    only. The decoder starts from zeros, the queries as its position.
+    ``remat`` recomputes each layer in the backward."""
 
     def __init__(self, d_model: int = 256, nhead: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 2048, dropout: float = 0.1,
-                 pre_norm: bool = False, dtype: torch.dtype = torch.float32):
+                 pre_norm: bool = False, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         args = (d_model, nhead, dim_feedforward, dropout, pre_norm, dtype)
         self.dtype = dtype
+        self.remat = remat
         self.encoder = LayerStack(
             [EncoderLayer(*args) for _ in range(num_encoder_layers)],
             LayerNorm(d_model, eps=1e-5) if pre_norm else None)
@@ -278,8 +289,14 @@ class Transformer(nn.Module):
                 query_embed: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         """src, pos [B, HW, C]; query_embed [Q, C]."""
+        def call(layer, *args):
+            if not self.remat:
+                return layer(*args, generator)
+            return remat_call(layer, *args, generator,
+                              generators=(generator,))
+
         for layer in self.encoder.layers:
-            src = layer(src, pos, generator)
+            src = call(layer, src, pos)
         if hasattr(self.encoder, "norm"):
             src = self.encoder.norm(src).to(self.dtype)
         b = src.shape[0]
@@ -287,6 +304,6 @@ class Transformer(nn.Module):
         tgt = torch.zeros_like(q)
         outs = []
         for layer in self.decoder.layers:
-            tgt = layer(tgt, src, q, pos, generator)
+            tgt = call(layer, tgt, src, q, pos)
             outs.append(self.decoder.norm(tgt))
         return torch.stack(outs), src

@@ -100,7 +100,8 @@ class DETR(nn.Module):
                  enc_layers: int = 6, dec_layers: int = 6,
                  dim_feedforward: int = 2048, dropout: float = 0.1,
                  pre_norm: bool = False, resnet_depth: int = 50,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 layer_remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.generator: Optional[torch.Generator] = None
@@ -109,7 +110,7 @@ class DETR(nn.Module):
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
         self.transformer = Transformer(
             hidden_dim, nheads, enc_layers, dec_layers, dim_feedforward,
-            dropout, pre_norm, dtype)
+            dropout, pre_norm, dtype, remat=layer_remat)
         self.class_embed = nn.Linear(hidden_dim, num_classes + 1)
         self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
 
@@ -431,17 +432,14 @@ def check_detr_config(cfg, arch: str) -> None:
         raise NotImplementedError(
             f"{arch} takes a DetrConfig (DetrConfig.from_cfg of a merged "
             "CfgNode)")
-    if cfg.remat:
-        raise NotImplementedError(
-            "MODEL.DETR.REMAT (recompute each transformer layer in the "
-            "backward, a TPU memory switch) is not ported (ROADMAP.md "
-            "Queue A, do not port)")
 
 
 @META_ARCH_REGISTRY.register(name="Detr")
 def build_detr(cfg: DetrConfig, device="cuda", seed: int = 0) -> DETR:
     """DETR from a ``DetrConfig`` (JAX :335) with weights from ``seed``, on
-    ``device``, channels_last, eval mode."""
+    ``device``, channels_last, eval mode; ``cfg.layer_remat``
+    (``MODEL.DETR.REMAT``, read by DETR alone, as in JAX)
+    recomputes each transformer layer in the backward."""
     check_detr_config(cfg, "Detr")
     return finish_build(DETR(
         num_classes=cfg.num_classes, hidden_dim=cfg.hidden_dim,
@@ -449,7 +447,8 @@ def build_detr(cfg: DetrConfig, device="cuda", seed: int = 0) -> DETR:
         enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
         dim_feedforward=cfg.dim_feedforward, dropout=cfg.dropout,
         pre_norm=cfg.pre_norm, resnet_depth=cfg.resnet_depth,
-        dtype=torch.bfloat16 if cfg.amp else torch.float32), device, seed)
+        dtype=torch.bfloat16 if cfg.amp else torch.float32,
+        layer_remat=cfg.layer_remat), device, seed)
 
 
 def detr_loss_fn(cfg: DetrConfig):

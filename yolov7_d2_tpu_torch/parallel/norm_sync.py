@@ -26,7 +26,8 @@ its time. The CPU keeps the elementwise form, which those kernels lack.
 
 from __future__ import annotations
 
-from typing import Iterable
+import contextlib
+from typing import Iterable, Optional
 
 import torch
 import torch.distributed as dist
@@ -181,11 +182,29 @@ def convert_sync_batchnorm(module: nn.Module) -> nn.Module:
     return module
 
 
-def _bn_buffers(model: nn.Module):
+def _bn_buffers(model: nn.Module, counts: bool = False):
     return [b for m in model.modules()
             if isinstance(m, nn.modules.batchnorm._BatchNorm)
             and m.track_running_stats
-            for b in (m.running_mean, m.running_var)]
+            for b in ((m.running_mean, m.running_var, m.num_batches_tracked)
+                      if counts else (m.running_mean, m.running_var))]
+
+
+@contextlib.contextmanager
+def kept_norm_statistics(model: Optional[nn.Module]):
+    """Every BatchNorm of ``model`` (``nn.BatchNorm2d``, ``SyncBatchNorm2d``;
+    ``FrozenBatchNorm2d`` updates nothing) leaves the block with the
+    running mean, variance and ``num_batches_tracked`` it entered with: a
+    forward recomputed for the backward (``utils/remat.py``) must not
+    update them a second time. Nothing where ``model`` is None."""
+    buffers = [] if model is None else _bn_buffers(model, counts=True)
+    kept = [b.clone() for b in buffers]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, k in zip(buffers, kept):
+                b.copy_(k)
 
 
 def all_reduce_norm(model: nn.Module) -> None:

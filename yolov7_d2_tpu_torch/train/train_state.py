@@ -19,6 +19,11 @@ parameters' squares over the model group
 (``mesh.replicate_grads_over_model``, ``mesh.grid_global_norm``). The
 gradient norm and the clipping read the reduced gradients, so every rank
 takes the same update.
+
+With ``remat`` (``TPU.REMAT``, JAX :102-103) the forward's activations are
+recomputed in the backward (``utils/remat.Remat``: the model's dropout
+generator replayed, its BatchNorm statistics updated once); inside a group
+the DDP wrapper holds the ``Remat`` wrapper (``engine._train_state``).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from yolov7_d2_tpu_torch.parallel.mesh import (
     replicate_grads_over_model,
 )
 from yolov7_d2_tpu_torch.train.optimizer import clip_gradients_, global_norm
+from yolov7_d2_tpu_torch.utils.remat import Remat
 
 
 # How each metric of a step goes over the ranks of a group, by its name
@@ -103,19 +109,30 @@ def make_train_step(
     ema_decay: float = 0.0,
     use_l1_after: Optional[int] = None,
     clip_cfg=None,
+    remat: bool = False,
 ) -> Callable:
     """``loss_fn(head_out, batch, use_l1) -> dict with "total_loss"``
     (its ``match``, where it has one, goes to ``state.match`` and not into
     the metrics). ``use_l1`` is ``state.step >= use_l1_after`` (the reference's L1
     switch). ``clip_cfg``: a config whose ``clip_gradients`` is on, else
-    None. The EMA covers the parameters only, not the BatchNorm buffers:
-    ``ema = ema * decay + param * (1 - decay)`` after each update."""
+    None. ``remat``: the forward recomputed in the backward; a state whose
+    DDP wrapper holds no ``Remat`` then raises. The EMA covers the
+    parameters only, not the BatchNorm buffers: ``ema = ema * decay +
+    param * (1 - decay)`` after each update."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model, opt = state.model, state.optimizer
         use_l1 = use_l1_after is not None and state.step >= use_l1_after
         model.train()
-        forward = model if state.ddp is None else state.ddp
+        if state.ddp is None:
+            forward = Remat(model) if remat else model
+        else:
+            if remat != isinstance(state.ddp.module, Remat):
+                raise ValueError(
+                    f"a step with remat={remat} on a DDP wrapper of "
+                    f"{type(state.ddp.module).__name__}: build the state "
+                    "and the step from one config")
+            forward = state.ddp
         losses = loss_fn(forward(batch["image"]), batch, use_l1)
         state.match = losses.pop("match", None)
         opt.zero_grad(set_to_none=True)

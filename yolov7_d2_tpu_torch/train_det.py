@@ -29,7 +29,13 @@ Feeds:
 * packed shards (``DATALOADER.PACKED_CACHE_DIR``, optional
   ``PACKED_CACHE_PLAIN_DIR`` from ``DISABLE_AT_ITER`` on): uint8 images
   through ``make_packed_photo_step`` (mixup, the GridMask kernel, flip on
-  the card).
+  the card);
+* the device geometry feed (``INPUT.MOSAIC_AND_MIXUP.DEVICE`` without
+  packed shards, JAX ``train_det.py:172-180``): ``TileDatasetMapper``
+  (decode and letterbox, uint8, ``orig_hw``) in the threaded
+  ``DataLoader``, then ``make_device_aug_step`` (mosaic4, the perspective
+  warp, MixUp, HSV, the GridMask kernel and the flip on the card, off from
+  ``DISABLE_AT_ITER``).
 
 Either way the batches reach the card through ``CudaPrefetcher``. The COCO
 eval runs ``Predictor.predict_batch`` (the normalize and NMS kernels) on
@@ -238,11 +244,7 @@ def run(args):
     grid, batch_size = rank_share(cfg, get_world_size(), get_rank())
     rank = grid.data_rank
     packed_dir = str(cfg.DATALOADER.PACKED_CACHE_DIR)
-    if cfg.INPUT.MOSAIC_AND_MIXUP.DEVICE and not packed_dir:
-        raise NotImplementedError(
-            "INPUT.MOSAIC_AND_MIXUP.DEVICE (the fused device geometry path, "
-            "DeviceAug) is not ported (ROADMAP.md, 'Do not port'): use the "
-            "host mosaic feed or DATALOADER.PACKED_CACHE_DIR")
+    device_aug = bool(cfg.INPUT.MOSAIC_AND_MIXUP.DEVICE) and not packed_dir
 
     records = []
     for name in cfg.DATASETS.TRAIN:
@@ -301,6 +303,19 @@ def run(args):
                 "and set DATALOADER.PACKED_CACHE_PLAIN_DIR for reference "
                 "recipe fidelity.", disable_at)
         hooks = [IterationTimer()]
+    elif device_aug:
+        # the host decodes and letterboxes; mosaic, the warp, MixUp, HSV,
+        # GridMask and the flip run on the card (data/device_aug.py), and
+        # stop at DISABLE_AT_ITER inside the step: no AugDisableHook
+        from yolov7_d2_tpu_torch.data.device_aug import make_device_aug_step
+        from yolov7_d2_tpu_torch.data.mappers import TileDatasetMapper
+
+        train_step = make_device_aug_step(ycfg, train_step, seed=seed,
+                                          rank=rank)
+        loader = build_detection_train_loader(
+            cfg, records, TileDatasetMapper(cfg, is_train=True, seed=rank),
+            seed=rank, batch_size=batch_size)
+        hooks = [IterationTimer()]
     else:
         from yolov7_d2_tpu_torch.data.mappers import YOLOXDatasetMapper
 
@@ -321,8 +336,9 @@ def run(args):
         hooks.append(PeriodicWriter(
             Trainer.default_writers(cfg.OUTPUT_DIR, cfg.SOLVER.MAX_ITER)))
 
+    fields = TRAIN_FIELDS + (("orig_hw",) if device_aug else ())
     trainer = Trainer(
-        train_step, state, CudaPrefetcher(loader, device, TRAIN_FIELDS),
+        train_step, state, CudaPrefetcher(loader, device, fields),
         cfg.SOLVER.MAX_ITER, hooks=hooks, start_iter=start_iter)
     trainer.train()
     return trainer
