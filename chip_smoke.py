@@ -11,9 +11,10 @@ YOLOMask and DetrSegm serving and training, of LazyConfig, Mask R-CNN,
 Faster R-CNN and Panoptic FPN serving and training, of the repeatability
 of a training step, of the library NMS suite, one train step of every
 yaml of ``configs/``, of deploy (the exported program with the NMS
-kernel in it, int8, pruning) and the rest of the feed, and of YOLOX-s
+kernel in it, int8, pruning) and the rest of the feed, of YOLOX-s
 trained on a (data, model) grid with its widest parameters sharded over
-the model axis, on one CUDA card.
+the model axis, of the device geometry feed and rematerialization, and of
+the native serving client, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -271,7 +272,13 @@ set to 0 just before it and read just after:
   moved step counter each, a line a yaml, the slowest five and the peak
   memory. Its launches go to the entries of their kernel and instance
   (``normalize``, ``nms``, ``nms_rpn``, ``grid_mask``); it logs its
-  seconds.
+  seconds. After (a), which runs alone on the card, the checks that time
+  nothing run side by side: (b) in four shards, the one request and one
+  step of the other yamls of sections 11, 14, 15 and 18-21 ((c) or (e)
+  of each), section 16, 21 (e) and 23 (c) in five worker processes
+  (``--jobs``, their output printed once they end), and the gloo ranks of
+  sections 10 (a), 17 (a) and 24 (a, b) on threads, whose checks against
+  one process follow.
 * deploy and the rest of the feed (section 23, ``deploy_feed_phase``):
   (a) YOLOX-s 640 exported with ``torch.export`` on a float32 NHWC batch:
   by ``python -m yolov7_d2_tpu_torch.export --fuse-postprocess`` (bs 1)
@@ -318,6 +325,20 @@ set to 0 just before it and read just after:
   without (YOLOX-s of 16 at 640, DETR R-50 of 8 at 800 with dropout):
   loss, gradients and BN buffers, peak memory and ms a step of each. Run C
   of the CLI (section 9) trains on the device geometry feed.
+* the native serving client (section 26, ``native_serving_phase``): a
+  process started at the script's start builds the client
+  (``deploy/cc/aoti_infer.cpp`` with the C++ op of ``nms_op.cpp`` and
+  ``csrc/nms.cu``) and exports YOLOX-s 640 by ``python -m
+  yolov7_d2_tpu_torch.export --fuse-postprocess --emit-package`` at bs 1,
+  in float32 and bf16 (AOTInductor packages); (a) their seconds; (b) the
+  client, no Python in its process, serves a letterboxed float32 request
+  from each package: the float32 ``Detections`` equal ``Predictor``'s in
+  every slot, the bf16 ones finite, one C++ op call and one K1 launch a
+  request, its ms beside ``load_program``'s program and ``Predictor``;
+  (c) the client's op alone on the bs-128 tail's [128, 1024] candidates,
+  index-exact against the plain version (the ``nms_native`` entry, its
+  launches those of (b)); (d) ``--device cpu`` on the CUDA package
+  refused.
 
 ``python3 chip_smoke.py --nccl`` runs (c) of sections 10, 17 and 24 alone,
 on a machine of 2 or more cards.
@@ -331,6 +352,7 @@ run without a CUDA card or outside the repository.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -341,10 +363,13 @@ import logging
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 import types
+from pathlib import Path
 
 import torch
 
@@ -398,8 +423,9 @@ def cuda_ms(fn, warmup=WARMUP, iters=ITERS) -> float:
 def request_timing(n: int) -> dict:
     """``cuda_ms``'s calls for a request of ``n`` images on the families'
     paths after YOLOX-s's: at the largest batch (a call of 40-670 ms) 3
-    timed after 1, else the defaults."""
-    return dict(warmup=1, iters=3) if n >= BATCH else {}
+    timed after 1, else 5 after 2."""
+    return dict(warmup=1, iters=3) if n >= BATCH else dict(warmup=2,
+                                                           iters=5)
 
 
 def kernel_ms(fn, warmup=WARMUP, iters=ITERS, host_ok=None) -> float:
@@ -951,12 +977,22 @@ def prefilter_ranked_by(obj_logits: torch.Tensor):
         yolox_head._prefilter_key = own
 
 
-def spawn_plans(plans: list, world: int, backend: str) -> None:
+@contextlib.contextmanager
+def tf32_off_in_children():
+    """The processes started inside begin with torch's defaults: TF32 off
+    for them, as here."""
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    try:
+        yield
+    finally:
+        del os.environ["NVIDIA_TF32_OVERRIDE"]
+
+
+def launch_plans(plans: list, world: int, backend: str) -> None:
     """The rank calls of every plan (``calls``: ``(fn, (out_dir, ...))``)
     in one spawn of ``world`` ranks, in turn (``dryrun.in_turn``: each
-    rank starts once), TF32 off in the ranks as here; sets each plan's
-    ``wall`` (the spawn's seconds) and ``shared`` (how many plans it
-    ran)."""
+    rank starts once); sets each plan's ``wall`` (the spawn's seconds) and
+    ``shared`` (how many plans it ran)."""
     from yolov7_d2_tpu_torch.parallel.dryrun import in_turn
     from yolov7_d2_tpu_torch.parallel.launch import launch
 
@@ -964,17 +1000,41 @@ def spawn_plans(plans: list, world: int, backend: str) -> None:
         shutil.rmtree(plan.out, ignore_errors=True)
         for _, args in plan.calls:
             os.makedirs(args[0], exist_ok=True)
-    # the ranks start with torch's defaults: TF32 off for them as here
-    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
     t0 = time.perf_counter()
-    try:
-        launch(in_turn, world, args=([c for plan in plans
-                                      for c in plan.calls],),
-               backend=backend)
-    finally:
-        del os.environ["NVIDIA_TF32_OVERRIDE"]
+    launch(in_turn, world, args=([c for plan in plans for c in plan.calls],),
+           backend=backend)
     for plan in plans:
         plan.wall, plan.shared = time.perf_counter() - t0, len(plans)
+
+
+def spawn_plans(plans: list, world: int, backend: str) -> None:
+    """:func:`launch_plans`, TF32 off in the ranks as here."""
+    with tf32_off_in_children():
+        launch_plans(plans, world, backend)
+
+
+class SpawnThread(threading.Thread):
+    """:func:`launch_plans` on a thread of its own, so that the ranks run
+    beside other work; the caller starts it inside
+    :func:`tf32_off_in_children` and calls :meth:`result` once it is
+    done."""
+
+    def __init__(self, plans: list, world: int, backend: str = "gloo"):
+        super().__init__(daemon=True)
+        self.plans, self.world, self.backend = plans, world, backend
+        self.error = None
+        self.start()
+
+    def run(self) -> None:
+        try:
+            launch_plans(self.plans, self.world, self.backend)
+        except BaseException as e:  # raised on the caller's thread
+            self.error = e
+
+    def result(self) -> None:
+        self.join()
+        if self.error is not None:
+            raise self.error
 
 
 def spawned(plan) -> str:
@@ -1690,7 +1750,7 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
                       requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
                       size: int = SIZE, small: int = 128,
                       yaml: str = "yolov7.yaml", label: str = "11",
-                      others=ANCHOR_OTHERS, f32_px=None, kernels=None,
+                      f32_px=None, kernels=None,
                       f64_step: bool = False) -> None:
     """Section 11: the anchor-YOLO family (``YOLOV7`` at 640 from
     ``configs/coco/yolov7.yaml``, full depth and width, bf16 compute over
@@ -1700,13 +1760,12 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     CPU at bs 1 (at ``f32_px`` where given); (b) ``build_system``'s step in
     ``make_packed_photo_step`` with GridMask (mode 1, prob 0.3) and mixup
     on, ``train_n`` images a step for 6 steps, then one f32 step on the
-    card against the CPU; (c) one request and one train step each of
-    ``others`` (name, yaml under ``configs/coco``, fields replaced):
-    ``YOLO`` (darknet53.yaml) and ``YOLOV7P`` (CSP-Darknet53), and
-    ``YOLOV7P`` on ResNet-50 from ``configs/coco/r50.yaml`` (section 12
-    (f)). Section 18 runs the same on ``yaml`` ``r2_50.yaml`` (YOLOV7 on
-    Res2Net-50) with ``RES2NET_OTHERS``, and adds its launches to
-    ``kernels``'s normalize, NMS and GridMask entries. The f32 step's loss
+    card against the CPU; (c), one request and one train step each of
+    ``ANCHOR_OTHERS``, runs in section 22's workers
+    (:func:`anchor_others_phase`). Section 18 runs the same on ``yaml``
+    ``r2_50.yaml`` (YOLOV7 on Res2Net-50), (c) on ``RES2NET_OTHERS``, and
+    adds its launches to ``kernels``'s normalize, NMS and GridMask
+    entries. The f32 step's loss
     terms are held within 1e-3 of the CPU's, and its gradient norm within
     1e-3; with ``f64_step`` (section 18) the gradient is held in float64
     instead (:func:`float64_step_check`). Each path's kernel launches are
@@ -1866,10 +1925,6 @@ def anchor_yolo_phase(dev, card: str, gen: torch.Generator,
     if f64_step:
         float64_step_check(dev, card, f"({label}b) {name}", scfg, sbatch,
                            draws, card_g, ref_g, fmt)
-
-    # ---- (c) the other configurations: one request, one train step
-    anchor_others_phase(dev, gen, others, label, requests[1], train_n,
-                        kernels)
 
 
 def anchor_others_phase(dev, gen: torch.Generator, others, label: str,
@@ -2829,11 +2884,10 @@ def yolox_kpts_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     on a synthetic mini-COCO-keypoints of ``eval_images`` JPEGs: the box
     and ``kpt_`` keys, then the same keys from ``--weights`` of a saved
     state dict (``eval_opts`` override its config keys, ``__`` for
-    ``.``); (e) YOLOV7 on ``swin_t.yaml`` and ``pvt_v2_b0.yaml``, full
-    depth: one request and one train step each. The launches of (a), (c)
-    and (d) go into the normalize and NMS entries."""
+    ``.``); (e), YOLOV7 on ``swin_t.yaml`` and ``pvt_v2_b0.yaml``
+    (:func:`kpts_yolov7_others`), runs in section 22's workers. The
+    launches of (a), (c) and (d) go into the normalize and NMS entries."""
     from yolov7_d2_tpu_torch import eval_coco
-    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
     from yolov7_d2_tpu_torch.engine import KPTS_FIELDS, build_system
     from yolov7_d2_tpu_torch.kernels import build
     from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
@@ -3055,11 +3109,24 @@ def yolox_kpts_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- (e) YOLOV7 on Swin-T and PVTv2-b0: one request, one train step
+    # ---- (e) YOLOV7 on Swin-T and PVTv2-b0: one request, one train step,
+    # in section 22's workers (kpts_yolov7_others)
+
+def kpts_yolov7_others(dev, gen: torch.Generator, bs: int = 8,
+                       train_n: int = TRAIN_BATCH, size: int = SIZE) -> None:
+    """(14e) YOLOV7 on ``swin_t.yaml`` and ``pvt_v2_b0.yaml``, full depth:
+    one request of ``bs`` images and one train step of ``train_n`` each,
+    the normalize and NMS kernels launched serving, GridMask in
+    ``make_packed_photo_step``'s step (EMA on)."""
+    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.models.build import build_model
+
+    req = letterboxed_batch(bs, gen, size)
     for yaml in KPTS_YOLOV7:
         ccfg = coco_cfg(yaml)
         model = build_model(ccfg, dev, SEED)
-        req = batches[1]
         build.reset_launches()
         _, dets = anchor_serve(model, ccfg, req.to(dev))
         torch.cuda.synchronize()
@@ -3198,13 +3265,14 @@ def onestage_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     statistics unmoved, ms a step, peak memory; (d) one f32 step at
     ``small`` px on the card against the CPU: the loss's assignments equal
     (SimOTA's foreground for YOLOv6, the winners and class map for YOLOF,
-    the fg count), losses and grad norm within 1e-3. (e) one request and
+    the fg count), losses and grad norm within 1e-3. (e), one request and
     one train step each for ``yolov6_tiny.yaml`` (416), ``yolov6_m.yaml``
     and YOLOV7 on ResNet-50 with the ``bifpn`` and ``pan`` necks
     (``wearmask/r50_bifpn.yaml``, ``r50_pan.yaml`` under YOLOV7, which the
-    necks need: the yaml's YOLOV7P keeps YOLOPAFPN). Each path's launches
-    are counted from 0 and added to the normalize, normalize_yolof, NMS
-    and GridMask entries."""
+    necks need: the yaml's YOLOV7P keeps YOLOPAFPN), runs in section 22's
+    workers (:func:`onestage_others`). Each path's launches are counted
+    from 0 and added to the normalize, normalize_yolof, NMS and GridMask
+    entries."""
     from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
     from yolov7_d2_tpu_torch.engine import build_system
     from yolov7_d2_tpu_torch.kernels import build
@@ -3434,12 +3502,25 @@ def onestage_phase(dev, card: str, gen: torch.Generator, kernels: dict,
         del st, ts
         torch.cuda.empty_cache()
 
-    # ---- (e) the other configurations: one request, one train step
+    # ---- (e) the other configurations: one request, one train step, in
+    # section 22's workers (onestage_others)
+
+def onestage_others(dev, gen: torch.Generator, kernels: dict, bs: int = 8,
+                    train_n: int = TRAIN_BATCH) -> None:
+    """(15e) One request of ``bs`` images and one train step of ``train_n``
+    (EMA on, GridMask in ``make_packed_photo_step``) each of
+    ``ONESTAGE_EXTRA`` at its size; the launches added to the normalize,
+    NMS and GridMask entries of ``kernels``."""
+    from yolov7_d2_tpu_torch.data.device_aug import make_packed_photo_step
+    from yolov7_d2_tpu_torch.engine import build_system
+    from yolov7_d2_tpu_torch.kernels import build
+    from yolov7_d2_tpu_torch.models.build import build_model
+
     for name, yaml, replace in ONESTAGE_EXTRA:
         ccfg = coco_cfg(yaml, **replace)
         size = ccfg.input_size[0]
         model = build_model(ccfg, dev, SEED)
-        req = letterboxed_batch(requests[1], gen, size)
+        req = letterboxed_batch(bs, gen, size)
         build.reset_launches()
         _, dets = onestage_serve(model, ccfg, req.to(dev))
         torch.cuda.synchronize()
@@ -4352,6 +4433,24 @@ def zoo_detr_others(dev, gen: torch.Generator, kernels: dict, bs: int = 8,
         torch.cuda.empty_cache()
 
 
+def zoo_others(dev, gen: torch.Generator, kernels: dict, bs: int = 8,
+               train_n: int = TRAIN_BATCH,
+               detr_train_n: int = DETR_TRAIN_BATCH,
+               detr_size: int = DETR_SIZE) -> None:
+    """(19c) One request of ``bs`` images and one step each of the other
+    yamls section 19 unlocks: :func:`zoo_yolox_others`, YOLOV7 on
+    RegNetX-400MF, -200MF and EfficientNet-b2 (taps ``EFFICIENT_B2_TAPS``)
+    through :func:`anchor_others_phase`, and :func:`zoo_detr_others`."""
+    zoo_yolox_others(dev, gen, kernels, bs, train_n)
+    b2 = coco_cfg("../wearmask/efficient_b2.yaml").zoo
+    anchor_others_phase(dev, gen, ZOO_ANCHOR_OTHERS + ((
+        "YOLOV7 wearmask/efficient_b2.yaml", "../wearmask/efficient_b2.yaml",
+        {"zoo": dataclasses.replace(
+            b2, efficientnet_feature_indices=EFFICIENT_B2_TAPS)}),), "19",
+        bs, train_n, kernels)
+    zoo_detr_others(dev, gen, kernels, bs, detr_train_n, detr_size)
+
+
 def zoo_phase(dev, card: str, gen: torch.Generator, kernels: dict,
               requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
               detr_train_n: int = DETR_TRAIN_BATCH, small: int = 128,
@@ -4366,12 +4465,11 @@ def zoo_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     (``configs/coco/detr/smca_detr_r50.yaml``) through
     :func:`detr_model_paths` (serving at each request size, card against
     CPU, ``steps`` steps of ``detr_train_n``, one f32 step against the
-    CPU) and ``train_transformer`` for ``cli_steps`` steps; (c) one request
-    and one step each of the other yamls the slice unlocks: YOLOX on
-    RegNetX-400MF and ConvNeXt-T at 640, YOLOV7 on RegNetX-400MF, -200MF
-    and EfficientNet-b2 (taps ``EFFICIENT_B2_TAPS``), and the DETR variants
-    of ``ZOO_DETR_OTHERS``. Each path's launches are counted from 0 and
-    added to ``kernels``. Logs the section's seconds."""
+    CPU) and ``train_transformer`` for ``cli_steps`` steps; (c), one
+    request and one step each of the other yamls the slice unlocks
+    (:func:`zoo_others`), runs in section 22's workers. Each path's
+    launches are counted from 0 and added to ``kernels``. Logs the
+    section's seconds."""
     t0 = time.perf_counter()
     yolox_zoo_paths(dev, card, gen, kernels, requests, train_n, small,
                     steps, drop_px)
@@ -4384,14 +4482,6 @@ def zoo_phase(dev, card: str, gen: torch.Generator, kernels: dict,
     detr_cli_run(dev, card, kernels, "19b", "SMCA-DETR", ZOO_SMCA_YAML,
                  detr_train_n, detr_size, cli_images, cli_steps,
                  resume=False, **cli_opts)
-    zoo_yolox_others(dev, gen, kernels, requests[1], train_n)
-    b2 = coco_cfg("../wearmask/efficient_b2.yaml").zoo
-    anchor_others_phase(dev, gen, ZOO_ANCHOR_OTHERS + ((
-        "YOLOV7 wearmask/efficient_b2.yaml", "../wearmask/efficient_b2.yaml",
-        {"zoo": dataclasses.replace(
-            b2, efficientnet_feature_indices=EFFICIENT_B2_TAPS)}),), "19",
-        requests[1], train_n, kernels)
-    zoo_detr_others(dev, gen, kernels, requests[1], detr_train_n, detr_size)
     log(f"(19) section 19 in {time.perf_counter() - t0:.1f} s on [{card}]")
 
 
@@ -5046,19 +5136,17 @@ def mask_phase(dev, card: str, gen: torch.Generator, kernels: dict,
                requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
                small: int = 128, steps: int = MASK_STEPS,
                cli_images: int = CLI_IMAGES, cli_steps: int = 4,
-               others_bs: int = 8, detr_train_n: int = DETR_TRAIN_BATCH,
-               detr_size: int = DETR_SIZE, **cli_opts) -> None:
+               **cli_opts) -> None:
     """Section 20: deformable convolution and the last mask families, full
     depth and width, bf16 over f32 weights from ``SEED``: (a) SparseInst
     R-50-DCN GIAM at 608 (:func:`dcn_paths`), (b) SOLOv2 R-50 at 640
-    (:func:`solov2_paths`), (c) the other yamls they unlock
-    (:func:`mask_others`). Logs the section's seconds."""
+    (:func:`solov2_paths`); (c), the other yamls they unlock
+    (:func:`mask_others`), runs in section 22's workers. Logs the
+    section's seconds."""
     t0 = time.perf_counter()
     dcn_paths(dev, card, gen, kernels, requests, train_n, small, steps,
               cli_images, cli_steps, **cli_opts)
     solov2_paths(dev, card, gen, kernels, requests, train_n, small, steps)
-    mask_others(dev, card, gen, kernels, others_bs, train_n, detr_train_n,
-                detr_size, **cli_opts)
     log(f"(20) section 20 in {time.perf_counter() - t0:.1f} s on [{card}]")
 
 
@@ -5806,26 +5894,23 @@ def rcnn_repeat(dev, card: str, gen: torch.Generator, size: int = 256,
 def rcnn_phase(dev, card: str, gen: torch.Generator, kernels: dict,
                requests=REQUEST_BATCHES, train_n: int = TRAIN_BATCH,
                steps: int = RCNN_STEPS, small: int = 512,
-               step_px: int = 256, others_bs: int = 2,
-               panoptic_size: int = PANOPTIC_SIZE, lazy_images: int =
-               TRAIN_BATCH, repeat_px: int = 256, rcnn_size=None,
-               others_px=None, lazy_px: int = SIZE) -> None:
+               step_px: int = 256, panoptic_size: int = PANOPTIC_SIZE,
+               lazy_images: int = TRAIN_BATCH, rcnn_size=None,
+               lazy_px: int = SIZE) -> None:
     """Section 21: LazyConfig and the R-CNN family, full depth and width,
     bf16 over f32 weights from ``SEED``: (a) Mask R-CNN R-50-FPN at 1024
     (:func:`mask_rcnn_paths`), (b) Panoptic FPN at 640
     (:func:`panoptic_paths`), (c) the other 16 LazyConfig files and Faster
     R-CNN (:func:`lazy_others`), (d) the two LazyConfig entry points
     (:func:`lazy_entry_points`), (e) the repeatability of the DCN and Mask
-    R-CNN float32 steps (:func:`rcnn_repeat`). Logs the section's
-    seconds. The sizes past ``repeat_px`` are a rehearsal's."""
+    R-CNN float32 steps (:func:`rcnn_repeat`); (c) and (e) run in section
+    22's workers. Logs the section's seconds."""
     t0 = time.perf_counter()
     mask_rcnn_paths(dev, card, gen, kernels, requests, train_n, steps,
                     small, step_px, rcnn_size)
     panoptic_paths(dev, card, gen, kernels, requests, train_n, steps,
                    panoptic_size)
-    lazy_others(dev, card, gen, others_bs, others_px)
     lazy_entry_points(dev, card, lazy_images, size=lazy_px)
-    rcnn_repeat(dev, card, gen, repeat_px)
     log(f"(21) section 21 in {time.perf_counter() - t0:.1f} s on [{card}]")
 
 
@@ -5930,38 +6015,201 @@ def relative_gap_max(got: torch.Tensor, want: torch.Tensor) -> float:
                                                                   1e-30)
 
 
-def closure_phase(dev, card: str, gen: torch.Generator,
-                  kernels: dict) -> None:
-    """Section 22: (a) :func:`library_nms_phase`, (b) one train step of
-    every yaml (``zoo_step.step_sweep``), the launches counted from 0 and
-    added to their kernels' entries. Logs the section's seconds."""
+# The closure's worker processes, each a list of jobs run in turn: the
+# sweep in four shards, the (c) and (e) parts of sections 11, 14, 15 and
+# 18-21, section 16 and 23 (c), balanced by their seconds side by side on
+# an H100 (19c 86, the sweep 202 in all, 20c 30, 16 about 25, 21c 24,
+# 23c about 18, 15e 13, 21e about 10, 14e 9, 11c 6, 18c 6)
+CLOSURE_WORKERS = (("19c", "11c"), ("sweep 0/4", "20c", "18c"),
+                   ("sweep 1/4", "21c", "23c"), ("sweep 2/4", "16", "15e"),
+                   ("sweep 3/4", "21e", "14e"))
+CLOSURE_DIR = os.path.join(REPO, "build", "chip_smoke_closure")
+
+
+def closure_job(name: str, dev, card: str, kernels) -> list:
+    """One job of :data:`CLOSURE_WORKERS` on ``dev`` with a generator of
+    its own; its launches added to ``kernels``. Returns the sweep's rows
+    (none for the other jobs)."""
     from yolov7_d2_tpu_torch.kernels import build
     from yolov7_d2_tpu_torch.zoo_step import step_sweep
 
+    gen = torch.Generator().manual_seed(SEED + sum(map(ord, name)))
+    if name.startswith("sweep "):
+        i, n = map(int, name.split()[1].split("/"))
+        configs = os.path.join(REPO, "configs")
+        paths = sorted(Path(configs).rglob("*.yaml"))[i::n]
+        build.reset_launches()
+        rows = step_sweep(configs, dev, paths,
+                          log=lambda msg: log(f"(22b) {msg}"))
+        torch.cuda.synchronize()
+        for key, count in build.LAUNCHES.items():
+            kernels[CLOSURE_ENTRY[key]]["launches"] += count
+        return rows
+    {"11c": lambda: anchor_others_phase(dev, gen, ANCHOR_OTHERS, "11"),
+     "14e": lambda: kpts_yolov7_others(dev, gen),
+     "15e": lambda: onestage_others(dev, gen, kernels),
+     "16": lambda: c14_phase(dev, card),
+     "18c": lambda: anchor_others_phase(dev, gen, RES2NET_OTHERS, "18",
+                                        kernels=kernels),
+     "19c": lambda: zoo_others(dev, gen, kernels),
+     "20c": lambda: mask_others(dev, card, gen, kernels),
+     "21c": lambda: lazy_others(dev, card, gen),
+     "21e": lambda: rcnn_repeat(dev, card, gen),
+     "23c": lambda: c45_paths(dev, card, gen, kernels)}[name]()
+    return []
+
+
+def jobs_main(argv) -> int:
+    """``python3 chip_smoke.py --jobs OUT JOB ...``: the closure jobs
+    (:func:`closure_job`) in turn in this process, on the card, TF32 off;
+    writes their launches, the sweep's rows, each job's seconds and the
+    peak memory to OUT (JSON)."""
+    out, *names = argv
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke --jobs: no CUDA device")
+    sys.path.insert(0, REPO)
+    from yolov7_d2_tpu_torch.kernels import build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    kernels = collections.defaultdict(lambda: {"launches": 0})
+    record = {"rows": [], "seconds": {}}
+    for name in names:
+        t0 = time.perf_counter()
+        record["rows"] += closure_job(name, dev, card, kernels)
+        record["seconds"][name] = time.perf_counter() - t0
+    record["launches"] = {k: v["launches"] for k, v in kernels.items()}
+    record["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(out, "w") as f:
+        json.dump(record, f, default=float)
+    return 0
+
+
+class ClosureWorkers:
+    """The ``--jobs`` processes of :data:`CLOSURE_WORKERS`, started
+    together, 2 host threads each; their output kept in files and printed
+    here once they have ended; killed if the script ends first."""
+
+    def __init__(self, workers=CLOSURE_WORKERS):
+        shutil.rmtree(CLOSURE_DIR, ignore_errors=True)
+        os.makedirs(CLOSURE_DIR)
+        env = {**os.environ, "OMP_NUM_THREADS": "2",
+               # several processes share the card's memory
+               "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+        self.procs = []
+        for w, names in enumerate(workers):
+            base = os.path.join(CLOSURE_DIR, f"worker{w}")
+            with open(base + ".out", "w") as out, \
+                    open(base + ".err", "w") as err:
+                proc = subprocess.Popen(
+                    [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                     "--jobs", base + ".json", *names],
+                    cwd=REPO, stdout=out, stderr=err, env=env,
+                    start_new_session=True)
+            self.procs.append((base, names, proc))
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        for _, _, proc in self.procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+    def results(self, timeout: float = 900) -> list:
+        """Each worker's record, once all have ended; raises with the end
+        of a failed worker's errors."""
+        deadline = time.monotonic() + timeout
+        try:
+            for _, _, proc in self.procs:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        finally:
+            self.stop()
+        records = []
+        for base, names, proc in self.procs:
+            with open(base + ".out") as f:
+                sys.stdout.write(f.read())
+            with open(base + ".err") as f:
+                err = f.read()
+            sys.stderr.write(err)
+            sys.stdout.flush()
+            sys.stderr.flush()
+            if proc.returncode != 0:
+                raise AssertionError(f"(22) the worker of {list(names)} "
+                                     f"failed ({proc.returncode}): "
+                                     f"{err[-4000:]}")
+            with open(base + ".json") as f:
+                records.append(json.load(f))
+        return records
+
+
+def closure_phase(dev, card: str, gen: torch.Generator, kernels: dict,
+                  cfg) -> None:
+    """Section 22: (a) :func:`library_nms_phase`, alone on the card; then,
+    side by side, the checks that time nothing: in the processes of
+    :data:`CLOSURE_WORKERS`, (b) one train step of every yaml
+    (``zoo_step.step_sweep``, in three shards) and the one request and one
+    step of the other yamls of sections 11, 14, 15 and 18-21 ((c) and (e)
+    of each), section 16 (C.14), 21 (e) and 23 (c); on threads, the rank spawns of sections 10 (a) and 17 (a)
+    (2 gloo ranks, :func:`sync_plan`, :func:`sync_bn_plan`,
+    :func:`family_plan`) and 24 (a, b) (4 gloo ranks, :func:`tp_plan`).
+    Then the ranks' checks against one process (:func:`sync_phase`,
+    :func:`sync_bn_phase`, :func:`family_sync_phase`,
+    :func:`tensor_parallel_phase`). The workers' launches join their
+    entries. Logs the section's seconds."""
     t0 = time.perf_counter()
     library_nms_phase(dev, card, gen, kernels)
-    t1 = time.perf_counter()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
-    rows = step_sweep(os.path.join(REPO, "configs"), dev,
-                      log=lambda msg: log(f"(22b) {msg}"))
     torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    for key, n in launches.items():
-        kernels[CLOSURE_ENTRY[key]]["launches"] += n
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    plans = {"sync": sync_plan(dev, cfg), "bn": sync_bn_plan(dev),
+             **{family: family_plan(dev, family)
+                for family, _ in FAMILY_RANKS}}
+    grid = tp_plan(dev, cfg)
+    with tf32_off_in_children():
+        spawns = [SpawnThread(list(plans.values()), 2),
+                  SpawnThread([grid], grid.world)]
+        workers = ClosureWorkers()
+        try:
+            records = workers.results()
+        finally:
+            for spawn in spawns:
+                spawn.join()
+    for spawn in spawns:
+        spawn.result()
+    window = time.perf_counter() - t1
+    rows = [row for rec in records for row in rec["rows"]]
+    for rec in records:
+        for entry, n in rec["launches"].items():
+            kernels[entry]["launches"] += n
     if len(rows) != 109:
         raise AssertionError(f"the sweep found {len(rows)} yaml files, "
                              "not 109")
     slow = sorted(rows, key=lambda r: -r["seconds"])[:5]
+    jobs = {name: s for rec in records for name, s in rec["seconds"].items()}
     log(f"(22b) {len(rows)} of 109 yamls took a step")
-    log(f"(22b) the sweep in {time.perf_counter() - t1:.1f} s on [{card}], "
-        f"peak memory {peak:.3f} GB; the slowest five: "
-        + ", ".join(f"{r['yaml']} {r['seconds']:.2f} s" for r in slow)
-        + f"; kernel launches {launches}")
+    log(f"(22b) {len(CLOSURE_WORKERS)} workers (sections 11 (c), 14 (e), "
+        "15 (e), 16, 18 (c)-21 (c), 21 (e), 22 (b), 23 (c)) and the rank "
+        f"spawns of sections 10 (a), 17 (a) and 24 (a, b) in {window:.1f} s "
+        f"on [{card}]; the jobs' seconds in their workers "
+        + ", ".join(f"{name} {s:.1f}" for name, s in jobs.items())
+        + f"; the spawns {plans['sync'].wall:.1f} s (2 ranks) and "
+        f"{grid.wall:.1f} s (4 ranks); a worker's peak memory at most "
+        f"{max(rec['peak_gb'] for rec in records):.3f} GB; the slowest five "
+        "yamls: " + ", ".join(f"{r['yaml']} {r['seconds']:.2f} s"
+                              for r in slow)
+        + "; launches from the workers "
+        + json.dumps({k: sum(rec["launches"].get(k, 0) for rec in records)
+                      for k in sorted({k for rec in records
+                                       for k in rec["launches"]})}))
+    sync_phase(dev, card, cfg, plan=plans["sync"])
+    sync_bn_phase(dev, card, plan=plans["bn"])
+    for family, _ in FAMILY_RANKS:
+        family_sync_phase(dev, card, family, plan=plans[family])
+    tensor_parallel_phase(dev, card, cfg, kernels, plan=grid)
     log(f"(22) section 22 in {time.perf_counter() - t0:.1f} s on [{card}]")
-
 
 
 # ---------------------------------------------------------------------------
@@ -6021,11 +6269,10 @@ def detections_equal(got, want) -> int:
     return int(same.sum())
 
 
-def nms_export_entry(dev, predictor, x, kernels: dict) -> dict:
-    """The ``nms_export`` entry: K1 through the custom op at the shapes
-    the fused bs-128 program gives it (the tail's top-1024 candidates,
-    offset by class), against its plain version."""
-    from yolov7_d2_tpu_torch.kernels.nms import nms_batched, nms_batched_plain
+def tail_nms_inputs(predictor, x) -> tuple:
+    """(boxes, scores, threshold, max outputs) that ``predictor``'s tail
+    hands K1 on the batch ``x``: the top candidates, offset by class."""
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched
 
     caught = []
 
@@ -6034,7 +6281,16 @@ def nms_export_entry(dev, predictor, x, kernels: dict) -> dict:
         return nms_batched(boxes, scores, thr, max_out)
 
     predictor.postprocess(predictor.forward(x), nms=capture)
-    boxes, scores, thr, max_out = caught[0]
+    return caught[0]
+
+
+def nms_export_entry(dev, predictor, x, kernels: dict) -> dict:
+    """The ``nms_export`` entry: K1 through the custom op at the shapes
+    the fused bs-128 program gives it (the tail's top-1024 candidates,
+    offset by class), against its plain version."""
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
+
+    boxes, scores, thr, max_out = tail_nms_inputs(predictor, x)
     op = torch.ops.yolov7_d2_tpu_torch.nms_batched
     got = op(boxes, scores, thr, max_out)
     want = nms_batched_plain(boxes, scores, thr, max_out)
@@ -6512,11 +6768,11 @@ def types_namespace(**storage):
 def deploy_feed_phase(dev, card: str, gen: torch.Generator,
                       kernels: dict) -> None:
     """Section 23: (a) :func:`export_paths`, (b) :func:`quant_prune_paths`,
-    (c) :func:`c45_paths`, (d) :func:`feed_paths`, each subsection's end
-    logged."""
+    (d) :func:`feed_paths`, each subsection's end logged; (c),
+    :func:`c45_paths`, runs in section 22's workers."""
     t0 = time.perf_counter()
     for label, fn in (("a", export_paths), ("b", quant_prune_paths),
-                      ("c", c45_paths), ("d", feed_paths)):
+                      ("d", feed_paths)):
         fn(dev, card, gen, kernels)
         log(f"(23{label}) done {time.perf_counter() - t0:.1f} s into "
             "section 23")
@@ -6569,9 +6825,36 @@ def grid_checks(label: str, ranks: list, shape: tuple) -> None:
                                  "the same shard")
 
 
+def tp_plan(dev, cfg, shape: tuple = (2, 2), backend: str = "gloo"):
+    """The ranks' part of :func:`tensor_parallel_phase`: its batches and
+    rank calls."""
+    from yolov7_d2_tpu_torch.parallel.dryrun import train_steps
+
+    data, model = shape
+    fcfg = dataclasses.replace(cfg, amp=False)
+    pcfg = dataclasses.replace(cfg, grid_mask=True, mixup=True)
+    gen = torch.Generator().manual_seed(SEED + 24)
+    f32_batches = [train_batch(2 * data, gen) for _ in range(TP_F32_STEPS)]
+    photo_batches = [train_batch(TP_PHOTO_BATCH * data, gen)
+                     for _ in range(TP_PHOTO_STEPS)]
+    out = os.path.join(REPO, "build", "chip_smoke_grid")
+    where = str(dev) if backend == "gloo" else dev.type
+    common = (SEED, None)
+    calls = [
+        (train_steps, (out, fcfg, f32_batches, where, *common,
+                       1 if dev.type == "cuda" else None, True, True, shape,
+                       TP_MIN_FEATURES, False, "a")),
+        (train_steps, (out, pcfg, photo_batches, where, *common, None,
+                       False, True, shape, TP_MIN_FEATURES, True, "b")),
+    ]
+    return types.SimpleNamespace(out=out, calls=calls, world=data * model,
+                                 shape=shape, backend=backend, fcfg=fcfg,
+                                 f32_batches=f32_batches)
+
+
 def tensor_parallel_phase(dev, card: str, cfg, kernels: dict,
-                          shape: tuple = (2, 2),
-                          backend: str = "gloo") -> None:
+                          shape: tuple = (2, 2), backend: str = "gloo",
+                          plan=None) -> None:
     """Section 24: YOLOX-s 640 at full width and depth on a (data, model)
     grid of ``shape`` (``parallel.mesh``: the parameters with 128 or more
     output features sharded over the model axis, column-parallel; the JAX
@@ -6590,43 +6873,22 @@ def tensor_parallel_phase(dev, card: str, cfg, kernels: dict,
     moved, :func:`grid_checks`, and the images each model took equal
     across the model ranks of a data slice and apart across data slices
     (the model ranks drew alike). Its GridMask launches (K3, counted in the
-    ranks) join the ``grid_mask`` entry."""
+    ranks) join the ``grid_mask`` entry. The ranks' part comes from
+    ``plan`` (:func:`tp_plan`, run by the caller's spawn), or is spawned
+    here."""
     from yolov7_d2_tpu_torch.engine import (
         build_yolox_system,
         resolve_simota_prefilter,
     )
-    from yolov7_d2_tpu_torch.parallel.dryrun import in_turn, train_steps
-    from yolov7_d2_tpu_torch.parallel.launch import launch
 
-    label = "(24a)" if backend == "gloo" else "(24c)"
+    if plan is None:
+        plan = tp_plan(dev, cfg, shape, backend)
+        spawn_plans([plan], plan.world, backend)
+    label = "(24a)" if plan.backend == "gloo" else "(24c)"
+    shape, backend, world = plan.shape, plan.backend, plan.world
     data, model = shape
-    world = data * model
-    fcfg = dataclasses.replace(cfg, amp=False)
-    pcfg = dataclasses.replace(cfg, grid_mask=True, mixup=True)
-    gen = torch.Generator().manual_seed(SEED + 24)
-    f32_batches = [train_batch(2 * data, gen) for _ in range(TP_F32_STEPS)]
-    photo_batches = [train_batch(TP_PHOTO_BATCH * data, gen)
-                     for _ in range(TP_PHOTO_STEPS)]
-    out = os.path.join(REPO, "build", "chip_smoke_grid")
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
-    where = str(dev) if backend == "gloo" else dev.type
-    common = (SEED, None)
-    calls = [
-        (train_steps, (out, fcfg, f32_batches, where, *common,
-                       1 if dev.type == "cuda" else None, True, True, shape,
-                       TP_MIN_FEATURES, False, "a")),
-        (train_steps, (out, pcfg, photo_batches, where, *common, None,
-                       False, True, shape, TP_MIN_FEATURES, True, "b")),
-    ]
-    # the ranks start with torch's defaults: TF32 off for them as here
-    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
-    t0 = time.perf_counter()
-    try:
-        launch(in_turn, world, args=(calls,), backend=backend)
-    finally:
-        del os.environ["NVIDIA_TF32_OVERRIDE"]
-    wall = time.perf_counter() - t0
+    fcfg, f32_batches, out, wall = (plan.fcfg, plan.f32_batches, plan.out,
+                                    plan.wall)
     runs = {tag: [torch.load(os.path.join(out, f"{tag}{r}.pt"),
                              weights_only=True) for r in range(world)]
             for tag in ("a", "b")}
@@ -7006,6 +7268,264 @@ def device_aug_remat_phase(dev, card: str, gen: torch.Generator,
     log(f"(25) section 25 in {time.perf_counter() - t0:.1f} s on [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# section 26: the native serving client (an AOTInductor package served from
+# C++, K1 through the C++ op)
+# ---------------------------------------------------------------------------
+
+NATIVE_DIR = os.path.join(REPO, "build", "chip_smoke_native")
+NATIVE_DTYPES = (("float32", ("SOLVER.AMP.ENABLED", "False")), ("bf16", ()))
+# Inductor's compile workers in the background process: the foreground
+# sections share the host's cores with it
+NATIVE_COMPILE_THREADS = 2
+
+
+def native_build_main(argv) -> int:
+    """``python3 chip_smoke.py --native-build DIR``: in a process of its
+    own, at a lower priority, the host work of section 26: the client built
+    for the card (``deploy/cc_build.build_client``), then YOLOX-s 640
+    exported by the CLI with ``--fuse-postprocess --emit-package`` at bs 1,
+    in float32 (AMP off) and in bf16 (the CLI's default), into DIR/float32
+    and DIR/bf16. Writes the client's path, the seconds of each step and
+    whether JAX was imported to DIR/summary.json."""
+    out, = argv
+    os.nice(10)
+    sys.path.insert(0, REPO)
+    from yolov7_d2_tpu_torch import export as export_cli
+    from yolov7_d2_tpu_torch.deploy import cc_build
+
+    client = cc_build.build_client("cuda")
+    summary = {"client": str(client),
+               "build_s": cc_build.BUILD_SECONDS.get("cuda"), "compile_s": {}}
+    for name, opts in NATIVE_DTYPES:
+        t0 = time.perf_counter()
+        paths = export_cli.main([
+            "--config-file", YOLOX_S_YAML, "--fuse-postprocess",
+            "--emit-package", "--batch", "1",
+            "--output", os.path.join(out, name), *opts])
+        summary["compile_s"][name] = time.perf_counter() - t0
+        if not os.path.exists(paths["package"]):
+            raise RuntimeError(f"no package at {paths['package']}")
+    summary["jax"] = "jax" in sys.modules
+    summary["end_time"] = time.time()
+    with open(os.path.join(out, "summary.json"), "w") as f:
+        json.dump(summary, f)
+    return 0
+
+
+class NativeBuild:
+    """The ``--native-build`` process, started at the script's start so
+    that its host work overlaps the card's sections; killed with its
+    compile workers if the script ends first."""
+
+    def __init__(self):
+        shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+        os.makedirs(NATIVE_DIR)
+        self.log_path = os.path.join(NATIVE_DIR, "build.log")
+        self.start_time = time.time()
+        with open(self.log_path, "w") as logf:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                 "--native-build", NATIVE_DIR],
+                cwd=REPO, stdout=logf, stderr=subprocess.STDOUT,
+                start_new_session=True,
+                # Inductor links a package with -fopenmp: the compiler on
+                # PATH, where a $CXX set elsewhere may have no libgomp
+                env={**os.environ, "CXX": "g++",
+                     "TORCHINDUCTOR_COMPILE_THREADS":
+                     str(NATIVE_COMPILE_THREADS)})
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+    def result(self, timeout: float = 900) -> dict:
+        """Its summary, once it has ended; raises with the end of its log
+        if it failed."""
+        try:
+            self.proc.wait(timeout=timeout)
+        finally:
+            self.stop()
+        if self.proc.returncode != 0:
+            with open(self.log_path) as f:
+                raise AssertionError(f"(26a) the native build failed "
+                                     f"({self.proc.returncode}): "
+                                     f"{f.read()[-4000:]}")
+        with open(os.path.join(NATIVE_DIR, "summary.json")) as f:
+            return json.load(f)
+
+
+def run_client(client: str, *args) -> dict:
+    """The native client on ``args``, in the environment of
+    ``cc_build.client_env``; its last line's JSON. Raises on a non-zero
+    exit."""
+    from yolov7_d2_tpu_torch.deploy.cc_build import client_env
+
+    proc = subprocess.run([client, *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=client_env())
+    if proc.returncode != 0:
+        raise AssertionError(f"(26) aoti_infer {' '.join(args)}: exit "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def client_outputs(prefix: str, info: dict) -> list:
+    """The tensors the client wrote as ``prefix.<i>.raw``."""
+    dtypes = {"float32": torch.float32, "int32": torch.int32,
+              "int64": torch.int64, "bool": torch.bool}
+    outs = []
+    for i, o in enumerate(info["outputs"]):
+        with open(f"{prefix}.{i}.raw", "rb") as f:
+            data = bytearray(f.read())
+        outs.append(torch.frombuffer(data, dtype=dtypes[o["dtype"]])
+                    .reshape(o["shape"]))
+    return outs
+
+
+def write_raw(t: torch.Tensor, path: str) -> str:
+    with open(path, "wb") as f:
+        f.write(t.detach().float().contiguous().cpu().numpy().tobytes())
+    return path
+
+
+def native_serving_phase(dev, card: str, gen: torch.Generator,
+                         kernels: dict, native: NativeBuild) -> None:
+    """(26) The native client (``deploy/cc/aoti_infer.cpp``) serving
+    YOLOX-s 640 from the AOTInductor packages of ``native``'s process, no
+    Python in the serving process. (a) the build's and the compiles'
+    seconds; (b) one letterboxed float32 request of 1 image through each
+    package: the float32 package's ``Detections`` equal ``Predictor``'s
+    (AMP off) model and tail in every slot, the bf16 package's finite and
+    of their shapes (the slots equal to ``Predictor``'s logged), one op
+    call and one K1 launch a request; the client's ms a request (CUDA
+    events, 10 after 3) beside ``load_program``'s program and
+    ``Predictor`` on the same batch; (c) the ``nms_native`` entry: the
+    client's op alone on the bs-128 tail's candidates, index-exact against
+    ``nms_batched_plain``, its device ms from the client; (d) the client
+    with ``--device cpu`` on the CUDA package exits non-zero."""
+    from yolov7_d2_tpu_torch.config import YoloxConfig
+    from yolov7_d2_tpu_torch.deploy.export import load_program
+    from yolov7_d2_tpu_torch.kernels.nms import nms_batched_plain
+    from yolov7_d2_tpu_torch.predictor import Predictor
+
+    t_wait = time.perf_counter()
+    summary = native.result()
+    waited = time.perf_counter() - t_wait
+    t0 = time.perf_counter()
+    if summary["jax"]:
+        raise AssertionError("(26a) the export process imported JAX")
+    client = summary["client"]
+    built = ("found built" if summary["build_s"] is None
+             else f"built for the card in {summary['build_s']:.1f} s")
+    log(f"(26a) client {built}; "
+        "YOLOX-s 640 bs 1 exported by the CLI and compiled by AOTInductor: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in summary["compile_s"].items())
+        + " (a background process, ended "
+        f"{summary['end_time'] - native.start_time:.1f} s after its start; "
+        f"waited {waited:.1f} s here); jax imported {summary['jax']}")
+
+    cfg = YoloxConfig()
+    x = letterboxed_batch(1, gen).float().to(dev)
+    raw = write_raw(x, os.path.join(NATIVE_DIR, "bs1.raw"))
+    launches = 0
+    predictors = {
+        name: Predictor(dataclasses.replace(cfg, amp=name == "bf16"),
+                        device=dev, seed=SEED)
+        for name, _ in NATIVE_DTYPES}
+    for name, _ in NATIVE_DTYPES:
+        label = f"(26b) {name} package bs 1"
+        pred = predictors[name]
+        pkg_dir = os.path.join(NATIVE_DIR, name)
+        prefix = os.path.join(pkg_dir, "out")
+        info = run_client(client, os.path.join(pkg_dir, "model_aoti.pt2"),
+                          raw, prefix, "--repeat", str(ITERS))
+        if info["op_calls"] != info["runs"] or \
+                info["op_launches"] != info["runs"]:
+            raise AssertionError(f"{label}: {info['op_calls']} op calls, "
+                                 f"{info['op_launches']} K1 launches in "
+                                 f"{info['runs']} requests")
+        launches += info["op_launches"]
+        got = [t.to(dev) for t in client_outputs(prefix, info)]
+        with torch.inference_mode():
+            want = pred.postprocess(pred.forward(x))
+        what = check_detections(type(want)(*got), 1, cfg, label)
+        equal = detections_equal(got, want)
+        if name == "float32" and equal != want.valid.numel():
+            raise AssertionError(f"{label}: {equal} of {want.valid.numel()}"
+                                 " slots equal Predictor's")
+        # bf16: Inductor rounds its fused regions once, eager every op
+        same = (got[3] == want.valid) & (got[2] == want.classes)
+        what += (f"; validity and class equal in {int(same.sum())} slots, "
+                 "scores at most "
+                 f"{float((got[1] - want.scores).abs().max()):.3g} apart")
+        program = load_program(os.path.join(pkg_dir, "model.pt2")).module()
+        with torch.inference_mode():
+            prog_ms = cuda_ms(lambda: program(x))
+            ref_ms = cuda_ms(lambda: pred.postprocess(pred.forward(x)))
+        log(f"{label} on [{card}]: {what}; {equal} of {want.valid.numel()} "
+            f"slots equal Predictor's; {info['op_calls']} op calls and "
+            f"{info['op_launches']} K1 launches in {info['runs']} requests; "
+            f"client {info['ms']:.3f} ms a request, load_program's program "
+            f"{prog_ms:.3f} ms, Predictor model + tail {ref_ms:.3f} ms")
+        del program
+
+    # (c) the op alone on the bs-128 tail's candidates
+    big = letterboxed_batch(BATCH, gen).float().to(dev)
+    boxes, scores, thr, max_out = tail_nms_inputs(predictors["bf16"], big)
+    prefix = os.path.join(NATIVE_DIR, "op")
+    info = run_client(
+        client, "--op", write_raw(boxes, prefix + "_boxes.raw"),
+        write_raw(scores, prefix + "_scores.raw"), str(boxes.shape[0]),
+        str(boxes.shape[1]), repr(thr), str(max_out), prefix, "--repeat",
+        str(ITERS))
+    if not info["queued"]:
+        raise AssertionError("(26c) the client could not queue the op's "
+                             "calls ahead of the card")
+    got = [t.to(dev) for t in client_outputs(prefix, info)]
+    want = nms_batched_plain(boxes, scores, thr, max_out)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("(26c) the client's op differs from the plain "
+                             "version on the tail's inputs")
+    kernels["nms_native"] = {
+        "name": "nms_native", "route": "cuda",
+        "source": "yolov7_d2_tpu_torch/csrc/nms.cu",
+        "replaces": "yolov7_d2_tpu/ops/pallas_nms.py:34",
+        "launches": launches,
+        "max_abs_err": float((got[0] - want[0]).abs().max()),
+        "ms": info["ms"],
+        "plain_ms": kernel_ms(lambda: nms_batched_plain(boxes, scores, thr,
+                                                      max_out),
+                              host_ok="nms_native plain"),
+        "library_ms": None,  # no torchvision: no PyTorch call does NMS
+        **bound((boxes.numel() + scores.numel()) * 4 + got[1].numel() * 5,
+                float(nms_walk_pairs(scores, *got, max_out)) * 15),
+    }
+    log(f"(26c) nms_native [{card}]: the client's C++ op alone on "
+        f"{list(scores.shape)}, index-exact; kernel {info['ms']:.4f} ms "
+        f"(device time from the client), plain "
+        f"{kernels['nms_native']['plain_ms']:.4f} ms, bound "
+        f"{kernels['nms_native']['bound_ms']:.4f} ms; {launches} launches "
+        "from the served requests")
+
+    # (d) a CUDA package with --device cpu
+    proc = subprocess.run(
+        [client, os.path.join(NATIVE_DIR, "float32", "model_aoti.pt2"), raw,
+         os.path.join(NATIVE_DIR, "refused"), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode == 0:
+        raise AssertionError("(26d) the client served a CUDA package on the"
+                             " CPU")
+    log(f"(26d) --device cpu on the CUDA package: exit {proc.returncode}, "
+        f"{proc.stderr.strip().splitlines()[-1]}")
+    del predictors, big
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"(26) section 26 in {time.perf_counter() - t0:.1f} s on [{card}] "
+        f"after {waited:.1f} s of waiting")
+
+
 def snapshot(state) -> dict:
     model = state.model
     return {
@@ -7049,6 +7569,9 @@ def main() -> int:
         log(f"({section}) done {time.perf_counter() - t_run:.1f} s into "
             "the run")
 
+    # section 26's host work (the client's build, two AOTInductor
+    # compiles) runs in the background from here
+    native = NativeBuild()
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}")
@@ -7416,17 +7939,9 @@ def main() -> int:
 
     mark("9 and the CLI")
 
-    # ---- 10. multi-GPU training: (a) two gloo ranks on one card against
-    # one process, (b) the CLI in an NCCL group of 1, (c) NCCL ranks
-    # one spawn of 2 gloo ranks runs the ranks' part of (a), of its
-    # SyncBatchNorm2d check and of 17 (a) (SparseInst, DETR) in turn: each
-    # rank starts once
-    plans = {"sync": sync_plan(dev, cfg), "bn": sync_bn_plan(dev),
-             **{family: family_plan(dev, family)
-                for family, _ in FAMILY_RANKS}}
-    spawn_plans(list(plans.values()), 2, "gloo")
-    sync_phase(dev, card, cfg, plan=plans["sync"])
-    sync_bn_phase(dev, card, plan=plans["bn"])
+    # ---- 10. multi-GPU training: (b) the CLI in an NCCL group of 1, (c)
+    # NCCL ranks; (a), two gloo ranks on one card against one process, and
+    # its SyncBatchNorm2d check run in section 22, beside the closure
     ddp_world1_phase(dev, card, kernels, data, cfg)
     for name in ("grid_mask", "normalize", "nms"):
         kernels[name]["launches"] += launches_c[name]   # the CLI's run C
@@ -7470,16 +7985,12 @@ def main() -> int:
     mark("15")
 
     # ---- 16. C.14: is the training step bitwise repeatable, and which
-    # kernel parts two runs (c14_phase)
-    c14_phase(dev, card)
+    # kernel parts two runs (c14_phase): in section 22's workers
 
-    mark("16")
-
-    # ---- 17. multi-GPU SparseInst and DETR: (a) two gloo ranks on one
-    # card against one process, (b) the CLIs in an NCCL group of 1, (c)
-    # NCCL ranks where two or more cards are visible
+    # ---- 17. multi-GPU SparseInst and DETR: (b) the CLIs in an NCCL group
+    # of 1, (c) NCCL ranks where two or more cards are visible; (a), two
+    # gloo ranks on one card against one process, in section 22
     for family, _ in FAMILY_RANKS:
-        family_sync_phase(dev, card, family, plan=plans[family])
         family_cli_phase(dev, card, family, kernels, images=CLI_IMAGES // 2)
         family_nccl_phase(dev, card, family)
 
@@ -7489,7 +8000,7 @@ def main() -> int:
     # card against CPU, training; r2next_50, r2_50_l and tl/res2net_bifpn
     # one request and one step each (anchor_yolo_phase)
     anchor_yolo_phase(dev, card, gen, yaml="r2_50.yaml", label="18",
-                      others=RES2NET_OTHERS, f32_px=128, kernels=kernels,
+                      f32_px=128, kernels=kernels,
                       f64_step=True)
 
     mark("18")
@@ -7520,27 +8031,27 @@ def main() -> int:
     mark("21")
 
     # ---- 22. the library remainder and the closure: the library NMS suite
-    # on K1 at [1, 1000] (the nms_single entry), one train step of every
-    # yaml of configs/ at 64-128 px (closure_phase)
-    closure_phase(dev, card, gen, kernels)
+    # on K1 at [1, 1000] (the nms_single entry); then, side by side, one
+    # train step of every yaml of configs/ at 64-128 px and the other
+    # yamls' one request and one step of sections 11-21 in worker
+    # processes, and the gloo ranks of sections 10 (a), 17 (a) and 24
+    # (closure_phase)
+    closure_phase(dev, card, gen, kernels, cfg)
 
     mark("22")
 
     # ---- 23. deploy and the rest of the feed: YOLOX-s exported (the CLI,
     # a fresh process, bs 1 / 8 / 128, bf16 and float32) against
-    # Predictor, int8 and pruning served, the C.45 pairings, the
-    # process-worker loader, HSV on the card, multi-scale steps
-    # (deploy_feed_phase)
+    # Predictor, int8 and pruning served, the process-worker loader, HSV on
+    # the card, multi-scale steps (deploy_feed_phase); the C.45 pairings,
+    # (c), in section 22's workers
     deploy_feed_phase(dev, card, gen, kernels)
 
     mark("23")
 
-    # ---- 24. tensor parallelism: YOLOX-s 640 on a (2, 2) grid of 4 gloo
-    # ranks on the card, the widest parameters sharded over the model
-    # axis: (a) the float32 step against one process, (b) bf16 steps with
-    # MixUp and GridMask, (c) the grid over NCCL where 2 or more cards are
-    # visible (tensor_parallel_phase)
-    tensor_parallel_phase(dev, card, cfg, kernels)
+    # ---- 24. tensor parallelism: (c) YOLOX-s 640 on a grid over NCCL
+    # where 2 or more cards are visible; (a) and (b), the (2, 2) grid of 4
+    # gloo ranks on the card, run in section 22
     grid_nccl_phase(card, cfg)
 
     mark("24")
@@ -7553,7 +8064,13 @@ def main() -> int:
 
     mark("25")
 
-    # ---- 26. times
+    # ---- 26. the native serving client: the AOTInductor packages of
+    # YOLOX-s served from C++, K1 through the C++ op (native_serving_phase)
+    native_serving_phase(dev, card, gen, kernels, native)
+
+    mark("26")
+
+    # ---- 27. times
     log(f"YOLOX-s 640 train step bs {TRAIN_BATCH} bf16 on [{card}]: "
         f"{step_ms:.3f} ms a step = {TRAIN_BATCH * 1000 / step_ms:.1f} img/s "
         f"(host clock over {ITERS} steps after {WARMUP}, batches on the "
@@ -7570,7 +8087,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    mark("26, the whole script")
+    mark("27, the whole script")
     print(card, flush=True)
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels.values()]}), flush=True)
@@ -7614,4 +8131,8 @@ def nccl_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--run-program"]:
         sys.exit(run_program_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--native-build"]:
+        sys.exit(native_build_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--jobs"]:
+        sys.exit(jobs_main(sys.argv[2:]))
     sys.exit(nccl_main() if sys.argv[1:] == ["--nccl"] else main())

@@ -1,8 +1,8 @@
 """Export a model as a serving artifact (JAX ``export.py``):
 
     python -m yolov7_d2_tpu_torch.export --config-file CONFIG.yaml \\
-        [--output DIR] [--batch N] [--fuse-postprocess] [--weights W] \\
-        [KEY VALUE ...]
+        [--output DIR] [--batch N] [--fuse-postprocess] [--emit-package] \\
+        [--weights W] [KEY VALUE ...]
 
 writes ``DIR/model.pt2`` (a ``torch.export`` program with the weights in
 it, ``deploy/export.load_program`` loads it) and ``DIR/export_meta.json``.
@@ -14,8 +14,10 @@ outputs, for any architecture the port builds. ``--weights`` loads a
 reference-format checkpoint straight into the model (the port keeps the
 reference's names) and prints the ported and unmatched counts. Weights are
 otherwise drawn from seed 0. The model is built on ``MODEL.DEVICE`` (the
-card unless ``MODEL.DEVICE cpu``). ``--emit-mlir`` of the JAX CLI feeds
-its PJRT client and has no counterpart.
+card unless ``MODEL.DEVICE cpu``). ``--emit-package`` (the JAX CLI's
+``--emit-mlir``) also compiles the program with AOTInductor on that device
+into ``DIR/model_aoti.pt2``, which the native client
+``deploy/cc/aoti_infer.cpp`` serves without Python.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--batch", type=int, default=1)
     parser.add_argument("--fuse-postprocess", action="store_true",
                         help="put YOLOX's decode and NMS into the program")
+    parser.add_argument("--emit-package", action="store_true",
+                        help="also write the AOTInductor package "
+                             "model_aoti.pt2 for the native client")
     parser.add_argument("--weights", default="")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return parser.parse_args(argv)
@@ -84,7 +89,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     h, w = cfg.input_size
     paths = export_inference_fn(
         model, (args.batch, h, w, 3), args.output,
-        postprocess=yolox_tail(cfg) if args.fuse_postprocess else None)
+        postprocess=yolox_tail(cfg) if args.fuse_postprocess else None,
+        package=args.emit_package)
     print(f"exported: {paths}")
     return paths
 

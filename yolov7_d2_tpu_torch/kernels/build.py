@@ -89,8 +89,8 @@ def _run_all(cmds) -> None:
     errors = [proc.communicate()[1] for proc in procs]
     for cmd, proc, err in zip(cmds, procs, errors):
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{err}")
+            raise RuntimeError(f"{Path(cmd[0]).name} failed "
+                               f"({proc.returncode}): {' '.join(cmd)}\n{err}")
 
 
 def _build(sources, flags, out: Path) -> None:

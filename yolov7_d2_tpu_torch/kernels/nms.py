@@ -101,12 +101,14 @@ def _launch(boxes: torch.Tensor, scores: torch.Tensor,
 
 
 OP = "yolov7_d2_tpu_torch::nms_batched"
+# the op's schema; the native client defines the same text in C++
+# (deploy/cc/nms_op.h kNmsSchema)
+SCHEMA = ("(Tensor boxes, Tensor scores, float iou_threshold, "
+          "int max_outputs) -> (Tensor, Tensor)")
 
 
-@torch.library.custom_op(
-    OP, mutates_args=(), device_types="cpu",
-    schema="(Tensor boxes, Tensor scores, float iou_threshold, "
-           "int max_outputs) -> (Tensor, Tensor)")
+@torch.library.custom_op(OP, mutates_args=(), device_types="cpu",
+                         schema=SCHEMA)
 def _nms_op(boxes, scores, iou_threshold, max_outputs):
     """The op's CPU body: the plain version."""
     return nms_batched_plain(boxes, scores, iou_threshold, max_outputs)
